@@ -24,3 +24,9 @@ if jax.default_backend() != "cpu" or len(jax.devices()) < 8:
 # Pallas kernels are exercised by their dedicated interpret-mode tests;
 # everything else runs the reference-equivalent XLA paths.
 os.environ.setdefault("VPIC_TPU_DISABLE_PALLAS", "1")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: runs a CUDA kernel of vpic_tpu_torch on an NVIDIA "
+        "GPU; skipped where torch.cuda.is_available() is false")

@@ -1,0 +1,263 @@
+"""Deck API of the port (``vpic_tpu/deck/api.py``; the reference's deck
+vocabulary, vpic.hxx:126-555), for closed single-device decks: a periodic
+grid, one material, particles injected at set-up.
+
+    sim = Simulation(seed=0, device="cuda")
+    sim.define_units(1.0, 1.0)
+    sim.define_timestep(dt)
+    sim.define_periodic_grid(0, 0, 0, L, L, L, nx, ny, nz)
+    sim.define_material("vacuum")
+    e = sim.define_species("electron", -1.0, max_np)
+    sim.inject_particle(e, x, y, z, ux, uy, uz, q)
+    sim.set_field("cbx", lambda x, y, z: ...)
+    sim.finalize()
+    sim.advance(16)
+    sim.energies(), sim.mover_counts()
+
+``advance`` runs a plain loop of steps with the per-species sort cadence
+of :func:`vpic_tpu_torch.engine.step.sort_flags`.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ..comm.facecomm import LocalComm
+from ..core.types import (
+    FieldState,
+    Grid,
+    PERIODIC_FIELDS,
+    SimState,
+    SpeciesState,
+    vacuum_material_table,
+)
+from ..engine.init import initialize_state
+from ..engine.step import StepOptions, make_advance, sort_flags
+from ..field import stencil
+from ..field.slabs import own_slice
+from ..grid.partition import make_grid_arrays
+from ..particles import push as ppush
+
+_KIND_OF = {
+    "ex": "edge_x", "ey": "edge_y", "ez": "edge_z",
+    "cbx": "face_x", "cby": "face_y", "cbz": "face_z",
+    "jfx": "edge_x", "jfy": "edge_y", "jfz": "edge_z",
+    "rhof": "node", "rhob": "node",
+}
+
+
+class Simulation:
+    """Top-level simulation object (vpic_simulation analogue) on one
+    device.  ``device="cuda"`` raises when no GPU is available."""
+
+    def __init__(self, seed: int = 0, device="cpu"):
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("Simulation(device='cuda'): no CUDA device "
+                               "is available")
+        self.device = device
+        self.seed = seed
+        self.cvac = 1.0
+        self.eps0 = 1.0
+        self.dt = 0.0
+        self.grid: Optional[Grid] = None
+        self.materials: List[str] = []
+        self._species: List[dict] = []
+        self._field_sets: List[tuple] = []
+        self.opts = StepOptions()
+        self.state: Optional[SimState] = None
+        self.step_count = 0
+
+    # -- units / time ----------------------------------------------------
+    def define_units(self, cvac: float, eps0: float):
+        self.cvac, self.eps0 = float(cvac), float(eps0)
+
+    def define_timestep(self, dt: float):
+        self.dt = float(dt)
+
+    def courant_length(self, lx, ly, lz, nx, ny, nz):
+        """vpic.hxx:537-544."""
+        w = 0.0
+        if nx > 1:
+            w += (nx / lx) ** 2
+        if ny > 1:
+            w += (ny / ly) ** 2
+        if nz > 1:
+            w += (nz / lz) ** 2
+        return 1.0 / math.sqrt(w)
+
+    # -- grid / materials / species ----------------------------------------
+    def define_periodic_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                             px=1, py=1, pz=1):
+        """partition_periodic_box (partition.c:36-85) on one device."""
+        if (px, py, pz) != (1, 1, 1):
+            raise NotImplementedError("multi-device grids are not ported")
+        self.grid = Grid(nx=nx, ny=ny, nz=nz, dt=self.dt, cvac=self.cvac,
+                         eps0=self.eps0, gx0=x0, gy0=y0, gz0=z0, gx1=x1,
+                         gy1=y1, gz1=z1, fbc=(PERIODIC_FIELDS,) * 6,
+                         pbc=(PERIODIC_FIELDS,) * 6)
+        return self.grid
+
+    def define_material(self, name, eps=1.0, mu=1.0, sigma=0.0, zeta=0.0):
+        if (eps, mu, sigma, zeta) != (1.0, 1.0, 0.0, 0.0) or self.materials:
+            raise NotImplementedError("only a single vacuum material is "
+                                      "ported")
+        self.materials.append(name)
+        return name
+
+    def define_species(self, name, q_m, max_np, sort_interval=0):
+        # capacity rounded up to whole 1024-slot blocks, as the JAX package
+        # does, so both packages hold the same slots
+        h = dict(name=name, sid=len(self._species), q_m=float(q_m),
+                 max_np=-(-int(max_np) // 1024) * 1024,
+                 sort_interval=int(sort_interval), batches=[])
+        self._species.append(h)
+        return h
+
+    def set_field(self, comp: str, fn):
+        """comp = fn(x, y, z) over its owned sublattice."""
+        if comp not in _KIND_OF:
+            raise ValueError(f"unknown field component {comp!r}")
+        self._field_sets.append((comp, fn))
+
+    def component_coords(self, comp: str):
+        """Sparse [z,y,x] meshgrids of the positions of one component's
+        owned sublattice (deck_wrapper.cxx:467-503)."""
+        g = self.grid
+        kind = _KIND_OF[comp]
+        axes = []
+        for a, (gmin, d) in enumerate(((g.gx0, g.dx), (g.gy0, g.dy),
+                                       (g.gz0, g.dz))):
+            sl = own_slice(g, kind, a)
+            idx = np.arange(sl.start, sl.stop)
+            node_aligned = (
+                kind == "node"
+                or (kind.startswith("edge_") and "xyz".index(kind[-1]) != a)
+                or (kind.startswith("face_") and "xyz".index(kind[-1]) == a))
+            axes.append(gmin + (idx - 1 + (0.0 if node_aligned else 0.5))
+                        * d)
+        Z, Y, X = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
+        return X, Y, Z
+
+    def inject_particle(self, species, x, y, z, ux, uy, uz, q, tag=0):
+        """Vectorized injection at global coordinates (misc.cxx:16-106);
+        placement happens at finalize."""
+        x = np.atleast_1d(np.asarray(x, np.float64))
+        arr = lambda v: np.broadcast_to(
+            np.atleast_1d(np.asarray(v, np.float64)), x.shape)
+        species["batches"].append(dict(
+            x=x, y=arr(y), z=arr(z), ux=arr(ux), uy=arr(uy), uz=arr(uz),
+            q=arr(q), tag=np.broadcast_to(
+                np.atleast_1d(np.asarray(tag, np.int32)), x.shape)))
+
+    # -- finalize ----------------------------------------------------------
+    def _initial_state(self) -> SimState:
+        g = self.grid
+        dev = self.device
+        field = {k: np.zeros(g.shape, np.float32) for k in _KIND_OF}
+        for comp, fn in self._field_sets:
+            x, y, z = self.component_coords(comp)
+            ix = tuple(own_slice(g, _KIND_OF[comp], a) for a in (2, 1, 0))
+            field[comp][ix] = np.broadcast_to(
+                np.asarray(fn(x, y, z), np.float32), x.shape)
+        f = FieldState.zeros(g, dev).replace(
+            **{k: torch.as_tensor(v, device=dev) for k, v in field.items()})
+
+        def cellify(c, c0, c1, n):
+            # robust float64 global -> (offset, cell) conversion
+            t = n * ((c - c0) / (c1 - c0))
+            ic = t.astype(np.int64)
+            t = t - ic
+            t = (t + t) - 1.0
+            far = ic == n
+            return np.where(far, 1.0, t), np.where(far, n - 1, ic) + 1
+
+        species = []
+        for h in self._species:
+            cols = {k: [] for k in ("dx", "dy", "dz", "i", "ux", "uy", "uz",
+                                    "q", "tag")}
+            for b in h["batches"]:
+                own = ((b["x"] >= g.gx0) & (b["y"] >= g.gy0)
+                       & (b["z"] >= g.gz0) & (b["x"] < g.gx1)
+                       & (b["y"] < g.gy1) & (b["z"] < g.gz1))
+                if not own.any():
+                    continue
+                dxv, ix = cellify(b["x"][own], g.gx0, g.gx1, g.nx)
+                dyv, iy = cellify(b["y"][own], g.gy0, g.gy1, g.ny)
+                dzv, iz = cellify(b["z"][own], g.gz0, g.gz1, g.nz)
+                cols["dx"].append(dxv.astype(np.float32))
+                cols["dy"].append(dyv.astype(np.float32))
+                cols["dz"].append(dzv.astype(np.float32))
+                cols["i"].append((ix + g.nxg * (iy + g.nyg * iz))
+                                 .astype(np.int32))
+                for k in ("ux", "uy", "uz", "q"):
+                    cols[k].append(b[k][own].astype(np.float32))
+                cols["tag"].append(b["tag"][own].astype(np.int32))
+            total = sum(len(c) for c in cols["dx"])
+            if total > h["max_np"]:
+                raise ValueError(f"species {h['name']}: {total} > max_np "
+                                 f"{h['max_np']}")
+            sp = SpeciesState.create(h["name"], h["sid"], h["q_m"],
+                                     h["max_np"], h["sort_interval"], dev)
+            if total:
+                upd = {}
+                for k, parts in cols.items():
+                    buf = torch.zeros_like(getattr(sp, k), device="cpu")
+                    buf[:total] = torch.as_tensor(np.concatenate(parts))
+                    upd[k] = buf.to(dev)
+                sp = sp.replace(np=torch.tensor(total, dtype=torch.int32,
+                                                device=dev), **upd)
+            species.append(sp)
+
+        return SimState(
+            field=f,
+            interpolator=torch.zeros((g.nv, 18), dtype=torch.float32,
+                                     device=dev),
+            species=tuple(species),
+            grid_arrays=make_grid_arrays(g, device=dev),
+            materials=vacuum_material_table(dev),
+            step=torch.tensor(0, dtype=torch.int32, device=dev))
+
+    def finalize(self, **hooks):
+        g = self.grid
+        if g is None:
+            raise RuntimeError("define a grid first")
+        if not self.materials:
+            self.define_material("vacuum")
+        self.comm = LocalComm(g)
+        self._advance = make_advance(g, self.comm, self.opts, **hooks)
+        self.state = initialize_state(self._initial_state(), g, self.comm)
+        return self.state
+
+    # -- stepping ----------------------------------------------------------
+    def advance(self, n=1):
+        intervals = [h["sort_interval"] for h in self._species]
+        for _ in range(n):
+            flags = sort_flags(self.step_count, self.opts, intervals)
+            self.state = self._advance(self.state, flags)
+            self.step_count += 1
+        return self.state
+
+    # -- diagnostics -------------------------------------------------------
+    def energies(self):
+        """dump_energies values (dump.cxx:37-78): 6 field energies and the
+        kinetic energy of each species, as Python floats."""
+        g = self.grid
+        st = self.state
+        ef = stencil.finish_energy_f(
+            g, stencil.local_energy_f(st.field, g, st.materials, None))
+        out = dict(zip(("ex", "ey", "ez", "bx", "by", "bz"),
+                       ef.cpu().tolist()))
+        for h, sp in zip(self._species, st.species):
+            e = float(ppush.energy_p(sp, st.interpolator, g))
+            out[h["name"]] = e * (g.cvac * g.cvac / h["q_m"])
+        return out
+
+    def mover_counts(self):
+        """Per-species cumulative dropped-mover counts (the reference's
+        "Ignoring %i unprocessed movers", advance.cxx:98-103)."""
+        return {sp.name: int(sp.nm) for sp in self.state.species}
