@@ -9,16 +9,24 @@ Phases (each raises on failure; the script then exits non-zero and prints
 no result line):
 
 1. device   - the card's name and power limit (nvidia-smi);
-2. build    - build the CUDA kernel from vpic_tpu_torch/csrc into
-              vpic_tpu_torch/_build;
-3. kernel   - the kernel against its plain PyTorch version on the card, on
-              a small 3D grid (periodic, reflecting and absorbing faces, hot
-              and cold lanes) and at the bench shape (128^2, 2M particles
-              per species), for the push and the walk_only entry: voxels,
+2. build    - build the CUDA kernels from vpic_tpu_torch/csrc into
+              vpic_tpu_torch/_build and print ptxas's registers, shared
+              memory and spills per kernel;
+3. kernel   - the push+walk kernel against its plain PyTorch version on
+              the card, on a small 3D grid (periodic, reflecting and
+              absorbing faces, hot and cold lanes) and at the bench shape
+              (both voxel-sorted 128^2 species, 2M particles each), for the
+              push entry, the walk_only entry and the packed push: voxels,
               pcode and particle floats bitwise equal, the accumulator
-              within 1e-6 * sum|contributions| per voxel; timed against the
-              plain version;
-4. determinism - two kernel runs from one state are bitwise equal;
+              bitwise equal to the plain fixed-point twin at the same scale
+              and within 1e-6 * sum|contributions| per voxel of the plain
+              float version; on the sorted electrons the walk's (lane,
+              segment) pairs and the deposit atomics one per pair and word
+              against one per (warp, voxel) group and word; the wrapper
+              (CUDA events) and the kernel alone (torch.profiler) timed
+              against the plain version and the bound;
+4. determinism - two kernel runs from one state are bitwise equal (each
+              check of phase 3 runs the kernel twice);
 5. slice    - a 16^2 deck agrees with the plain path on the CPU; then the
               128^2, 2 x 2M deck runs 8 warm-up steps and three timed
               windows of 16 steps (two whole sort super-cycles each) with
@@ -31,13 +39,16 @@ no result line):
               segment-1 currents of both sorted 128^2 species and the cases
               of tests/test_deposit_pallas.py (two sorted, one unsorted),
               the accumulator within 1e-6 * sum|contributions| per word,
-              two runs bitwise equal; timed against the plain version;
+              two runs bitwise equal; the wrapper and its kernels alone
+              timed against the plain version, one index_add_ and the
+              bound;
 7. merge    - the merge re-sort's assembly kernel against its plain
               version: the seven kernel cases of tests/test_sort_pallas.py
               and the bench shape (2 125 824 lanes, 5% movers, 50 700
               keys), every output row bitwise equal, key0/ctot equal, no
-              anomaly, the fast path where expected; timed against the
-              plain version and a full sort_p_packed;
+              anomaly, the fast path where expected; the wrapper and the
+              kernel alone timed against the plain version, the bound and
+              a full sort_p_packed;
 8. path A   - the unfused push (fused_push=False): a 16^2 deck against
               the CPU plain path, then a fresh 128^2 deck for 8 warm-up
               and three timed windows of 16 steps: finite energies,
@@ -57,7 +68,14 @@ no result line):
               the ions' movers fit their buffer and the merge kernel runs
               at full size; a trace of each.
 
-The line before the last is the kernels' JSON record; the last line is
+The line before the last is the kernels' JSON record: per kernel its
+launches on the path that runs it, its launches per step of the default
+path, the accumulator's or rows' max abs error against the plain version,
+the wrapper's time (``ms``), the kernel's alone (``kernel_ms``), the plain
+version's, the bound (the larger of bytes over 3.35 TB/s and float32
+operations over 67 TFLOP/s, the H100 SXM's published peaks) and what sets
+it, and the one PyTorch call that computes the same function
+(``library_ms``, null where there is none).  The last line is
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 2.
 """
 
@@ -138,9 +156,11 @@ def abs_deposit(st, neighbor, g, seg_cap):
     return acc
 
 
-def compare(label, kernel_out, plain_out, kacc, pacc, absacc, floats, ints):
-    """Bitwise particle state, accumulator within 1e-6*sum|c|; returns the
-    accumulator's max abs error."""
+def compare(label, kernel_out, plain_out, kacc, pacc, tacc, absacc, floats,
+            ints):
+    """Bitwise particle state, accumulator within 1e-6*sum|c| of the float
+    plain version and bitwise equal to the fixed-point twin ``tacc``;
+    returns the accumulator's max abs error against the float one."""
     import torch
     for name in ints:
         a, b = getattr(kernel_out, name), getattr(plain_out, name)
@@ -163,7 +183,22 @@ def compare(label, kernel_out, plain_out, kacc, pacc, absacc, floats, ints):
         worst = float((err / limit).max())
         raise AssertionError(f"{label}: acc beyond 1e-6*sum|c| "
                              f"(worst {worst:.3g}x the limit)")
+    if not _bitwise_equal(kacc, tacc):
+        bad = int((kacc.view(torch.int32) != tacc.view(torch.int32)).sum())
+        raise AssertionError(f"{label}: acc differs from the fixed-point "
+                             f"twin in {bad} words")
     return float(err.max())
+
+
+def check_rerun(label, first, second, names):
+    """Two kernel runs from one state: every output bitwise equal."""
+    import torch
+    (o1, acc1), (o2, acc2) = first, second
+    for name in names:
+        if not torch.equal(getattr(o1, name), getattr(o2, name)):
+            raise AssertionError(f"{label}: rerun differs in {name}")
+    if not _bitwise_equal(acc1, acc2):
+        raise AssertionError(f"{label}: rerun acc differs")
 
 
 def random_species(g, n, max_np, hot, seed, device):
@@ -212,34 +247,66 @@ WALK_FLOATS = ("x", "y", "z", "ux", "uy", "uz", "rx", "ry", "rz")
 
 
 def check_push(label, sp, interp, nb, g, n_walk):
+    """The push entry against the plain push and its fixed-point twin, and
+    a rerun; returns the accumulator's max abs error."""
     import torch
     from vpic_tpu_torch.particles import push, push_cuda
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
-    ko, kacc = push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    run = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    ko, kacc = run()
+    check_rerun(label, (ko, kacc), run(), PUSH_FLOATS + ("i", "pc", "nm"))
     po, pacc = push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    _, tacc = push.advance_p_fixed(sp, interp, acc0, nb, g, n_walk=n_walk)
     absacc = abs_deposit(push.pushed_walk_state(sp, interp, g), nb, g,
-                         1 + 4 * (n_walk - 1) + 8)
-    err = compare(label, ko, po, kacc, pacc, absacc, PUSH_FLOATS,
+                         push.segment_cap(n_walk))
+    err = compare(label, ko, po, kacc, pacc, tacc, absacc, PUSH_FLOATS,
                   ("i", "pc"))
     if not torch.equal(ko.nm, po.nm):
         raise AssertionError(f"{label}: nm {int(ko.nm)} != {int(po.nm)}")
     moved = int((ko.i != sp.i).sum())
     log(f"  {label}: push ok (lanes {int(sp.np)}, changed voxel {moved}, "
-        f"pending {int((ko.pc != 0).sum())}, acc max abs err {err:.3g})")
-    return err, ko, kacc
+        f"pending {int((ko.pc != 0).sum())}, acc max abs err {err:.3g}, "
+        "acc bitwise the twin's, rerun bitwise equal)")
+    return err
 
 
 def check_walk(label, st, nb, g, n_iter):
     import torch
     from vpic_tpu_torch.particles import push, push_cuda
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=st.x.device)
-    ko, kacc = push_cuda.streak_walk(st, acc0, nb, g, n_iter)
+    run = lambda: push_cuda.streak_walk(st, acc0, nb, g, n_iter)
+    ko, kacc = run()
+    check_rerun(label, (ko, kacc), run(), push.WalkState._fields)
     po, pacc = push.streak_walk(st, acc0, nb, g, n_iter)
+    _, tacc = push.streak_walk_fixed(st, acc0, nb, g, n_iter)
     absacc = abs_deposit(st, nb, g, 4 * n_iter + 8)
-    err = compare(label, ko, po, kacc, pacc, absacc, WALK_FLOATS,
+    err = compare(label, ko, po, kacc, pacc, tacc, absacc, WALK_FLOATS,
                   ("vox", "pcode", "active"))
     log(f"  {label}: walk_only ok (active {int(st.active.sum())}, "
-        f"acc max abs err {err:.3g})")
+        f"acc max abs err {err:.3g}, acc bitwise the twin's, rerun bitwise "
+        "equal)")
+    return err
+
+
+def check_packed(label, sp, interp, nb, g, n_walk):
+    """The packed push (the kernel on PackedSpecies rows) against the plain
+    packed push and the twin, and a rerun."""
+    import torch
+    from vpic_tpu_torch.particles import push, push_cuda
+    psp = push.pack_species(sp, g)
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
+    run = lambda: push_cuda.advance_p_packed(psp, interp, acc0, nb, g,
+                                             n_walk=n_walk)
+    ko, kacc = run()
+    check_rerun(label, (ko, kacc), run(), ("pk", "nm"))
+    po, pacc = push.advance_p_packed(psp, interp, acc0, nb, g, n_walk=n_walk)
+    usp = push.unpack_species(psp, g)
+    _, tacc = push.advance_p_fixed(usp, interp, acc0, nb, g, n_walk=n_walk)
+    absacc = abs_deposit(push.pushed_walk_state(usp, interp, g), nb, g,
+                         push.segment_cap(n_walk))
+    err = compare(label, ko, po, kacc, pacc, tacc, absacc, ("pk",), ("nm",))
+    log(f"  {label}: packed push ok (acc max abs err {err:.3g}, acc "
+        "bitwise the twin's, rerun bitwise equal)")
     return err
 
 
@@ -268,56 +335,199 @@ SMALL_FACES = ("periodic", "reflect", "reflect+absorb")
 
 
 def phase_kernel_small(device):
+    errs = []
     for name in SMALL_FACES:
         for hot in (False, True):
             g, nb, interp, sp = small_grid_case(name, hot, device)
             label = f"3D 6x5x4 {name} {'hot' if hot else 'cold'}"
-            check_push(label, sp, interp, nb, g, n_walk=4)
-            check_walk(label, walk_state_from(sp, 5, 1.5 if hot else 0.3),
-                       nb, g, 2)
+            errs.append(check_push(label, sp, interp, nb, g, n_walk=4))
+            errs.append(check_walk(label, walk_state_from(
+                sp, 5, 1.5 if hot else 0.3), nb, g, 2))
+            errs.append(check_packed(label, sp, interp, nb, g, n_walk=4))
+    return max(errs)
+
+
+def walk_counts(sp, interp, nb, g, n_walk, warp=32):
+    """From the plain walk of one species: its (lane, segment) pairs; the
+    deposit atomics of one atomic per pair and nonzero contribution (the
+    kernel before its warp deposit); the atomics of one per nonzero word
+    sum of each (warp, voxel) group of a segment, the warps taken by slot
+    as the kernel takes them (its warp deposit); and the live lanes by
+    segments walked."""
+    import torch
+    from vpic_tpu_torch.particles import deposit, push
+    dev = sp.dx.device
+    n = sp.max_np
+    seg_cap = push.segment_cap(n_walk)
+    scale = deposit.fixed_scale(sp.q, seg_cap, n)
+    st = push.pushed_walk_state(sp, interp, g)
+    warp_of = torch.arange(n, device=dev) // warp
+    segs = torch.zeros(n, dtype=torch.int64, device=dev)
+    pairs = before = after = groups = 0
+    for _ in range(seg_cap):
+        was = st.active
+        if not bool(was.any()):
+            break
+        st, dep_vox, contrib = push.walk_segment(st, nb, g)
+        segs += was
+        c = torch.stack(contrib, dim=-1)[was]
+        words = torch.round(c.to(torch.float64) * scale).to(torch.int64)
+        pairs += int(was.sum())
+        before += int((c != 0).sum())
+        key = warp_of[was] * g.nv + dep_vox[was].long()
+        uniq, inv = torch.unique(key, return_inverse=True)
+        sums = torch.zeros((uniq.numel(), 12), dtype=torch.int64, device=dev)
+        sums.index_add_(0, inv, words)
+        groups += uniq.numel()
+        after += int((sums != 0).sum())
+    hist = torch.bincount(segs[sp.alive]).tolist()
+    return dict(pairs=pairs, atomics_before=before, groups=groups,
+                atomics_after=after, lanes_by_segments=hist)
+
+
+PROFILE_ATTEMPTS = 5
+
+
+def profiled(fn, ok):
+    """Run fn() under torch.profiler, again while ``ok(device events,
+    runtime calls without a device event)`` is false: the profiler can
+    drop device events, and a kernel missing from a trace would read as
+    time not spent.  Returns (host-clock us of fn, all events, device
+    events, runtime calls without a device event)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vpic_tpu_torch.engine.step import PHASES
+    for _ in range(PROFILE_ATTEMPTS):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        events = prof.events()
+        dev = [e for e in events if e.device_type == DeviceType.CUDA
+               and not e.is_user_annotation and e.name not in PHASES]
+        ids = {e.id for e in dev}
+        lost = [e.name for e in events
+                if e.device_type == DeviceType.CPU and e.id not in ids
+                and any(k in e.name for k in ("LaunchKernel", "Memcpy",
+                                              "Memset"))]
+        if dev and ok(dev, lost):
+            return wall_us, events, dev, len(lost)
+        log(f"  (the trace lacks the device events of {len(lost)} runtime "
+            f"calls, {sorted(set(lost))}; traced again)")
+    raise AssertionError(f"the profiler dropped device events in "
+                         f"{PROFILE_ATTEMPTS} traces in a row")
+
+
+def profiled_ms(fn, reps, names, per_run):
+    """Under torch.profiler, ``reps`` runs of fn(), each launching
+    ``per_run`` kernels whose names contain one of ``names``: their mean
+    device time per run, and the device operations per run.  A trace
+    that lacks one of those kernels, or more than one other device
+    event, is taken again."""
+    fn()
+    named = lambda dev: [e for e in dev if any(k in e.name for k in names)]
+    _, _, dev, _ = profiled(
+        lambda: [fn() for _ in range(reps)],
+        lambda dev, lost: len(named(dev)) == reps * per_run and len(lost) <= 1)
+    us = sum(e.time_range.elapsed_us() for e in named(dev))
+    return us / reps / 1e3, len(dev) / reps
+
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+FP32_OPS_PER_S = 67e12         # H100 SXM float32 outside the tensor cores
+
+
+def bound(nbytes, ops):
+    """(ms, "bytes" or "operations"): the least time of a function that
+    moves ``nbytes`` (each input read once, each output written once) and
+    does ``ops`` float32 operations, at the H100's published peaks."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+# float32 operations counted in csrc/push_walk.cu: push() per live lane,
+# segment() (deposit words included) per walked segment
+PUSH_OPS, SEGMENT_OPS = 120, 110
+
+
+def push_bound(n, live, pairs, nv):
+    """push_cuda.advance_p on n slots: x, y, z, vox, ux, uy, uz, q read;
+    x, y, z, vox, ux, uy, uz, rx, ry, rz, pcode written; the (nv, 18)
+    interpolator, the (nv, 6) neighbor table and the (nv, 12) float32
+    accumulator read, the accumulator written."""
+    nbytes = n * (8 + 11) * 4 + nv * (18 + 6 + 12 + 12) * 4
+    return bound(nbytes, PUSH_OPS * live + SEGMENT_OPS * pairs)
+
+
+def deposit_bound(n, lanes, nv):
+    """deposit_cuda.deposit_sorted_into on n lanes: 12 contribution
+    columns, vox and the valid flag read; the accumulator read and
+    written; 12 additions per valid lane."""
+    return bound(n * (12 * 4 + 4 + 1) + 2 * nv * 12 * 4, 12 * lanes)
+
+
+def merge_bound(n, n_m, nvk):
+    """sort_cuda.assemble on an (8, n) block with n_m movers: rows, key,
+    mover flag and residual rank read and rows written per lane; the
+    movers' sorted rows and keys; the two (nvk + 3) count tables."""
+    nbytes = n * (32 + 4 + 1 + 4 + 32) + n_m * (32 + 4) + 2 * (nvk + 3) * 4
+    return bound(nbytes, 0)
 
 
 def phase_kernel_slice(sim):
     """The bench shape: both species of the 128^2 deck after finalize,
-    voxel-sorted as the step sorts them before its first push."""
+    voxel-sorted as the step sorts them before its first push, through
+    the push entry, the walk_only entry and the packed push (each against
+    the plain version and its fixed-point twin, with a rerun); then, on
+    the sorted electrons, the walk's counts and the timing of the wrapper
+    (CUDA events), of the kernel alone (profiler) and of the plain
+    version.  Returns (max abs err, timing dict)."""
     import torch
     from vpic_tpu_torch.engine.step import walk_segments
     from vpic_tpu_torch.particles import aux, push, push_cuda
     st, g = sim.state, sim.grid
-    nb = st.grid_arrays.neighbor
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
     n_walk = walk_segments(g, sim.opts)
     errs = []
     species = [aux.sort_p(sp) for sp in st.species]
     for sp in species:
         label = f"128^2 {sp.name}"
-        err, ko, kacc = check_push(label, sp, st.interpolator, nb, g, n_walk)
-        errs.append(err)
+        errs.append(check_push(label, sp, interp, nb, g, n_walk))
         errs.append(check_walk(label, walk_state_from(sp, 3, 0.6), nb, g,
                                n_walk - 1))
-        # determinism: a second run from the same state, bitwise
-        acc0 = torch.zeros_like(kacc)
-        ko2, kacc2 = push_cuda.advance_p(sp, st.interpolator, acc0, nb, g,
-                                         n_walk=n_walk)
-        for name in PUSH_FLOATS + ("i", "pc", "nm"):
-            if not torch.equal(getattr(ko, name), getattr(ko2, name)):
-                raise AssertionError(f"{label}: rerun differs in {name}")
-        if not torch.equal(kacc, kacc2):
-            raise AssertionError(f"{label}: rerun acc differs")
-        log(f"  {label}: two kernel runs bitwise equal")
+        errs.append(check_packed(label, sp, interp, nb, g, n_walk))
 
-    # timing at the bench shape, sorted electrons: plain, kernel, kernel,
-    # plain
     sp = species[0]
+    live = int(sp.alive.sum())
+    c = walk_counts(sp, interp, nb, g, n_walk)
+    log(f"  walk of the sorted electrons (plain, {live} live lanes): "
+        f"{c['pairs']} (lane, segment) pairs, {c['pairs'] / live:.6f} "
+        f"segments per lane, live lanes by segments walked "
+        f"{c['lanes_by_segments']}; deposit atomics: one per pair and "
+        f"nonzero word {c['atomics_before']}, one per (warp, voxel) group "
+        f"and nonzero word sum {c['atomics_after']} ({c['groups']} groups; "
+        f"{c['atomics_before'] / c['atomics_after']:.4f}x fewer)")
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
-    run_k = lambda: push_cuda.advance_p(sp, st.interpolator, acc0, nb, g,
+    run_k = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g,
                                         n_walk=n_walk)
-    run_p = lambda: push.advance_p(sp, st.interpolator, acc0, nb, g,
-                                   n_walk=n_walk)
+    run_p = lambda: push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
     p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
                       cuda_ms(run_k, 20), cuda_ms(run_p, 5))
-    log(f"  timing, 128^2 sorted electrons ({int(sp.np)} lanes): kernel "
-        f"{k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / {p2:.4f} ms")
-    return max(errs), min(k1, k2), min(p1, p2)
+    kernel_ms, ops = profiled_ms(run_k, 20, ("push_walk_kernel",), 1)
+    bound_ms, bound_by = push_bound(sp.max_np, live, c["pairs"], g.nv)
+    log(f"  timing, 128^2 sorted electrons ({live} lanes): wrapper "
+        f"{k1:.4f} / {k2:.4f} ms ({ops:.1f} device ops per call), kernel "
+        f"alone {kernel_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}), the kernel at "
+        f"{bound_ms / kernel_ms:.4f} of it")
+    return max(errs), dict(ms=min(k1, k2), kernel_ms=kernel_ms,
+                           plain_ms=min(p1, p2), bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
 
 
 def phase_small_deck(device, **opts):
@@ -346,16 +556,18 @@ def phase_small_deck(device, **opts):
 def phase_slice(sim):
     """The main path: advance the 128^2 deck through the Simulation API,
     WINDOWS timed windows of STEPS steps, each from a sort super-cycle
-    boundary; returns (kernel launches, median pushes/s, median step s)."""
+    boundary; returns (the launches of each kernel in those steps,
+    median pushes/s, median step s)."""
     import math
     import statistics
     import torch
-    from vpic_tpu_torch.particles import push_cuda
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
     sim.advance(WARM_STEPS)
     torch.cuda.synchronize()
     nsp = len(sim.state.species)
     n_total = sum(int(sp.np) for sp in sim.state.species)
-    push_cuda.reset_launch_counts()
+    for mod in (push_cuda, deposit_cuda, sort_cuda):
+        mod.reset_launch_counts()
     step_s = []
     for w in range(WINDOWS):
         if sim.step_count % (sim.opts.resort_interval * 4):
@@ -384,8 +596,10 @@ def phase_slice(sim):
             f"{dt / STEPS * 1e3:.4f} ms/step, "
             f"{n_total * STEPS / dt:.6e} pushes/s, dropped movers {drops}, "
             f"energy drift {drift:.3e}")
-    launches = push_cuda.launches["push"]
-    if launches != WINDOWS * STEPS * nsp:
+    launches = dict(push_walk=push_cuda.launches["push"],
+                    deposit_sorted=deposit_cuda.launches["deposit_sorted"],
+                    merge_assemble=sort_cuda.launches["merge_assemble"])
+    if launches["push_walk"] != WINDOWS * STEPS * nsp:
         raise AssertionError(f"kernel launches {launches} != steps x "
                              f"species = {WINDOWS * STEPS * nsp}")
     med = statistics.median(step_s)
@@ -430,27 +644,17 @@ def phase_trace(sim, step_s, label="main path"):
     super-cycle): per step, the device busy time (union of kernel and copy
     intervals), the device operations, the busy device time of each step
     part and of the busiest kernels; the idle share under the profiler,
-    and the one derived from the busy time and the unprofiled step time
-    ``step_s``."""
+    and, given the unprofiled step time ``step_s``, the one derived from
+    the busy time.  Returns (busy device ms, device ops) per step."""
     import collections
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from vpic_tpu_torch.engine.step import PHASES
     if sim.step_count % (sim.opts.resort_interval * 4):
         raise AssertionError("traced window must start on a super-cycle")
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        sim.advance(TRACE_STEPS)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    events = prof.events()
-    dev = [e for e in events if e.device_type == DeviceType.CUDA
-           and not e.is_user_annotation and e.name not in PHASES]
-    if not dev:
-        raise AssertionError("the profiler recorded no device operation")
+    # a trace taken again starts one super-cycle later; one runtime call
+    # per step may lack its device event (it did in some traces)
+    wall_us, events, dev, lost = profiled(
+        lambda: sim.advance(TRACE_STEPS),
+        lambda dev, lost: len(lost) <= TRACE_STEPS)
     span = lambda e: (e.time_range.start, e.time_range.end)
     busy = _busy_us([span(e) for e in dev])
     parts, placed = _step_parts(events, dev)
@@ -463,11 +667,13 @@ def phase_trace(sim, step_s, label="main path"):
     log(f"  trace of the {label}, {TRACE_STEPS} steps under "
         f"torch.profiler: device busy "
         f"{per(busy):.4f} ms/step, device ops {len(dev) / TRACE_STEPS:.1f}"
-        f"/step ({placed} of {len(dev)} with their launch call), wall "
+        f"/step ({placed} of {len(dev)} with their launch call; {lost} "
+        f"runtime calls without a device event), wall "
         f"{per(wall_us):.4f} ms/step, idle share {1 - busy / wall_us:.4f}")
-    log(f"  derived idle share without the profiler: 1 - busy / step = "
-        f"1 - {per(busy):.4f} / {step_s * 1e3:.4f} = "
-        f"{1 - per(busy) / (step_s * 1e3):.4f}")
+    if step_s is not None:
+        log(f"  derived idle share without the profiler: 1 - busy / step = "
+            f"1 - {per(busy):.4f} / {step_s * 1e3:.4f} = "
+            f"{1 - per(busy) / (step_s * 1e3):.4f}")
     log("  busy device ms/step by step part: " + ", ".join(
         f"{k} {per(part_busy[k]):.4f}" for k in PHASES)
         + f", outside the parts {per(part_busy[None]):.4f}")
@@ -477,6 +683,7 @@ def phase_trace(sim, step_s, label="main path"):
     if not all(part_busy[k] > 0 for k in PHASES):
         raise AssertionError(f"the trace attributes no device time to a "
                              f"step part: {part_busy}")
+    return per(busy), len(dev) / TRACE_STEPS
 
 
 def check_deposit(label, acc0, vox, cols, valid, nv):
@@ -532,7 +739,10 @@ def deposit_case(case, device):
 
 
 def phase_deposit(sim, device):
-    """Returns (max abs err, kernel ms, plain ms) at the bench shape."""
+    """Returns (max abs err, timing dict) at the bench shape: the wrapper
+    (CUDA events), its kernels alone (profiler), the plain version and one
+    ``index_add_`` of the valid lanes' (n, 12) contributions at their
+    voxels, prepared beforehand."""
     import torch
     from vpic_tpu_torch.particles import aux, deposit, deposit_cuda
     st, g = sim.state, sim.grid
@@ -547,14 +757,27 @@ def phase_deposit(sim, device):
         bench = bench or args
     for case in DEPOSIT_CASES:
         errs.append(check_deposit(*deposit_case(case, device)))
+    vox, cols, valid = bench
+    lib_vox = vox[valid].long()
+    lib_c = torch.stack(cols, dim=-1)[valid]
+    lib_acc = acc0.clone()
     run_k = lambda: deposit_cuda.deposit_sorted_into(acc0, *bench, g.nv)
     run_p = lambda: deposit.deposit_sorted_into(acc0, *bench, g.nv)
-    p1, k1, k2, p2 = (cuda_ms(run_p, 20), cuda_ms(run_k, 20),
-                      cuda_ms(run_k, 20), cuda_ms(run_p, 20))
-    log(f"  timing, 128^2 sorted electrons' segment 1 ({bench[0].numel()} "
-        f"lanes): kernel {k1:.4f} / {k2:.4f} ms, plain {p1:.4f} / "
-        f"{p2:.4f} ms")
-    return max(errs), min(k1, k2), min(p1, p2)
+    run_l = lambda: lib_acc.index_add_(0, lib_vox, lib_c)
+    p1, k1, l1, k2, l2, p2 = (cuda_ms(run_p, 20), cuda_ms(run_k, 20),
+                              cuda_ms(run_l, 20), cuda_ms(run_k, 20),
+                              cuda_ms(run_l, 20), cuda_ms(run_p, 20))
+    kernel_ms, ops = profiled_ms(run_k, 20, ("deposit_",), 3)
+    lanes = int(valid.sum())
+    bound_ms, bound_by = deposit_bound(vox.numel(), lanes, g.nv)
+    log(f"  timing, 128^2 sorted electrons' segment 1 ({vox.numel()} "
+        f"lanes, {lanes} valid): wrapper {k1:.4f} / {k2:.4f} ms ({ops:.1f} "
+        f"device ops per call), its kernels alone {kernel_ms:.4f} ms, plain "
+        f"{p1:.4f} / {p2:.4f} ms, index_add_ {l1:.4f} / {l2:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by})")
+    return max(errs), dict(ms=min(k1, k2), kernel_ms=kernel_ms,
+                           plain_ms=min(p1, p2), bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=min(l1, l2))
 
 
 def _mk_sorted(rng, n, np_, nvk):
@@ -656,8 +879,8 @@ def run_merge_case(name, device):
 
 
 def phase_merge(g, device, n=2_125_824):
-    """Returns the max abs error over the cases and (kernel ms, plain
-    ms) of the assembly at the bench shape."""
+    """Returns the max abs error over the cases and the timing dict of the
+    assembly at the bench shape (no single PyTorch call computes it)."""
     import numpy as np
     import torch
     from vpic_tpu_torch.core.types import PackedSpecies
@@ -692,11 +915,17 @@ def phase_merge(g, device, n=2_125_824):
     full_merge = cuda_ms(lambda: sort_cuda.merge_sort_packed(
         pk, npt, key0, ctot, nvk, m_cap), 10)
     full_sort = cuda_ms(lambda: aux.sort_p_packed(psp, g), 10)
-    log(f"  timing, bench shape: assembly kernel {k1:.4f} / {k2:.4f} ms, "
-        f"plain {p1:.4f} / {p2:.4f} ms; the whole merge re-sort with the "
-        f"kernel {full_merge:.4f} ms (two host reads); a full "
-        f"sort_p_packed {full_sort:.4f} ms")
-    return max(errs), min(k1, k2), min(p1, p2)
+    kernel_ms, ops = profiled_ms(run_k, 20, ("merge_assemble_kernel",), 1)
+    bound_ms, bound_by = merge_bound(n, int(plan.n_m), nvk)
+    log(f"  timing, bench shape: assembly wrapper {k1:.4f} / {k2:.4f} ms "
+        f"({ops:.1f} device ops per call), kernel alone {kernel_ms:.4f} ms, "
+        f"plain {p1:.4f} / {p2:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}); the whole merge re-sort with the kernel "
+        f"{full_merge:.4f} ms (two host reads); a full sort_p_packed "
+        f"{full_sort:.4f} ms")
+    return max(errs), dict(ms=min(k1, k2), kernel_ms=kernel_ms,
+                           plain_ms=min(p1, p2), bound_ms=bound_ms,
+                           bound_by=bound_by, library_ms=None)
 
 
 def timed_windows(sim, label, e_refs):
@@ -903,27 +1132,27 @@ def main():
             log("  ptxas: " + line.strip())
 
     log("[3/9] kernel vs plain, small 3D grid")
-    phase_kernel_small(device)
+    small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
     log(f"[3/9] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
-    max_err, k_ms, p_ms = phase_kernel_slice(sim)
-    log("[4/9] determinism: checked above, per species")
+    push_err, push_t = phase_kernel_slice(sim)
+    log("[4/9] determinism: checked above, per case and species")
 
     log("[5/9] slice")
     phase_small_deck(device)
-    launches, rate, step_s = phase_slice(sim)
+    main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
     log(f"pushes/s: {rate:.6e} ({card}; 128^2, {SLICE['npart']} particles "
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
     log("[6/9] deposit kernel vs plain")
-    dep_err, dep_ms, dep_plain_ms = phase_deposit(sim, device)
+    dep_err, dep_t = phase_deposit(sim, device)
     log("[7/9] merge re-sort kernel vs plain")
-    mrg_err, mrg_ms, mrg_plain_ms = phase_merge(sim.grid, device)
+    mrg_err, mrg_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
     log("[8/9] path A: the unfused push")
@@ -938,24 +1167,26 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    print(json.dumps({"kernels": [
-        {"name": "push_walk", "route": "cuda",
-         "source": "vpic_tpu_torch/csrc/push_walk.cu",
-         "replaces": "vpic_tpu/particles/push_pallas.py:465",
-         "launches": launches, "max_abs_err": max_err, "ms": k_ms,
-         "plain_ms": p_ms},
-        {"name": "deposit_sorted", "route": "cuda",
-         "source": "vpic_tpu_torch/csrc/deposit_sorted.cu",
-         "replaces": "vpic_tpu/particles/deposit_pallas.py:41",
-         "launches": dep_launches, "max_abs_err": dep_err, "ms": dep_ms,
-         "plain_ms": dep_plain_ms},
-        {"name": "merge_assemble", "route": "cuda",
-         "source": "vpic_tpu_torch/csrc/merge_assemble.cu",
-         "replaces": "vpic_tpu/particles/sort_pallas.py:85",
-         "launches": mrg_launches, "max_abs_err": mrg_err, "ms": mrg_ms,
-         "plain_ms": mrg_plain_ms,
-         "launches_own_cadence_128sq": mrg_cadence,
-         "launches_16sq_deck": mrg_small}]}))
+    steps = WINDOWS * STEPS
+    kernels = [
+        dict(name="push_walk", source="vpic_tpu_torch/csrc/push_walk.cu",
+             replaces="vpic_tpu/particles/push_pallas.py:465",
+             launches=main_launches["push_walk"],
+             max_abs_err=max(small_err, push_err), **push_t),
+        dict(name="deposit_sorted",
+             source="vpic_tpu_torch/csrc/deposit_sorted.cu",
+             replaces="vpic_tpu/particles/deposit_pallas.py:41",
+             launches=dep_launches, max_abs_err=dep_err, **dep_t),
+        dict(name="merge_assemble",
+             source="vpic_tpu_torch/csrc/merge_assemble.cu",
+             replaces="vpic_tpu/particles/sort_pallas.py:85",
+             launches=mrg_launches, max_abs_err=mrg_err, **mrg_t,
+             launches_own_cadence_128sq=mrg_cadence,
+             launches_16sq_deck=mrg_small)]
+    for k in kernels:
+        k["route"] = "cuda"
+        k["launches_per_step"] = main_launches[k["name"]] / steps
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
     return 0

@@ -1,0 +1,132 @@
+#!/usr/bin/env python3
+"""Trees of this repository against each other on one NVIDIA GPU: the
+push+walk and deposit kernels at the bench shape and the default path's
+device time, each tree in its own process, in the order given.
+
+    python3 kernel_ab.py _archive/parent . . _archive/parent
+
+Each argument is the root of a checkout (for example a ``git archive`` of
+the parent commit unpacked under ``_archive/``, which .gitignore lists).
+For each, a child process puts that root first on ``sys.path``, builds its
+kernels into its own ``vpic_tpu_torch/_build``, builds the 128^2, 2 x 2M
+bench deck on the card and, on the voxel-sorted electrons:
+
+- checks the kernel's push against that tree's plain version (voxels,
+  pcode and particle floats bitwise, the accumulator within
+  1e-6 * sum|contributions| per voxel), and times the wrapper
+  ``push_cuda.advance_p`` with CUDA events (``ms``) and the
+  ``push_walk_kernel`` alone under torch.profiler (``kernel_ms``), with the
+  device operations per call;
+- does the same for the deposit kernel on the segment-1 currents
+  (``deposit_cuda.deposit_sorted_into``; its kernels alone are those named
+  ``deposit_*``), beside one ``index_add_`` of the valid lanes' (n, 12)
+  contributions prepared beforehand;
+
+then advances the deck 8 steps and traces 8 more under torch.profiler
+(``chip_smoke.phase_trace``): the default path's busy device ms and device
+operations per step.  Each
+child prints one JSON line; the parent prints them all as a JSON list on
+its last line.  Needs one card; exits non-zero without one.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+import chip_smoke as cs
+
+REPS = 20
+
+
+def measure(tree):
+    """The JSON record of one tree (run in a child process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import vpic_tpu_torch
+    from vpic_tpu_torch.decks import bench_deck
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux, deposit_cuda, push, push_cuda
+    pkg = os.path.dirname(os.path.abspath(vpic_tpu_torch.__file__))
+    if pkg != os.path.join(os.path.abspath(tree), "vpic_tpu_torch"):
+        raise RuntimeError(f"imported {pkg}, not the tree {tree}")
+    device = torch.device("cuda", 0)
+    push_cuda.build()
+    sim = bench_deck.build(**cs.SLICE, device=device)
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    sp = aux.sort_p(st.species[0])
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=device)
+    run = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+
+    ko, kacc = run()
+    po, pacc = push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    for name in cs.PUSH_FLOATS + ("i", "pc", "nm"):
+        if not cs._bitwise_equal(getattr(ko, name), getattr(po, name)):
+            raise AssertionError(f"{tree}: {name} differs from the plain push")
+    # the segment cap written out: older trees have no push.segment_cap
+    absacc = cs.abs_deposit(push.pushed_walk_state(sp, interp, g), nb, g,
+                            1 + 4 * (n_walk - 1) + 8)
+    err = (kacc.double() - pacc.double()).abs()
+    if not bool((err <= 1e-6 * absacc + 1e-30).all()):
+        raise AssertionError(f"{tree}: acc beyond 1e-6*sum|c|")
+
+    ms = cs.cuda_ms(run, REPS)
+    kernel_ms, ops_per_call = cs.profiled_ms(run, REPS,
+                                             ("push_walk_kernel",), 1)
+    del ko, kacc, po, pacc, absacc, err
+
+    vox, cols, valid = cs.segment1_currents(sp, interp, nb, g)
+    cs.check_deposit("segment 1", acc0, vox, cols, valid, g.nv)
+    run_d = lambda: deposit_cuda.deposit_sorted_into(acc0, vox, cols, valid,
+                                                     g.nv)
+    lib_vox = vox[valid].long()
+    lib_c = torch.stack(cols, dim=-1)[valid]
+    lib_acc = acc0.clone()
+    dep = dict(ms=cs.cuda_ms(run_d, REPS),
+               library_ms=cs.cuda_ms(
+                   lambda: lib_acc.index_add_(0, lib_vox, lib_c), REPS))
+    dep["kernel_ms"], dep["ops_per_call"] = cs.profiled_ms(run_d, REPS,
+                                                           ("deposit_",), 3)
+    del vox, cols, valid, lib_vox, lib_c, lib_acc
+
+    sim.advance(cs.WARM_STEPS)
+    busy_ms, ops_per_step = cs.phase_trace(sim, None, tree)
+    return dict(tree=tree, card=cs.card_line(), lanes=int(sp.np), ms=ms,
+                kernel_ms=kernel_ms, ops_per_call=ops_per_call,
+                deposit=dep, step_busy_ms=busy_ms, step_ops=ops_per_step)
+
+
+def main(argv):
+    if len(argv) == 2 and argv[0] == "--one":
+        print(json.dumps(measure(argv[1])), flush=True)
+        return 0
+    import torch
+    if not argv or not torch.cuda.is_available():
+        print("kernel_ab: needs tree roots and a CUDA device", file=sys.stderr)
+        return 2
+    here = os.path.abspath(__file__)
+    out = []
+    for tree in argv:
+        r = subprocess.run([sys.executable, here, "--one", tree],
+                           capture_output=True, text=True, timeout=900)
+        if r.returncode != 0:
+            print(r.stdout + r.stderr, file=sys.stderr)
+            raise RuntimeError(f"kernel_ab: {tree} failed ({r.returncode})")
+        rec = json.loads(r.stdout.strip().splitlines()[-1])
+        d = rec["deposit"]
+        cs.log(f"{tree}: push wrapper {rec['ms']:.4f} ms, kernel alone "
+               f"{rec['kernel_ms']:.4f} ms, {rec['ops_per_call']:.1f} device "
+               f"ops per call; deposit wrapper {d['ms']:.4f} ms, kernels "
+               f"alone {d['kernel_ms']:.4f} ms, {d['ops_per_call']:.1f} ops "
+               f"per call, index_add_ {d['library_ms']:.4f} ms; default path "
+               f"busy {rec['step_busy_ms']:.4f} ms/step, "
+               f"{rec['step_ops']:.1f} ops/step ({rec['card']})")
+        out.append(rec)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

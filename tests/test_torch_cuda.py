@@ -1,8 +1,12 @@
 """The CUDA kernels against their plain PyTorch versions on the card, with
-the checks of chip_smoke.py.  Push+walk: voxels, pcode and particle floats
-bitwise equal, the accumulator within 1e-6 * sum|contributions| per voxel,
-and two runs of the kernel bitwise equal; the same for the packed push and
-the unfused push (deposit kernel + walk_only).  Deposit: the accumulator
+the checks of chip_smoke.py.  Push+walk (the push entry, the walk_only
+entry and the packed push): voxels, pcode and particle floats bitwise
+equal, the accumulator bitwise equal to the plain fixed-point twin
+(push.advance_p_fixed, push.streak_walk_fixed) and within
+1e-6 * sum|contributions| per voxel of the plain float version, and two
+runs of the kernel bitwise equal; the wrapper's scratch left zero and its
+scale that of deposit.fixed_scale; the unfused push (deposit kernel +
+walk_only) as the plain one.  Deposit: the accumulator
 within 1e-6 * sum|contributions| per word, two runs bitwise equal.  Merge
 re-sort assembly: every output row bitwise equal, key0/ctot equal, no
 anomaly.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card
@@ -16,7 +20,8 @@ import torch
 
 import chip_smoke as cs
 
-from vpic_tpu_torch.particles import deposit_cuda, push, push_cuda, sort_cuda
+from vpic_tpu_torch.particles import (deposit, deposit_cuda, push, push_cuda,
+                                      sort_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -35,7 +40,8 @@ def test_push_kernel_matches_plain(device, pbc_name, hot):
     g, nb, interp, sp = cs.small_grid_case(pbc_name, hot, device)
     before = push_cuda.launches["push"]
     cs.check_push(f"{pbc_name} hot={hot}", sp, interp, nb, g, n_walk=4)
-    assert push_cuda.launches["push"] == before + 1
+    # the kernel run and its rerun
+    assert push_cuda.launches["push"] == before + 2
 
 
 @pytest.mark.parametrize("hot", [False, True], ids=["cold", "hot"])
@@ -44,6 +50,28 @@ def test_walk_only_kernel_matches_plain(device, pbc_name, hot):
     g, nb, interp, sp = cs.small_grid_case(pbc_name, hot, device)
     st = cs.walk_state_from(sp, 5, 1.5 if hot else 0.3)
     cs.check_walk(f"{pbc_name} hot={hot}", st, nb, g, 2)
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["cold", "hot"])
+@pytest.mark.parametrize("pbc_name", list(cs.SMALL_FACES))
+def test_packed_push_kernel_matches_plain(device, pbc_name, hot):
+    g, nb, interp, sp = cs.small_grid_case(pbc_name, hot, device)
+    cs.check_packed(f"{pbc_name} hot={hot}", sp, interp, nb, g, n_walk=4)
+
+
+def test_scratch_is_left_zero_with_the_plain_scale(device):
+    """After a call the wrapper's int64 accumulator and work words are zero
+    again, and its 2^S is deposit.fixed_scale's."""
+    g, nb, interp, sp = cs.small_grid_case("periodic", True, device)
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=device)
+    for _ in range(2):
+        push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=4)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        fix, work, scale = push_cuda._scratch_for(device, g.nv, stream)
+        assert not bool(fix.any())
+        assert not bool(work[:2].any())
+        want = deposit.fixed_scale(sp.q, push.segment_cap(4), sp.max_np)
+        assert float(scale) == float(want)
 
 
 def test_kernel_is_deterministic(device):
@@ -74,7 +102,7 @@ def test_merge_kernel_matches_plain(device, name):
 
 def _acc_ok(kacc, pacc, sp, interp, nb, g):
     absacc = cs.abs_deposit(push.pushed_walk_state(sp, interp, g), nb, g,
-                            1 + 4 * 3 + 8)
+                            push.segment_cap(4))
     err = (kacc.double() - pacc.double()).abs()
     assert bool((err <= 1e-6 * absacc + 1e-30).all())
 
@@ -92,15 +120,4 @@ def test_unfused_push_matches_plain(device, hot):
     assert push_cuda.launches["walk_only"] == walk + 1
     for name in cs.PUSH_FLOATS + ("i", "pc", "nm"):
         assert cs._bitwise_equal(getattr(ko, name), getattr(po, name)), name
-    _acc_ok(kacc, pacc, sp, interp, nb, g)
-
-
-def test_packed_push_matches_plain(device):
-    g, nb, interp, sp = cs.small_grid_case("periodic", True, device)
-    psp = push.pack_species(sp, g)
-    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=device)
-    ko, kacc = push_cuda.advance_p_packed(psp, interp, acc0, nb, g, n_walk=4)
-    po, pacc = push.advance_p_packed(psp, interp, acc0, nb, g, n_walk=4)
-    assert cs._bitwise_equal(ko.pk, po.pk)
-    assert torch.equal(ko.nm, po.nm)
     _acc_ok(kacc, pacc, sp, interp, nb, g)

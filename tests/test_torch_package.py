@@ -54,8 +54,20 @@ def test_cuda_simulation_raises_without_gpu(monkeypatch):
         vpic_tpu_torch.Simulation(seed=0, device="cuda")
 
 
+@pytest.mark.parametrize("entry", ["Simulation", "bench_deck.build"])
+def test_the_card_is_the_default_device(monkeypatch, entry):
+    """Without ``device`` the entry points run on the card, so they raise
+    where there is none."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        if entry == "Simulation":
+            vpic_tpu_torch.Simulation()
+        else:
+            bench_deck.build(nx=4, ny=4, nz=1, npart=256)
+
+
 def _small_push_args(device="cpu"):
-    sim = bench_deck.build(nx=4, ny=4, nz=1, npart=256)
+    sim = bench_deck.build(nx=4, ny=4, nz=1, npart=256, device="cpu")
     st = sim.state
     sp = st.species[0]
     if device != "cpu":
@@ -146,7 +158,7 @@ def test_path_switches_resolve_as_the_jax_package():
 def test_modify_runparams_switches_paths():
     """merge_sort=True runs the packed cycle (the state is unpacked when
     read); switching back unpacks it for good; unknown keys raise."""
-    sim = bench_deck.build(nx=4, ny=4, nz=1, npart=256)
+    sim = bench_deck.build(nx=4, ny=4, nz=1, npart=256, device="cpu")
     with pytest.raises(ValueError, match="unknown run parameters"):
         sim.modify_runparams(no_such_option=1)
     sim.modify_runparams(merge_sort=True)

@@ -32,7 +32,7 @@ STEPS = 8
 @pytest.fixture(scope="module")
 def runs():
     jsim = ge._build(**DECK)
-    tsim = bench_deck.build(**DECK)
+    tsim = bench_deck.build(**DECK, device="cpu")
     out = dict(j0=state_to_numpy(jsim.state), t0=state_to_numpy(tsim.state),
                je0=jsim.energies(), te0=tsim.energies())
     jsim.advance(STEPS)
@@ -48,7 +48,7 @@ def path_runs():
     out = {}
     for name, kw in (("unfused", dict(fused_push=False)),
                      ("merge", dict(merge_sort=True))):
-        sim = bench_deck.build(**DECK)
+        sim = bench_deck.build(**DECK, device="cpu")
         sim.modify_runparams(**kw)
         sort_cuda.reset_launch_counts()
         sim.advance(STEPS)

@@ -9,31 +9,38 @@
 // precondition: the TPU kernel's 512-voxel block windows and its overflow
 // scatter have no counterpart here, and no lane is dropped.
 //
-// Design: one block of 256 threads per chunk of 256 lanes.  The chunk's
-// voxels and 12 contribution columns are staged in shared memory with
-// coalesced loads.  The first lane of each run of equal voxels sums the
-// run's contributions in lane order in float32, then adds the run's 12
-// sums by 64-bit integer atomics into a fixed-point (nv, 12) scratch at
-// scale 2^S.  S is chosen on the device from max|contribution| * n < 2^62
-// (a first pass takes the maximum, a one-thread pass writes 2^S as a device
-// double), so no voxel's sum overflows.  Integer addition is associative,
-// so the result does not depend on block order: two runs are bitwise
-// equal.  push_walk.cu's vpic_acc_unfix then adds the scratch to acc: this
-// is its fixed-point scheme with one lane per segment.
+// Design: three passes over the lanes, one thread per lane.  The first
+// takes max|contribution| over the valid lanes; a one-thread pass writes
+// the fixed-point scale 2^S as a device double, with max|c| * n < 2^(62-S)
+// so that no voxel's sum overflows an int64; the third rounds each lane's
+// 12 contributions to integers at 2^S and adds them into a fixed-point
+// (nv, 12) scratch through warp_deposit.cuh: the lanes of a warp with the
+// same voxel sum their words and one 64-bit integer atomic per (warp,
+// voxel) group and word adds the sum.  Integer addition is associative, so
+// the result depends neither on lane order nor on block order: two runs
+// are bitwise equal.  push_walk.cu's vpic_acc_unfix then adds the scratch
+// to acc: the push kernel's fixed-point scheme, with one lane per segment.
 //
-// What bounds it on the H100: 48 B of contributions and 4 B of voxel per
-// lane, read once from device memory (plus once more by the max pass), and
-// one 96 B row of atomics per run.  On sorted input at the 128^2 bench
-// shape a 256-lane chunk holds two or three runs, so the atomics are few
-// and the kernel is bound by the reads; the head lane's serial sum over its
-// run is the latency on the critical path.  A warp-level segmented scan in
-// place of the serial sum is later work.
+// What bounds it on the H100: 48 B of contributions, 4 B of voxel and 1 B
+// of valid flag per lane, and the float32 accumulator in and out: about
+// 118 MB at the bench shape (2 125 824 lanes, nv = 50 700), 0.035 ms at
+// 3.35 TB/s.  The max pass reads the contributions once more (about
+// 102 MB, twice the 50 MB L2).  The first version summed
+// each run of equal voxels serially in its head lane, a chain of up to 256
+// dependent float additions per column; on an H100 80GB HBM3 at 700 W its
+// three passes took 0.2044 ms at the bench shape, behind one PyTorch
+// index_add_ of the same contributions (0.1856 ms; chip_smoke.py).  The
+// warp deposit replaces that chain: 0.1225 ms, 0.29 of the bound.  ptxas
+// (sm_90a): the warp pass 40 registers and 25 344 B of shared memory per
+// 256-thread block, no spills.
 //
-// Floating point: built with -fmad=false; the run sums are plain float32
-// additions in lane order.
+// Floating point: built with -fmad=false; each contribution is rounded to
+// its integer word once (__double2ll_rn), and the words are summed exactly.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "warp_deposit.cuh"
 
 // Mirrored field for field by particles/deposit_cuda.py:_DepositArgs.
 struct DepositArgs {
@@ -96,37 +103,21 @@ __global__ void deposit_scale_kernel(DepositArgs a) {
   *a.scale = s;
 }
 
-__global__ void deposit_runs_kernel(DepositArgs a) {
-  __shared__ int key[kChunk];
-  __shared__ float cs[12][kChunk];
-  const int t = threadIdx.x;
-  const int s = blockIdx.x * kChunk + t;
-  int k = -1;
-  if (s < a.n) {
-    int v;
-    if (lane_voxel(a, s, &v)) k = v;
+// Blocks in reverse order: the first to run read the lanes that the max
+// pass read last, some of which the L2 still holds.
+__global__ void __launch_bounds__(kChunk)
+deposit_warp_kernel(DepositArgs a) {
+  __shared__ vpic::WarpStage stage[kChunk / 32];
+  const int s = (gridDim.x - 1 - blockIdx.x) * kChunk + threadIdx.x;
+  int key = -1;
+  float c[12] = {};
+  int v;
+  if (s < a.n && lane_voxel(a, s, &v)) {
+    key = v;
 #pragma unroll
-    for (int j = 0; j < 12; ++j) cs[j][t] = a.c[j][s];
+    for (int j = 0; j < 12; ++j) c[j] = a.c[j][s];
   }
-  key[t] = k;
-  __syncthreads();
-  if (k < 0 || (t > 0 && key[t - 1] == k)) return;  // not a run's head
-
-  float sum[12];
-#pragma unroll
-  for (int j = 0; j < 12; ++j) sum[j] = 0.0f;
-  for (int r = t; r < kChunk && key[r] == k; ++r) {
-#pragma unroll
-    for (int j = 0; j < 12; ++j) sum[j] = sum[j] + cs[j][r];
-  }
-  const double scale = *a.scale;
-  unsigned long long* row = a.fix + 12 * (size_t)k;
-#pragma unroll
-  for (int j = 0; j < 12; ++j) {
-    if (sum[j] != 0.0f)
-      atomicAdd(row + j,
-                (unsigned long long)__double2ll_rn((double)sum[j] * scale));
-  }
+  vpic::warp_deposit(a.fix, key, c, *a.scale, stage[threadIdx.x / 32]);
 }
 
 }  // namespace
@@ -135,7 +126,7 @@ extern "C" {
 
 int vpic_deposit_args_size() { return (int)sizeof(DepositArgs); }
 
-// Zeroes the scratch and launches the max, scale and run-sum passes on
+// Zeroes the scratch and launches the max, scale and deposit passes on
 // `stream`, leaving the fixed-point sums in fix and 2^S in *scale for
 // vpic_acc_unfix; returns the first failing cudaError_t, or 0.
 int vpic_deposit_sorted(const DepositArgs* args, void* stream) {
@@ -152,7 +143,7 @@ int vpic_deposit_sorted(const DepositArgs* args, void* stream) {
   deposit_scale_kernel<<<1, 1, 0, st>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   if (lane_blocks > 0) {
-    deposit_runs_kernel<<<lane_blocks, kChunk, 0, st>>>(a);
+    deposit_warp_kernel<<<lane_blocks, kChunk, 0, st>>>(a);
     if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
   }
   return 0;

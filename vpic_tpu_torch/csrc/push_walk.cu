@@ -26,21 +26,54 @@
 // plain PyTorch version on the card bit for bit.
 //
 // Deterministic deposit: each contribution is rounded to a fixed-point
-// integer at scale 2^S (chosen by the wrapper so that 5*max|q| * segment
-// cap * slots < 2^62) and added by 64-bit integer atomics into an
-// int64 (nv, 12) scratch.  Integer addition is associative, so the sum does
-// not depend on thread order; acc_unfix converts it back to float32 once.
+// integer at scale 2^S (fixed_scale_kernel, so that 5*max|q| * segment cap
+// * slots < 2^62) and added by 64-bit integer atomics into an int64
+// (nv, 12) scratch.  Integer addition is associative, so the sum does not
+// depend on thread order; acc_unfix converts it back to float32 once and
+// clears the scratch for the next call.
 //
-// What bounds it on the H100: per particle about 36 B of state read and
-// written (x, y, z, vox, ux, uy, uz, q in; the same plus mover state out),
-// 72 B of interpolator gathered from L2 (the whole (nv, 18) table of a
-// 128^2 2D deck is 3.7 MB and stays in the 50 MB L2), and 12 x 8 B of
-// deposit atomics per segment.  On voxel-sorted input neighbouring threads
-// hit the same 12 accumulator words, so the atomics are the expected hot
-// spot; aggregating them within a warp before the atomic is later work.
+// What bounds it on the H100: per slot 32 B read (x, y, z, vox, ux, uy,
+// uz, q) and 44 B written (the same seven, rx, ry, rz, pcode), plus the
+// (nv, 18) interpolator, the (nv, 6) neighbor table and the float32
+// accumulator in and out: about 171 MB at the bench shape (2 125 824 slots,
+// nv = 50 700), 0.051 ms at 3.35 TB/s.  About 120 float operations per
+// push and 110 per segment are far below the card's rate: bytes bound it.
+//
+// The design, against what held the first version back:
+// - Contended atomics.  On voxel-sorted input (about 122 particles per
+//   cell at the bench shape) the 32 lanes of a warp nearly always deposit
+//   into the same 12 words, and the L2 serialises those atomics.  Here each
+//   segment's deposit goes through warp_deposit.cuh: the lanes of a warp
+//   with the same deposit voxel sum their integer words first, and one
+//   atomic per (warp, voxel) group and word adds the sum.  Integer sums do
+//   not depend on grouping, so acc is bit for bit that of one atomic per
+//   lane, whatever the lane order.  On an H100 80GB HBM3 at 700 W this
+//   took the kernel alone from 0.5699 to 0.1620 ms at the bench shape
+//   (kernel_ab.py; PERF.md).
+// - Divergent walk.  About 18 % of the lanes cross a face in a step, so
+//   nearly every warp holds one and pays for a second segment.  A block
+//   queue of the lanes still moving after segment 1, walked densely by the
+//   block's first warps, was tried and measured slower (0.1833 ms: its
+//   13 KB of shared memory and two block barriers cost more than the idle
+//   lanes of the second segment), so the segment loop stays per warp.
+// - Local memory.  The crossing selects its axis in an unrolled loop: a
+//   run-time index into the lane's arrays put them in a 64-byte stack
+//   frame (0.1613 -> 0.1547 ms alone).
+// Tensor cores and TMA do not fit this kernel: it has no matrix product,
+// and its streams are per-thread coalesced loads and stores of
+// structure-of-arrays columns.
+//
+// ptxas (sm_90a, printed by chip_smoke.py): push_walk_kernel 58 registers,
+// 25 344 B of shared memory per 256-thread block (the eight warps'
+// stages), no stack, no spills; about 0.155 ms alone at the bench shape,
+// 0.33 of the bound.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <algorithm>
+
+#include "warp_deposit.cuh"
 
 namespace {
 
@@ -49,6 +82,8 @@ constexpr float kTwoFifteenths = (float)(2.0 / 15.0);
 constexpr float kBig = 3.4e38f;
 constexpr int kNeighborReflect = -1;
 constexpr int kExhausted = 1;
+constexpr int kThreads = 256;
+constexpr unsigned kFull = 0xffffffffu;
 
 }  // namespace
 
@@ -106,19 +141,6 @@ struct Lane {
   bool active;
 };
 
-__device__ __forceinline__ void deposit(long long* acc_fix, int vox,
-                                        const float c[12], double scale) {
-  unsigned long long* a =
-      reinterpret_cast<unsigned long long*>(acc_fix + 12 * (size_t)vox);
-#pragma unroll
-  for (int k = 0; k < 12; ++k) {
-    if (c[k] != 0.0f) {
-      long long v = __double2ll_rn((double)c[k] * scale);
-      atomicAdd(a + k, (unsigned long long)v);
-    }
-  }
-}
-
 // ACCUMULATE_J for the three axis permutations (advance_p.cxx:140-158).
 __device__ __forceinline__ void deposit12(float q, const float sd[3],
                                           const float sm[3], float c[12]) {
@@ -136,9 +158,10 @@ __device__ __forceinline__ void deposit12(float q, const float sd[3],
   }
 }
 
-// One streak segment (walk_segment + resolve_crossing, move_p.c:34-134).
+// One streak segment (walk_segment + resolve_crossing, move_p.c:34-134):
+// its 12 contributions c, deposited at the pre-crossing voxel *dep.
 __device__ __forceinline__ void segment(Lane& L, const int* neighbor,
-                                        long long* acc_fix, double scale) {
+                                        float c[12], int* dep) {
   float sdir[3], frac[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -157,14 +180,14 @@ __device__ __forceinline__ void segment(Lane& L, const int* neighbor,
   }
   v3 = v3 * 0.5f;
 
-  float sd[3], sm[3], c[12];
+  float sd[3], sm[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
     sd[a] = L.r[a] * v3;
     sm[a] = L.p[a] + sd[a];
   }
   deposit12(L.q, sd, sm, c);
-  deposit(acc_fix, L.vox, c, scale);
+  *dep = L.vox;
 
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -176,18 +199,30 @@ __device__ __forceinline__ void segment(Lane& L, const int* neighbor,
     L.active = false;
     return;
   }
-  const float dir_hit = sdir[stype];
+  // the hit axis is selected in an unrolled loop, not indexed: a
+  // run-time index into L.p, L.r or L.u would put the lane in local memory
+  float dir_hit = sdir[0];
+#pragma unroll
+  for (int a = 1; a < 3; ++a)
+    if (stype == a) dir_hit = sdir[a];
   const int face = stype + (dir_hit > 0.0f ? 3 : 0);  // move_p.c:123
   const int nb = neighbor[6 * (size_t)L.vox + face];
-  if (nb >= 0) {  // crossing: the coordinate flips to the opposite face
-    L.p[stype] = -dir_hit;
+  // crossing (nb >= 0): the coordinate flips to the opposite face; a
+  // reflecting face flips displacement and momentum; any other boundary
+  // code stops the lane on the face
+  const bool cross = nb >= 0, reflect = nb == kNeighborReflect;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    if (stype != a) continue;
+    L.p[a] = cross ? -dir_hit : dir_hit;
+    if (reflect) {
+      L.r[a] = -L.r[a];
+      L.u[a] = -L.u[a];
+    }
+  }
+  if (cross) {
     L.vox = nb;
-  } else if (nb == kNeighborReflect) {
-    L.p[stype] = dir_hit;
-    L.r[stype] = -L.r[stype];
-    L.u[stype] = -L.u[stype];
-  } else {  // any other boundary code stops the lane on the face
-    L.p[stype] = dir_hit;
+  } else if (!reflect) {
     L.pcode = nb;
     L.active = false;
   }
@@ -232,46 +267,10 @@ __device__ __forceinline__ void push(Lane& L, const float* ip,
   L.r[2] = (uz * a.cdt_dz) * v0;
 }
 
-__global__ void push_walk_kernel(PushArgs a) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= a.n) return;
+namespace {
 
-  Lane L;
-  L.p[0] = a.x[s];
-  L.p[1] = a.y[s];
-  L.p[2] = a.z[s];
-  L.u[0] = a.ux[s];
-  L.u[1] = a.uy[s];
-  L.u[2] = a.uz[s];
-  L.q = a.q[s];
-  L.vox = a.vox[s];
-  bool live;
-  if (a.walk_only) {
-    live = a.active[s] != 0;
-    L.r[0] = a.rx[s];
-    L.r[1] = a.ry[s];
-    L.r[2] = a.rz[s];
-    L.pcode = a.pcode[s];
-  } else {
-    live = s < *a.np && L.vox >= 0;
-    L.r[0] = L.r[1] = L.r[2] = 0.0f;
-    L.pcode = 0;
-    if (live) push(L, a.interp + 18 * (size_t)L.vox, a);
-  }
-
-  if (live) {
-    const double scale = *a.scale;
-    L.active = true;
-    for (int k = 0; k < a.seg_cap && L.active; ++k)
-      segment(L, a.neighbor, a.acc_fix, scale);
-    if (L.active) {
-      L.pcode = kExhausted;
-      atomicAdd(a.counters, 1);
-    } else if (L.pcode < 0) {
-      atomicAdd(a.counters + 1, 1);
-    }
-  }
-
+__device__ __forceinline__ void write_lane(const PushArgs& a, int s,
+                                           const Lane& L) {
   a.x_out[s] = L.p[0];
   a.y_out[s] = L.p[1];
   a.z_out[s] = L.p[2];
@@ -288,33 +287,144 @@ __global__ void push_walk_kernel(PushArgs a) {
   a.rz_out[s] = keep_rem ? L.r[2] : 0.0f;
 }
 
-__global__ void acc_unfix_kernel(const long long* fix, const double* scale,
+// Counts a walked lane that ends still moving (exhausted) or stopped by a
+// boundary code, one atomic per warp and counter.
+__device__ __forceinline__ void count_pending(Lane& L, bool walked,
+                                             int* counters) {
+  const bool exhausted = walked && L.active;
+  if (exhausted) L.pcode = kExhausted;
+  const unsigned ex = __ballot_sync(kFull, exhausted);
+  const unsigned st = __ballot_sync(kFull, walked && !exhausted &&
+                                               L.pcode < 0);
+  if ((threadIdx.x & 31u) == 0) {
+    if (ex) atomicAdd(counters, __popc(ex));
+    if (st) atomicAdd(counters + 1, __popc(st));
+  }
+}
+
+// One thread per slot: load, push (unless walk_only), then walk segment by
+// segment while any lane of the warp still moves; every lane takes part in
+// each segment's warp deposit.
+__global__ void __launch_bounds__(kThreads)
+push_walk_kernel(PushArgs a) {
+  __shared__ vpic::WarpStage stage[kThreads / 32];
+  const int s = blockIdx.x * kThreads + threadIdx.x;
+  const bool in = s < a.n;
+
+  Lane L;
+  bool live = false;
+  if (in) {
+    L.p[0] = a.x[s];
+    L.p[1] = a.y[s];
+    L.p[2] = a.z[s];
+    L.u[0] = a.ux[s];
+    L.u[1] = a.uy[s];
+    L.u[2] = a.uz[s];
+    L.q = a.q[s];
+    L.vox = a.vox[s];
+    if (a.walk_only) {
+      live = a.active[s] != 0;
+      L.r[0] = a.rx[s];
+      L.r[1] = a.ry[s];
+      L.r[2] = a.rz[s];
+      L.pcode = a.pcode[s];
+    } else {
+      live = s < *a.np && L.vox >= 0;
+      L.r[0] = L.r[1] = L.r[2] = 0.0f;
+      L.pcode = 0;
+      if (live) push(L, a.interp + 18 * (size_t)L.vox, a);
+    }
+  }
+  const double scale = *a.scale;
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(a.acc_fix);
+  L.active = live;
+  for (int k = 0; k < a.seg_cap; ++k) {
+    if (!__any_sync(kFull, L.active)) break;
+    float c[12] = {};
+    int dep = -1;
+    if (L.active) segment(L, a.neighbor, c, &dep);
+    vpic::warp_deposit(acc, dep, c, scale, stage[threadIdx.x / 32]);
+  }
+  count_pending(L, live, a.counters);
+  if (in) write_lane(a, s, L);
+}
+
+// 2^S as a device double, S = floor(62 - log2(5 * max|q| * seg_cap * n))
+// clamped to [-200, 200]: the double operations of the plain version
+// particles/deposit.py:fixed_scale, so S is the same.  Each block reduces
+// max|q| over its strided slots into work[0] (float bits order
+// non-negative floats); the last block to finish (ticket work[1]) writes
+// 2^S and clears work[0..3], the lane counters work[2..3] included, for
+// the push that follows on the stream.
+__global__ void __launch_bounds__(kThreads)
+fixed_scale_kernel(const float* q, int n, double cap_n, unsigned* work,
+                   double* scale) {
+  __shared__ float warp_max[kThreads / 32];
+  float m = 0.0f;
+  for (int i = blockIdx.x * kThreads + threadIdx.x; i < n;
+       i += gridDim.x * kThreads)
+    m = fmaxf(m, fabsf(q[i]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(kFull, m, off));
+  if ((threadIdx.x & 31u) == 0) warp_max[threadIdx.x / 32] = m;
+  __syncthreads();
+  if (threadIdx.x != 0) return;
+  for (int w = 1; w < kThreads / 32; ++w) m = fmaxf(m, warp_max[w]);
+  atomicMax(work, __float_as_uint(m));
+  __threadfence();
+  if (atomicAdd(work + 1, 1u) != gridDim.x - 1) return;
+  const float qmax = __uint_as_float(atomicExch(work, 0u));
+  work[1] = work[2] = work[3] = 0u;
+  const double s = floor(62.0 - log2(5.0 * (double)qmax * cap_n));
+  *scale = exp2(fmin(fmax(s, -200.0), 200.0));
+}
+
+// acc_out = acc_in + fix / scale; each fix word is cleared once read.
+__global__ void acc_unfix_kernel(long long* fix, const double* scale,
                                  const float* acc_in, float* acc_out, int n) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   acc_out[i] = acc_in[i] + __double2float_rn(__ll2double_rn(fix[i]) / *scale);
+  fix[i] = 0;
 }
+
+}  // namespace
 
 extern "C" {
 
 int vpic_push_args_size() { return (int)sizeof(PushArgs); }
 
-// Launches the push (or walk_only) kernel on `stream`; returns the
-// cudaError_t of the launch.
-int vpic_push_walk(const PushArgs* args, void* stream) {
-  const int threads = 256;
-  const int blocks = (args->n + threads - 1) / threads;
-  push_walk_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(*args);
+// Writes 2^S for the push of n slots of charge q with seg_cap segments
+// each to *scale and clears the lane counters work[2..3]; work[0..3] must
+// be zero at the call, and are again after it.  Returns the cudaError_t of
+// the launch.
+int vpic_fixed_scale(const float* q, int n, int seg_cap, unsigned* work,
+                     double* scale, void* stream) {
+  const int blocks =
+      std::max(std::min((n + kThreads - 1) / kThreads, 1024), 1);
+  cudaStream_t st = (cudaStream_t)stream;
+  fixed_scale_kernel<<<blocks, kThreads, 0, st>>>(
+      q, n, (double)seg_cap * (double)n, work, scale);
   return (int)cudaGetLastError();
 }
 
-// acc_out = acc_in + fix / scale, elementwise over n words.
-int vpic_acc_unfix(const long long* fix, const double* scale,
-                   const float* acc_in, float* acc_out, int n, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  acc_unfix_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      fix, scale, acc_in, acc_out, n);
+// Launches the push (or walk_only) kernel on `stream`; returns the
+// cudaError_t of the launch.
+int vpic_push_walk(const PushArgs* args, void* stream) {
+  const int blocks = (args->n + kThreads - 1) / kThreads;
+  push_walk_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(*args);
+  return (int)cudaGetLastError();
+}
+
+// acc_out = acc_in + fix / scale, elementwise over n words, leaving fix
+// zero.
+int vpic_acc_unfix(long long* fix, const double* scale, const float* acc_in,
+                   float* acc_out, int n, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  cudaStream_t st = (cudaStream_t)stream;
+  acc_unfix_kernel<<<blocks, kThreads, 0, st>>>(fix, scale, acc_in, acc_out,
+                                                 n);
   return (int)cudaGetLastError();
 }
 

@@ -59,13 +59,14 @@ _KIND_OF = {
 
 class Simulation:
     """Top-level simulation object (vpic_simulation analogue) on one
-    device.  ``device="cuda"`` raises when no GPU is available."""
+    device: the card unless ``device="cpu"`` is asked for.  A CUDA device
+    raises when no GPU is available."""
 
-    def __init__(self, seed: int = 0, device="cpu"):
+    def __init__(self, seed: int = 0, device="cuda"):
         device = torch.device(device)
         if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("Simulation(device='cuda'): no CUDA device "
-                               "is available")
+            raise RuntimeError(f"Simulation(device={str(device)!r}): no "
+                               "CUDA device is available")
         self.device = device
         self.seed = seed
         self.cvac = 1.0

@@ -5,7 +5,8 @@ ions and a force-free current-sheet field, on one device.
 Same arguments and the same numpy random stream (``seed + 1``) as
 ``_build``, so both packages load bit-identical particles.  The bench
 configuration is ``build(nx=128, ny=128, nz=1, npart=2_000_000)``: 128^2
-cells, 2M particles per species, re-sort every 2 steps, ions every 8.
+cells, 2M particles per species, re-sort every 2 steps, ions every 8, on
+the card (``device="cpu"`` for the CPU).
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import numpy as np
 from ..deck.api import Simulation
 
 
-def build(nx, ny, nz, npart, px=1, py=1, pz=1, seed=0, device="cpu",
+def build(nx, ny, nz, npart, px=1, py=1, pz=1, seed=0, device="cuda",
           resort_interval=2, ion_sort_mult=4, n_walk=None) -> Simulation:
     sim = Simulation(seed=seed, device=device)
     sim.opts = dataclasses.replace(sim.opts, resort_interval=resort_interval)

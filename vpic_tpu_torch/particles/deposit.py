@@ -5,6 +5,12 @@
   lanes into the ``(nv, 12)`` accumulator at their voxels.
 - :func:`deposit_dense_sorted` is the same into a zero accumulator from an
   ``(n, 12)`` contribution array.
+- :func:`fixed_scale`, :func:`deposit_fixed` and :func:`unfix` are the
+  int64 fixed-point deposit of the push kernel (``csrc/push_walk.cu``):
+  each contribution rounded to an integer at scale 2^S, the integers
+  summed, the sum converted back once.  They are the kernel's plain twin,
+  equal to it bit for bit on the card whatever the lane order; the tests
+  and ``chip_smoke.py`` use them, the step does not.
 
 This is the plain version of the hand-written CUDA kernel
 (``deposit_cuda.py``, ``csrc/deposit_sorted.cu``).  The JAX package's
@@ -36,3 +42,36 @@ def deposit_dense_sorted(vox, contrib, nv: int):
     valid = torch.ones(vox.shape, dtype=torch.bool, device=vox.device)
     acc, _ = deposit_sorted_into(acc, vox, contrib.unbind(1), valid, nv)
     return acc
+
+
+def fixed_scale(q, seg_cap: int, n: int):
+    """2^S as a float64 scalar on ``q``'s device, S = floor(62 -
+    log2(5 * max|q| * seg_cap * n)) clamped to [-200, 200]: every
+    contribution is below 5 max|q| in magnitude, so every voxel's
+    fixed-point sum over n lanes and seg_cap segments stays within
+    2^62 (strictly below unless that bound is a power of two) and fits an
+    int64.  The plain version of ``push_walk.cu``'s ``fixed_scale_kernel``,
+    which repeats these double operations."""
+    bound = 5.0 * q.abs().max().to(torch.float64) * float(seg_cap * n)
+    s = torch.floor(62.0 - torch.log2(bound)).clamp(-200.0, 200.0)
+    return torch.exp2(s)
+
+
+def deposit_fixed(scale):
+    """A deposit function of :func:`deposit_sorted_into`'s signature that
+    adds the valid lanes' contributions, each rounded half to even to an
+    integer at ``scale`` (as ``__double2ll_rn``), into an int64 ``(nv, 12)``
+    accumulator.  Integer sums do not depend on order."""
+    def fn(fix, vox, contrib_cols, valid, nv: int):
+        words = torch.stack([torch.round(c.to(torch.float64) * scale)
+                             .to(torch.int64) for c in contrib_cols], dim=-1)
+        words = torch.where(valid[:, None], words, 0)
+        idx = torch.where(valid, vox, 0).long()
+        dropped = torch.zeros((), dtype=torch.int32, device=fix.device)
+        return fix.index_add(0, idx, words), dropped
+    return fn
+
+
+def unfix(acc, fix, scale):
+    """acc + fix / scale in float32, as ``push_walk.cu``'s ``acc_unfix``."""
+    return acc + (fix.to(torch.float64) / scale).to(torch.float32)

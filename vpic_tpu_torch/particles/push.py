@@ -26,6 +26,7 @@ still moving at the cap is counted into ``nm`` (advance.cxx:98-103).
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
 import numpy as np
@@ -44,6 +45,12 @@ BIG = float(np.float32(3.4e38))
 PC_DONE = 0          # settled in a voxel
 PC_EXHAUSTED = 1     # still moving at the segment cap
 # negative: the neighbor-table boundary code that stopped the walk
+
+
+def segment_cap(n_walk: int) -> int:
+    """Segments a lane may walk in one push: segment 1, then
+    :func:`streak_walk`'s ``4*n_iter + 8`` with ``n_iter = n_walk - 1``."""
+    return 1 + 4 * (n_walk - 1) + 8
 
 
 def push_params(sp: SpeciesState, g: Grid):
@@ -218,9 +225,11 @@ def resolve_crossing(st: WalkState, pos, rem, u, pos_new, rem_new,
         active=st.active & ~(done | stopped))
 
 
-def streak_walk(st: WalkState, acc, neighbor, g: Grid, n_iter: int):
+def streak_walk(st: WalkState, acc, neighbor, g: Grid, n_iter: int,
+                deposit_fn=deposit.deposit_sorted_into):
     """Walk the active lanes for up to ``4*n_iter + 8`` segments, each
-    depositing into ``acc``; lanes still active after that get
+    depositing into ``acc`` through ``deposit_fn`` (as in
+    :func:`advance_p_steps`); lanes still active after that get
     PC_EXHAUSTED.  Returns (state with every lane inactive, acc).  Only
     the lanes active at entry are gathered and walked."""
     idx = torch.nonzero(st.active).squeeze(1)
@@ -230,8 +239,7 @@ def streak_walk(st: WalkState, acc, neighbor, g: Grid, n_iter: int):
             break
         was_active = sub.active
         sub, dep_vox, contrib = walk_segment(sub, neighbor, g)
-        acc, _ = deposit.deposit_sorted_into(acc, dep_vox, contrib,
-                                             was_active, g.nv)
+        acc, _ = deposit_fn(acc, dep_vox, contrib, was_active, g.nv)
     sub = sub._replace(
         pcode=torch.where(sub.active, PC_EXHAUSTED, sub.pcode),
         active=torch.zeros_like(sub.active))
@@ -295,6 +303,30 @@ def advance_p_steps(sp: SpeciesState, interp, acc, neighbor, g: Grid,
         mdx=torch.where(pend, st.rx, 0.0), mdy=torch.where(pend, st.ry, 0.0),
         mdz=torch.where(pend, st.rz, 0.0), pc=st.pcode, nm=nm)
     return sp, acc
+
+
+def advance_p_fixed(sp: SpeciesState, interp, acc, neighbor, g: Grid,
+                    n_walk: int = 4):
+    """:func:`advance_p` with the push kernel's fixed-point deposit
+    (``deposit.deposit_fixed`` at the kernel's scale from ``sp.q``): the
+    plain twin of ``push_cuda.advance_p``, whose accumulator it equals bit
+    for bit on the card.  For the tests and ``chip_smoke.py``."""
+    scale = deposit.fixed_scale(sp.q, segment_cap(n_walk), sp.max_np)
+    dep = deposit.deposit_fixed(scale)
+    fix = torch.zeros((g.nv, 12), dtype=torch.int64, device=acc.device)
+    sp, fix = advance_p_steps(sp, interp, fix, neighbor, g, n_walk, dep,
+                              functools.partial(streak_walk, deposit_fn=dep))
+    return sp, deposit.unfix(acc, fix, scale)
+
+
+def streak_walk_fixed(st: WalkState, acc, neighbor, g: Grid, n_iter: int):
+    """:func:`streak_walk` with the kernel's fixed-point deposit: the plain
+    twin of ``push_cuda.streak_walk`` (the walk_only entry)."""
+    scale = deposit.fixed_scale(st.q, 4 * n_iter + 8, st.x.shape[0])
+    fix = torch.zeros((g.nv, 12), dtype=torch.int64, device=acc.device)
+    st, fix = streak_walk(st, fix, neighbor, g, n_iter,
+                          deposit_fn=deposit.deposit_fixed(scale))
+    return st, deposit.unfix(acc, fix, scale)
 
 
 def _center(sp, interp, kick, rot, kick_first):

@@ -10,11 +10,18 @@ other fallback.
 Every ``csrc/*.cu`` is built at first use with ``nvcc`` (one compiler
 process per source, started together, then one link) into one shared
 library with a plain C interface under ``vpic_tpu_torch/_build``, loaded
-with ctypes and rebuilt when a source's hash changes.  Nothing is built
+with ctypes and rebuilt when the hash of a source or of a header
+(``csrc/*.cuh``) changes.  Nothing is built
 when this module is imported.
 
 ``launches`` counts the kernel launches of each entry: a run can show that
 its main path went through the kernel.
+
+A call launches three kernels: the scale kernel (2^S of the fixed-point
+deposit, from max|q|), the push+walk kernel, and ``acc_unfix`` (acc + the
+fixed-point sums, which it clears).  Their scratch (the int64 accumulator,
+the scale and the lane counters) is allocated once per (device, nv,
+stream) and left zero by each call, so a call allocates only its outputs.
 """
 
 from __future__ import annotations
@@ -30,7 +37,7 @@ import torch
 
 from ..core.types import Grid, PackedSpecies, SpeciesState
 from . import push as plain
-from .push import WalkState, push_params
+from .push import WalkState, push_params, segment_cap
 
 PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -74,7 +81,7 @@ def _nvcc() -> str:
 def library_path() -> Path:
     """Where the kernels' shared library for the current sources lives."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS + NVCC_LINK_FLAGS).encode())
-    for src in sorted(CSRC_DIR.glob("*.cu")):
+    for src in sorted(CSRC_DIR.glob("*.cu*")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libvpic_kernels_{h.hexdigest()[:16]}.so"
@@ -131,6 +138,10 @@ def build() -> ctypes.CDLL:
     lib.vpic_acc_unfix.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int,
                                                            ctypes.c_void_p]
     lib.vpic_acc_unfix.restype = ctypes.c_int
+    lib.vpic_fixed_scale.argtypes = [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_void_p,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    lib.vpic_fixed_scale.restype = ctypes.c_int
     if lib.vpic_push_args_size() != ctypes.sizeof(_PushArgs):
         raise RuntimeError("PushArgs layout differs between push_walk.cu "
                            "and push_cuda.py")
@@ -157,13 +168,22 @@ def cuda_device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _fixed_scale(q, seg_cap: int, n: int):
-    """2^S as a float64 device scalar, with 5*max|q| * seg_cap * n < 2^62:
-    every voxel's fixed-point sum fits an int64.  Computed on the device
-    so the push never waits for the host."""
-    bound = 5.0 * q.abs().max().to(torch.float64) * float(seg_cap * n)
-    s = torch.floor(62.0 - torch.log2(bound)).clamp(-200.0, 200.0)
-    return torch.exp2(s)
+_scratch: dict = {}
+
+
+def _scratch_for(device, nv: int, stream: int):
+    """(fix, work, scale) of the calls on ``stream``: the (nv, 12) int64
+    fixed-point accumulator, the scale kernel's four int32 work words (its
+    max|q| and block ticket, then the [exhausted, stopped] lane counters)
+    and 2^S.  Zero between calls: the scale kernel and ``acc_unfix`` clear
+    what the call used."""
+    key = (device, nv, stream)
+    if key not in _scratch:
+        _scratch[key] = (
+            torch.zeros((nv, 12), dtype=torch.int64, device=device),
+            torch.zeros((4,), dtype=torch.int32, device=device),
+            torch.zeros((), dtype=torch.float64, device=device))
+    return _scratch[key]
 
 
 _OUTPUTS = ("x_out", "y_out", "z_out", "vox_out", "ux_out", "uy_out",
@@ -173,16 +193,14 @@ _OUTPUTS = ("x_out", "y_out", "z_out", "vox_out", "ux_out", "uy_out",
 def _run(inputs: dict, n: int, walk_only: int, seg_cap: int, params,
          g: Grid, acc, neighbor, device, out=None):
     """Check the grid-shaped arguments, allocate the outputs not given in
-    ``out`` and the scratch, launch the walk kernel on the current stream
-    and then acc + fix/scale.  Returns (outputs, new acc, [exhausted,
-    stopped] lane counters)."""
+    ``out``, and launch the scale kernel, the walk kernel and acc +
+    fix/scale on the current stream.  Returns (outputs, new acc,
+    [exhausted, stopped] lane counters); the counters are scratch that the
+    next call on the stream overwrites."""
     check_tensor("acc", acc, torch.float32, (g.nv, 12), device)
     check_tensor("neighbor", neighbor, torch.int32, (g.nv, 6), device)
     if n >= 2 ** 31 or 12 * g.nv >= 2 ** 31:
         raise ValueError("the kernel indexes with 32-bit slot counts")
-    fix = torch.zeros((g.nv, 12), dtype=torch.int64, device=device)
-    counters = torch.zeros((2,), dtype=torch.int32, device=device)
-    scale = _fixed_scale(inputs["q"], seg_cap, n)
     out = dict(out or {})
     for k in _OUTPUTS:
         dtype = (torch.int32 if k in ("vox_out", "pcode_out")
@@ -191,24 +209,33 @@ def _run(inputs: dict, n: int, walk_only: int, seg_cap: int, params,
             check_tensor(k, out[k], dtype, (n,), device)
         else:
             out[k] = torch.empty((n,), device=device, dtype=dtype)
+    lib = build()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, g.nv, stream)
+    fix, work, scale = _scratch_for(*key)
+    counters = work[2:]
     ptr = dict.fromkeys(_POINTERS, 0)
     ptr.update(inputs, neighbor=neighbor, scale=scale, acc_fix=fix,
                counters=counters, **out)
     args = _PushArgs(*(p if isinstance(p, int) else p.data_ptr()
                        for p in (ptr[k] for k in _POINTERS)),
                      n, walk_only, seg_cap, *params)
-
-    lib = build()
-    stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.vpic_push_walk(ctypes.byref(args), stream)
-    if err != 0:
-        raise RuntimeError(f"push_walk kernel launch failed: cudaError {err}")
     acc_out = torch.empty_like(acc)
-    err = lib.vpic_acc_unfix(fix.data_ptr(), scale.data_ptr(),
-                             acc.data_ptr(), acc_out.data_ptr(),
-                             acc.numel(), stream)
-    if err != 0:
-        raise RuntimeError(f"acc_unfix kernel launch failed: cudaError {err}")
+
+    def check(err, name):
+        if err != 0:
+            # a launch that did not run leaves the scratch not zero
+            del _scratch[key]
+            raise RuntimeError(f"{name} kernel launch failed: cudaError "
+                               f"{err}")
+
+    check(lib.vpic_fixed_scale(inputs["q"].data_ptr(), n, seg_cap,
+                               work.data_ptr(), scale.data_ptr(), stream),
+          "fixed_scale")
+    check(lib.vpic_push_walk(ctypes.byref(args), stream), "push_walk")
+    check(lib.vpic_acc_unfix(fix.data_ptr(), scale.data_ptr(),
+                             acc.data_ptr(), acc_out.data_ptr(), acc.numel(),
+                             stream), "acc_unfix")
     return out, acc_out, counters
 
 
@@ -218,8 +245,8 @@ def _push(inputs: dict, n: int, sp, g: Grid, acc, neighbor, n_walk, device,
     check_tensor("interp", inputs["interp"], torch.float32, (g.nv, 18),
                  device)
     check_tensor("np", inputs["np"], torch.int32, (), device)
-    res = _run(inputs, n, 0, 1 + 4 * (n_walk - 1) + 8, push_params(sp, g),
-               g, acc, neighbor, device, out)
+    res = _run(inputs, n, 0, segment_cap(n_walk), push_params(sp, g), g,
+               acc, neighbor, device, out)
     launches["push"] += 1
     return res
 
@@ -229,13 +256,14 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
     """Kernel version of :func:`push.advance_p`: the same results.
     ``fused``: the push+walk kernel, which agrees with the plain version
     exactly on voxels, ``pc`` and the particle floats, and on ``acc`` to
-    float32 roundoff.  Unfused: the plain push math and segment 1 over
-    every slot, segment 1's currents through the deposit kernel
-    (``deposit_cuda``), then the lanes still moving through the walk_only
-    entry (:func:`streak_walk`).  The JAX package takes its deposit kernel
-    only under ``sorted_deposit``; this one is exact for lanes in any
-    order, so the unfused path always takes it, and ``sorted_deposit``
-    only sets the sort cadence (``engine/step.py``)."""
+    float32 roundoff (bit for bit with the fixed-point twin
+    :func:`push.advance_p_fixed`).  Unfused: the plain push math and
+    segment 1 over every slot, segment 1's currents through the deposit
+    kernel (``deposit_cuda``), then the lanes still moving through the
+    walk_only entry (:func:`streak_walk`).  The JAX package takes its
+    deposit kernel only under ``sorted_deposit``; this one is exact for
+    lanes in any order, so the unfused path always takes it, and
+    ``sorted_deposit`` only sets the sort cadence (``engine/step.py``)."""
     if sp.dx.device.type == "cpu":
         return plain.advance_p(sp, interp, acc, neighbor, g, n_walk=n_walk)
     device = cuda_device(sp.dx)
