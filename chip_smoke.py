@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke test of vpic_tpu_torch on one NVIDIA GPU: the port's three push
-paths on the bench deck at full size, through its three hand-written CUDA
-kernels (push+walk, sorted deposit, merge re-sort assembly).
+paths on the bench deck at full size, through its hand-written CUDA
+kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
+and assembly).
 
     python3 chip_smoke.py
 
@@ -42,13 +43,17 @@ no result line):
               two runs bitwise equal; the wrapper and its kernels alone
               timed against the plain version, one index_add_ and the
               bound;
-7. merge    - the merge re-sort's assembly kernel against its plain
-              version: the seven kernel cases of tests/test_sort_pallas.py
-              and the bench shape (2 125 824 lanes, 5% movers, 50 700
-              keys), every output row bitwise equal, key0/ctot equal, no
-              anomaly, the fast path where expected; the wrapper and the
-              kernel alone timed against the plain version, the bound and
-              a full sort_p_packed;
+7. merge    - the merge re-sort's kernels against the plain passes of
+              particles/sort.py: the seven kernel cases of
+              tests/test_sort_pallas.py and the bench shape (2 125 824
+              lanes, 5% movers, 50 700 keys), the mark kernel's outputs,
+              the tables and every output row bitwise equal, key0/ctot
+              equal, no anomaly, the fast path where expected, two runs
+              bitwise equal; the wrappers and the kernels alone timed
+              against the plain passes and the bounds, the assembly
+              against one index_copy_ of the same permutation, the whole
+              re-sort (device ops and host reads per call, and those of
+              a re-sort that falls back) against a full sort_p_packed;
 8. path A   - the unfused push (fused_push=False): a 16^2 deck against
               the CPU plain path, then a fresh 128^2 deck for 8 warm-up
               and three timed windows of 16 steps: finite energies,
@@ -65,8 +70,9 @@ no result line):
               steps, ions every 8; slow expected: their movers exceed the
               reference's mover buffer) and every species sorted every
               step (bench_deck's resort_interval=1, ion_sort_mult=1), where
-              the ions' movers fit their buffer and the merge kernel runs
-              at full size; a trace of each.
+              the ions' movers fit their buffer and the merge kernels run
+              at full size; a trace of each, with the every-step deck's
+              step.sort busy ms and device ops per step.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -79,6 +85,7 @@ it, and the one PyTorch call that computes the same function
 {"ok": true, "device": {...}}.  Without a CUDA device the script exits 2.
 """
 
+import collections
 import json
 import os
 import subprocess
@@ -471,12 +478,27 @@ def deposit_bound(n, lanes, nv):
     return bound(n * (12 * 4 + 4 + 1) + 2 * nv * 12 * 4, 12 * lanes)
 
 
-def merge_bound(n, n_m, nvk):
-    """sort_cuda.assemble on an (8, n) block with n_m movers: rows, key,
-    mover flag and residual rank read and rows written per lane; the
-    movers' sorted rows and keys; the two (nvk + 3) count tables."""
-    nbytes = n * (32 + 4 + 1 + 4 + 32) + n_m * (32 + 4) + 2 * (nvk + 3) * 4
-    return bound(nbytes, 0)
+def mark_bound(n, n_m, m_cap, tiles):
+    """sort_cuda.mark on an (8, n) block with n_m movers: row 7 and key0
+    read per lane; the first m_cap movers' lane, key and old key and each
+    tile's residual prefix written."""
+    return bound(n * 8 + min(n_m, m_cap) * 12 + tiles * 4, 0)
+
+
+def tables_bound(n_m, nvk):
+    """The tables kernel (launched by sort_cuda.assemble): the movers'
+    sorted new and old keys and ctot read, the three (nvk + 3) tables
+    written."""
+    return bound(n_m * 8 + 4 * (nvk + 3) * 4, 0)
+
+
+def merge_bound(n, n_m, nvk, tiles):
+    """The assembly kernel on an (8, n) block with n_m movers: the 8 rows
+    and key0 read and written per lane; per mover its sorted key, its
+    mark slot (int64) and its lane; the two (nvk + 3) count tables and the
+    tiles' residual prefixes and first keys."""
+    return bound(n * (36 + 36) + n_m * (4 + 8 + 4) + 2 * (nvk + 3) * 4
+                 + tiles * 8, 0)
 
 
 def phase_kernel_slice(sim):
@@ -598,7 +620,7 @@ def phase_slice(sim):
             f"energy drift {drift:.3e}")
     launches = dict(push_walk=push_cuda.launches["push"],
                     deposit_sorted=deposit_cuda.launches["deposit_sorted"],
-                    merge_assemble=sort_cuda.launches["merge_assemble"])
+                    **sort_cuda.launches)
     if launches["push_walk"] != WINDOWS * STEPS * nsp:
         raise AssertionError(f"kernel launches {launches} != steps x "
                              f"species = {WINDOWS * STEPS * nsp}")
@@ -645,8 +667,8 @@ def phase_trace(sim, step_s, label="main path"):
     intervals), the device operations, the busy device time of each step
     part and of the busiest kernels; the idle share under the profiler,
     and, given the unprofiled step time ``step_s``, the one derived from
-    the busy time.  Returns (busy device ms, device ops) per step."""
-    import collections
+    the busy time.  Returns per step the busy device ms (``busy_ms``), the
+    device ops (``ops``) and, for each step part, both (``parts``)."""
     from vpic_tpu_torch.engine.step import PHASES
     if sim.step_count % (sim.opts.resort_interval * 4):
         raise AssertionError("traced window must start on a super-cycle")
@@ -674,16 +696,21 @@ def phase_trace(sim, step_s, label="main path"):
         log(f"  derived idle share without the profiler: 1 - busy / step = "
             f"1 - {per(busy):.4f} / {step_s * 1e3:.4f} = "
             f"{1 - per(busy) / (step_s * 1e3):.4f}")
-    log("  busy device ms/step by step part: " + ", ".join(
-        f"{k} {per(part_busy[k]):.4f}" for k in PHASES)
-        + f", outside the parts {per(part_busy[None]):.4f}")
+    part_ops = collections.Counter(parts)
+    log("  busy device ms/step (device ops/step) by step part: " + ", ".join(
+        f"{k} {per(part_busy[k]):.4f} ({part_ops[k] / TRACE_STEPS:.1f})"
+        for k in PHASES) + f", outside the parts {per(part_busy[None]):.4f} "
+        f"({part_ops[None] / TRACE_STEPS:.1f})")
     log("  busiest kernels, device ms/step: " + "; ".join(
         f"{name[:60]} {per(us):.4f}"
         for name, us in by_kernel.most_common(6)))
     if not all(part_busy[k] > 0 for k in PHASES):
         raise AssertionError(f"the trace attributes no device time to a "
                              f"step part: {part_busy}")
-    return per(busy), len(dev) / TRACE_STEPS
+    return dict(busy_ms=per(busy), ops=len(dev) / TRACE_STEPS,
+                parts={k: dict(busy_ms=per(part_busy[k]),
+                               ops=part_ops[k] / TRACE_STEPS)
+                       for k in PHASES})
 
 
 def check_deposit(label, acc0, vox, cols, valid, nv):
@@ -816,24 +843,74 @@ def _bitwise_equal(a, b):
                                               b.view(torch.int32))
 
 
-def check_merge(label, pk, np_, key0, ctot, nvk, m_cap, expect_fast):
-    """The merge re-sort with the kernel's assembly against the plain one
-    on one block: every row bitwise equal, key0/ctot equal, no anomaly,
-    the fast path as expected, the live keys sorted and each row's values
-    kept.  Returns the kernel's (pk, key0, ctot) and the max abs difference
-    of its rows from the plain ones."""
+def check_merge_kernels(label, pk, np_, key0, ctot, nvk, m_cap):
+    """Each merge kernel against its plain version on one block: the mark
+    pass (tile prefixes, counts, the first min(n_m, m_cap) mover slots)
+    and, where the merge runs, the tables (bitwise) and the assembly on the
+    plain passes' marks and plan (every row, key0, no anomaly).  Returns
+    the plain (fast, n_m) and the mark kernel's max abs difference from
+    the plain pass."""
     import torch
     from vpic_tpu_torch.particles import sort, sort_cuda
+    km = sort_cuda.mark(pk, np_, key0, ctot, nvk, m_cap)
+    pm = sort.mark(pk, np_, key0, ctot, nvk, m_cap)
+    fast, n_m = sort.fast_path(pm.info, m_cap)
+    k = min(n_m, m_cap)
+    mark_err = 0
+    for name in pm._fields:
+        a, b = getattr(km, name), getattr(pm, name)
+        if name.startswith("mov_"):
+            a, b = a[:k], b[:k]
+        if a.numel():
+            mark_err = max(mark_err, int((a.long() - b.long()).abs().max()))
+        if not torch.equal(a, b):
+            raise AssertionError(f"{label}: mark kernel's {name} differs "
+                                 f"from the plain pass in "
+                                 f"{int((a != b).sum())} entries")
+    if fast:
+        plan = sort.merge_plan(pm, n_m)
+        ko = sort_cuda.assemble(pk, np_, key0, ctot, pm, plan, nvk)
+        po = sort.assemble(pk, np_, key0, ctot, pm, plan, nvk)
+        if not _bitwise_equal(ko.pk, po.pk):
+            bad = int((ko.pk.view(torch.int32) != po.pk.view(torch.int32))
+                      .any(0).sum())
+            raise AssertionError(f"{label}: {bad} lanes of the assembly "
+                                 "kernel differ from the plain assembly")
+        for name in ("key0", "cum_res", "cum_mov", "cum_tot"):
+            if not torch.equal(getattr(ko, name), getattr(po, name)):
+                raise AssertionError(f"{label}: the kernels' {name} differs")
+        if int(ko.anomaly) or int(po.anomaly):
+            raise AssertionError(f"{label}: assembly anomaly "
+                                 f"{int(ko.anomaly)}/{int(po.anomaly)}")
+    return fast, n_m, mark_err
+
+
+def check_merge(label, pk, np_, key0, ctot, nvk, m_cap, expect_fast):
+    """Each merge kernel against its plain version (check_merge_kernels),
+    then the merge re-sort with the kernels against the plain one on one
+    block: every row bitwise equal, key0/ctot equal, no anomaly, the fast
+    path as expected, the live keys sorted, each row's values kept, and a
+    second run bitwise equal.  Returns the kernel's (pk, key0, ctot), the
+    max abs difference of its rows from the plain ones and that of the
+    mark kernel from the plain pass."""
+    import torch
+    from vpic_tpu_torch.particles import sort, sort_cuda
+    fast, _, mark_err = check_merge_kernels(label, pk, np_, key0, ctot, nvk,
+                                            m_cap)
     k = sort_cuda.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
+    k2 = sort_cuda.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
     p = sort.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
-    if k.fast != expect_fast or p.fast != expect_fast:
+    if not k.fast == p.fast == fast == expect_fast:
         raise AssertionError(f"{label}: fast path {k.fast}/{p.fast}, "
                              f"expected {expect_fast}")
+    if not (_bitwise_equal(k[0], k2[0]) and all(
+            torch.equal(k[i], k2[i]) for i in (1, 2, 3))):
+        raise AssertionError(f"{label}: two merge re-sorts differ")
     if not _bitwise_equal(k[0], p[0]):
         bad = int((k[0].view(torch.int32) != p[0].view(torch.int32))
                   .any(0).sum())
         raise AssertionError(f"{label}: {bad} lanes differ from the plain "
-                             "assembly")
+                             "merge re-sort")
     if not (torch.equal(k[1], p[1]) and torch.equal(k[2], p[2])):
         raise AssertionError(f"{label}: key0/ctot differ")
     if int(k[3]) or int(p[3]):
@@ -849,13 +926,13 @@ def check_merge(label, pk, np_, key0, ctot, nvk, m_cap, expect_fast):
                            torch.sort(pk[r, :n_live]).values):
             raise AssertionError(f"{label}: row {r} lost values")
     err = float((k[0].to(torch.float64) - p[0].to(torch.float64)).abs().max())
-    return k[0], k[1], k[2], err
+    return k[0], k[1], k[2], err, mark_err
 
 
 def run_merge_case(name, device):
     """check_merge on every round of one of MERGE_CASES, each round's
     input perturbed from the last one's output; returns the max abs
-    error."""
+    errors of the merge re-sort's rows and of the mark pass."""
     import numpy as np
     import torch
     t = lambda a: torch.as_tensor(a, device=device)
@@ -870,62 +947,171 @@ def run_merge_case(name, device):
     for r, fast in enumerate(MERGE_EXPECT_FAST[name]):
         pk_in = pk if perturb is None else t(_perturb(
             rng, pk.cpu().numpy(), np_, nvk, **perturb))
-        pk, key0, ctot, err = check_merge(f"{name} round {r}", pk_in, npt,
-                                          key0, ctot, nvk, MERGE_M_CAP, fast)
+        pk, key0, ctot, *err = check_merge(f"{name} round {r}", pk_in, npt,
+                                           key0, ctot, nvk, MERGE_M_CAP, fast)
         errs.append(err)
-    log(f"  {name}: merge ok ({rounds} round(s), n={n}, np={np_}, "
-        f"nvk={nvk}, fast {MERGE_EXPECT_FAST[name]})")
-    return max(errs)
+    log(f"  {name}: merge kernels ok ({rounds} round(s), n={n}, np={np_}, "
+        f"nvk={nvk}, fast {MERGE_EXPECT_FAST[name]}; each kernel bitwise "
+        "its plain pass's, two runs bitwise equal)")
+    return tuple(max(e) for e in zip(*errs))
 
 
-def phase_merge(g, device, n=2_125_824):
-    """Returns the max abs error over the cases and the timing dict of the
-    assembly at the bench shape (no single PyTorch call computes it)."""
+def bench_merge_block(g, device, n=2_125_824):
+    """The bench shape of the merge re-sort (n = one 128^2 species'
+    slots), 98 % live, 5 % movers by +-1 and +-(nx+2) voxels
+    (tools/sort_bench.py), the port's key space: (pk, np, key0, ctot,
+    nvk, m_cap)."""
     import numpy as np
     import torch
-    from vpic_tpu_torch.core.types import PackedSpecies
-    from vpic_tpu_torch.particles import aux, sort, sort_cuda
+    from vpic_tpu_torch.particles import sort
     t = lambda a: torch.as_tensor(a, device=device)
-    errs = [run_merge_case(name, device) for name in MERGE_CASES]
-
-    # the bench shape (n = one 128^2 species' slots), 98% live, 5% movers by
-    # +-1 and +-(nx+2) voxels (tools/sort_bench.py), the port's key space
     nvk = g.nv
     np_ = int(n * 0.98)
     rng = np.random.default_rng(0)
     pk, key0, ctot = _mk_sorted(rng, n, np_, nvk)
     pk = _perturb(rng, pk, np_, nvk, frac=0.05, far_frac=0.0,
                   strides=(-g.nxg, -1, 1, g.nxg))
-    pk, key0, ctot = t(pk), t(key0), t(ctot)
-    npt = torch.tensor(np_, dtype=torch.int32, device=device)
-    m_cap = sort.mover_capacity(n, 2)
-    errs.append(check_merge("bench shape", pk, npt, key0, ctot, nvk, m_cap,
-                            True)[3])
-    plan = sort.merge_plan(pk, *sort.mover_mask(pk, npt, key0, nvk), key0,
-                           ctot, nvk, m_cap)
-    log(f"  bench shape: merge ok (n={n}, np={np_}, nvk={nvk}, movers "
-        f"{int(plan.n_m)}, m_cap {m_cap})")
+    return (t(pk), torch.tensor(np_, dtype=torch.int32, device=device),
+            t(key0), t(ctot), nvk, sort.mover_capacity(n, 2))
+
+
+def call_profile(fn, merge_kernels=0, reps=10):
+    """Under torch.profiler, ``reps`` calls of fn(), each launching
+    ``merge_kernels`` kernels named ``merge_*`` (traced again until they
+    are all there and at most one runtime call lacks its device event):
+    per call the device time of those kernels (``kernel_ms``), the device
+    busy time (``busy_ms``, the union of all device ops), the device ops,
+    the host reads (device to host copies) and the device ops by name."""
+    fn()
+    merge = lambda dev: [e for e in dev if "merge_" in e.name]
+    _, _, dev, _ = profiled(
+        lambda: [fn() for _ in range(reps)],
+        lambda dev, lost: (len(merge(dev)) == merge_kernels * reps
+                           and len(lost) <= 1))
+    names = collections.Counter(e.name[:48] for e in dev)
+    return dict(
+        kernel_ms=sum(e.time_range.elapsed_us() for e in merge(dev))
+        / reps / 1e3,
+        busy_ms=_busy_us([(e.time_range.start, e.time_range.end)
+                          for e in dev]) / reps / 1e3,
+        ops=len(dev) / reps,
+        reads=sum("DtoH" in e.name for e in dev) / reps,
+        names={k: v / reps for k, v in names.most_common()})
+
+
+def phase_merge(g, device):
+    """Returns the records of the mark, tables and assembly kernels: the
+    max abs error over the cases and, at the bench shape, wrappers (CUDA
+    events), kernels alone (profiler), plain passes, bounds and, for the
+    assembly, one ``index_copy_`` of the block by the prepared permutation
+    (the other two have no one-call counterpart); also the whole merge
+    re-sort against a full sort_p_packed."""
+    import torch
+    from vpic_tpu_torch.core.types import PackedSpecies
+    from vpic_tpu_torch.particles import aux, sort, sort_cuda
+    errs = [run_merge_case(name, device) for name in MERGE_CASES]
+
+    pk, npt, key0, ctot, nvk, m_cap = bench_merge_block(g, device)
+    n = pk.shape[1]
+    args = (pk, npt, key0, ctot, nvk, m_cap)
+    errs.append(check_merge("bench shape", *args, True)[3:])
+    marks = sort_cuda.mark(*args)
+    fast, n_m = sort.fast_path(marks.info, m_cap)
+    plan = sort.merge_plan(marks, n_m)
+    log(f"  bench shape: merge kernels ok (n={n}, np={int(npt)}, nvk={nvk}, "
+        f"movers {n_m}, m_cap {m_cap}; each kernel bitwise its plain "
+        "pass's, two runs bitwise equal)")
+
+    # the yardstick: the same permutation by one index_copy_, its
+    # destinations per source lane prepared beforehand
+    cum_res, cum_mov, _ = sort.tables(plan.key_ms, marks.mov_old[:n_m], ctot)
+    d = sort.destinations(pk, npt, key0, marks, plan, cum_res, cum_mov, nvk)
+    dest_lane = d.dest[:n].clone()
+    dest_lane[d.src[n:]] = d.dest[n:]
+    lib_out = torch.empty_like(pk)
+    run_l = lambda: lib_out.index_copy_(1, dest_lane, pk)
+    run_a = lambda: sort_cuda.assemble(pk, npt, key0, ctot, marks, plan, nvk)
+    run_l()
+    if not _bitwise_equal(lib_out, run_a().pk):
+        raise AssertionError("bench shape: index_copy_ by the destinations "
+                             "differs from the assembly")
+    run_pa = lambda: sort.assemble(pk, npt, key0, ctot, marks, plan, nvk)
+    run_m = lambda: sort_cuda.mark(*args)
+    run_pm = lambda: sort.mark(*args)
+    mp1, mk1, mk2, mp2 = (cuda_ms(run_pm, 20), cuda_ms(run_m, 20),
+                          cuda_ms(run_m, 20), cuda_ms(run_pm, 20))
+    run_pt = lambda: sort.tables(plan.key_ms, marks.mov_old[:n_m], ctot)
+    tab_err = max(int((a.long() - b.long()).abs().max())
+                  for a, b in zip(run_a()[2:5], run_pt()))
+    tp1, tp2 = cuda_ms(run_pt, 20), cuda_ms(run_pt, 20)
+    p1, k1, l1, k2, l2, p2 = (cuda_ms(run_pa, 20), cuda_ms(run_a, 20),
+                              cuda_ms(run_l, 20), cuda_ms(run_a, 20),
+                              cuda_ms(run_l, 20), cuda_ms(run_pa, 20))
     psp = PackedSpecies(name="bench", sid=0, max_np=n, sort_interval=0,
                         q_m=-1.0, np=npt, nm=torch.zeros_like(npt), pk=pk,
                         key0=key0, ctot=ctot)
-    run_k = lambda: sort_cuda.assemble(plan)
-    run_p = lambda: sort.assemble(plan)
-    p1, k1, k2, p2 = (cuda_ms(run_p, 20), cuda_ms(run_k, 20),
-                      cuda_ms(run_k, 20), cuda_ms(run_p, 20))
-    full_merge = cuda_ms(lambda: sort_cuda.merge_sort_packed(
-        pk, npt, key0, ctot, nvk, m_cap), 10)
-    full_sort = cuda_ms(lambda: aux.sort_p_packed(psp, g), 10)
-    kernel_ms, ops = profiled_ms(run_k, 20, ("merge_assemble_kernel",), 1)
-    bound_ms, bound_by = merge_bound(n, int(plan.n_m), nvk)
-    log(f"  timing, bench shape: assembly wrapper {k1:.4f} / {k2:.4f} ms "
-        f"({ops:.1f} device ops per call), kernel alone {kernel_ms:.4f} ms, "
-        f"plain {p1:.4f} / {p2:.4f} ms; bound {bound_ms:.4f} ms "
-        f"({bound_by}); the whole merge re-sort with the kernel "
-        f"{full_merge:.4f} ms (two host reads); a full sort_p_packed "
-        f"{full_sort:.4f} ms")
-    return max(errs), dict(ms=min(k1, k2), kernel_ms=kernel_ms,
-                           plain_ms=min(p1, p2), bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=None)
+    run_merge = lambda: sort_cuda.merge_sort_packed(*args)
+    run_full = lambda: aux.sort_p_packed(psp, g)
+    w1, f1, w2, f2 = (cuda_ms(run_merge, 10), cuda_ms(run_full, 10),
+                      cuda_ms(run_merge, 10), cuda_ms(run_full, 10))
+    mark_alone, mark_ops = profiled_ms(run_m, 20, ("merge_mark_kernel",), 1)
+    tab_alone, asm_ops = profiled_ms(run_a, 20, ("merge_tables_kernel",), 1)
+    asm_alone, _ = profiled_ms(run_a, 20, ("merge_assemble_kernel",), 1)
+    fast_p = call_profile(run_merge, 3)
+    # a fallback: more movers than a 1024-slot buffer holds
+    run_slow = lambda: sort_cuda.merge_sort_packed(pk, npt, key0, ctot, nvk,
+                                                   1024)
+    if run_slow().fast:
+        raise AssertionError("bench shape: 1024 mover slots did not overflow")
+    slow_p = call_profile(run_slow, 1)
+    full_p = call_profile(run_full)
+    tiles = -(-n // sort.TILE)
+    mb_ms, mb_by = mark_bound(n, n_m, m_cap, tiles)
+    tb_ms, tb_by = tables_bound(n_m, nvk)
+    ab_ms, ab_by = merge_bound(n, n_m, nvk, tiles)
+    log(f"  timing, bench shape: mark wrapper {mk1:.4f} / {mk2:.4f} ms "
+        f"({mark_ops:.1f} device ops per call), kernel alone "
+        f"{mark_alone:.4f} ms, plain {mp1:.4f} / {mp2:.4f} ms, bound "
+        f"{mb_ms:.4f} ms ({mb_by}), the kernel at {mb_ms / mark_alone:.4f} "
+        "of it")
+    log(f"  timing, bench shape: tables kernel alone {tab_alone:.4f} ms "
+        f"(launched by the assembly's wrapper), plain {tp1:.4f} / "
+        f"{tp2:.4f} ms, bound {tb_ms:.4f} ms ({tb_by})")
+    log(f"  timing, bench shape: assembly wrapper (tables and assembly "
+        f"kernels) {k1:.4f} / {k2:.4f} ms ({asm_ops:.1f} device ops per "
+        f"call), assembly kernel alone {asm_alone:.4f} "
+        f"ms, plain {p1:.4f} / {p2:.4f} ms, index_copy_ {l1:.4f} / {l2:.4f} "
+        f"ms; bound {ab_ms:.4f} ms ({ab_by}), the kernel at "
+        f"{ab_ms / asm_alone:.4f} of it")
+    log(f"  timing, bench shape: the whole merge re-sort {w1:.4f} / "
+        f"{w2:.4f} ms (device busy {fast_p['busy_ms']:.4f} ms, "
+        f"{fast_p['ops']:.1f} device ops and {fast_p['reads']:.1f} host "
+        f"reads per call, its three kernels {fast_p['kernel_ms']:.4f} ms "
+        f"alone) against a full sort_p_packed {f1:.4f} / {f2:.4f} ms "
+        f"(device busy {full_p['busy_ms']:.4f} ms, {full_p['ops']:.1f} "
+        f"device ops per call); the re-sort's device ops: {fast_p['names']}")
+    log(f"  a re-sort that falls back (1024 mover slots): device busy "
+        f"{slow_p['busy_ms']:.4f} ms, {slow_p['ops']:.1f} device ops and "
+        f"{slow_p['reads']:.1f} host reads per call")
+    whole = dict(whole_merge_ms=min(w1, w2), full_sort_ms=min(f1, f2),
+                 whole_merge_busy_ms=fast_p["busy_ms"],
+                 full_sort_busy_ms=full_p["busy_ms"],
+                 merge_ops_per_call=fast_p["ops"],
+                 host_reads_per_sort=fast_p["reads"],
+                 fallback_ops_per_call=slow_p["ops"],
+                 fallback_host_reads_per_sort=slow_p["reads"])
+    err, mark_err = (max(e) for e in zip(*errs))
+    return (
+        dict(ms=min(mk1, mk2), max_abs_err=mark_err, kernel_ms=mark_alone,
+             plain_ms=min(mp1, mp2), bound_ms=mb_ms, bound_by=mb_by,
+             library_ms=None),
+        dict(ms=min(k1, k2), max_abs_err=tab_err, kernel_ms=tab_alone,
+             plain_ms=min(tp1, tp2), bound_ms=tb_ms, bound_by=tb_by,
+             library_ms=None),
+        dict(ms=min(k1, k2), max_abs_err=err, kernel_ms=asm_alone,
+             plain_ms=min(p1, p2),
+             bound_ms=ab_ms, bound_by=ab_by, library_ms=min(l1, l2),
+             **whole))
 
 
 def timed_windows(sim, label, e_refs):
@@ -1022,9 +1208,11 @@ def phase_path_a(device, e_refs):
 def packed_windows(sim, label, e_refs):
     """timed_windows on a deck that runs the packed cycle, with the push
     and merge launch counts set to 0 just before and read just after:
-    one push launch per species per step, none of walk_only.  Returns the
-    merge launches, the fast and slow sorts per species and the median
-    step time."""
+    one push launch per species per step, none of walk_only, one mark
+    launch per sort and one tables and one assembly launch per fast
+    sort.  Returns the
+    merge kernels' launches, the fast and slow sorts per species and the
+    median step time."""
     from vpic_tpu_torch.particles import push_cuda, sort, sort_cuda
     nsp = len(sim.state.species)
     push_cuda.reset_launch_counts()
@@ -1035,8 +1223,14 @@ def packed_windows(sim, label, e_refs):
     if push != steps * nsp or walk:
         raise AssertionError(f"{label}: push launches {push}, walk_only "
                              f"{walk}, expected {steps * nsp} and 0")
-    merges = sort_cuda.launches["merge_assemble"]
+    merges = dict(sort_cuda.launches)
     counts = {k: dict(v) for k, v in sort_cuda.sort_counts.items()}
+    fast = sum(c["fast"] for c in counts.values())
+    if (merges["merge_mark"] != fast + sum(c["slow"] for c in counts.values())
+            or merges["merge_tables"] != fast
+            or merges["merge_assemble"] != fast):
+        raise AssertionError(f"{label}: merge launches {merges} for sorts "
+                             f"{counts}")
     caps = {sp.name: round(sort.mover_capacity(
         sp.max_np, max(sim.opts.resort_interval, sp.sort_interval))
         / sp.max_np, 4) for sp in sim.state.species}
@@ -1050,9 +1244,10 @@ def phase_path_b(device, e_refs):
     """The packed cycle with the merge re-sort: the 16^2 deck (every sort
     after a species' first merges), then two fresh 128^2 decks, at the
     deck's own sort cadence and with every species sorted every step.
-    Returns the merge launches of the every-step deck's timed windows, of
-    the 16^2 deck and of the own-cadence deck's timed windows, and the
-    median step times of the two 128^2 decks."""
+    Returns the merge kernels' launches in the every-step deck's timed
+    windows, on the 16^2 deck and in the own-cadence deck's timed
+    windows, the median step times of the two 128^2 decks and the
+    every-step deck's trace."""
     from vpic_tpu_torch.decks import bench_deck
     from vpic_tpu_torch.particles import sort_cuda
     small = bench_deck.build(**SMALL_DECK, device=device)
@@ -1062,14 +1257,16 @@ def phase_path_b(device, e_refs):
     sort_cuda.reset_launch_counts()
     small.advance(STEPS)
     counts = {k: dict(v) for k, v in sort_cuda.sort_counts.items()}
-    small_launches = sort_cuda.launches["merge_assemble"]
+    small_launches = dict(sort_cuda.launches)
     cpu.advance(STEPS)
     want = {"electron": {"fast": 7, "slow": 1}, "ion": {"fast": 1, "slow": 1}}
     if counts != want:
         raise AssertionError(f"16^2 path B: sorts {counts}, expected {want}")
-    if small_launches != 8:
-        raise AssertionError(f"16^2 path B: {small_launches} merge "
-                             "launches, expected 8 (one per fast sort)")
+    if small_launches != {"merge_mark": 10, "merge_tables": 8,
+                          "merge_assemble": 8}:
+        raise AssertionError(f"16^2 path B: merge launches {small_launches}, "
+                             "expected 10 mark (one per sort), 8 tables and "
+                             "8 assembly (one per fast sort)")
     eg, ec = small.energies(), cpu.energies()
     for k in ec:
         if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
@@ -1096,11 +1293,14 @@ def phase_path_b(device, e_refs):
     sim.advance(WARM_STEPS)
     launches, counts, med_1 = packed_windows(
         sim, "128^2 path B, every species sorted every step", e_refs)
-    if launches < 1 or launches != sum(c["fast"] for c in counts.values()):
-        raise AssertionError(f"128^2 path B, sorts every step: {launches} "
-                             f"merge launches for sorts {counts}")
-    phase_trace(sim, med_1, "path B, sorts every step")
-    return launches, small_launches, cadence_launches, med, med_1
+    if launches["merge_assemble"] < 1:
+        raise AssertionError(f"128^2 path B, sorts every step: no merge for "
+                             f"sorts {counts}")
+    trace = phase_trace(sim, med_1, "path B, sorts every step")
+    srt = trace["parts"]["step.sort"]
+    log(f"  path B, every species sorted every step: step.sort busy "
+        f"{srt['busy_ms']:.4f} ms/step, {srt['ops']:.1f} device ops/step")
+    return (launches, small_launches, cadence_launches, med, med_1, trace)
 
 
 def main():
@@ -1151,15 +1351,15 @@ def main():
 
     log("[6/9] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/9] merge re-sort kernel vs plain")
-    mrg_err, mrg_t = phase_merge(sim.grid, device)
+    log("[7/9] merge re-sort kernels vs plain")
+    mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
     log("[8/9] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
     log("[9/9] path B: the packed cycle with the merge re-sort")
-    mrg_launches, mrg_small, mrg_cadence, step_b, step_b1 = phase_path_b(
-        device, e_refs)
+    mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
+        phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
         f"{STEPS} steps): default path {step_s * 1e3:.4f} ms, path A "
         f"{step_a * 1e3:.4f} ms, path B {step_b * 1e3:.4f} ms, path B "
@@ -1168,6 +1368,8 @@ def main():
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
     steps = WINDOWS * STEPS
+    srt = trace_b1["parts"]["step.sort"]
+    merge_source = "vpic_tpu_torch/csrc/merge_assemble.cu"
     kernels = [
         dict(name="push_walk", source="vpic_tpu_torch/csrc/push_walk.cu",
              replaces="vpic_tpu/particles/push_pallas.py:465",
@@ -1177,12 +1379,23 @@ def main():
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",
              launches=dep_launches, max_abs_err=dep_err, **dep_t),
-        dict(name="merge_assemble",
-             source="vpic_tpu_torch/csrc/merge_assemble.cu",
+        dict(name="merge_mark", source=merge_source,
              replaces="vpic_tpu/particles/sort_pallas.py:85",
-             launches=mrg_launches, max_abs_err=mrg_err, **mrg_t,
-             launches_own_cadence_128sq=mrg_cadence,
-             launches_16sq_deck=mrg_small)]
+             launches=mrg_launches["merge_mark"], **mark_t,
+             launches_own_cadence_128sq=mrg_cadence["merge_mark"],
+             launches_16sq_deck=mrg_small["merge_mark"]),
+        dict(name="merge_tables", source=merge_source,
+             replaces="vpic_tpu/particles/sort_pallas.py:85",
+             launches=mrg_launches["merge_tables"], **tables_t,
+             launches_own_cadence_128sq=mrg_cadence["merge_tables"],
+             launches_16sq_deck=mrg_small["merge_tables"]),
+        dict(name="merge_assemble", source=merge_source,
+             replaces="vpic_tpu/particles/sort_pallas.py:85",
+             launches=mrg_launches["merge_assemble"], **asm_t,
+             launches_own_cadence_128sq=mrg_cadence["merge_assemble"],
+             launches_16sq_deck=mrg_small["merge_assemble"],
+             path_b_every_step_sort_busy_ms=srt["busy_ms"],
+             path_b_every_step_sort_ops=srt["ops"])]
     for k in kernels:
         k["route"] = "cuda"
         k["launches_per_step"] = main_launches[k["name"]] / steps

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Trees of this repository against each other on one NVIDIA GPU: the
-push+walk and deposit kernels at the bench shape and the default path's
-device time, each tree in its own process, in the order given.
+push+walk, deposit and merge re-sort kernels at the bench shape, the
+default path's device time and path B's sort, each tree in its own
+process, in the order given.
 
     python3 kernel_ab.py _archive/parent . . _archive/parent
 
@@ -21,10 +22,18 @@ bench deck on the card and, on the voxel-sorted electrons:
   (``deposit_cuda.deposit_sorted_into``; its kernels alone are those named
   ``deposit_*``), beside one ``index_add_`` of the valid lanes' (n, 12)
   contributions prepared beforehand;
+- on chip_smoke's bench merge block (2 125 824 lanes, 5 % movers), checks
+  the whole merge re-sort (``sort_cuda.merge_sort_packed``) against that
+  tree's plain one (bitwise) and times it (CUDA events) against a full
+  ``aux.sort_p_packed``, with its merge kernels alone, its device ops and
+  its host reads per call from a profiler trace;
 
 then advances the deck 8 steps and traces 8 more under torch.profiler
 (``chip_smoke.phase_trace``): the default path's busy device ms and device
-operations per step.  Each
+operations per step; then builds the path-B deck that sorts every species
+every step (``merge_sort=True``, ``resort_interval=1``,
+``ion_sort_mult=1``), advances it 8 steps and traces 8 more: its
+``step.sort`` busy device ms and device operations per step.  Each
 child prints one JSON line; the parent prints them all as a JSON list on
 its last line.  Needs one card; exits non-zero without one.
 """
@@ -46,7 +55,9 @@ def measure(tree):
     import vpic_tpu_torch
     from vpic_tpu_torch.decks import bench_deck
     from vpic_tpu_torch.engine.step import walk_segments
-    from vpic_tpu_torch.particles import aux, deposit_cuda, push, push_cuda
+    from vpic_tpu_torch.core.types import PackedSpecies
+    from vpic_tpu_torch.particles import (aux, deposit_cuda, push, push_cuda,
+                                          sort, sort_cuda)
     pkg = os.path.dirname(os.path.abspath(vpic_tpu_torch.__file__))
     if pkg != os.path.join(os.path.abspath(tree), "vpic_tpu_torch"):
         raise RuntimeError(f"imported {pkg}, not the tree {tree}")
@@ -91,11 +102,43 @@ def measure(tree):
                                                            ("deposit_",), 3)
     del vox, cols, valid, lib_vox, lib_c, lib_acc
 
+    args = cs.bench_merge_block(g, device)
+    pk, npt, key0, ctot = args[:4]
+    k, p = (f(*args) for f in (sort_cuda.merge_sort_packed,
+                               sort.merge_sort_packed))
+    if not (k.fast and p.fast and int(k.anomaly) == 0
+            and cs._bitwise_equal(k.pk, p.pk) and torch.equal(k.key0, p.key0)
+            and torch.equal(k.ctot, p.ctot)):
+        raise AssertionError(f"{tree}: the merge re-sort differs from the "
+                             "plain one")
+    psp = PackedSpecies(name="bench", sid=0, max_np=pk.shape[1],
+                        sort_interval=0, q_m=-1.0, np=npt,
+                        nm=torch.zeros_like(npt), pk=pk, key0=key0, ctot=ctot)
+    run_m = lambda: sort_cuda.merge_sort_packed(*args)
+    merge = dict(ms=cs.cuda_ms(run_m, 10),
+                 full_sort_ms=cs.cuda_ms(lambda: aux.sort_p_packed(psp, g),
+                                         10))
+    prof = cs.call_profile(run_m, len(sort_cuda.launches))
+    merge.update(kernel_ms=prof["kernel_ms"], busy_ms=prof["busy_ms"],
+                 ops_per_call=prof["ops"], host_reads=prof["reads"],
+                 full_sort_busy_ms=cs.call_profile(
+                     lambda: aux.sort_p_packed(psp, g))["busy_ms"])
+    del k, p, psp, args, pk, key0, ctot
+
     sim.advance(cs.WARM_STEPS)
-    busy_ms, ops_per_step = cs.phase_trace(sim, None, tree)
+    trace = cs.phase_trace(sim, None, tree)
+    del sim
+    sim = bench_deck.build(**cs.SLICE, resort_interval=1, ion_sort_mult=1,
+                           device=device)
+    sim.modify_runparams(merge_sort=True)
+    sim.advance(cs.WARM_STEPS)
+    srt = cs.phase_trace(sim, None, f"{tree} path B sorting every step")[
+        "parts"]["step.sort"]
     return dict(tree=tree, card=cs.card_line(), lanes=int(sp.np), ms=ms,
                 kernel_ms=kernel_ms, ops_per_call=ops_per_call,
-                deposit=dep, step_busy_ms=busy_ms, step_ops=ops_per_step)
+                deposit=dep, merge=merge, step_busy_ms=trace["busy_ms"],
+                step_ops=trace["ops"], path_b_sort_busy_ms=srt["busy_ms"],
+                path_b_sort_ops=srt["ops"])
 
 
 def main(argv):
@@ -115,14 +158,22 @@ def main(argv):
             print(r.stdout + r.stderr, file=sys.stderr)
             raise RuntimeError(f"kernel_ab: {tree} failed ({r.returncode})")
         rec = json.loads(r.stdout.strip().splitlines()[-1])
-        d = rec["deposit"]
+        d, m = rec["deposit"], rec["merge"]
         cs.log(f"{tree}: push wrapper {rec['ms']:.4f} ms, kernel alone "
                f"{rec['kernel_ms']:.4f} ms, {rec['ops_per_call']:.1f} device "
                f"ops per call; deposit wrapper {d['ms']:.4f} ms, kernels "
                f"alone {d['kernel_ms']:.4f} ms, {d['ops_per_call']:.1f} ops "
-               f"per call, index_add_ {d['library_ms']:.4f} ms; default path "
-               f"busy {rec['step_busy_ms']:.4f} ms/step, "
-               f"{rec['step_ops']:.1f} ops/step ({rec['card']})")
+               f"per call, index_add_ {d['library_ms']:.4f} ms; merge "
+               f"re-sort {m['ms']:.4f} ms (device busy {m['busy_ms']:.4f} "
+               f"ms, kernels alone {m['kernel_ms']:.4f} ms, "
+               f"{m['ops_per_call']:.1f} ops and {m['host_reads']:.1f} host "
+               f"reads per call), full sort {m['full_sort_ms']:.4f} ms "
+               f"(device busy {m['full_sort_busy_ms']:.4f} ms); default "
+               f"path busy "
+               f"{rec['step_busy_ms']:.4f} ms/step, {rec['step_ops']:.1f} "
+               f"ops/step; path B sorting every step: step.sort busy "
+               f"{rec['path_b_sort_busy_ms']:.4f} ms/step, "
+               f"{rec['path_b_sort_ops']:.1f} ops/step ({rec['card']})")
         out.append(rec)
     print(json.dumps(out))
     return 0

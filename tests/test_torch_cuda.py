@@ -8,20 +8,23 @@ runs of the kernel bitwise equal; the wrapper's scratch left zero and its
 scale that of deposit.fixed_scale; the unfused push (deposit kernel +
 walk_only) as the plain one.  Deposit: the accumulator
 within 1e-6 * sum|contributions| per word, two runs bitwise equal.  Merge
-re-sort assembly: every output row bitwise equal, key0/ctot equal, no
-anomaly.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card
+re-sort: the mark kernel's outputs and the assembly kernel's rows, key0
+and anomaly bitwise equal to the plain passes', the plain fast/slow
+decision, the whole re-sort bitwise the plain one's, two runs bitwise
+equal.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 """
 
+import numpy as np
 import pytest
 import torch
 
 import chip_smoke as cs
 
 from vpic_tpu_torch.particles import (deposit, deposit_cuda, push, push_cuda,
-                                      sort_cuda)
+                                      sort, sort_cuda)
 
 pytestmark = pytest.mark.cuda
 
@@ -94,10 +97,76 @@ def test_deposit_kernel_matches_plain(device, case):
 
 @pytest.mark.parametrize("name", list(cs.MERGE_CASES))
 def test_merge_kernel_matches_plain(device, name):
-    before = sort_cuda.launches["merge_assemble"]
+    before = dict(sort_cuda.launches)
     cs.run_merge_case(name, device)
-    assert (sort_cuda.launches["merge_assemble"] - before
-            == sum(cs.MERGE_EXPECT_FAST[name]))
+    # each round: the kernels alone, then two merge re-sorts
+    rounds = len(cs.MERGE_EXPECT_FAST[name])
+    assert sort_cuda.launches["merge_mark"] - before["merge_mark"] \
+        == 3 * rounds
+    for k in ("merge_tables", "merge_assemble"):
+        assert (sort_cuda.launches[k] - before[k]
+                == 3 * sum(cs.MERGE_EXPECT_FAST[name]))
+
+
+def _block(device, seed, n, np_, nvk, frac, sentinel=False,
+           mover_tile=False):
+    rng = np.random.default_rng(seed)
+    pk, key0, ctot = cs._mk_sorted(rng, n, np_, nvk)
+    pk = cs._perturb(rng, pk, np_, nvk, frac=frac)
+    if sentinel:
+        key0[0] = -1
+    if mover_tile:   # every lane of tile 1 moves: no residual there
+        tile1 = slice(sort.TILE, 2 * sort.TILE)
+        pk[7, tile1] = (key0[tile1] + 1) % nvk
+    t = lambda a: torch.as_tensor(a, device=device)
+    return (t(pk), torch.tensor(np_, dtype=torch.int32, device=device),
+            t(key0), t(ctot), nvk)
+
+
+# several tiles and a ragged last one: (seed, np_, frac, sentinel, a tile
+# of movers, m_cap, the merge runs)
+MARK_CASES = {"multi-tile": (3, 12000, 0.05, False, False, 12388, True),
+              "dead-tail": (4, 9000, 0.05, False, False, 12388, True),
+              "mover-tile": (7, 12388, 0.05, False, True, 12388, True),
+              "overflow": (5, 12388, 0.3, False, False, 2048, False),
+              "no-snapshot": (6, 12388, 0.05, True, False, 12388, False)}
+
+
+@pytest.mark.parametrize("name", list(MARK_CASES))
+def test_merge_mark_and_assembly_kernels_match_plain(device, name):
+    """The mark kernel's tile prefixes and first keys, counts and mover
+    slots, and where the merge runs the tables and the assembly kernel's
+    block, key0 and anomaly, bitwise the plain passes'; the merge re-sort
+    takes the plain decision."""
+    seed, np_, frac, sentinel, mover_tile, m_cap, fast = MARK_CASES[name]
+    args = _block(device, seed, 3 * sort.TILE + 100, np_, 700, frac,
+                  sentinel, mover_tile)
+    before = dict(sort_cuda.launches)
+    # the kernels alone, then two merge re-sorts
+    cs.check_merge(name, *args, m_cap, fast)
+    assert sort_cuda.launches["merge_mark"] - before["merge_mark"] == 3
+    for k in ("merge_tables", "merge_assemble"):
+        assert sort_cuda.launches[k] - before[k] == 3 * fast
+
+
+def test_merge_kernels_are_deterministic(device):
+    """Two runs of each merge kernel on a 50-tile block are bitwise equal
+    (the mark pass's look-back order varies from run to run)."""
+    pk, npt, key0, ctot, nvk = _block(device, 9, 50 * sort.TILE, 200_000,
+                                      16_000, 0.05)
+    m_cap = 50 * sort.TILE
+    runs = [sort_cuda.mark(pk, npt, key0, ctot, nvk, m_cap)
+            for _ in range(2)]
+    fast, n_m = sort.fast_path(runs[0].info, m_cap)
+    assert fast and torch.equal(runs[0].info, runs[1].info)
+    for a, b in zip(*runs):
+        assert torch.equal(a[:n_m], b[:n_m])
+    plan = sort.merge_plan(runs[0], n_m)
+    one, two = (sort_cuda.assemble(pk, npt, key0, ctot, runs[0], plan, nvk)
+                for _ in range(2))
+    assert cs._bitwise_equal(one.pk, two.pk)
+    assert all(torch.equal(a, b) for a, b in zip(one[1:], two[1:]))
+    assert int(one.anomaly) == 0
 
 
 def _acc_ok(kacc, pacc, sp, interp, nb, g):

@@ -1,10 +1,12 @@
 """The port's packed species and merge re-sort (vpic_tpu_torch.particles.
-{push,aux,sort}, the merge's assembly reached through the CUDA kernel's
-wrapper with CPU tensors) against the JAX package: merge_sort_packed
+{push,aux,sort}, the merge's passes reached through the CUDA kernels'
+wrappers with CPU tensors) against the JAX package: merge_sort_packed
 against vpic_tpu.particles.sort_pallas.merge_sort_packed with its Pallas
 kernel in interpret mode, on the seven kernel cases of
-tests/test_sort_pallas.py; pack/unpack and sort_p_packed against
-vpic_tpu.particles.{push,aux}.
+tests/test_sort_pallas.py and a multi-tile block; pack/unpack and
+sort_p_packed against vpic_tpu.particles.{push,aux}.  The mark pass is
+held to numpy cumsums, and its one-read fast-path decision to the
+two-read decision the JAX package's tables imply.
 
 Both sorts order lanes within a voxel differently (the JAX package's
 bitonic is unstable), so blocks are compared in the canonical form of
@@ -121,6 +123,154 @@ def test_small_block_below_the_jax_window_is_exact():
     order = np.lexsort(pk2[::-1, :np_])
     np.testing.assert_array_equal(_canon(t[0].numpy(), np_),
                                   pk2[:, :np_][:, order])
+
+
+def _two_read_decision(pk, np_, key0, ctot, nvk, m_cap):
+    """The port's decision before the mark pass (and the JAX package's,
+    less its window tests): snapshot and mover count first, then the plan's
+    tables and ``cum_tot[nvk + 2] == n``, in numpy."""
+    n = pk.shape[1]
+    key = np.where(np.arange(n) < np_,
+                   (pk[7] + np.float32(0.5)).astype(np.int32), nvk)
+    movers = key != key0
+    n_m = int(movers.sum())
+    if not (key0[0] >= 0 and n_m <= m_cap):
+        return False
+    bins = nvk + 1
+    valid = np.arange(m_cap) < n_m
+    safe = np.zeros(m_cap, np.int64)
+    safe[:n_m] = np.nonzero(movers)[0]
+    key_ms = np.sort(np.where(valid, key[safe], bins), kind="stable")
+    old = np.where(valid, key0[safe], bins)
+    v = np.arange(bins + 2)
+    c_old = np.minimum(np.searchsorted(old, v, side="left"), n_m)
+    c_new = np.minimum(np.searchsorted(key_ms, v, side="left"), n_m)
+    return bool((ctot - c_old + c_new)[nvk + 2] == n)
+
+
+def _marks(pk, np_, key0, ctot, nvk, m_cap):
+    return sort_cuda.mark(torch.as_tensor(pk),
+                          torch.tensor(np_, dtype=torch.int32),
+                          torch.as_tensor(key0), torch.as_tensor(ctot), nvk,
+                          m_cap)
+
+
+def _decision_inputs():
+    """(label, pk, np_, key0, ctot, nvk, m_cap) of every round of the
+    seven cases, the n = 512 case and a multi-tile mover overflow."""
+    for name, (seed, n, nvk, np_, perturb, sentinel, rounds) in CASES.items():
+        rng = np.random.default_rng(seed)
+        pk, key0, ctot = _mk_sorted(rng, n, np_, nvk)
+        if sentinel:
+            key0 = _sentinel(key0)
+        for r in range(rounds):
+            pk_in = pk if perturb is None else _perturb(rng, pk, np_, nvk,
+                                                        **perturb)
+            yield f"{name}/{r}", pk_in, np_, key0, ctot, nvk, M_CAP
+            j, _ = _both(pk_in, np_, key0, ctot, nvk)
+            pk, key0, ctot = j[0], j[1], j[2]
+    rng = np.random.default_rng(4)
+    pk, key0, ctot = _mk_sorted(rng, 512, 500, 64)
+    yield ("n=512", _perturb(rng, pk, 500, 64, frac=0.05), 500, key0, ctot,
+           64, sort.mover_capacity(512, 2))
+    rng = np.random.default_rng(8)
+    n = 3 * sort.TILE + 100
+    pk, key0, ctot = _mk_sorted(rng, n, n - 40, 700)
+    pk = _perturb(rng, pk, n - 40, 700, frac=0.2)
+    yield "multi-tile overflow", pk, n - 40, key0, ctot, 700, 1024
+
+
+def test_one_read_decision_matches_two_reads():
+    """The mark pass's counts, read once, take the same path as the plan's
+    table test read after the snapshot and mover-count tests; a ctot that
+    does not add up to n falls back in both."""
+    seen = set()
+    for label, pk, np_, key0, ctot, nvk, m_cap in _decision_inputs():
+        want = _two_read_decision(pk, np_, key0, ctot, nvk, m_cap)
+        fast, n_m = sort.fast_path(
+            _marks(pk, np_, key0, ctot, nvk, m_cap).info, m_cap)
+        assert fast == want, label
+        seen.add(fast)
+        if fast:
+            bad = ctot.copy()
+            bad[nvk + 2] -= 1
+            assert not _two_read_decision(pk, np_, key0, bad, nvk, m_cap)
+            assert not sort.fast_path(
+                _marks(pk, np_, key0, bad, nvk, m_cap).info, m_cap)[0]
+    assert seen == {True, False}
+
+
+@pytest.mark.parametrize("case", ["multi-tile", "overflow", "sentinel",
+                                  "ragged-dead", "mover-tile"])
+def test_mark_pass_against_cumsum(case):
+    """n_m, the flags, each tile's residual prefix and first residual key
+    and the movers' lanes and keys in lane order, against numpy cumsums
+    over the lanes."""
+    rng = np.random.default_rng(31)
+    n, nvk = 3 * sort.TILE + 100, 900
+    np_ = n - 333 if case == "ragged-dead" else n
+    pk, key0, ctot = _mk_sorted(rng, n, np_, nvk)
+    pk = _perturb(rng, pk, np_, nvk, frac=0.3 if case == "overflow" else 0.05)
+    if case == "sentinel":
+        key0 = _sentinel(key0)
+    if case == "mover-tile":   # every lane of tile 1 moves: no residual
+        tile1 = slice(sort.TILE, 2 * sort.TILE)
+        pk[7, tile1] = (key0[tile1] + 1) % nvk
+    m_cap = 2048 if case == "overflow" else n
+    marks = _marks(pk, np_, key0, ctot, nvk, m_cap)
+
+    key = np.where(np.arange(n) < np_,
+                   (pk[7] + np.float32(0.5)).astype(np.int32), nvk)
+    movers = key != key0
+    n_m = int(movers.sum())
+    res_before = np.concatenate([[0], np.cumsum(~movers)])
+    np.testing.assert_array_equal(marks.res_base.numpy(),
+                                  res_before[::sort.TILE][:4])
+    tiles = [slice(t * sort.TILE, (t + 1) * sort.TILE) for t in range(4)]
+    first_key = [key[t][~movers[t]][0] if (~movers[t]).any() else -1
+                 for t in tiles]
+    assert (case == "mover-tile") == (first_key[1] == -1)
+    np.testing.assert_array_equal(marks.res_key.numpy(), first_key)
+    lanes = np.nonzero(movers)[0][:m_cap]
+    k = lanes.shape[0]
+    np.testing.assert_array_equal(marks.mov_lane.numpy()[:k], lanes)
+    np.testing.assert_array_equal(marks.mov_key.numpy()[:k], key[lanes])
+    np.testing.assert_array_equal(marks.mov_old.numpy()[:k], key0[lanes])
+    out_of_range = int(((key < 0) | (key > nvk) | (key0 < 0)
+                        | (key0 > nvk)).sum())
+    assert marks.info.tolist() == [n_m, out_of_range, int(key0[0] >= 0),
+                                   int(ctot[nvk + 2] == n)]
+    fast, got_n_m = sort.fast_path(marks.info, m_cap)
+    assert got_n_m == n_m
+    assert fast == (case in ("multi-tile", "ragged-dead", "mover-tile"))
+    assert (n_m > m_cap) == (case == "overflow")
+
+
+def test_multi_tile_merge_matches_jax():
+    """A block of three tiles and a ragged fourth, 5 % movers: the merge
+    runs, and its block, key0 and ctot equal the JAX package's; the
+    assembly's destinations form a permutation of the lanes."""
+    rng = np.random.default_rng(17)
+    n, nvk = 3 * sort.TILE + 512, 640
+    np_ = n - 200
+    pk, key0, ctot = _mk_sorted(rng, n, np_, nvk)
+    pk = _perturb(rng, pk, np_, nvk, frac=0.05)
+    m_cap = sort.mover_capacity(n, 1)
+    j, t = _both(pk, np_, key0, ctot, nvk, m_cap=m_cap)
+    assert t.fast
+    _assert_same(j, t, np_)
+    args = (torch.as_tensor(pk), torch.tensor(np_, dtype=torch.int32),
+            torch.as_tensor(key0), torch.as_tensor(ctot), nvk)
+    marks = sort.mark(*args, m_cap)
+    n_m = sort.fast_path(marks.info, m_cap)[1]
+    plan = sort.merge_plan(marks, n_m)
+    cum_res, cum_mov, _ = sort.tables(plan.key_ms, marks.mov_old[:n_m],
+                                      args[3])
+    d = sort.destinations(*args[:3], marks, plan, cum_res, cum_mov, nvk)
+    assert int(d.bad) == 0
+    written = d.dest[d.dest < n]
+    assert written.shape[0] == n
+    assert torch.equal(torch.sort(written).values, torch.arange(n))
 
 
 def _species_2d(seed):
