@@ -2,7 +2,8 @@
 """Smoke test of vpic_tpu_torch on one NVIDIA GPU: the port's three push
 paths on the bench deck at full size, through its hand-written CUDA
 kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
-and assembly).
+and assembly), and the production turbulence deck at full size through
+the port's CLI, with its diagnostics and a restart.
 
     python3 chip_smoke.py
 
@@ -72,7 +73,32 @@ no result line):
               step (bench_deck's resort_interval=1, ion_sort_mult=1), where
               the ions' movers fit their buffer and the merge kernels run
               at full size; a trace of each, with the every-step deck's
-              step.sort busy ms and device ops per step.
+              step.sort busy ms and device ops per step;
+10. determinism - the charge deposit as a float32 index_add_ run twice on
+              the 128^2 electrons (the finding: the sums differ), then two
+              bench decks built from one seed: checksum_fields equal at
+              finalize and after 4 steps (the repair: fixed-point
+              deposits), the digests printed;
+11. turbulence - vpic_tpu_torch/decks/turbulence.py at its full size
+              (64x32x32, 16 per cell, six species, PEC z walls with
+              reflected particles, two q = 0 tracer species): the
+              fixed-point rho and hydro deposits of every species repeat
+              bitwise and stay within 1e-6 * sum|c| of float64; the push
+              kernel against its plain version and twin on each species
+              (the accumulator within 1e-6 * sum|c| plus each
+              contribution's fixed-point rounding of the float version),
+              the tracers' accumulator zero at the 2^200 scale, the
+              kernel on eT timed against its bound; the CLI in a process
+              of its own for 100 steps with standard_diagnostics (energies
+              every 10 steps, fields and hydro every 50, particles 100,
+              restart 50, tracers 50, spectra 100), then again from its
+              step-50 restart: every step-100 dump byte for byte the first
+              run's, finite energies, the total within 2e-2 over the first
+              10 steps, each species' dropped movers; the deck at 8^3 on
+              the card and on the CPU, energies to 1e-6; then in process
+              three timed 16-step windows with the launch counts (one
+              push launch per species per step and nothing else), a
+              trace split by step part, and one call of each diagnostic.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -81,8 +107,11 @@ the wrapper's time (``ms``), the kernel's alone (``kernel_ms``), the plain
 version's, the bound (the larger of bytes over 3.35 TB/s and float32
 operations over 67 TFLOP/s, the H100 SXM's published peaks) and what sets
 it, and the one PyTorch call that computes the same function
-(``library_ms``, null where there is none).  The last line is
-{"ok": true, "device": {...}}.  Without a CUDA device the script exits 2.
+(``library_ms``, null where there is none); the push kernel's record adds
+the same numbers on the turbulence path (``turbulence_*``: its launches
+in phase 11's timed windows, its error over the six species, its times
+on eT).  The last line is {"ok": true, "device": {...}}.  Without a CUDA
+device the script exits 2.
 """
 
 import collections
@@ -147,12 +176,14 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def abs_deposit(st, neighbor, g, seg_cap):
+def abs_deposit(st, neighbor, g, seg_cap, counts=False):
     """sum|contribution| per accumulator word of a walk from WalkState
-    ``st``: the scale of the accumulator tolerance."""
+    ``st``: the scale of the accumulator tolerance; with ``counts`` also
+    the number of contributions per word."""
     import torch
     from vpic_tpu_torch.particles import push
     acc = torch.zeros((g.nv, 12), dtype=torch.float64, device=st.x.device)
+    num = torch.zeros_like(acc)
     for _ in range(seg_cap):
         if not bool(st.active.any()):
             break
@@ -160,14 +191,16 @@ def abs_deposit(st, neighbor, g, seg_cap):
         st, dep_vox, contrib = push.walk_segment(st, neighbor, g)
         c = torch.stack(contrib, dim=-1).abs().to(torch.float64)
         acc.index_add_(0, dep_vox[was].long(), c[was])
-    return acc
+        num.index_add_(0, dep_vox[was].long(), (c[was] != 0).double())
+    return (acc, num) if counts else acc
 
 
 def compare(label, kernel_out, plain_out, kacc, pacc, tacc, absacc, floats,
-            ints):
-    """Bitwise particle state, accumulator within 1e-6*sum|c| of the float
-    plain version and bitwise equal to the fixed-point twin ``tacc``;
-    returns the accumulator's max abs error against the float one."""
+            ints, floor=0.0):
+    """Bitwise particle state, accumulator bitwise equal to the fixed-point
+    twin ``tacc`` and within 1e-6*sum|c| (plus ``floor``, per word) of the
+    float plain version; returns the accumulator's max abs error against
+    the float one."""
     import torch
     for name in ints:
         a, b = getattr(kernel_out, name), getattr(plain_out, name)
@@ -184,16 +217,22 @@ def compare(label, kernel_out, plain_out, kacc, pacc, tacc, absacc, floats,
                        - b.view(torch.int32).long()).abs().max())
             raise AssertionError(f"{label}: {name} differs in {bad} lanes "
                                  f"(max {ulp} ulp)")
-    err = (kacc.to(torch.float64) - pacc.to(torch.float64)).abs()
-    limit = 1e-6 * absacc + 1e-30
-    if not bool((err <= limit).all()):
-        worst = float((err / limit).max())
-        raise AssertionError(f"{label}: acc beyond 1e-6*sum|c| "
-                             f"(worst {worst:.3g}x the limit)")
     if not _bitwise_equal(kacc, tacc):
         bad = int((kacc.view(torch.int32) != tacc.view(torch.int32)).sum())
         raise AssertionError(f"{label}: acc differs from the fixed-point "
                              f"twin in {bad} words")
+    err = (kacc.to(torch.float64) - pacc.to(torch.float64)).abs()
+    limit = 1e-6 * absacc + floor + 1e-30
+    if not bool((err <= limit).all()):
+        ratio = err / limit
+        w = int(ratio.argmax())
+        v, k = divmod(w, 12)
+        raise AssertionError(
+            f"{label}: acc beyond 1e-6*sum|c| (worst "
+            f"{float(ratio.max()):.3g}x the limit, {int((ratio > 1).sum())} "
+            f"words; voxel {v} word {k}: kernel {float(kacc.view(-1)[w])!r},"
+            f" float plain {float(pacc.view(-1)[w])!r}, sum|c| "
+            f"{float(absacc.view(-1)[w])!r})")
     return float(err.max())
 
 
@@ -253,21 +292,30 @@ PUSH_FLOATS = ("dx", "dy", "dz", "ux", "uy", "uz", "mdx", "mdy", "mdz")
 WALK_FLOATS = ("x", "y", "z", "ux", "uy", "uz", "rx", "ry", "rz")
 
 
-def check_push(label, sp, interp, nb, g, n_walk):
+def check_push(label, sp, interp, nb, g, n_walk, quantum=False):
     """The push entry against the plain push and its fixed-point twin, and
-    a rerun; returns the accumulator's max abs error."""
+    a rerun; returns the accumulator's max abs error.  ``quantum``: the
+    float bound also allows each contribution its fixed-point rounding,
+    half of 2^-S (a word whose sum|c| is below about 1e6 2^-S, as the
+    slowest lanes of a 3D deck give, cannot meet 1e-6 * sum|c| in fixed
+    point)."""
     import torch
-    from vpic_tpu_torch.particles import push, push_cuda
+    from vpic_tpu_torch.particles import deposit, push, push_cuda
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
     run = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
     ko, kacc = run()
     check_rerun(label, (ko, kacc), run(), PUSH_FLOATS + ("i", "pc", "nm"))
     po, pacc = push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
     _, tacc = push.advance_p_fixed(sp, interp, acc0, nb, g, n_walk=n_walk)
+    seg_cap = push.segment_cap(n_walk)
     absacc = abs_deposit(push.pushed_walk_state(sp, interp, g), nb, g,
-                         push.segment_cap(n_walk))
+                         seg_cap, counts=quantum)
+    floor = 0.0
+    if quantum:
+        absacc, num = absacc
+        floor = num * (0.5 / deposit.fixed_scale(sp.q, seg_cap, sp.max_np))
     err = compare(label, ko, po, kacc, pacc, tacc, absacc, PUSH_FLOATS,
-                  ("i", "pc"))
+                  ("i", "pc"), floor)
     if not torch.equal(ko.nm, po.nm):
         raise AssertionError(f"{label}: nm {int(ko.nm)} != {int(po.nm)}")
     moved = int((ko.i != sp.i).sum())
@@ -501,6 +549,30 @@ def merge_bound(n, n_m, nvk, tiles):
                  + tiles * 8, 0)
 
 
+def time_push(label, sp, interp, nb, g, n_walk, pairs):
+    """The push kernel on ``sp`` (with ``pairs`` (lane, segment) pairs in
+    its walk): the wrapper (CUDA events), the kernel alone (profiler) and
+    the plain version, against the bound.  Returns the timing dict."""
+    import torch
+    from vpic_tpu_torch.particles import push, push_cuda
+    live = int(sp.alive.sum())
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
+    run_k = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g,
+                                        n_walk=n_walk)
+    run_p = lambda: push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
+                      cuda_ms(run_k, 20), cuda_ms(run_p, 5))
+    kernel_ms, ops = profiled_ms(run_k, 20, ("push_walk_kernel",), 1)
+    bound_ms, bound_by = push_bound(sp.max_np, live, pairs, g.nv)
+    log(f"  timing, {label} ({live} lanes in {sp.max_np} slots): wrapper "
+        f"{k1:.4f} / {k2:.4f} ms ({ops:.1f} device ops per call), kernel "
+        f"alone {kernel_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
+        f"{bound_ms:.4f} ms ({bound_by}), the kernel at "
+        f"{bound_ms / kernel_ms:.4f} of it")
+    return dict(ms=min(k1, k2), kernel_ms=kernel_ms, plain_ms=min(p1, p2),
+                bound_ms=bound_ms, bound_by=bound_by)
+
+
 def phase_kernel_slice(sim):
     """The bench shape: both species of the 128^2 deck after finalize,
     voxel-sorted as the step sorts them before its first push, through
@@ -509,9 +581,8 @@ def phase_kernel_slice(sim):
     the sorted electrons, the walk's counts and the timing of the wrapper
     (CUDA events), of the kernel alone (profiler) and of the plain
     version.  Returns (max abs err, timing dict)."""
-    import torch
     from vpic_tpu_torch.engine.step import walk_segments
-    from vpic_tpu_torch.particles import aux, push, push_cuda
+    from vpic_tpu_torch.particles import aux
     st, g = sim.state, sim.grid
     nb, interp = st.grid_arrays.neighbor, st.interpolator
     n_walk = walk_segments(g, sim.opts)
@@ -534,22 +605,9 @@ def phase_kernel_slice(sim):
         f"nonzero word {c['atomics_before']}, one per (warp, voxel) group "
         f"and nonzero word sum {c['atomics_after']} ({c['groups']} groups; "
         f"{c['atomics_before'] / c['atomics_after']:.4f}x fewer)")
-    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
-    run_k = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g,
-                                        n_walk=n_walk)
-    run_p = lambda: push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
-    p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
-                      cuda_ms(run_k, 20), cuda_ms(run_p, 5))
-    kernel_ms, ops = profiled_ms(run_k, 20, ("push_walk_kernel",), 1)
-    bound_ms, bound_by = push_bound(sp.max_np, live, c["pairs"], g.nv)
-    log(f"  timing, 128^2 sorted electrons ({live} lanes): wrapper "
-        f"{k1:.4f} / {k2:.4f} ms ({ops:.1f} device ops per call), kernel "
-        f"alone {kernel_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
-        f"{bound_ms:.4f} ms ({bound_by}), the kernel at "
-        f"{bound_ms / kernel_ms:.4f} of it")
-    return max(errs), dict(ms=min(k1, k2), kernel_ms=kernel_ms,
-                           plain_ms=min(p1, p2), bound_ms=bound_ms,
-                           bound_by=bound_by, library_ms=None)
+    t = time_push("128^2 sorted electrons", sp, interp, nb, g, n_walk,
+                  c["pairs"])
+    return max(errs), dict(t, library_ms=None)
 
 
 def phase_small_deck(device, **opts):
@@ -1303,13 +1361,428 @@ def phase_path_b(device, e_refs):
     return (launches, small_launches, cadence_launches, med, med_1, trace)
 
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TURB_DECK = "vpic_tpu_torch/decks/turbulence.py"
+# the deck's own defaults, set explicitly: 64x32x32 cells, 16 per cell
+TURB_FULL = dict(TURB_NX="64", TURB_NY="32", TURB_NZ="32", TURB_PPC="16")
+TURB_SMALL = dict(TURB_NX="8", TURB_NY="8", TURB_NZ="8", TURB_PPC="2")
+TURB_STEPS, TURB_RESTART = 100, 50   # restart1 holds step 50
+# the CLI run's intervals: energies, fields and hydro, particles, restart,
+# tracers, spectra
+TURB_DIAG = dict(TURB_ENERGY_INTERVAL="10", TURB_FIELD_INTERVAL="50",
+                 TURB_PARTICLE_INTERVAL="100", TURB_RESTART_INTERVAL="50",
+                 TURB_TRACER_INTERVAL="50", TURB_SPECTRUM_INTERVAL="100")
+TURB_DRIFT_LIMIT = 2e-2     # |relative total-energy change| over 10 steps
+
+
+def turb_deck(device, size):
+    """The port's turbulence deck built and finalized at ``size`` (TURB_*
+    environment values) on ``device``."""
+    import importlib
+    saved = {k: os.environ.get(k) for k in size}
+    os.environ.update(size)
+    try:
+        mod = importlib.import_module("vpic_tpu_torch.decks.turbulence")
+        sim = mod.deck(device=device)
+        sim.finalize()
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k)
+            else:
+                os.environ[k] = v
+    return sim
+
+
+def _float_rho(sp, g):
+    """rhof of one species by a float32 ``index_add_`` of the trilinear
+    weights: the charge deposit as it was before it summed in fixed point
+    (the finding's control)."""
+    import torch
+    from vpic_tpu_torch.particles import aux
+    q = torch.where(sp.alive, sp.q, 0.0)
+    w = aux.trilinear_weights(q, sp.dx, sp.dy, sp.dz, aux._r8V(g))
+    offs = torch.tensor([ox + g.nxg * (oy + g.nyg * oz)
+                         for ox, oy, oz in aux._NODE_OFFS], device=q.device)
+    idx = torch.where(sp.alive, sp.i, 0).long()[:, None] + offs
+    rho = torch.zeros(g.nv, dtype=torch.float32, device=q.device)
+    return rho.index_add_(0, idx.reshape(-1), w.reshape(-1))
+
+
+def check_fixed_deposits(label, sim, species):
+    """The fixed-point rho and hydro deposits of ``species`` (names) on the
+    card: two calls bitwise equal, each node within 1e-6 * sum|w| (per
+    hydro column, sum|contribution|) of a float64 ``index_add_`` of the
+    same contributions, plus half of the column's fixed-point quantum 2^-S
+    per contribution (a node whose sum|c| is below about 1e6 2^-S, as a
+    nearly still lane's stress terms give, cannot meet the relative bar in
+    fixed point)."""
+    import numpy as np
+    import torch
+    from vpic_tpu_torch.core.types import FieldState
+    from vpic_tpu_torch.particles import aux
+    g, st = sim.grid, sim.state
+    r8V = aux._r8V(g)
+    worst = quant = 0.0
+    for name in species:
+        sp = st.species[sim._species_by_name(name)["sid"]]
+        dev = sp.dx.device
+        f0 = FieldState.zeros(g, dev)
+        r1, r2 = (aux.accumulate_rho_p(f0, sp, g).rhof.reshape(-1, 1)
+                  for _ in range(2))
+        h0 = torch.zeros((g.nv, aux.N_HYDRO), device=dev)
+        h1, h2 = (aux.accumulate_hydro_p(h0, sp, st.interpolator, g)
+                  for _ in range(2))
+        if not (_bitwise_equal(r1, r2) and _bitwise_equal(h1, h2)):
+            raise AssertionError(f"{label} {name}: two fixed-point deposits "
+                                 "differ")
+        vox, q, vals = aux.hydro_moments(sp, st.interpolator, g)
+        w = aux.trilinear_weights(q, sp.dx, sp.dy, sp.dz, r8V)
+        mc_q = float(np.float32(np.float32(g.cvac) / np.float32(sp.q_m)))
+        f64 = lambda v: torch.tensor(v, dtype=torch.float64, device=dev)
+        # the columns' scales, as accumulate_rho_p / accumulate_hydro_p
+        # choose them
+        rho_bound = aux._bound(q, torch.ones_like(q)[:, None], r8V, f64([1.0]))
+        hyd_bound = aux._bound(q, vals, r8V, f64([1.0] * 4 + [abs(mc_q)] * 10))
+        offs = torch.tensor([ox + g.nxg * (oy + g.nyg * oz)
+                             for ox, oy, oz in aux._NODE_OFFS], device=dev)
+        idx = (vox.long()[:, None] + offs).reshape(-1)
+        for got, bound, contrib in (
+                (r1, rho_bound, lambda: w[:, :, None]),
+                (h1, hyd_bound, lambda: torch.cat(
+                    [w[:, :, None] * vals[:, None, :4],
+                     (w * mc_q)[:, :, None] * vals[:, None, 4:]], dim=-1))):
+            c = contrib().reshape(idx.numel(), -1).to(torch.float64)
+            exact = torch.zeros(got.shape, dtype=torch.float64,
+                                device=dev).index_add_(0, idx, c)
+            absum = torch.zeros_like(exact).index_add_(0, idx, c.abs())
+            num = torch.zeros_like(exact).index_add_(0, idx,
+                                                     (c != 0).double())
+            del c
+            quantum = 0.5 / aux.deposit_scale(bound, vox.shape[0])
+            err = (got.to(torch.float64) - exact).abs()
+            if not bool((err <= 1e-6 * absum + num * quantum + 1e-30).all()):
+                raise AssertionError(f"{label} {name}: a fixed-point deposit "
+                                     "is beyond 1e-6 * sum|c| of float64")
+            big = absum >= 1e6 * num * quantum
+            rel = (err / (absum + 1e-30))[big]
+            per = (err / (num * quantum + 1e-300))[~big]
+            if rel.numel():
+                worst = max(worst, float(rel.max()))
+            if per.numel():
+                quant = max(quant, float(per.max()))
+    log(f"  {label}: fixed-point rho and hydro of {list(species)} repeat "
+        f"bitwise; against float64, max |err| / sum|c| {worst:.3g} where "
+        f"sum|c| is at least 1e6 quanta, else max |err| {quant:.3g} half "
+        "quanta per contribution")
+
+
+def phase_determinism(device):
+    """The finding and its repair on the card: the charge deposit as a
+    float32 ``index_add_`` run twice on the 128^2 electrons; two bench
+    decks built from one seed (finalize deposits rho and cleans div E)
+    compared by checksum_fields at finalize and after 4 steps."""
+    from vpic_tpu_torch.decks import bench_deck
+    digests = []
+    for k in range(2):
+        sim = bench_deck.build(**SLICE, device=device)
+        if k == 0:
+            sp = sim.state.species[0]
+            a, b = _float_rho(sp, sim.grid), _float_rho(sp, sim.grid)
+            bad = int((a != b).sum())
+            log(f"  float32 index_add_ charge deposit of the 128^2 electrons, "
+                f"two calls: {'bitwise equal' if bad == 0 else 'differ'} "
+                f"({bad} of {a.numel()} nodes differ, max abs diff "
+                f"{float((a - b).abs().max()):.3g})")
+        d0 = sim.checksum_fields()
+        sim.advance(4)
+        digests.append((d0, sim.checksum_fields()))
+        log(f"  bench deck build {k + 1}: checksum_fields at finalize {d0}, "
+            f"after 4 steps {digests[-1][1]}")
+        del sim
+    if digests[0] != digests[1]:
+        raise AssertionError(f"two builds from one seed differ: {digests}")
+    log("  two builds from one seed: checksum_fields equal at finalize and "
+        "after 4 steps")
+    return digests[0]
+
+
+def check_tracer_push(sp, interp, nb, g, n_walk):
+    """The push kernel on a q = 0 species: every accumulator word 0 and the
+    wrapper's scale the finite 2^200 of the clamp."""
+    import torch
+    from vpic_tpu_torch.particles import push_cuda
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
+    _, acc = push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    stream = torch.cuda.current_stream(sp.dx.device).cuda_stream
+    _, _, scale = push_cuda._scratch_for(sp.dx.device, g.nv, stream)
+    if bool(acc.any()) or float(scale) != 2.0 ** 200:
+        raise AssertionError(f"q = 0 species {sp.name}: acc nonzero "
+                             f"{int((acc != 0).sum())} words, scale "
+                             f"{float(scale)!r}")
+    log(f"  {sp.name} (q = 0): accumulator all zero, scale 2^200")
+
+
+def phase_turb_kernel(sim):
+    """The push kernel on the turbulence deck's six species (3D, PEC z
+    walls with reflected particles, q = 0 tracers), voxel-sorted as the
+    step sorts them, against the plain push and its fixed-point twin; the
+    tracers' zero deposit; then on eT the walk's counts and the timing of
+    the wrapper, the kernel alone and the plain version against the bound.
+    Returns (max abs err, timing dict)."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    errs = []
+    species = [aux.sort_p(sp) for sp in st.species]
+    for sp in species:
+        errs.append(check_push(f"turbulence {sp.name} (n_walk {n_walk})", sp,
+                               interp, nb, g, n_walk, quantum=True))
+        if not bool(sp.q.any()):
+            check_tracer_push(sp, interp, nb, g, n_walk)
+    sp = species[0]
+    c = walk_counts(sp, interp, nb, g, n_walk)
+    log(f"  walk of the sorted eT (plain, {int(sp.alive.sum())} live lanes):"
+        f" {c['pairs']} (lane, segment) pairs, live lanes by segments walked "
+        f"{c['lanes_by_segments']}")
+    return max(errs), time_push("turbulence eT", sp, interp, nb, g, n_walk,
+                                c["pairs"])
+
+
+def run_cli(out, *args):
+    """The port's CLI on the turbulence deck at full size, in a process of
+    its own on the card, writing under ``out``; returns its seconds."""
+    env = dict(os.environ, **TURB_FULL, **TURB_DIAG, TURB_OUT=str(out))
+    cmd = [sys.executable, "-m", "vpic_tpu_torch.cli.run", TURB_DECK,
+           "--num-step", str(TURB_STEPS), "--status-interval", "50", *args]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"  cli: {line}")
+    if r.returncode:
+        raise AssertionError(f"the CLI exited {r.returncode}: "
+                             f"{r.stderr[-3000:]}")
+    return dt
+
+
+def read_energies(path):
+    """{step: [6 field energies, then each species' KE]} of an energies
+    file."""
+    out = {}
+    for line in open(path):
+        if not line.startswith("%"):
+            words = line.split()
+            out[int(words[0])] = [float(v) for v in words[1:]]
+    return out
+
+
+def phase_turb_cli(tmp, e0_total):
+    """The CLI on the card at the deck's full size for TURB_STEPS steps
+    with standard_diagnostics, then again from its step-TURB_RESTART
+    restart: every step-TURB_STEPS dump byte for byte the first run's;
+    finite energies and the total within TURB_DRIFT_LIMIT over the first
+    10 steps (``e0_total``: a fresh deck's at step 0); each species'
+    dropped movers at the last step.  Returns the two runs' seconds and
+    the movers."""
+    import math
+    import numpy as np
+    first, second = os.path.join(tmp, "first"), os.path.join(tmp, "second")
+    t1 = run_cli(first)
+    # the rotating restart: restart1 holds step 50, restart2 step 100
+    t2 = run_cli(second, "--restart",
+                 os.path.join(first, "restart1", "restart"))
+    tag = f".{TURB_STEPS}.0"
+    dumps = sorted(os.path.relpath(os.path.join(d, f), first)
+                   for d, _, files in os.walk(first) for f in files
+                   if f.endswith(tag) or os.path.basename(d)
+                   == f"T.{TURB_STEPS}")
+    kinds = collections.Counter(p.split(os.sep)[0] for p in dumps)
+    want = {"fields": 1, "hydro": 6, "particle": 4, "tracer": 2,
+            "spectra": 8}
+    if kinds != want:
+        raise AssertionError(f"step-{TURB_STEPS} dumps {dict(kinds)}, "
+                             f"expected {want}")
+    nbytes = 0
+    for rel in dumps:
+        a = open(os.path.join(first, rel), "rb").read()
+        b = open(os.path.join(second, rel), "rb").read()
+        if a != b:
+            raise AssertionError(f"{rel}: the restarted run's bytes differ")
+        nbytes += len(a)
+    log(f"  restart from step {TURB_RESTART}: all {len(dumps)} step-"
+        f"{TURB_STEPS} dumps ({dict(kinds)}, {nbytes} bytes) byte-identical "
+        "to the first run's")
+    en = read_energies(os.path.join(first, "rundata", "energies"))
+    if sorted(en) != list(range(10, TURB_STEPS + 1, 10)) or not all(
+            math.isfinite(v) for vals in en.values() for v in vals):
+        raise AssertionError(f"energies file: steps {sorted(en)}, finite "
+                             "values expected")
+    drift = (sum(en[10]) - e0_total) / e0_total
+    if not abs(drift) < TURB_DRIFT_LIMIT:
+        raise AssertionError(f"total energy moved {drift:.3e} in 10 steps")
+    log(f"  energies finite at steps 10..{TURB_STEPS}; total {e0_total!r} "
+        f"at step 0, {sum(en[10])!r} at step 10 ({drift:.3e}), "
+        f"{sum(en[TURB_STEPS])!r} at step {TURB_STEPS}")
+    ck = os.path.join(first, "restart2", "restart")
+    meta = json.load(open(ck + ".json"))
+    with np.load(ck + ".npz") as data:
+        nm = {s["name"]: int(data[f"species/{k}/nm"])
+              for k, s in enumerate(meta["species"])}
+    log(f"  dropped movers by step {meta['extra']['step_count']}: {nm}")
+    return t1, t2, nm
+
+
+def phase_turb_small(device):
+    """The deck at the tests' size (8^3 cells, 2 per cell) on the card and
+    on the CPU, 8 steps: energies equal to 1e-6 relative."""
+    gpu, cpu = turb_deck(device, TURB_SMALL), turb_deck("cpu", TURB_SMALL)
+    gpu.advance(8)
+    cpu.advance(8)
+    eg, ec = gpu.energies(), cpu.energies()
+    for k in ec:
+        if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
+            raise AssertionError(f"8^3 turbulence deck: energy {k} "
+                                 f"{eg[k]!r} vs CPU {ec[k]!r}")
+    log(f"  8^3 turbulence deck, 8 steps: card energies match the CPU plain "
+        f"path to 1e-6 relative ({len(ec)} energies), movers "
+        f"{gpu.mover_counts()}")
+
+
+def timed_call(fn):
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_turb_timing(device, tmp):
+    """In process on a fresh full-size deck after WARM_STEPS steps:
+    WINDOWS timed windows of STEPS steps (no diagnostics) with the kernels'
+    launch counts set to 0 just before and read just after (one push
+    launch per species per step, no other kernel), a trace of
+    TRACE_STEPS steps, and one call of each diagnostic after an untimed
+    one.  Returns (launches, median step s, trace, diagnostic ms)."""
+    import math
+    import statistics
+    import torch
+    from vpic_tpu_torch.io import banded
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    sim = turb_deck(device, TURB_FULL)
+    sim.advance(WARM_STEPS)
+    nsp = len(sim.state.species)
+    n_total = sum(int(sp.np) for sp in sim.state.species)
+    for mod in (push_cuda, deposit_cuda, sort_cuda):
+        mod.reset_launch_counts()
+    step_s = []
+    for w in range(WINDOWS):
+        e0 = sum(sim.energies().values())
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance(STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e1 = sim.energies()
+        if not all(math.isfinite(v) for v in e1.values()):
+            raise AssertionError(f"turbulence: non-finite energies {e1}")
+        step_s.append(dt / STEPS)
+        log(f"  turbulence window {w + 1}/{WINDOWS} (steps "
+            f"{sim.step_count - STEPS}-{sim.step_count}): {dt:.4f} s, "
+            f"{dt / STEPS * 1e3:.4f} ms/step, {n_total * STEPS / dt:.6e} "
+            f"pushes/s, energy change {(sum(e1.values()) - e0) / e0:.3e}")
+    launches = dict(push_walk=push_cuda.launches["push"],
+                    walk_only=push_cuda.launches["walk_only"],
+                    deposit_sorted=deposit_cuda.launches["deposit_sorted"],
+                    **sort_cuda.launches)
+    want = WINDOWS * STEPS * nsp
+    if launches["push_walk"] != want or sum(launches.values()) != want:
+        raise AssertionError(f"turbulence launches {launches}, expected "
+                             f"{want} push launches and no other kernel")
+    med = statistics.median(step_s)
+    log(f"  turbulence, {n_total} particles in {nsp} species: median "
+        f"{med * 1e3:.4f} ms/step (min {min(step_s) * 1e3:.4f}, max "
+        f"{max(step_s) * 1e3:.4f}), kernel launches {launches}, movers "
+        f"{sim.mover_counts()}")
+    trace = phase_trace(sim, med, "turbulence path")
+
+    g, s = sim.grid, sim.step_count
+    ck = os.path.join(tmp, "timing", "ck")
+    calls = {
+        "energies": lambda: sim.energies(),
+        "banded fields": lambda: banded.field_dump(
+            sim.state, g, os.path.join(tmp, "timing", "fields"),
+            banded.DumpParameters(), s),
+        **{f"hydro {h['name']}": (lambda n=h["name"]: sim.dump_hydro(
+            n, os.path.join(tmp, "timing", f"{n}hydro")))
+           for h in sim._species},
+        "particles eT": lambda: sim.dump_particles(
+            "eT", os.path.join(tmp, "timing", "eTparticle")),
+        "spectrum eT": lambda: sim.dump_energy_diag(
+            "eT", os.path.join(tmp, "timing", "spectra"), nex=200, emax=50.0,
+            vth=0.6),
+        "checkpoint save": lambda: sim.checkpoint(ck),
+        "restore": lambda: sim.restore(ck),
+    }
+    diag_ms = {}
+    for name, fn in calls.items():
+        fn()
+        diag_ms[name] = timed_call(fn)
+    log("  one call of each diagnostic, ms (after an untimed one): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in diag_ms.items()))
+    return launches, med, trace, diag_ms
+
+
+def phase_turbulence(device, card):
+    """Phase 11: the turbulence path.  Returns the push kernel's record on
+    it (max abs err, timing, launches in the timed windows) and logs the
+    rest."""
+    import shutil
+    import tempfile
+    import torch
+    sim = turb_deck(device, TURB_FULL)
+    g = sim.grid
+    log(f"  deck: {g.nx}x{g.ny}x{g.nz} cells, nv {g.nv}, species "
+        + ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
+                    for sp in sim.state.species)
+        + f", field faces {g.fbc}, particle faces {g.pbc}")
+    e0_total = sum(sim.energies().values())
+    check_fixed_deposits("turbulence deck", sim,
+                         [h["name"] for h in sim._species])
+    err, kt = phase_turb_kernel(sim)
+    del sim
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="turb_smoke_")
+    try:
+        t1, t2, nm = phase_turb_cli(tmp, e0_total)
+        phase_turb_small(device)
+        launches, step_s, trace, diag_ms = phase_turb_timing(device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"turbulence path ({card}; 64x32x32, 16 per cell, six species): "
+        f"CLI {TURB_STEPS} steps with diagnostics {t1:.2f} s, restart "
+        f"{TURB_RESTART}->{TURB_STEPS} {t2:.2f} s; step {step_s * 1e3:.4f} "
+        f"ms (median of {WINDOWS} windows of {STEPS} steps), device busy "
+        f"{trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step; "
+        f"dropped movers at step {TURB_STEPS} {nm}")
+    return dict(turbulence_max_abs_err=err,
+                turbulence_launches=launches["push_walk"],
+                turbulence_launches_per_step=launches["push_walk"]
+                / (WINDOWS * STEPS),
+                **{f"turbulence_{k}": v for k, v in kt.items()})
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run",
               file=sys.stderr)
         return 2
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    sys.path.insert(0, ROOT)
     from vpic_tpu_torch.decks import bench_deck
     from vpic_tpu_torch.particles import push_cuda
 
@@ -1317,13 +1790,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/9] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/11] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/9] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/11] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -1331,17 +1804,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/9] kernel vs plain, small 3D grid")
+    log("[3/11] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/9] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/11] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/9] determinism: checked above, per case and species")
+    log("[4/11] determinism: checked above, per case and species")
 
-    log("[5/9] slice")
+    log("[5/11] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -1349,15 +1822,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/9] deposit kernel vs plain")
+    log("[6/11] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/9] merge re-sort kernels vs plain")
+    log("[7/11] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/9] path A: the unfused push")
+    log("[8/11] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/9] path B: the packed cycle with the merge re-sort")
+    log("[9/11] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -1367,6 +1840,11 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
+    log("[10/11] determinism: the charge deposit on the card")
+    phase_determinism(device)
+    log("[11/11] the turbulence deck through the CLI")
+    turb = phase_turbulence(device, card)
+
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
     merge_source = "vpic_tpu_torch/csrc/merge_assemble.cu"
@@ -1374,7 +1852,7 @@ def main():
         dict(name="push_walk", source="vpic_tpu_torch/csrc/push_walk.cu",
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
-             max_abs_err=max(small_err, push_err), **push_t),
+             max_abs_err=max(small_err, push_err), **push_t, **turb),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

@@ -11,7 +11,11 @@ within 1e-6 * sum|contributions| per word, two runs bitwise equal.  Merge
 re-sort: the mark kernel's outputs and the assembly kernel's rows, key0
 and anomaly bitwise equal to the plain passes', the plain fast/slow
 decision, the whole re-sort bitwise the plain one's, two runs bitwise
-equal.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card
+equal.  The turbulence deck: the fixed-point rho and hydro deposits
+repeat bitwise and match float64 within 1e-6 * sum|contributions|; the
+push kernel on its q = 0 tracers (zero accumulator, finite scale) and on
+its bulk species at full shape (3D, reflecting walls).  Needs an NVIDIA
+GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -167,6 +171,55 @@ def test_merge_kernels_are_deterministic(device):
     assert cs._bitwise_equal(one.pk, two.pk)
     assert all(torch.equal(a, b) for a, b in zip(one[1:], two[1:]))
     assert int(one.anomaly) == 0
+
+
+@pytest.fixture(scope="module")
+def turb_small():
+    """The turbulence deck at 16x8x8 cells, 16 per cell, on the card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is "
+                    "false)")
+    return cs.turb_deck(torch.device("cuda", 0), dict(
+        TURB_NX="16", TURB_NY="8", TURB_NZ="8", TURB_PPC="16"))
+
+
+def test_fixed_point_deposits_repeat_and_match_float64(turb_small):
+    """rho and hydro of every species: two calls bitwise equal, each node
+    within 1e-6 * sum|contribution| of a float64 index_add_, plus half a
+    fixed-point quantum per contribution."""
+    cs.check_fixed_deposits("16x8x8", turb_small,
+                            [h["name"] for h in turb_small._species])
+
+
+@pytest.mark.parametrize("name", ["eR", "iR"])
+def test_push_kernel_on_a_q0_species(turb_small, name):
+    """A tracer (q = 0): the plain version and its twin agree with the
+    kernel, every accumulator word is 0 and the scale the clamp's 2^200."""
+    from vpic_tpu_torch.particles import aux
+    st, g = turb_small.state, turb_small.grid
+    sp = aux.sort_p(st.species[turb_small._species_by_name(name)["sid"]])
+    assert int(sp.np) > 0 and not bool(sp.q.any())
+    cs.check_push(name, sp, st.interpolator, st.grid_arrays.neighbor, g, 4)
+    cs.check_tracer_push(sp, st.interpolator, st.grid_arrays.neighbor, g, 4)
+
+
+@pytest.mark.parametrize("name", ["eT", "iB"])
+def test_push_kernel_3d_reflect_walls_full_shape(device, name):
+    """The turbulence deck's own shape (64x32x32 cells, 1 258 496 slots a
+    species, PEC z walls reflecting particles, n_walk 4): the particle
+    state bitwise the plain version's, the accumulator bitwise the
+    fixed-point twin's and within 1e-6 * sum|c| plus half of 2^-S per
+    contribution of the float plain version's."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    sim = cs.turb_deck(device, cs.TURB_FULL)
+    st, g = sim.state, sim.grid
+    n_walk = walk_segments(g, sim.opts)
+    assert n_walk == 4 and (g.nx, g.ny, g.nz) == (64, 32, 32)
+    sp = aux.sort_p(st.species[sim._species_by_name(name)["sid"]])
+    assert sp.max_np == 1_258_496
+    cs.check_push(name, sp, st.interpolator, st.grid_arrays.neighbor, g,
+                  n_walk, quantum=True)
 
 
 def _acc_ok(kacc, pacc, sp, interp, nb, g):

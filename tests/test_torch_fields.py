@@ -34,6 +34,7 @@ from vpic_tpu_torch.core.types import (
     FIELD_COMPONENTS,
     FieldState,
     Grid,
+    REMOTE_FIELDS,
     SpeciesState,
     vacuum_material_table,
 )
@@ -169,8 +170,8 @@ def test_energy_f(shape):
 
 @pytest.mark.parametrize("shape", list(SHAPES))
 def test_accumulate_rho_p(shape):
-    """Charge deposit: same weights, another summation order (float32
-    scatter-add in both), rtol 1e-5."""
+    """Charge deposit: same weights; the JAX package sums in float32, the
+    port in int64 fixed point (exactly rounded), rtol 1e-5."""
     jg, g, rng, jf, f = setup(shape)
     n = 200
     vox = g.voxel(rng.integers(1, g.nx + 1, n), rng.integers(1, g.ny + 1, n),
@@ -191,9 +192,14 @@ def test_accumulate_rho_p(shape):
 
 
 def test_non_periodic_faces_raise():
-    g = Grid(nx=4, ny=4, nz=1, fbc=(-1,) + (PERIODIC_FIELDS,) * 5)
+    """Local faces are ported (tests/test_torch_walls.py); a face joined
+    to another shard and a grid of several shards still raise."""
+    g = Grid(nx=4, ny=4, nz=1, fbc=(REMOTE_FIELDS,) + (PERIODIC_FIELDS,) * 5)
     f = FieldState.zeros(g)
     with pytest.raises(NotImplementedError):
         ghost.ghost_tang_b(f, g, LocalComm(g))
     with pytest.raises(NotImplementedError):
         sync.synchronize_jf(f, g, LocalComm(g))
+    g = Grid(nx=4, ny=4, nz=1, gpx=2)
+    with pytest.raises(NotImplementedError):
+        ghost.ghost_div_b(FieldState.zeros(g), g, LocalComm(g))

@@ -13,17 +13,25 @@ re-sort (``merge_sort=True``), which then runs 8 steps more.
 Tolerances: energies 1e-6 relative (BASELINE.md:21); after 8 steps of
 field feedback the particle floats and fields agree to 1e-5 absolute (the
 field values are O(0.1), the deposits sum in another order each step).
+The port's charge deposit sums in fixed point and matches a float64
+deposit; the JAX package's float32 scatter leaves roundoff of the
+species' densities, so rhof and rhob at finalize agree with it to 1e-6 of
+the summed |charge| per node.
 """
 
 import numpy as np
 import pytest
+import torch
 
 import __graft_entry__ as ge
 
+from vpic_tpu_torch.comm.facecomm import LocalComm
 from vpic_tpu_torch.core.types import FIELD_COMPONENTS
 from vpic_tpu_torch.decks import bench_deck
-from vpic_tpu_torch.interop import state_to_numpy
-from vpic_tpu_torch.particles import sort_cuda
+from vpic_tpu_torch.field import sync
+from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
+from vpic_tpu_torch.particles import aux, sort_cuda
+from vpic_tpu_torch.sf import interp as sfi
 
 DECK = dict(nx=16, ny=16, nz=1, npart=4096)
 STEPS = 8
@@ -34,7 +42,7 @@ def runs():
     jsim = ge._build(**DECK)
     tsim = bench_deck.build(**DECK, device="cpu")
     out = dict(j0=state_to_numpy(jsim.state), t0=state_to_numpy(tsim.state),
-               je0=jsim.energies(), te0=tsim.energies())
+               je0=jsim.energies(), te0=tsim.energies(), g=tsim.grid)
     jsim.advance(STEPS)
     tsim.advance(STEPS)
     out.update(j1=state_to_numpy(jsim.state), t1=state_to_numpy(tsim.state),
@@ -72,14 +80,47 @@ def test_initial_particles_identical(runs):
                                           err_msg=key)
 
 
+def charge_float64(d, g, absolute=False):
+    """Per node, the float64 charge deposit of every species (of |q| with
+    ``absolute``) after the shared-face sync."""
+    st = state_from_numpy(d)
+    offs = torch.tensor([ox + g.nxg * (oy + g.nyg * oz)
+                         for ox, oy, oz in aux._NODE_OFFS])
+    rho = torch.zeros(g.nv, dtype=torch.float64)
+    for sp in st.species:
+        q = torch.where(sp.alive, sp.q, 0.0).double()
+        w = aux.trilinear_weights(q.abs() if absolute else q, sp.dx.double(),
+                                  sp.dy.double(), sp.dz.double(),
+                                  aux._r8V(g))
+        idx = torch.where(sp.alive, sp.i, 0).long()[:, None] + offs
+        rho.index_add_(0, idx.reshape(-1), w.reshape(-1))
+    f = sfi.clear_rhof(st.field, g).replace(rhof=rho.reshape(g.shape))
+    return sync.synchronize_rho(f, g, LocalComm(g)).rhof.numpy()
+
+
 def test_initial_state_matches(runs):
     """finalize's initialization pass (sync, div cleaning, curl B, rhob,
-    interpolator, uncentering) agrees to float32 roundoff."""
+    interpolator, uncentering) agrees to float32 roundoff.  The charge
+    density: the port's rhof, summed in fixed point, matches the float64
+    deposit to the fields' bar; the deck is neutral, so both are 0 where
+    the JAX package's float32 sums leave the roundoff of each species'
+    density, which rhof and rhob match to 1e-6 of the summed |charge| per
+    node; rhob + rhof (eps0 div E) to the fields' bar."""
     t0, j0 = runs["t0"], runs["j0"]
     for c in FIELD_COMPONENTS:
+        if c in ("rhof", "rhob"):
+            continue
         np.testing.assert_allclose(t0[f"field/{c}"], j0[f"field/{c}"],
                                    rtol=1e-6, atol=1e-7, err_msg=c)
-    np.testing.assert_allclose(t0["interpolator"], j0["interpolator"],
+    g = runs["g"]
+    np.testing.assert_allclose(t0["field/rhof"], charge_float64(t0, g),
+                               rtol=1e-6, atol=1e-7)
+    bar = 1e-6 * charge_float64(t0, g, absolute=True)
+    for c in ("rhof", "rhob"):
+        err = np.abs(t0[f"field/{c}"] - j0[f"field/{c}"])
+        assert np.all(err <= bar), (c, float((err - bar).max()))
+    np.testing.assert_allclose(t0["field/rhob"] + t0["field/rhof"],
+                               j0["field/rhob"] + j0["field/rhof"],
                                rtol=1e-6, atol=1e-7)
     for k in range(2):
         for c in ("ux", "uy", "uz"):

@@ -1,11 +1,14 @@
 """Deck API of the port (``vpic_tpu/deck/api.py``; the reference's deck
-vocabulary, vpic.hxx:126-555), for closed single-device decks: a periodic
-grid, one material, particles injected at set-up.
+vocabulary, vpic.hxx:126-555), for single-device decks: periodic or local
+field faces, periodic or reflecting particle faces, one vacuum material,
+particles injected at set-up.
 
     sim = Simulation(seed=0, device="cuda")
     sim.define_units(1.0, 1.0)
     sim.define_timestep(dt)
     sim.define_periodic_grid(0, 0, 0, L, L, L, nx, ny, nz)
+    sim.set_domain_field_bc(2, PEC_FIELDS)
+    sim.set_domain_particle_bc(2, "reflect")
     sim.define_material("vacuum")
     e = sim.define_species("electron", -1.0, max_np)
     sim.inject_particle(e, x, y, z, ux, uy, uz, q)
@@ -15,39 +18,74 @@ grid, one material, particles injected at set-up.
     sim.energies(), sim.mover_counts()
 
 ``advance`` runs a plain loop of steps with the per-species sort cadence
-of :func:`vpic_tpu_torch.engine.step.step_sort_flags`.
-``modify_runparams(fused_push=False)`` or ``(merge_sort=True)`` switches
-the push path of a built deck.  Under ``merge_sort=True`` (with the fused
-push) the species ride the packed cycle: packed on the first step, kept
-packed between ``advance`` calls, unpacked when ``state`` is read.
+of :func:`vpic_tpu_torch.engine.step.step_sort_flags`; the host's step
+count sets the interval cleans.  ``modify_runparams(fused_push=False)`` or
+``(merge_sort=True)`` switches the push path of a built deck.  Under
+``merge_sort=True`` (with the fused push) the species ride the packed
+cycle: packed on the first step, kept packed between ``advance`` calls,
+unpacked when ``state`` is read.
+
+The diagnostics (energies, V0 and banded dumps, hydro, particles, the
+energy-band spectra, checksums), ``standard_diagnostics`` and the
+checkpoints copy the state to the host only where a file needs it.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
+import warnings
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from ..comm.facecomm import LocalComm
+from ..core import diagnostics
 from ..core.types import (
+    ANTI_SYMMETRIC_FIELDS,
     FieldState,
     Grid,
+    NEIGHBOR_ABSORB,
+    NEIGHBOR_REFLECT,
     PERIODIC_FIELDS,
     SimState,
     SpeciesState,
     vacuum_material_table,
 )
+from ..diag import energy_dist as ed
 from ..engine.init import initialize_state
 from ..engine.step import (StepOptions, make_advance, resolve_paths,
                            step_sort_flags)
 from ..field import stencil
 from ..field.slabs import own_slice
 from ..grid.partition import make_grid_arrays
+from ..io import banded
+from ..io import checkpoint as ckpt
+from ..io import dump as iodump
+from ..io import energies as ioenergies
+from ..io.global_header import write_global_header
 from ..particles import aux as paux
 from ..particles import push as ppush
+from ..sf import hydro as sfhydro
+
+
+@dataclasses.dataclass
+class _Material:
+    """A material's record for ``dump_materials`` (the JAX package's
+    ``_Material``)."""
+
+    name: str
+    id: int
+    epsx: float; epsy: float; epsz: float
+    mux: float; muy: float; muz: float
+    sigmax: float; sigmay: float; sigmaz: float
+    zetax: float; zetay: float; zetaz: float
+
+
+_PBC_MAP = {"periodic": PERIODIC_FIELDS, "absorb": NEIGHBOR_ABSORB,
+            "reflect": NEIGHBOR_REFLECT}
 
 _KIND_OF = {
     "ex": "edge_x", "ey": "edge_y", "ez": "edge_z",
@@ -72,8 +110,9 @@ class Simulation:
         self.cvac = 1.0
         self.eps0 = 1.0
         self.dt = 0.0
+        self.num_step = 0
         self.grid: Optional[Grid] = None
-        self.materials: List[str] = []
+        self.materials: List[_Material] = []
         self._species: List[dict] = []
         self._field_sets: List[tuple] = []
         self.opts = StepOptions()
@@ -106,18 +145,49 @@ class Simulation:
         """partition_periodic_box (partition.c:36-85) on one device."""
         if (px, py, pz) != (1, 1, 1):
             raise NotImplementedError("multi-device grids are not ported")
+        return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                               (px, py, pz), PERIODIC_FIELDS,
+                               PERIODIC_FIELDS)
+
+    def define_reflecting_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                               px=1, py=1, pz=1):
+        """partition_metal_box (partition.c:142-177) on one device."""
+        return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                               (px, py, pz), ANTI_SYMMETRIC_FIELDS,
+                               NEIGHBOR_REFLECT)
+
+    def _make_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz, shards, fbc,
+                   pbc):
+        if shards != (1, 1, 1):
+            raise NotImplementedError("multi-device grids are not ported")
         self.grid = Grid(nx=nx, ny=ny, nz=nz, dt=self.dt, cvac=self.cvac,
                          eps0=self.eps0, gx0=x0, gy0=y0, gz0=z0, gx1=x1,
-                         gy1=y1, gz1=z1, fbc=(PERIODIC_FIELDS,) * 6,
-                         pbc=(PERIODIC_FIELDS,) * 6)
+                         gy1=y1, gz1=z1, fbc=(fbc,) * 6, pbc=(pbc,) * 6)
         return self.grid
+
+    def set_domain_field_bc(self, face: int, bc: int):
+        """set_fbc analogue (src/grid/ops.c)."""
+        fbc = list(self.grid.fbc)
+        fbc[face] = bc
+        self.grid = dataclasses.replace(self.grid, fbc=tuple(fbc))
+
+    def set_domain_particle_bc(self, face: int, bc):
+        """set_pbc analogue; ``bc`` is 'periodic', 'absorb', 'reflect' or
+        a raw code (the step runs periodic and reflecting faces)."""
+        if isinstance(bc, str) and bc not in _PBC_MAP:
+            raise ValueError(f"unknown particle boundary {bc!r}")
+        pbc = list(self.grid.pbc)
+        pbc[face] = _PBC_MAP.get(bc, bc)
+        self.grid = dataclasses.replace(self.grid, pbc=tuple(pbc))
 
     def define_material(self, name, eps=1.0, mu=1.0, sigma=0.0, zeta=0.0):
         if (eps, mu, sigma, zeta) != (1.0, 1.0, 0.0, 0.0) or self.materials:
             raise NotImplementedError("only a single vacuum material is "
                                       "ported")
-        self.materials.append(name)
-        return name
+        m = _Material(name, 0, *(1.0,) * 3, *(1.0,) * 3, *(0.0,) * 3,
+                      *(0.0,) * 3)
+        self.materials.append(m)
+        return m
 
     def define_species(self, name, q_m, max_np, sort_interval=0):
         # capacity rounded up to whole 1024-slot blocks, as the JAX package
@@ -194,6 +264,11 @@ class Simulation:
                 own = ((b["x"] >= g.gx0) & (b["y"] >= g.gy0)
                        & (b["z"] >= g.gz0) & (b["x"] < g.gx1)
                        & (b["y"] < g.gy1) & (b["z"] < g.gz1))
+                # far-wall ownership on a local high-x face (misc.cxx:37-40)
+                if g.fbc[3] != PERIODIC_FIELDS:
+                    own |= ((b["x"] == g.gx1) & (b["y"] >= g.gy0)
+                            & (b["z"] >= g.gz0) & (b["y"] < g.gy1)
+                            & (b["z"] < g.gz1))
                 if not own.any():
                     continue
                 dxv, ix = cellify(b["x"][own], g.gx0, g.gx1, g.nx)
@@ -263,13 +338,18 @@ class Simulation:
                             for b in h["batches"]))
 
     def modify_runparams(self, **kw):
-        """Runtime overrides of :class:`StepOptions` fields on a built
-        deck (modify_runparams, dump.cxx:824-890): the advance is rebuilt
-        from the new options, and a packed state is unpacked first."""
+        """Runtime overrides of ``num_step`` and of :class:`StepOptions`
+        fields on a built deck (modify_runparams, dump.cxx:824-890): the
+        advance is rebuilt from the new options, and a packed state is
+        unpacked first."""
         names = {f.name for f in dataclasses.fields(StepOptions)}
-        unknown = sorted(set(kw) - names)
+        unknown = sorted(set(kw) - names - {"num_step"})
         if unknown:
             raise ValueError(f"unknown run parameters {unknown}")
+        if "num_step" in kw:
+            self.num_step = int(kw.pop("num_step"))
+        if not kw:
+            return
         if self._state is not None:
             self.state = self.state
         self.opts = dataclasses.replace(self.opts, **kw)
@@ -301,14 +381,16 @@ class Simulation:
         for _ in range(n):
             flags = step_sort_flags(self.step_count, g, self.opts, intervals)
             if self._advance_packed is None:
-                self.state = self._advance(self.state, flags)
+                self.state = self._advance(self.state, flags,
+                                           self.step_count)
             else:
                 if self._pstate is None:
                     st = self._state
                     self._pstate = dataclasses.replace(st, species=tuple(
                         ppush.pack_species(paux.sort_p(sp), g)
                         for sp in st.species))
-                self._pstate = self._advance_packed(self._pstate, flags)
+                self._pstate = self._advance_packed(self._pstate, flags,
+                                                    self.step_count)
                 self._state_stale = True
             self.step_count += 1
         return self.state
@@ -332,3 +414,200 @@ class Simulation:
         """Per-species cumulative dropped-mover counts (the reference's
         "Ignoring %i unprocessed movers", advance.cxx:98-103)."""
         return {sp.name: int(sp.nm) for sp in self.state.species}
+
+    def warn_dropped_movers(self, log=None):
+        """Warn (advance.cxx:98-103) when a species dropped movers since
+        the previous call; returns the cumulative counts."""
+        counts = self.mover_counts()
+        prev = getattr(self, "_warned_movers", {})
+        self._warned_movers = counts
+        for name, total in counts.items():
+            nm = total - prev.get(name, 0)
+            if nm:
+                msg = (f"ignoring {nm} unprocessed movers for species "
+                       f"{name!r} by step {self.step_count} (a lane still "
+                       "moving at the walk's segment cap)")
+                if log is not None:
+                    log(f"WARNING: {msg}")
+                else:
+                    warnings.warn(msg, RuntimeWarning, stacklevel=2)
+        return counts
+
+    def checksum_fields(self):
+        """SHA-1 of the full field state (output_checksum_fields,
+        misc.cxx:109-139)."""
+        return diagnostics.checksum_fields(self.state)
+
+    def checksum_species(self, sp_name):
+        return diagnostics.checksum_species(
+            self.state, self._species_by_name(sp_name)["sid"])
+
+    def time_phases(self, n_steps=3):
+        """Seconds per call of each part of the step (the p/s/g/f/u_time
+        analogue, vpic.hxx:214-218)."""
+        return diagnostics.time_phases(self, n_steps)
+
+    def _species_by_name(self, name):
+        for h in self._species:
+            if h["name"] == name:
+                return h
+        raise KeyError(f"no species {name!r}")
+
+    # -- dumps (the reference's V0 binary and energies text) -------------
+    def dump_energies(self, fname, append=True):
+        """dump.cxx:37-78."""
+        e = self.energies()
+        ioenergies.dump_energies(
+            fname, self.step_count,
+            [e[k] for k in ("ex", "ey", "ez", "bx", "by", "bz")],
+            {h["name"]: e[h["name"]] for h in self._species}, self.grid.dt,
+            append)
+
+    def dump_fields(self, fbase, ftag=True):
+        return iodump.dump_fields(self.state, self.grid, fbase,
+                                  self.step_count, ftag=ftag)
+
+    def dump_grid(self, fbase):
+        return iodump.dump_grid(self.state, self.grid, fbase)
+
+    def _hydro(self, sp_name):
+        """The (nv, 14) hydro moments of one species, cleared, accumulated
+        and synchronized (dump.cxx:224-265), on the state's device."""
+        g, st = self.grid, self.state
+        sp = st.species[self._species_by_name(sp_name)["sid"]]
+        h = sfhydro.clear_hydro(g, st.interpolator.device)
+        h = paux.accumulate_hydro_p(h, sp, st.interpolator, g)
+        return sfhydro.synchronize_hydro(h, g, self.comm)
+
+    def dump_hydro(self, sp_name, fbase, ftag=True):
+        h = self._species_by_name(sp_name)
+        return iodump.dump_hydro(self._hydro(sp_name), self.grid, fbase,
+                                 self.step_count, h["sid"], h["q_m"],
+                                 ftag=ftag)
+
+    def dump_species(self, fname):
+        """ASCII species listing (dump.cxx:82-101)."""
+        return iodump.dump_species_ascii(
+            fname, [(h["name"], h["sid"], h["q_m"]) for h in self._species])
+
+    def dump_materials(self, fname):
+        """ASCII material listing (dump.cxx:103-120)."""
+        return iodump.dump_materials_ascii(fname, self.materials)
+
+    def dump_particles(self, sp_name, fbase, ftag=True):
+        """Time-centered particle dump (dump.cxx:267-325)."""
+        st = self.state
+        sp = st.species[self._species_by_name(sp_name)["sid"]]
+        return iodump.dump_particles(
+            ppush.center_p(sp, st.interpolator, self.grid), self.grid,
+            fbase, self.step_count, ftag=ftag)
+
+    def write_global_header(self, base, field_dp=None, species_dumps=None,
+                            field_dir="fields", field_base="fields"):
+        """Banded-dump global header <base>.vpc (dump.cxx:978-1115)."""
+        if species_dumps is None:
+            species_dumps = [(h["name"], "hydro", h["name"],
+                              banded.DumpParameters())
+                             for h in self._species]
+        return write_global_header(base, self.grid,
+                                   field_dp or banded.DumpParameters(),
+                                   species_dumps, field_dir, field_base)
+
+    def dump_energy_diag(self, sp_name, dirname, nex: int, emax: float,
+                         vth: float, nbin: int = 800):
+        """In-deck KE diagnostics (energy.cxx:1-201): the per-cell
+        energy-band distribution and the global log-KE spectrum."""
+        h = self._species_by_name(sp_name)
+        sp = self.state.species[h["sid"]]
+        alive = sp.alive
+        dist = ed.energy_band_dist(self.grid, sp.ux, sp.uy, sp.uz, sp.i,
+                                   alive, nex, emax, vth)
+        edist = ed.energy_spectrum(sp.ux, sp.uy, sp.uz, alive, vth,
+                                   nbin=nbin)
+        return [ed.dump_energy_diag(dirname, self.step_count, h["name"], 0,
+                                    dist, edist)]
+
+    def standard_diagnostics(self, outdir=".", *, energies_interval=50,
+                             fields_interval=0, hydro_interval=None,
+                             hydro_species=None, particle_interval=0,
+                             particle_species=(), restart_interval=0,
+                             quota_hours=None, field_dp=None,
+                             hydro_dp=None):
+        """The production decks' ``begin_diagnostics`` as a reusable helper
+        (trecon-part turbulence.cxx:1015-1247, JAX ``api.py:1191-1264``):
+        the rundata directory layout, one-time grid, materials and species
+        dumps and the global header, interval energies, banded field dumps
+        (and at step 1), V0 hydro dumps, particle dumps, and the two-slot
+        rotating restart with wall-clock-quota self-termination.
+
+        Returns ``diag()``: call it after each :meth:`advance`.  It returns
+        False when the quota fired (a defensive checkpoint was written;
+        stop the run)."""
+        out = str(outdir)
+        for d in ("fields", "hydro", "rundata", "restart1", "restart2",
+                  "particle", "tracer"):
+            os.makedirs(os.path.join(out, d), exist_ok=True)
+        if hydro_interval is None:
+            hydro_interval = fields_interval
+        if hydro_species is None:
+            hydro_species = [h["name"] for h in self._species]
+        fdp = field_dp or banded.DumpParameters()
+        hdp = hydro_dp or banded.DumpParameters()
+        rot = ckpt.RotatingCheckpointer(out, quota_hours=quota_hours)
+        init_done = []
+
+        def run():
+            s = self.step_count
+            if s == 0 or not init_done:
+                self.dump_grid(f"{out}/rundata/grid")
+                self.dump_materials(f"{out}/rundata/materials")
+                self.dump_species(f"{out}/rundata/species")
+                self.write_global_header(
+                    f"{out}/global", field_dp=fdp,
+                    species_dumps=[(h["name"], "hydro",
+                                    f"{h['name']}hydro", hdp)
+                                   for h in self._species])
+                init_done.append(True)
+            if energies_interval and s % energies_interval == 0:
+                self.dump_energies(f"{out}/rundata/energies", append=s != 0)
+            if fields_interval and (s == 1 or s % fields_interval == 0):
+                banded.field_dump(self.state, self.grid,
+                                  f"{out}/fields/fields.{s}.0", fdp, s)
+            if hydro_interval and s % hydro_interval == 0:
+                for name in hydro_species:
+                    self.dump_hydro(name, f"{out}/hydro/{name}hydro")
+            if particle_interval and s and s % particle_interval == 0:
+                for name in particle_species:
+                    self.dump_particles(name,
+                                        f"{out}/particle/{name}particle")
+            if restart_interval and s and s % restart_interval == 0:
+                rot.save(self.state, self.grid, self._checkpoint_meta())
+            if rot.over_quota():
+                rot.save(self.state, self.grid, self._checkpoint_meta())
+                return False
+            return True
+
+        return run
+
+    # -- checkpoint / restart ---------------------------------------------
+    def _checkpoint_meta(self, extra=None):
+        meta = dict(step_count=self.step_count,
+                    opts=dataclasses.asdict(self.opts))
+        meta.update(extra or {})
+        return meta
+
+    def checkpoint(self, path, extra=None):
+        """Write a checkpoint of the state (``io/checkpoint.py``; replaces
+        dump_restart, dump.cxx:333-556)."""
+        return ckpt.save_checkpoint(path, self.state, self.grid,
+                                    self._checkpoint_meta(extra))
+
+    def restore(self, path):
+        """Load a checkpoint saved by :meth:`checkpoint` into this
+        identically configured simulation, on its device."""
+        meta = ckpt.load_meta(path)
+        state = ckpt.load_checkpoint(path, self.state, self.device)
+        self.state = state
+        self.step_count = int(meta["extra"].get("step_count",
+                                                int(state.step)))
+        return self.state

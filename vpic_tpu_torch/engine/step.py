@@ -1,9 +1,10 @@
-"""The time step of the closed single-device configuration
+"""The time step of the single-device configuration
 (``vpic_tpu/engine/step.py``; vpic_simulation::advance, advance.cxx:13-244):
 
   sort (cadence below) -> advance_p per species -> clear_jf +
   unload_accumulator + synchronize_jf -> advance_b(1/2) -> advance_e ->
-  advance_b(1/2) -> load_interpolator
+  advance_b(1/2) -> (interval) div-E clean -> (interval) div-B clean ->
+  (interval) shared-face sync -> load_interpolator
 
 The push takes one of three paths (:func:`resolve_paths`):
 
@@ -15,10 +16,11 @@ The push takes one of three paths (:func:`resolve_paths`):
   ``merge_sort=True``): the fused kernel on ``PackedSpecies`` rows, sorted
   by the merge re-sort (its CUDA assembly kernel) or a full sort.
 
-Configurations that need boundary rounds (absorbing or custom particle
-faces, migration), emitters, injection or collision hooks, non-periodic
-field faces or several devices are not ported: :func:`make_advance` raises
-for them.
+Field faces may be periodic or local (PEC, symmetric, PMC, absorbing);
+particle faces periodic or reflecting.  Configurations that need boundary
+rounds (absorbing or custom particle faces, migration), emitters,
+injection or collision hooks, or several devices are not ported:
+:func:`make_advance` raises for them.
 """
 
 from __future__ import annotations
@@ -29,9 +31,12 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
-from ..core.types import Grid, NEIGHBOR_REFLECT, PERIODIC_FIELDS, SimState
+from ..core.types import (FIELD_COMPONENTS, FieldState, Grid,
+                          NEIGHBOR_REFLECT, PackedSpecies, PERIODIC_FIELDS,
+                          SimState)
 from ..field import ghost, stencil, sync
 from ..particles import aux as paux
+from ..particles import push as ppush
 from ..particles import push_cuda
 from ..sf import interp as sfi
 
@@ -44,6 +49,11 @@ PHASES = ("step.sort", "step.push", "step.field")
 class StepOptions:
     """Runtime controls (vpic.cxx:13-48 defaults)."""
 
+    # div-E clean, div-B clean and shared-face sync on the steps that are
+    # multiples of these (0: never)
+    clean_div_e_interval: int = 0
+    clean_div_b_interval: int = 0
+    sync_shared_interval: int = 0
     # streak segments budgeted per lane (capped by the active axes below)
     n_walk: int = 4
     # re-sort particles by voxel every k steps; a species whose own
@@ -122,14 +132,63 @@ def walk_segments(g: Grid, opts: StepOptions) -> int:
     return min(opts.n_walk, n_axes + 1 + int(has_refl))
 
 
+def _interval_hit(step: int, interval: int) -> bool:
+    return interval > 0 and step % interval == 0
+
+
+def _where(cond, a: FieldState, b: FieldState) -> FieldState:
+    """``a`` where the 0-d bool ``cond`` holds, else ``b``, per component
+    (the JAX package's ``lax.cond`` on a device scalar, without a host
+    read)."""
+    return a.replace(**{c: torch.where(cond, getattr(a, c), getattr(b, c))
+                        for c in FIELD_COMPONENTS
+                        if getattr(a, c) is not getattr(b, c)})
+
+
+def _rms(g: Grid, comm, local):
+    err, vol = local
+    return stencil.finish_rms(g, comm.allsum(err), comm.allsum(vol))
+
+
+def clean_div_e(state: SimState, g: Grid, comm) -> FieldState:
+    """advance.cxx:151-173: rho accumulation and up to two Marder passes,
+    each taken only where the rms error before it is above 0."""
+    f = sfi.clear_rhof(state.field, g)
+    for sp in state.species:
+        if isinstance(sp, PackedSpecies):
+            sp = ppush.unpack_species(sp, g)
+        f = paux.accumulate_rho_p(f, sp, g)
+    f = sync.synchronize_rho(f, g, comm)
+    mat = state.materials
+    f = stencil.compute_div_e_err(f, g, mat, None, comm)
+    rms = _rms(g, comm, stencil.local_rms_div_e_err(f, g))
+    f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, None), g,
+                                   mat, None, comm)
+    rms1 = _rms(g, comm, stencil.local_rms_div_e_err(f1, g))
+    f2 = _where(rms1 > 0, stencil.clean_div_e(f1, g, mat, None), f1)
+    return _where(rms > 0, f2, f)
+
+
+def clean_div_b(f: FieldState, g: Grid, comm) -> FieldState:
+    """advance.cxx:177-195."""
+    f = stencil.compute_div_b_err(f, g)
+    rms = _rms(g, comm, stencil.local_rms_div_b_err(f, g))
+    f1 = stencil.compute_div_b_err(stencil.clean_div_b(f, g, comm), g)
+    rms1 = _rms(g, comm, stencil.local_rms_div_b_err(f1, g))
+    f2 = _where(rms1 > 0, stencil.clean_div_b(f1, g, comm), f1)
+    return _where(rms > 0, f2, f)
+
+
 def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  pcomm=None, emitters=(), boundary_handlers=(),
                  packed: bool = False, **hooks):
-    """The advance function ``(state, do_sort) -> state`` of a closed
+    """The advance function ``(state, do_sort, step) -> state`` of a
     single-device configuration; ``do_sort`` holds one flag per species
-    (:func:`step_sort_flags`).  ``packed``: the species are
-    ``PackedSpecies``, which needs the fused push."""
-    ghost.require_periodic(g)
+    (:func:`step_sort_flags`) and ``step`` is the host's count of the
+    state's step, which sets the interval cleans (the step is never read
+    from the device).  ``packed``: the species are ``PackedSpecies``,
+    which needs the fused push."""
+    ghost.check_faces(g)
     unported = [k for k, v in hooks.items() if v is not None]
     if pcomm is not None or emitters or boundary_handlers or unported:
         raise NotImplementedError(
@@ -160,7 +219,7 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         return push_cuda.advance_p(sp, interp, acc, nb, g, n_walk=n_walk,
                                    fused=paths.fused)
 
-    def advance(state: SimState, do_sort) -> SimState:
+    def advance(state: SimState, do_sort, step: int) -> SimState:
         nb = state.grid_arrays.neighbor
         acc = torch.zeros((g.nv, 12), dtype=torch.float32,
                           device=state.interpolator.device)
@@ -172,6 +231,7 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
             with record_function(PHASES[1]):
                 sp, acc = push(sp, state.interpolator, acc, nb)
             species.append(sp)
+        state = dataclasses.replace(state, species=tuple(species))
 
         with record_function(PHASES[2]):
             f = sfi.clear_jf(state.field, g)
@@ -183,9 +243,16 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
             f = stencil.advance_e(f, g, state.materials, None, comm)
             f = stencil.advance_b(f, g, 0.5)
 
+            if _interval_hit(step, opts.clean_div_e_interval):
+                f = clean_div_e(dataclasses.replace(state, field=f), g, comm)
+            if _interval_hit(step, opts.clean_div_b_interval):
+                f = clean_div_b(f, g, comm)
+            if _interval_hit(step, opts.sync_shared_interval):
+                f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
+
             interp = (sfi.load_interpolator(f, g) if species
                       else state.interpolator)
-        return dataclasses.replace(state, field=f, species=tuple(species),
-                                   interpolator=interp, step=state.step + 1)
+        return dataclasses.replace(state, field=f, interpolator=interp,
+                                   step=state.step + 1)
 
     return advance

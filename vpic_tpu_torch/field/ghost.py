@@ -1,22 +1,31 @@
-"""Ghost fills and local boundary adjusts of the Yee mesh, periodic faces
-only (the self-joined path of ``vpic_tpu/field/ghost.py``; reference
-local.c:50-445 and remote.c:61-297).
+"""Ghost fills and local boundary adjusts of the Yee mesh on one device
+(``vpic_tpu/field/ghost.py``; reference local.c:50-445 and
+remote.c:61-297).
 
-On a periodic face the ghost plane receives the opposite face's mirror
-plane through :class:`~vpic_tpu_torch.comm.facecomm.LocalComm`, and every
-local adjust is a no-op.  Every function raises NotImplementedError for any
-other field boundary code: PEC, PMC, symmetric and absorbing faces are not
-ported yet.
+A periodic face receives the opposite face's mirror plane through
+:class:`~vpic_tpu_torch.comm.facecomm.LocalComm`; every other face is a
+local face (PEC/anti-symmetric, symmetric, PMC or the absorbing Higdon
+face), whose ghost plane and adjusts are computed here.  On one device
+the JAX package's blend of the two (``_blend``, ``_apply_local_mask``)
+reduces to: an unjoined face takes the local value.  ``REMOTE_FIELDS``
+faces and several shards raise NotImplementedError.
 """
 
 from __future__ import annotations
 
+import torch
+
 from ..core.types import (
+    ABSORB_FIELDS,
+    ANTI_SYMMETRIC_FIELDS,
     FACE_AXIS,
     FACE_DIR,
     FieldState,
     Grid,
     PERIODIC_FIELDS,
+    PMC_FIELDS,
+    REMOTE_FIELDS,
+    SYMMETRIC_FIELDS,
 )
 from .slabs import own_slice
 
@@ -26,19 +35,35 @@ _E = ("ex", "ey", "ez")
 _CB = ("cbx", "cby", "cbz")
 _TCA = ("tcax", "tcay", "tcaz")
 _JF = ("jfx", "jfy", "jfz")
+_LOCAL = (ANTI_SYMMETRIC_FIELDS, SYMMETRIC_FIELDS, PMC_FIELDS, ABSORB_FIELDS)
 
 
-def require_periodic(g: Grid) -> None:
-    if any(b != PERIODIC_FIELDS for b in g.fbc):
+def check_faces(g: Grid) -> None:
+    """Raise for the field faces one device cannot hold."""
+    if (g.gpx, g.gpy, g.gpz) != (1, 1, 1) or REMOTE_FIELDS in g.fbc:
         raise NotImplementedError(
-            f"field boundary codes {g.fbc}: only periodic faces are ported")
+            f"field boundary codes {g.fbc} on {(g.gpx, g.gpy, g.gpz)} "
+            "shards: several shards are not ported")
+    bad = [b for b in g.fbc if b != PERIODIC_FIELDS and b not in _LOCAL]
+    if bad:
+        raise ValueError(f"bad field boundary codes {bad}")
 
 
-def _kp_ix(g: Grid, kind: str, axis: int, idx: int):
-    """Index of the plane ``axis == idx`` over `kind`'s transverse
-    ownership ranges, ``[z, y, x]`` order."""
-    ix = [idx if a == axis else own_slice(g, kind, a) for a in range(3)]
+def _kp_ix(g: Grid, kind: str, axis: int, idx: int, shift=(0, 0, 0)):
+    """Index of the plane ``axis == idx + shift[axis]`` over `kind`'s
+    transverse ownership ranges (shifted), ``[z, y, x]`` order."""
+    ix = []
+    for a in range(3):
+        if a == axis:
+            ix.append(idx + shift[a])
+        else:
+            s = own_slice(g, kind, a)
+            ix.append(slice(s.start + shift[a], s.stop + shift[a]))
     return (ix[2], ix[1], ix[0])
+
+
+def _rd(g: Grid, axis: int) -> float:
+    return (g.rdx, g.rdy, g.rdz)[axis]
 
 
 def _face_geom(g: Grid, face: int):
@@ -52,9 +77,15 @@ def _face_geom(g: Grid, face: int):
     return X, CYC[X], lo, gi, mi, fi
 
 
+# ---------------------------------------------------------------------------
+# Ghost fills
+# ---------------------------------------------------------------------------
+
+
 def ghost_tang_b(f: FieldState, g: Grid, comm) -> FieldState:
-    """Fill tangential cB ghosts on every face (local.c:50-122)."""
-    require_periodic(g)
+    """Fill tangential cB ghosts on every face (local.c:50-122 +
+    remote.c:61-134)."""
+    check_faces(g)
     payloads = {}
     for face in range(6):
         X, (Y, Z), _, _, mi, _ = _face_geom(g, face)
@@ -65,15 +96,54 @@ def ghost_tang_b(f: FieldState, g: Grid, comm) -> FieldState:
 
     out = {c: getattr(f, c).clone() for c in _CB}
     for face in range(6):
-        X, (Y, Z), _, gi, _, _ = _face_geom(g, face)
-        for k, T in enumerate((Y, Z)):
-            out[_CB[T]][_kp_ix(g, "face_" + "xyz"[T], X, gi)] = recv[face][k]
+        X, (Y, Z), lo, gi, mi, fi = _face_geom(g, face)
+        bc = g.fbc[face]
+        for k, (T, other) in enumerate(((Y, Z), (Z, Y))):
+            kind = "face_" + "xyz"[T]
+            cb = out[_CB[T]]
+            if bc == PERIODIC_FIELDS:
+                val = recv[face][k]
+            elif bc == ANTI_SYMMETRIC_FIELDS:
+                val = cb[_kp_ix(g, kind, X, mi)].clone()
+            elif bc in (SYMMETRIC_FIELDS, PMC_FIELDS):
+                val = -cb[_kp_ix(g, kind, X, mi)]
+            else:
+                val = _higdon_tang_b(f, g, cb, kind, X, T, Y, other, lo,
+                                     gi, mi, fi)
+            cb[_kp_ix(g, kind, X, gi)] = val
     return f.replace(**out)
 
 
+def _higdon_tang_b(f, g: Grid, cb, kind, X, T, Y, other, lo, gi, mi, fi):
+    """The absorbing face's tangential cB ghost: the first-order Higdon
+    condition with a 15 degree cone (local.c:61-107), in the JAX package's
+    operation order."""
+    higend = 1.03527618 if (g.nx > 1 or g.ny > 1 or g.nz > 1) else 1.0
+    cdt = g.cvac * g.dt
+    drv = cdt * _rd(g, X) * higend
+    decay = (1.0 - drv) / (1.0 + drv)
+    drive = 2.0 * drv / (1.0 + drv)
+    sgn = 1.0 if lo else -1.0
+    d = -1 if lo else 1
+    eT = getattr(f, _E[other])
+    eX = getattr(f, _E[X])
+    t1 = (cdt * _rd(g, X)) * (eT[_kp_ix(g, kind, X, fi - d)]
+                              - eT[_kp_ix(g, kind, X, fi)]) * sgn
+    sh = [0, 0, 0]
+    sh[other] = 1
+    t2 = (cdt * _rd(g, other)) * (eX[_kp_ix(g, kind, X, mi, tuple(sh))]
+                                  - eX[_kp_ix(g, kind, X, mi)])
+    ghost_old = cb[_kp_ix(g, kind, X, gi)]
+    mirror = cb[_kp_ix(g, kind, X, mi)]
+    if T == Y:
+        return decay * ghost_old + drive * mirror - t1 + t2
+    return decay * ghost_old + drive * mirror + t1 - t2
+
+
 def ghost_norm_e(f: FieldState, g: Grid, comm) -> FieldState:
-    """Fill normal-E ghosts (local.c:128-179)."""
-    require_periodic(g)
+    """Fill normal-E ghosts (local.c:128-179 + remote.c:136-206); a local
+    face also fills the tca ghost, as the reference does."""
+    check_faces(g)
     payloads = {}
     for face in range(6):
         X, _, _, _, mi, _ = _face_geom(g, face)
@@ -81,16 +151,33 @@ def ghost_norm_e(f: FieldState, g: Grid, comm) -> FieldState:
                                                   X, mi)]
     recv = comm.exchange(payloads)
 
-    out = {c: getattr(f, c).clone() for c in _E}
+    out = {c: getattr(f, c).clone() for c in _E + _TCA}
     for face in range(6):
-        X, _, _, gi, _, _ = _face_geom(g, face)
-        out[_E[X]][_kp_ix(g, "edge_" + "xyz"[X], X, gi)] = recv[face]
+        X, _, lo, gi, mi, _ = _face_geom(g, face)
+        kind = "edge_" + "xyz"[X]
+        bc = g.fbc[face]
+        e, tca = out[_E[X]], out[_TCA[X]]
+        gix = _kp_ix(g, kind, X, gi)
+        if bc == PERIODIC_FIELDS:
+            e[gix] = recv[face]
+            continue
+        e_m, tca_m = e[_kp_ix(g, kind, X, mi)], tca[_kp_ix(g, kind, X, mi)]
+        if bc == ANTI_SYMMETRIC_FIELDS:
+            local_e, local_tca = e_m.clone(), tca_m.clone()
+        elif bc in (SYMMETRIC_FIELDS, PMC_FIELDS):
+            local_e, local_tca = -e_m, -tca_m
+        else:
+            mi2 = gi - 2 * (-1 if lo else 1)
+            local_e = 2.0 * e_m - e[_kp_ix(g, kind, X, mi2)]
+            local_tca = 2.0 * tca_m - tca[_kp_ix(g, kind, X, mi2)]
+        e[gix] = local_e
+        tca[gix] = local_tca
     return f.replace(**out)
 
 
 def ghost_div_b(f: FieldState, g: Grid, comm) -> FieldState:
-    """Fill div_b_err ghosts (local.c:182-215)."""
-    require_periodic(g)
+    """Fill div_b_err ghosts (local.c:182-215 + remote.c:208-279)."""
+    check_faces(g)
     payloads = {}
     for face in range(6):
         X, _, _, _, mi, _ = _face_geom(g, face)
@@ -99,39 +186,108 @@ def ghost_div_b(f: FieldState, g: Grid, comm) -> FieldState:
 
     dbe = f.div_b_err.clone()
     for face in range(6):
-        X, _, _, gi, _, _ = _face_geom(g, face)
-        dbe[_kp_ix(g, "cell", X, gi)] = recv[face]
+        X, _, _, gi, mi, _ = _face_geom(g, face)
+        bc = g.fbc[face]
+        gix = _kp_ix(g, "cell", X, gi)
+        mirror = dbe[_kp_ix(g, "cell", X, mi)]
+        if bc == PERIODIC_FIELDS:
+            dbe[gix] = recv[face]
+        elif bc == ANTI_SYMMETRIC_FIELDS:
+            dbe[gix] = mirror.clone()
+        elif bc in (SYMMETRIC_FIELDS, PMC_FIELDS):
+            dbe[gix] = -mirror
+        else:
+            dbe[gix] = 0.0
     return f.replace(div_b_err=dbe)
 
 
-# Local adjusts (local.c:224-444) touch only non-periodic faces.
+# ---------------------------------------------------------------------------
+# Local adjusts (local.c:224-444): each touches the face planes of the
+# local faces only.
+# ---------------------------------------------------------------------------
+
+
+def _adjust(f: FieldState, g: Grid, plane, rule) -> FieldState:
+    """For each face in turn, ``rule(bc)`` gives None (leave the face) or
+    a function of the face plane; ``plane(face)`` gives, per component it
+    sets, (kind, axis, index) of the plane."""
+    check_faces(g)
+    out = {}
+    for face in range(6):
+        fn = rule(g.fbc[face])
+        if fn is None:
+            continue
+        for c, (kind, X, idx) in plane(face).items():
+            if c not in out:
+                out[c] = getattr(f, c).clone()
+            ix = _kp_ix(g, kind, X, idx)
+            out[c][ix] = fn(out[c][ix])
+    return f.replace(**out)
+
+
+def _zero(p):
+    return torch.zeros_like(p)
+
+
+def _double(p):
+    return 2.0 * p
+
+
+def _only(*codes):
+    """The rule that zeroes the face plane on the faces of ``codes``."""
+    return lambda bc: _zero if bc in codes else None
+
+
+def _zero_or_double(bc):
+    """Zero on a PEC face, doubled on every other local face (the image
+    charge or current of a symmetric, PMC or absorbing face)."""
+    if bc == PERIODIC_FIELDS:
+        return None
+    return _zero if bc == ANTI_SYMMETRIC_FIELDS else _double
+
+
+def _tang_plane(g: Grid, comps):
+    """The face plane of each face's two transverse components, on their
+    edge lattices; ``comps`` are per-axis name tuples."""
+    def plane(face):
+        X, (Y, Z), _, _, _, fi = _face_geom(g, face)
+        return {c[T]: ("edge_" + "xyz"[T], X, fi) for T in (Y, Z)
+                for c in comps}
+    return plane
+
+
+def _node_plane(g: Grid, name: str):
+    def plane(face):
+        X, _, _, _, _, fi = _face_geom(g, face)
+        return {name: ("node", X, fi)}
+    return plane
 
 
 def adjust_tang_e(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    return _adjust(f, g, _tang_plane(g, (_E, _TCA)),
+                   _only(ANTI_SYMMETRIC_FIELDS))
 
 
 def adjust_norm_b(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    def plane(face):
+        X, _, _, _, _, fi = _face_geom(g, face)
+        return {_CB[X]: ("face_" + "xyz"[X], X, fi)}
+    return _adjust(f, g, plane, _only(SYMMETRIC_FIELDS))
 
 
 def adjust_div_e_err(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    return _adjust(f, g, _node_plane(g, "div_e_err"),
+                   _only(ANTI_SYMMETRIC_FIELDS, ABSORB_FIELDS))
 
 
 def adjust_jf(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    return _adjust(f, g, _tang_plane(g, (_JF,)), _zero_or_double)
 
 
 def adjust_rhof(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    return _adjust(f, g, _node_plane(g, "rhof"), _zero_or_double)
 
 
 def adjust_rhob(f: FieldState, g: Grid, comm) -> FieldState:
-    require_periodic(g)
-    return f
+    return _adjust(f, g, _node_plane(g, "rhob"),
+                   _only(ANTI_SYMMETRIC_FIELDS))

@@ -90,3 +90,12 @@ def make_grid_arrays(g: Grid, shard=(0, 0, 0), device="cpu") -> GridArrays:
     return GridArrays(neighbor=torch.as_tensor(
         build_neighbor_table(g, shard), device=device))
 
+
+def shard_origin(g: Grid, shard=(0, 0, 0)):
+    """Local domain corner of a shard (partition_periodic_box's Cartesian
+    decomposition, src/grid/partition.c:36-85)."""
+    lx = (g.gx1 - g.gx0) / g.gpx
+    ly = (g.gy1 - g.gy0) / g.gpy
+    lz = (g.gz1 - g.gz0) / g.gpz
+    return (g.gx0 + lx * shard[0], g.gy0 + ly * shard[1],
+            g.gz0 + lz * shard[2])

@@ -30,7 +30,8 @@ from .core.types import (
 _STATIC = ("name", "sid", "max_np", "sort_interval")
 
 
-def _np(a):
+def to_numpy(a) -> np.ndarray:
+    """A tensor on any device, or an array of either package, as numpy."""
     if isinstance(a, torch.Tensor):
         return a.detach().cpu().numpy()
     return np.asarray(a)
@@ -39,19 +40,19 @@ def _np(a):
 def state_to_numpy(state) -> dict:
     if getattr(state, "material_grid", None) is not None:
         raise NotImplementedError("per-voxel material grids are not ported")
-    d = {f"field/{k}": _np(getattr(state.field, k)) for k in FIELD_COMPONENTS}
-    d["interpolator"] = _np(state.interpolator)
-    d["neighbor"] = _np(state.grid_arrays.neighbor)
-    d.update({f"materials/{k}": _np(getattr(state.materials, k))
+    d = {f"field/{k}": to_numpy(getattr(state.field, k)) for k in FIELD_COMPONENTS}
+    d["interpolator"] = to_numpy(state.interpolator)
+    d["neighbor"] = to_numpy(state.grid_arrays.neighbor)
+    d.update({f"materials/{k}": to_numpy(getattr(state.materials, k))
               for k in MATERIAL_COLUMNS})
-    d["step"] = _np(state.step)
+    d["step"] = to_numpy(state.step)
     for k, sp in enumerate(state.species):
         pre = f"species/{k}/"
         for c in SPECIES_COLUMNS + ("np", "nm"):
-            d[pre + c] = _np(getattr(sp, c))
+            d[pre + c] = to_numpy(getattr(sp, c))
         for c in _STATIC:
             d[pre + c] = getattr(sp, c)
-        d[pre + "q_m"] = np.float32(_np(sp.q_m))
+        d[pre + "q_m"] = np.float32(to_numpy(sp.q_m))
     return d
 
 

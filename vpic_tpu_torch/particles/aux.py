@@ -1,22 +1,40 @@
-"""Charge deposit and the particle sort (``vpic_tpu/particles/aux.py``).
+"""Charge and hydro deposits and the particle sort
+(``vpic_tpu/particles/aux.py``).
 
-- accumulate_rho_p (src/species_advance/standard/rho_p.c:24-79)
-- sort_p           (src/species_advance/standard/sort_p.c:16-102): a stable
-  sort by plain voxel that also compacts zombies and free slots to the tail.
+- accumulate_rho_p   (src/species_advance/standard/rho_p.c:24-79)
+- accumulate_hydro_p (src/species_advance/standard/hydro_p.c:25-161)
+- sort_p             (src/species_advance/standard/sort_p.c:16-102): a
+  stable sort by plain voxel that also compacts zombies and free slots to
+  the tail.
 - sort_p_packed, sort_p_packed_merge: the same for a PackedSpecies, by a
   full sort or by the merge re-sort (``sort.py``, ``sort_cuda.py``).
+
+The two deposits sum in int64 fixed point (:func:`deposit_nodes`), so on
+the card they repeat bit for bit whatever order the atomics of
+``index_add_`` take: integer addition is associative.  One implementation
+serves both devices.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..core.types import FieldState, Grid, PackedSpecies, SpeciesState
 from . import sort, sort_cuda
+from .push import ONE_THIRD, interpolate_fields
 
 # node offsets in deposit order w0..w7 (rho_p.c:70-79), x fastest
 _NODE_OFFS = ((0, 0, 0), (1, 0, 0), (0, 1, 0), (1, 1, 0),
               (0, 0, 1), (1, 0, 1), (0, 1, 1), (1, 1, 1))
+
+N_HYDRO = 14
+HYDRO = dict(jx=0, jy=1, jz=2, rho=3, px=4, py=5, pz=6, ke=7,
+             txx=8, tyy=9, tzz=10, tyz=11, tzx=12, txy=13)
+
+# lanes per pass of deposit_nodes: bounds its (lanes, 8, columns) int64
+# contributions (a hydro pass holds 2^18 * 8 * 14 words, 235 MB)
+DEPOSIT_CHUNK = 1 << 18
 
 
 def trilinear_weights(q, dx, dy, dz, r8V):
@@ -31,19 +49,134 @@ def trilinear_weights(q, dx, dy, dz, r8V):
     return torch.stack(ws, dim=-1)
 
 
-def accumulate_rho_p(f: FieldState, sp: SpeciesState, g: Grid) -> FieldState:
-    """Trilinear node deposit of charge into rhof (rho_p.c)."""
-    alive = sp.alive
-    q = torch.where(alive, sp.q, 0.0)
-    r8V = float(torch.tensor(0.125 * g.rdx * g.rdy * g.rdz,
-                             dtype=torch.float32))
-    w = trilinear_weights(q, sp.dx, sp.dy, sp.dz, r8V)
+def _r8V(g: Grid) -> float:
+    return float(np.float32(0.125 * g.rdx * g.rdy * g.rdz))
+
+
+def deposit_scale(bound, lanes: int):
+    """2^S per column as float64, S = floor(62 - log2(8 * lanes * bound))
+    clamped to [-200, 200]: a node takes at most one contribution per lane,
+    each below ``bound`` in magnitude, so its fixed-point sum stays below
+    2^62 with a factor 8 to spare.  A zero bound (a q = 0 species) gives
+    2^200 and all-zero words."""
+    s = torch.floor(62.0 - torch.log2(8.0 * float(lanes)
+                                      * bound.to(torch.float64)))
+    return torch.exp2(s.clamp(-200.0, 200.0))
+
+
+def deposit_nodes(base, vox, contrib_fn, bound, g: Grid,
+                  chunk: int = DEPOSIT_CHUNK):
+    """``base`` (nv, c) float32 plus the per-node sums of contributions:
+    ``contrib_fn(lanes)`` gives the (m, 8, c) contributions of the lane
+    slice ``lanes`` at the 8 nodes of voxel ``vox[lanes]`` (deposit order
+    of ``_NODE_OFFS``).  Each is rounded half to even to an integer at the
+    column's scale (:func:`deposit_scale` from ``bound``, (c,) upper bounds
+    of |contribution|), summed in int64 and converted back once."""
+    n = vox.shape[0]
+    scale = deposit_scale(bound, n)
     offs = torch.tensor([ox + g.nxg * (oy + g.nyg * oz)
                          for ox, oy, oz in _NODE_OFFS],
-                        dtype=torch.int64, device=w.device)
-    idx = torch.where(alive, sp.i, 0).long()[:, None] + offs[None, :]
-    rhof = f.rhof.reshape(-1).index_add(0, idx.reshape(-1), w.reshape(-1))
+                        dtype=torch.int64, device=vox.device)
+    fix = torch.zeros(base.shape, dtype=torch.int64, device=vox.device)
+    for start in range(0, n, chunk):
+        lanes = slice(start, start + chunk)
+        c = contrib_fn(lanes)
+        words = torch.round(c.to(torch.float64) * scale).to(torch.int64)
+        idx = vox[lanes].long()[:, None] + offs[None, :]
+        fix.index_add_(0, idx.reshape(-1), words.reshape(-1, c.shape[-1]))
+    return base + (fix.to(torch.float64) / scale).to(torch.float32)
+
+
+def _bound(q, vals, r8V: float, col):
+    """(c,) float64 upper bounds of |contribution| per column: a node
+    weight is at most 8 |r8V q|, times |value| and the column factor
+    ``col`` (mc/q for the momentum columns)."""
+    if q.numel() == 0:
+        return torch.zeros_like(col)
+    lane = q.abs().to(torch.float64) * abs(r8V)
+    return 8.0 * col * (lane[:, None] * vals.abs().to(torch.float64)) \
+        .amax(dim=0)
+
+
+def accumulate_rho_p(f: FieldState, sp: SpeciesState, g: Grid) -> FieldState:
+    """Trilinear node deposit of charge into rhof (rho_p.c), in fixed
+    point."""
+    alive = sp.alive
+    q = torch.where(alive, sp.q, 0.0)
+    r8V = _r8V(g)
+    one = torch.ones((1,), dtype=torch.float64, device=q.device)
+    bound = _bound(q, torch.ones_like(q)[:, None], r8V, one)
+    rhof = deposit_nodes(
+        f.rhof.reshape(-1, 1), torch.where(alive, sp.i, 0),
+        lambda s: trilinear_weights(q[s], sp.dx[s], sp.dy[s], sp.dz[s],
+                                    r8V)[:, :, None], bound, g)
     return f.replace(rhof=rhof.reshape(g.shape))
+
+
+def hydro_moments(sp: SpeciesState, interp, g: Grid):
+    """Per lane: the voxel, the charge and the 14 hydro values
+    (hydro_p.c:25-161, the JAX package's operation order): columns 0-3
+    (vx, vy, vz, 1) are weighted by the node weight, columns 4-13 (ux,
+    uy, uz, ke, the stress products) by the node weight times mc/q."""
+    alive = sp.alive
+    f32 = lambda v: float(np.float32(v))
+    q_m = np.float32(sp.q_m)
+    qdt_2mc = f32(np.float32(np.float32(np.float32(0.5) * q_m)
+                             * np.float32(g.dt)) / np.float32(g.cvac))
+    qdt_4mc2 = f32(np.float32(np.float32(np.float32(0.25) * q_m)
+                              * np.float32(g.dt))
+                   / np.float32(g.cvac * g.cvac))
+    c = f32(g.cvac)
+    vox = torch.where(alive, sp.i, 0)
+    ip = interp[vox.long()]
+    ex, ey, ez, cbx, cby, cbz = interpolate_fields(ip, sp.dx, sp.dy, sp.dz)
+    ux = sp.ux + qdt_2mc * ex
+    uy = sp.uy + qdt_2mc * ey
+    uz = sp.uz + qdt_2mc * ez
+
+    ke_mc = ux * ux + uy * uy + uz * uz
+    gamma = torch.sqrt(1.0 + ke_mc)
+    ke_mc = ke_mc * c / (gamma + 1.0)
+    vg = torch.full_like(gamma, c) / gamma
+    w0 = qdt_4mc2 * vg
+    w1 = cbx * cbx + cby * cby + cbz * cbz
+    w2 = w0 * w0 * w1
+    w3 = w0 * (1.0 + ONE_THIRD * w2 * (1.0 + 0.4 * w2))
+    w4 = w3 / (1.0 + w1 * w3 * w3)
+    w4 = w4 + w4
+    a0 = ux + w3 * (uy * cbz - uz * cby)
+    a1 = uy + w3 * (uz * cbx - ux * cbz)
+    a2 = uz + w3 * (ux * cby - uy * cbx)
+    ux = ux + w4 * (a1 * cbz - a2 * cby)
+    uy = uy + w4 * (a2 * cbx - a0 * cbz)
+    uz = uz + w4 * (a0 * cby - a1 * cbx)
+    vx, vy, vz = ux * vg, uy * vg, uz * vg
+    vals = torch.stack([vx, vy, vz, torch.ones_like(vx),
+                        ux, uy, uz, ke_mc,
+                        ux * vx, uy * vy, uz * vz, uy * vz, uz * vx, ux * vy],
+                       dim=-1)
+    return vox, torch.where(alive, sp.q, 0.0), vals
+
+
+def accumulate_hydro_p(h, sp: SpeciesState, interp, g: Grid,
+                       chunk: int = DEPOSIT_CHUNK):
+    """Deposit the 14 hydrodynamic moments (hydro_p.c:25-161) into the
+    (nv, 14) array ``h``, in fixed point with one scale per moment (jx and
+    txx differ by orders of magnitude)."""
+    vox, q, vals = hydro_moments(sp, interp, g)
+    r8V = _r8V(g)
+    mc_q = float(np.float32(np.float32(g.cvac) / np.float32(sp.q_m)))
+    col = torch.tensor([1.0] * 4 + [abs(mc_q)] * 10, dtype=torch.float64,
+                       device=vals.device)
+    bound = _bound(q, vals, r8V, col)
+
+    def contrib(s):
+        w = trilinear_weights(q[s], sp.dx[s], sp.dy[s], sp.dz[s], r8V)
+        wm = w * mc_q
+        v = vals[s]
+        return torch.cat([w[:, :, None] * v[:, None, :4],
+                          wm[:, :, None] * v[:, None, 4:]], dim=-1)
+    return deposit_nodes(h, vox, contrib, bound, g, chunk)
 
 
 def sort_p(sp: SpeciesState) -> SpeciesState:
