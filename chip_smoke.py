@@ -2,8 +2,9 @@
 """Smoke test of vpic_tpu_torch on one NVIDIA GPU: the port's three push
 paths on the bench deck at full size, through its hand-written CUDA
 kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
-and assembly), and the production turbulence deck at full size through
-the port's CLI, with its diagnostics and a restart.
+and assembly), and the production turbulence deck and the reconnection
+decks (trecon, sigma, turbulence_fan) at full size through the port's
+CLI, with their diagnostics, tracer trajectories, readers and restarts.
 
     python3 chip_smoke.py
 
@@ -98,7 +99,29 @@ no result line):
               the card and on the CPU, energies to 1e-6; then in process
               three timed 16-step windows with the launch counts (one
               push launch per species per step and nothing else), a
-              trace split by step part, and one call of each diagnostic.
+              trace split by step part, and one call of each diagnostic;
+12. reconnection - vpic_tpu_torch/decks/trecon.py (2D x-z 256x128, 64
+              per cell, 1024 tagged tracers), sigma.py (the same grid
+              with PEC z walls reflecting particles, the 0.6c boosted
+              load, two tracer species) and turbulence_fan.py (3D 32^3,
+              16 per cell, a pair plasma with initial E fields) at their
+              full sizes: the push kernel against its plain version and
+              twin on every species (the quantum allowance of phase 11
+              only where the float bar cannot be met, the species named),
+              the kernel on the electrons timed against its bound; 25
+              steps from finalize with finite energies, the total within
+              5e-3 (twice the JAX package's own change at the tests' size
+              where that is larger) and each species' dropped movers; three
+              timed 16-step windows with the launch counts and a trace;
+              the readers on the deck's dumps against the state on the
+              card and the native particle read against numpy; on trecon
+              the trajectories collected every step, written in both
+              layouts (and as H5Part where h5py is installed), read back
+              and round-tripped through a checkpoint, one
+              collect_trajectories call timed; the CLI in
+              a process of its own for 50 steps with the deck's dumps on,
+              then again from its step-25 checkpoint: every step-50 dump
+              and the step-50 energies byte for byte the first run's.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -110,7 +133,10 @@ it, and the one PyTorch call that computes the same function
 (``library_ms``, null where there is none); the push kernel's record adds
 the same numbers on the turbulence path (``turbulence_*``: its launches
 in phase 11's timed windows, its error over the six species, its times
-on eT).  The last line is {"ok": true, "device": {...}}.  Without a CUDA
+on eT) and on each deck of phase 12 (``trecon_*``, ``sigma_*``,
+``turbulence_fan_*``: launches, error, the species that needed the
+quantum allowance, the times on the electrons, the step, busy device ms,
+device ops, dropped movers and the readers' ms).  The last line is {"ok": true, "device": {...}}.  Without a CUDA
 device the script exits 2.
 """
 
@@ -441,38 +467,62 @@ def walk_counts(sp, interp, nb, g, n_walk, warp=32):
 
 
 PROFILE_ATTEMPTS = 5
+# small kernels launched at the start and at the end of every trace:
+# where the profiler loses a trace's first or last device records (seen
+# after long traces: the first five of each later trace), it is these
+# that it loses, not fn's
+PAD_SCOPE, PAD_OPS = "smoke.profiler_pad", 16
+_RUNTIME = ("LaunchKernel", "Memcpy", "Memset")
+
+
+def _pad():
+    import torch
+    from torch.profiler import record_function
+    with record_function(PAD_SCOPE):
+        pad = torch.zeros(1, device="cuda")
+        for _ in range(PAD_OPS):
+            pad.add_(1.0)
+        torch.cuda.synchronize()
 
 
 def profiled(fn, ok):
     """Run fn() under torch.profiler, again while ``ok(device events,
     runtime calls without a device event)`` is false: the profiler can
     drop device events, and a kernel missing from a trace would read as
-    time not spent.  Returns (host-clock us of fn, all events, device
-    events, runtime calls without a device event)."""
+    time not spent.  The device events are those of fn's runtime calls;
+    records of other traces and of this trace's padding are left out.
+    Returns (host-clock us of fn, all events, device events, runtime calls
+    without a device event)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from vpic_tpu_torch.engine.step import PHASES
     for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            _pad()
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
+            _pad()
         events = prof.events()
+        pads = [(e.time_range.start, e.time_range.end) for e in events
+                if e.device_type == DeviceType.CPU and e.name == PAD_SCOPE]
+        calls = {e.id: e for e in events if e.device_type == DeviceType.CPU
+                 and any(k in e.name for k in _RUNTIME)
+                 and not any(a <= e.time_range.start <= b for a, b in pads)}
         dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.name not in PHASES]
+               and not e.is_user_annotation and e.id in calls]
         ids = {e.id for e in dev}
-        lost = [e.name for e in events
-                if e.device_type == DeviceType.CPU and e.id not in ids
-                and any(k in e.name for k in ("LaunchKernel", "Memcpy",
-                                              "Memset"))]
+        order = sorted(calls, key=lambda i: calls[i].time_range.start)
+        lost = [calls[i].name for i in order if i not in ids]
         if dev and ok(dev, lost):
             return wall_us, events, dev, len(lost)
-        log(f"  (the trace lacks the device events of {len(lost)} runtime "
-            f"calls, {sorted(set(lost))}; traced again)")
+        where = [k for k, i in enumerate(order) if i not in ids]
+        log(f"  (the trace lacks the device events of {len(lost)} of "
+            f"{len(order)} runtime calls, {sorted(set(lost))}, at positions "
+            f"{where[:8]}; traced again)")
     raise AssertionError(f"the profiler dropped device events in "
                          f"{PROFILE_ATTEMPTS} traces in a row")
 
@@ -1375,14 +1425,14 @@ TURB_DIAG = dict(TURB_ENERGY_INTERVAL="10", TURB_FIELD_INTERVAL="50",
 TURB_DRIFT_LIMIT = 2e-2     # |relative total-energy change| over 10 steps
 
 
-def turb_deck(device, size):
-    """The port's turbulence deck built and finalized at ``size`` (TURB_*
-    environment values) on ``device``."""
+def port_deck(name, device, size):
+    """The port's ``vpic_tpu_torch/decks/<name>.py`` built and finalized at
+    ``size`` (the deck's environment knobs) on ``device``."""
     import importlib
     saved = {k: os.environ.get(k) for k in size}
     os.environ.update(size)
     try:
-        mod = importlib.import_module("vpic_tpu_torch.decks.turbulence")
+        mod = importlib.import_module(f"vpic_tpu_torch.decks.{name}")
         sim = mod.deck(device=device)
         sim.finalize()
     finally:
@@ -1392,6 +1442,11 @@ def turb_deck(device, size):
             else:
                 os.environ[k] = v
     return sim
+
+
+def turb_deck(device, size):
+    """The port's turbulence deck at ``size`` (TURB_* values)."""
+    return port_deck("turbulence", device, size)
 
 
 def _float_rho(sp, g):
@@ -1551,15 +1606,15 @@ def phase_turb_kernel(sim):
                                 c["pairs"])
 
 
-def run_cli(out, *args):
-    """The port's CLI on the turbulence deck at full size, in a process of
-    its own on the card, writing under ``out``; returns its seconds."""
-    env = dict(os.environ, **TURB_FULL, **TURB_DIAG, TURB_OUT=str(out))
-    cmd = [sys.executable, "-m", "vpic_tpu_torch.cli.run", TURB_DECK,
-           "--num-step", str(TURB_STEPS), "--status-interval", "50", *args]
+def deck_cli(deck, env, steps, *args):
+    """The port's CLI on ``deck`` (a path in the repo) for ``steps`` steps
+    in a process of its own on the card, with the environment ``env`` added
+    to this one's; returns its seconds."""
+    cmd = [sys.executable, "-m", "vpic_tpu_torch.cli.run", deck,
+           "--num-step", str(steps), "--status-interval", "50", *args]
     t0 = time.perf_counter()
-    r = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
-                       text=True, timeout=600)
+    r = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, **env),
+                       capture_output=True, text=True, timeout=600)
     dt = time.perf_counter() - t0
     for line in r.stdout.splitlines():
         log(f"  cli: {line}")
@@ -1567,6 +1622,13 @@ def run_cli(out, *args):
         raise AssertionError(f"the CLI exited {r.returncode}: "
                              f"{r.stderr[-3000:]}")
     return dt
+
+
+def run_cli(out, *args):
+    """The port's CLI on the turbulence deck at full size, writing under
+    ``out``; returns its seconds."""
+    return deck_cli(TURB_DECK, dict(TURB_FULL, **TURB_DIAG, TURB_OUT=str(out)),
+                    TURB_STEPS, *args)
 
 
 def read_energies(path):
@@ -1661,20 +1723,15 @@ def timed_call(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def phase_turb_timing(device, tmp):
-    """In process on a fresh full-size deck after WARM_STEPS steps:
-    WINDOWS timed windows of STEPS steps (no diagnostics) with the kernels'
-    launch counts set to 0 just before and read just after (one push
-    launch per species per step, no other kernel), a trace of
-    TRACE_STEPS steps, and one call of each diagnostic after an untimed
-    one.  Returns (launches, median step s, trace, diagnostic ms)."""
+def push_only_windows(sim, label):
+    """WINDOWS timed windows of STEPS steps (no diagnostics) with the
+    kernels' launch counts set to 0 just before and read just after: one
+    push launch per species per step and no other kernel, finite
+    energies.  Returns (launches, median step s)."""
     import math
     import statistics
     import torch
-    from vpic_tpu_torch.io import banded
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
-    sim = turb_deck(device, TURB_FULL)
-    sim.advance(WARM_STEPS)
     nsp = len(sim.state.species)
     n_total = sum(int(sp.np) for sp in sim.state.species)
     for mod in (push_cuda, deposit_cuda, sort_cuda):
@@ -1689,9 +1746,9 @@ def phase_turb_timing(device, tmp):
         dt = time.perf_counter() - t0
         e1 = sim.energies()
         if not all(math.isfinite(v) for v in e1.values()):
-            raise AssertionError(f"turbulence: non-finite energies {e1}")
+            raise AssertionError(f"{label}: non-finite energies {e1}")
         step_s.append(dt / STEPS)
-        log(f"  turbulence window {w + 1}/{WINDOWS} (steps "
+        log(f"  {label} window {w + 1}/{WINDOWS} (steps "
             f"{sim.step_count - STEPS}-{sim.step_count}): {dt:.4f} s, "
             f"{dt / STEPS * 1e3:.4f} ms/step, {n_total * STEPS / dt:.6e} "
             f"pushes/s, energy change {(sum(e1.values()) - e0) / e0:.3e}")
@@ -1701,13 +1758,27 @@ def phase_turb_timing(device, tmp):
                     **sort_cuda.launches)
     want = WINDOWS * STEPS * nsp
     if launches["push_walk"] != want or sum(launches.values()) != want:
-        raise AssertionError(f"turbulence launches {launches}, expected "
+        raise AssertionError(f"{label} launches {launches}, expected "
                              f"{want} push launches and no other kernel")
     med = statistics.median(step_s)
-    log(f"  turbulence, {n_total} particles in {nsp} species: median "
+    log(f"  {label}, {n_total} particles in {nsp} species: median "
         f"{med * 1e3:.4f} ms/step (min {min(step_s) * 1e3:.4f}, max "
         f"{max(step_s) * 1e3:.4f}), kernel launches {launches}, movers "
         f"{sim.mover_counts()}")
+    return launches, med
+
+
+def phase_turb_timing(device, tmp):
+    """In process on a fresh full-size deck after WARM_STEPS steps:
+    WINDOWS timed windows of STEPS steps (no diagnostics) with the kernels'
+    launch counts set to 0 just before and read just after (one push
+    launch per species per step, no other kernel), a trace of
+    TRACE_STEPS steps, and one call of each diagnostic after an untimed
+    one.  Returns (launches, median step s, trace, diagnostic ms)."""
+    from vpic_tpu_torch.io import banded
+    sim = turb_deck(device, TURB_FULL)
+    sim.advance(WARM_STEPS)
+    launches, med = push_only_windows(sim, "turbulence")
     trace = phase_trace(sim, med, "turbulence path")
 
     g, s = sim.grid, sim.step_count
@@ -1776,6 +1847,369 @@ def phase_turbulence(device, card):
                 **{f"turbulence_{k}": v for k, v in kt.items()})
 
 
+# -- phase 12: the reconnection decks ---------------------------------------
+
+# each deck at its own default size, set explicitly; ``electrons`` is the
+# species whose push is timed; ``diag``: the CLI run's dump intervals;
+# ``cli_checkpoints``: the CLI writes the rotating checkpoints every
+# RECON_RESTART steps (decks without a restart knob of their own; sigma's
+# standard_diagnostics writes them); ``dumps``: the step-RECON_STEPS dump
+# files expected, by top directory
+RECON_STEPS, RECON_RESTART = 50, 25
+RECON = {
+    "trecon": dict(
+        full=dict(TRECON_NX="256", TRECON_NZ="128", TRECON_PPC="64"),
+        out="TRECON_OUT", electrons="electron", energies="energies.txt",
+        diag=dict(TRECON_ENERGY_INTERVAL="5", TRECON_FIELD_INTERVAL="25",
+                  TRECON_TRACER_INTERVAL="25",
+                  TRECON_SPECTRUM_INTERVAL="25"),
+        cli_checkpoints=True, dumps={"fields": 1, "hydro": 6, "tracer": 1}),
+    "sigma": dict(
+        full=dict(SIGMA_NX="256", SIGMA_NZ="128", SIGMA_PPC="64"),
+        out="SIGMA_OUT", electrons="electron",
+        energies=os.path.join("rundata", "energies"),
+        diag=dict(SIGMA_ENERGY_INTERVAL="5", SIGMA_FIELD_INTERVAL="25",
+                  SIGMA_PARTICLE_INTERVAL="50", SIGMA_RESTART_INTERVAL="25",
+                  SIGMA_TRACER_INTERVAL="25", SIGMA_SPECTRUM_INTERVAL="50"),
+        cli_checkpoints=False,
+        dumps={"fields": 1, "hydro": 4, "particle": 2, "tracer": 2,
+               "spectra": 4}),
+    "turbulence_fan": dict(
+        full=dict(FAN_NX="32", FAN_NY="32", FAN_NZ="32", FAN_PPC="16"),
+        out="FAN_OUT", electrons="electron", energies="energies.txt",
+        diag=dict(FAN_ENERGY_INTERVAL="5", FAN_SPECTRUM_INTERVAL="25"),
+        cli_checkpoints=True, dumps={"hydro": 4}),
+}
+# the relative total-energy change over RECON_DRIFT_STEPS steps that phase
+# 12 allows (tests/test_regressions_r3.py:196), or twice the JAX package's
+# own change over those steps at the tests' sizes where that exceeds it
+# (measured and checked by tests/test_torch_fan.py and test_torch_trecon.py)
+RECON_DRIFT_STEPS, RECON_DRIFT_BAR = 25, 5e-3
+JAX_DRIFT_25 = {"turbulence_fan": 1.5721e-2, "trecon": 2.0069e-2}
+
+
+def recon_drift_limit(name):
+    return max(RECON_DRIFT_BAR, 2 * JAX_DRIFT_25.get(name, 0.0))
+
+
+def check_push_bar(label, sp, interp, nb, g, n_walk):
+    """check_push at the 1e-6 * sum|c| float bar, and where a species'
+    fixed-point words cannot meet it, again with the quantum allowance of
+    the turbulence deck.  Returns (max abs err, whether it needed the
+    allowance)."""
+    try:
+        return check_push(label, sp, interp, nb, g, n_walk), False
+    except AssertionError as e:
+        if "beyond 1e-6*sum|c|" not in str(e):
+            raise
+        log(f"  {label}: {e}; checked again with half a fixed-point quantum "
+            "per contribution")
+        return check_push(label, sp, interp, nb, g, n_walk,
+                          quantum=True), True
+
+
+def recon_kernel(name, sim):
+    """The push kernel on every species of the deck, voxel-sorted as the
+    step sorts them, against its plain version and the fixed-point twin;
+    the q = 0 species' zero deposit; on the electrons the walk's counts and
+    the kernel's times against its bound.  Returns (max abs err, the
+    species that needed the quantum allowance, timing dict)."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    errs, quantum = [], []
+    electrons = None
+    for sp in st.species:
+        sp = aux.sort_p(sp)
+        err, q = check_push_bar(f"{name} {sp.name} (n_walk {n_walk})", sp,
+                                interp, nb, g, n_walk)
+        errs.append(err)
+        if q:
+            quantum.append(sp.name)
+        if not bool(sp.q.any()):
+            check_tracer_push(sp, interp, nb, g, n_walk)
+        if sp.name == RECON[name]["electrons"]:
+            electrons = sp
+    c = walk_counts(electrons, interp, nb, g, n_walk)
+    log(f"  walk of the sorted {name} electrons (plain, "
+        f"{int(electrons.alive.sum())} live lanes): {c['pairs']} (lane, "
+        f"segment) pairs, live lanes by segments walked "
+        f"{c['lanes_by_segments']}")
+    log(f"  {name}: the float bar needed the quantum allowance for "
+        f"{quantum or 'no species'}")
+    t = time_push(f"{name} electrons", electrons, interp, nb, g, n_walk,
+                  c["pairs"])
+    return max(errs), quantum, t
+
+
+def recon_drift(name, sim):
+    """RECON_DRIFT_STEPS steps from finalize: finite energies, the total
+    within recon_drift_limit, and each species' dropped movers (logged,
+    returned).  On trecon the trajectories are collected at step 0 and
+    after every step."""
+    import math
+    tracers = name == "trecon"
+    e0 = sum(sim.energies().values())
+    if tracers:
+        sim.collect_trajectories()
+    for _ in range(RECON_DRIFT_STEPS):
+        sim.advance(1)
+        if tracers:
+            sim.collect_trajectories()
+    e1 = sim.energies()
+    if not all(math.isfinite(v) for v in e1.values()):
+        raise AssertionError(f"{name}: non-finite energies {e1}")
+    drift = (sum(e1.values()) - e0) / e0
+    limit = recon_drift_limit(name)
+    if not abs(drift) <= limit:
+        raise AssertionError(f"{name}: total energy moved {drift:.4e} in "
+                             f"{RECON_DRIFT_STEPS} steps (limit {limit:.4e})")
+    nm = sim.mover_counts()
+    log(f"  {name}: total energy {e0!r} at step 0, {sum(e1.values())!r} at "
+        f"step {RECON_DRIFT_STEPS} ({drift:.4e}, limit {limit:.4e}"
+        + (", twice the JAX package's at the tests' size" if limit >
+           RECON_DRIFT_BAR else "") + f"); dropped movers {nm}")
+    return drift, nm
+
+
+def recon_readers(name, sim, tmp):
+    """The port's readers on dumps of the deck's state: fields and the
+    electrons' hydro bitwise the state on the card, the electrons' particle
+    records bitwise ``center_p`` of the state, the native particle read
+    equal to the numpy read.  Returns each read's ms."""
+    import numpy as np
+    from vpic_tpu_torch.interop import to_numpy
+    from vpic_tpu_torch.io import dump, native, readers
+    from vpic_tpu_torch.particles import push
+    st, g, s = sim.state, sim.grid, sim.step_count
+    el = RECON[name]["electrons"]
+    base = os.path.join(tmp, "readers")
+    sim.dump_fields(os.path.join(base, "f"))
+    sim.dump_hydro(el, os.path.join(base, "h"))
+    sim.dump_particles(el, os.path.join(base, "p"))
+    path = lambda k: os.path.join(base, f"{k}.{s}.0")
+    ms, out = {}, {}
+    for key, fn in (("read_fields", lambda: readers.read_fields(path("f"))),
+                    ("read_hydro", lambda: readers.read_hydro(path("h"))),
+                    ("read_particles",
+                     lambda: readers.read_particles(path("p"))),
+                    ("native.read_particles",
+                     lambda: native.read_particles(path("p")))):
+        out[key] = fn()
+        ms[key] = timed_call(fn)
+    _, fields = out["read_fields"]
+    for c in fields:
+        if c != "materials" and not np.array_equal(
+                fields[c], to_numpy(getattr(st.field, c))):
+            raise AssertionError(f"{name}: read_fields {c} differs from the "
+                                 "state on the card")
+    _, hydro = out["read_hydro"]
+    h = to_numpy(sim._hydro(el))
+    for k, col in enumerate(readers.HYDRO_NAMES):
+        if not np.array_equal(hydro[col].reshape(-1), h[:, k]):
+            raise AssertionError(f"{name}: read_hydro {col} differs")
+    sp = st.species[sim._species_by_name(el)["sid"]]
+    c = push.center_p(sp, st.interpolator, g)
+    alive = to_numpy(sp.alive)
+    _, rec, _ = out["read_particles"]
+    for k in readers.PARTICLE_REC.names:
+        if not np.array_equal(rec[k], to_numpy(getattr(c, k))[alive]):
+            raise AssertionError(f"{name}: read_particles {k} differs from "
+                                 "center_p on the card")
+    with open(path("p"), "rb") as f:
+        dump.read_header_v0(f)
+        dump.read_array_header(f)
+        raw = np.fromfile(f, "<f4").reshape(-1, 8)
+    if not np.array_equal(out["native.read_particles"], raw):
+        raise AssertionError(f"{name}: native.read_particles differs from "
+                             "the numpy read")
+    log(f"  {name} readers: fields and {el} hydro bitwise the state on the "
+        f"card, {rec.shape[0]} particle records bitwise center_p, the "
+        "native read equal to numpy's; ms: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+    return ms
+
+
+def recon_tracers(sim, tmp):
+    """The trajectories collected on trecon (recon_drift): both layouts of
+    dump_traj read back with the port's readers, one row per tag and step,
+    positions inside the box, per-tag files equal to the consolidated ones;
+    the H5Part file where h5py is installed (it is not on every machine;
+    the CPU tests write and read it); a checkpoint/restore round trip of
+    the records and the flushed watermark; then one collect_trajectories
+    call timed.  Returns its ms."""
+    import importlib.util
+    import numpy as np
+    from vpic_tpu_torch.io import tracers
+    g = sim.grid
+    n_tags = 1024
+    steps = RECON_DRIFT_STEPS + 1
+    d = os.path.join(tmp, "traj")
+    sim.dump_traj(os.path.join(d, "one"))
+    sim.dump_traj(os.path.join(d, "per_tag"), per_tag_files=True)
+    one = tracers.read_traj_dir(os.path.join(d, "one"), "e_tracer")
+    per = tracers.read_traj_dir(os.path.join(d, "per_tag"), "e_tracer")
+    if sorted(one) != list(range(1, n_tags + 1)) or sorted(per) != \
+            sorted(one):
+        raise AssertionError(f"trecon tracers: tags {len(one)}/{len(per)}")
+    want_t = (np.arange(steps) * g.dt).astype(np.float32)
+    for tag, rows in one.items():
+        if rows.shape != (steps, 8) or not np.array_equal(rows[:, 0],
+                                                           want_t):
+            raise AssertionError(f"tag {tag}: rows {rows.shape}, one per "
+                                 f"step expected")
+        if not np.array_equal(rows, per[tag]):
+            raise AssertionError(f"tag {tag}: per-tag file differs")
+        x, y, z = tracers.global_positions(g, rows)
+        if not (np.all((x >= g.gx0) & (x <= g.gx1))
+                and np.all((z >= g.gz0) & (z <= g.gz1))):
+            raise AssertionError(f"tag {tag}: a position outside the box")
+    if importlib.util.find_spec("h5py") is None:
+        h5 = "not written: h5py is not installed here"
+    else:
+        import h5py
+        path = sim.dump_tracers_h5part(os.path.join(d, "tracers.h5part"),
+                                       "e_tracer")
+        with h5py.File(path, "r") as f:
+            if len(f.keys()) != steps or set(np.asarray(
+                    f[f"Step#{steps - 1}"]["q"])) != set(range(1,
+                                                               n_tags + 1)):
+                raise AssertionError("trecon tracers: H5Part steps or tags")
+        h5 = "written and read back"
+    acc = sim._traj
+    rec = acc.records("e_tracer").copy()
+    mark = dict(acc._flushed)
+    ck = os.path.join(tmp, "traj_ck", "restart")
+    sim.checkpoint(ck)
+    sim._traj = None
+    sim.restore(ck)
+    if not (np.array_equal(sim._traj.records("e_tracer"), rec)
+            and sim._traj._flushed == mark == {"e_tracer": rec.shape[0]}):
+        raise AssertionError("trecon tracers: the checkpoint lost records "
+                             "or the watermark")
+    collect_ms = timed_call(sim.collect_trajectories)
+    log(f"  trecon tracers: {n_tags} tags x {steps} steps in both layouts "
+        f"read back (one row per tag and step, inside the box, per-tag "
+        f"files equal to the consolidated one); H5Part {h5}; the .traj.npz "
+        f"sidecar kept {rec.shape[0]} records and the watermark; one "
+        f"collect_trajectories {collect_ms:.3f} ms")
+    return collect_ms
+
+
+def recon_cli(name, tmp):
+    """The CLI in a process of its own at full size for RECON_STEPS steps
+    with the deck's dumps on, then again from its step-RECON_RESTART
+    checkpoint: every step-RECON_STEPS dump byte for byte the first run's,
+    the energies of the last step equal.  Returns the two runs' seconds."""
+    spec = RECON[name]
+    deck = f"vpic_tpu_torch/decks/{name}.py"
+    first, second = (os.path.join(tmp, name, run)
+                     for run in ("first", "second"))
+    # the rotating checkpoints: restart1 holds step RECON_RESTART
+    ck = (os.path.join(first, "restart") if spec["cli_checkpoints"]
+          else first)
+    secs = []
+    for out, args in ((first, []), (second, [
+            "--restart", os.path.join(ck, "restart1", "restart")])):
+        if spec["cli_checkpoints"]:
+            args += ["--checkpoint-dir", os.path.join(out, "restart"),
+                     "--checkpoint-interval", str(RECON_RESTART)]
+        env = dict(spec["full"], **spec["diag"], **{spec["out"]: out})
+        secs.append(deck_cli(deck, env, RECON_STEPS, *args))
+    t1, t2 = secs
+    tag = f".{RECON_STEPS}.0"
+    dumps = sorted(os.path.relpath(os.path.join(d, f), first)
+                   for d, _, files in os.walk(first) for f in files
+                   if f.endswith(tag)
+                   or os.path.basename(d) == f"T.{RECON_STEPS}")
+    kinds = collections.Counter(p.split(os.sep)[0] for p in dumps)
+    if kinds != spec["dumps"]:
+        raise AssertionError(f"{name}: step-{RECON_STEPS} dumps "
+                             f"{dict(kinds)}, expected {spec['dumps']}")
+    nbytes = 0
+    for rel in dumps:
+        a = open(os.path.join(first, rel), "rb").read()
+        if a != open(os.path.join(second, rel), "rb").read():
+            raise AssertionError(f"{name} {rel}: the restarted run's bytes "
+                                 "differ")
+        nbytes += len(a)
+    en = [read_energies(os.path.join(r, spec["energies"])) for r in
+          (first, second)]
+    if en[0][RECON_STEPS] != en[1][RECON_STEPS] or min(en[1]) <= \
+            RECON_RESTART:
+        raise AssertionError(f"{name}: the energies of step {RECON_STEPS} "
+                             "differ, or the restart did not continue from "
+                             f"step {RECON_RESTART}")
+    log(f"  {name} CLI: {RECON_STEPS} steps {t1:.2f} s, restart "
+        f"{RECON_RESTART}->{RECON_STEPS} {t2:.2f} s; all {len(dumps)} step-"
+        f"{RECON_STEPS} dumps ({dict(kinds)}, {nbytes} bytes) and the "
+        "energies byte-identical")
+    return t1, t2
+
+
+def phase_recon(device, card):
+    """Phase 12: trecon, sigma and turbulence_fan at full size.  Returns
+    the push kernel's per-deck fields of the kernels' record, and logs the
+    rest."""
+    import shutil
+    import tempfile
+    import torch
+    fields = {}
+    for name in RECON:
+        tmp = tempfile.mkdtemp(prefix=f"{name}_smoke_")
+        try:
+            sim = port_deck(name, device, RECON[name]["full"])
+            g = sim.grid
+            log(f"  {name}: {g.nx}x{g.ny}x{g.nz} cells, nv {g.nv}, species "
+                + ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
+                            for sp in sim.state.species)
+                + f", field faces {g.fbc}, particle faces {g.pbc}")
+            err, quantum, t = recon_kernel(name, sim)
+            drift, nm = recon_drift(name, sim)
+            # the timed windows start on a sort super-cycle, as phase 5's
+            sim.advance(-sim.step_count % (sim.opts.resort_interval * 4))
+            launches, step_s = push_only_windows(sim, name)
+            trace = phase_trace(sim, step_s, f"{name} path")
+            read_ms = recon_readers(name, sim, tmp)
+            collect_ms = (recon_tracers(sim, tmp) if name == "trecon"
+                          else None)
+            del sim
+            torch.cuda.empty_cache()
+            t1, t2 = recon_cli(name, tmp)
+        finally:
+            shutil.rmtree(tmp, ignore_errors=True)
+        parts = trace["parts"]
+        log(f"{name} path ({card}): step {step_s * 1e3:.4f} ms (median of "
+            f"{WINDOWS} windows of {STEPS} steps), device busy "
+            f"{trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step, "
+            f"idle share {1 - trace['busy_ms'] / (step_s * 1e3):.4f}; sort / "
+            f"push / field busy " + " / ".join(
+                f"{parts[k]['busy_ms']:.4f}" for k in parts)
+            + f" ms; push kernel on the electrons {t['kernel_ms']:.4f} ms "
+            f"alone against a {t['bound_ms']:.4f} ms bound; drift "
+            f"{drift:.4e} over {RECON_DRIFT_STEPS} steps; dropped movers "
+            f"{nm}; CLI {t1:.2f} s and {t2:.2f} s")
+        fields.update({
+            f"{name}_launches": launches["push_walk"],
+            f"{name}_launches_per_step": launches["push_walk"]
+            / (WINDOWS * STEPS),
+            f"{name}_max_abs_err": err,
+            f"{name}_quantum_species": quantum,
+            f"{name}_step_ms": step_s * 1e3,
+            f"{name}_busy_ms": trace["busy_ms"],
+            f"{name}_ops_per_step": trace["ops"],
+            f"{name}_dropped_movers": sum(nm.values()),
+            **{f"{name}_{k}": v for k, v in t.items()},
+            **{f"{name}_{k.replace('.', '_')}_ms": v
+               for k, v in read_ms.items()},
+        })
+        if collect_ms is not None:
+            fields["trecon_collect_trajectories_ms"] = collect_ms
+    return fields
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1790,13 +2224,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/11] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/12] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/11] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/12] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -1804,17 +2238,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/11] kernel vs plain, small 3D grid")
+    log("[3/12] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/11] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/12] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/11] determinism: checked above, per case and species")
+    log("[4/12] determinism: checked above, per case and species")
 
-    log("[5/11] slice")
+    log("[5/12] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -1822,15 +2256,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/11] deposit kernel vs plain")
+    log("[6/12] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/11] merge re-sort kernels vs plain")
+    log("[7/12] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/11] path A: the unfused push")
+    log("[8/12] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/11] path B: the packed cycle with the merge re-sort")
+    log("[9/12] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -1840,10 +2274,12 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/11] determinism: the charge deposit on the card")
+    log("[10/12] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/11] the turbulence deck through the CLI")
+    log("[11/12] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
+    log("[12/12] the reconnection decks: trecon, sigma, turbulence_fan")
+    recon = phase_recon(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -1852,7 +2288,8 @@ def main():
         dict(name="push_walk", source="vpic_tpu_torch/csrc/push_walk.cu",
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
-             max_abs_err=max(small_err, push_err), **push_t, **turb),
+             max_abs_err=max(small_err, push_err), **push_t, **turb,
+             **recon),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

@@ -26,8 +26,8 @@ cycle: packed on the first step, kept packed between ``advance`` calls,
 unpacked when ``state`` is read.
 
 The diagnostics (energies, V0 and banded dumps, hydro, particles, the
-energy-band spectra, checksums), ``standard_diagnostics`` and the
-checkpoints copy the state to the host only where a file needs it.
+energy-band spectra, checksums, tracer trajectories), ``standard_diagnostics``
+and the checkpoints copy the state to the host only where a file needs it.
 """
 
 from __future__ import annotations
@@ -65,6 +65,7 @@ from ..io import banded
 from ..io import checkpoint as ckpt
 from ..io import dump as iodump
 from ..io import energies as ioenergies
+from ..io import tracers as iotracers
 from ..io.global_header import write_global_header
 from ..particles import aux as paux
 from ..particles import push as ppush
@@ -118,6 +119,7 @@ class Simulation:
         self.opts = StepOptions()
         self._hooks: dict = {}
         self._advance_packed = None
+        self._traj = None
         self.state: Optional[SimState] = None
         self.step_count = 0
 
@@ -315,6 +317,10 @@ class Simulation:
             self.define_material("vacuum")
         self.comm = LocalComm(g)
         self._hooks = hooks
+        # each species' injected tags: nothing after finalize creates or
+        # tags particles, so these bound its tagged lanes for good
+        self._tagged = [sum(int(np.count_nonzero(b["tag"]))
+                            for b in h["batches"]) for h in self._species]
         self._build_advance()
         self.state = initialize_state(self._initial_state(), g, self.comm)
         return self.state
@@ -333,9 +339,7 @@ class Simulation:
         untagged particles; ``make_advance`` admits only closed decks, so
         nothing creates, kills or migrates particles."""
         paths = resolve_paths(self.grid, self.opts)
-        return (paths.merge_sort and paths.fused
-                and not any(np.any(b["tag"] != 0) for h in self._species
-                            for b in h["batches"]))
+        return paths.merge_sort and paths.fused and not any(self._tagged)
 
     def modify_runparams(self, **kw):
         """Runtime overrides of ``num_step`` and of :class:`StepOptions`
@@ -502,6 +506,64 @@ class Simulation:
             ppush.center_p(sp, st.interpolator, self.grid), self.grid,
             fbase, self.step_count, ftag=ftag)
 
+    # -- tracers (the pdlfs tracer deck library, trecon-part/tracer.cxx) --
+    def make_tracers(self, src_species, name, stride=1, max_np=None,
+                     tag_base=1):
+        """Create a zero-charge tracer species from every ``stride``-th
+        staged particle of ``src_species`` (tag_tracer + hijack_tracers,
+        tracer.cxx:118-198; q = 0 makes the push deposit nothing for
+        them).  Call between injection and finalize."""
+        batches = src_species["batches"]
+        cat = lambda k: (np.concatenate([b[k] for b in batches])
+                         if batches else np.zeros((0,)))
+        sel = slice(0, None, stride)
+        xs = cat("x")[sel]
+        n = xs.shape[0]
+        if max_np is None:
+            max_np = max(8 * n, 64)
+        tr = self.define_species(name, src_species["q_m"], max_np)
+        self.inject_particle(
+            tr, xs, cat("y")[sel], cat("z")[sel], cat("ux")[sel],
+            cat("uy")[sel], cat("uz")[sel], q=0.0,
+            tag=np.arange(tag_base, tag_base + n, dtype=np.int32))
+        return tr
+
+    def collect_trajectories(self):
+        """Record every tagged particle's state at the current step (the
+        per-step half of dump_traj, tracer.cxx:254-301).  A species whose
+        injected particles carry no tag has none (nothing here creates or
+        tags particles) and is not read; the others are selected on the
+        device and copied with one host read each."""
+        if self._traj is None:
+            self._traj = iotracers.TrajectoryAccumulator()
+        if not any(self._tagged):
+            return
+        st = self.state
+        for h, cap in zip(self._species, self._tagged):
+            if not cap:
+                continue
+            sp = st.species[h["sid"]]
+            rec = iotracers.collect_records(
+                dict(tag=sp.tag, alive=sp.alive, dx=sp.dx, dy=sp.dy,
+                     dz=sp.dz, i=sp.i, ux=sp.ux, uy=sp.uy, uz=sp.uz),
+                self.step_count, self.grid.dt, capacity=cap)
+            if rec.shape[0]:
+                self._traj.add(h["name"], rec)
+
+    def dump_traj(self, dirname, per_tag_files=False):
+        """Write accumulated tracer trajectories (dump_traj,
+        tracer.cxx:254-301; per_tag_files=True reproduces the reference's
+        one-file-per-tracer append layout)."""
+        if self._traj is None:
+            return []
+        return iotracers.write_traj(self._traj, dirname, per_tag_files)
+
+    def dump_tracers_h5part(self, path, species_name):
+        """H5Part tracer file (trecon-hdf5's dumptracer_h5part.cxx)."""
+        if self._traj is None:
+            raise RuntimeError("call collect_trajectories() first")
+        return iotracers.write_h5part(self._traj, path, species_name)
+
     def write_global_header(self, base, field_dp=None, species_dumps=None,
                             field_dir="fields", field_base="fields"):
         """Banded-dump global header <base>.vpc (dump.cxx:978-1115)."""
@@ -598,16 +660,25 @@ class Simulation:
 
     def checkpoint(self, path, extra=None):
         """Write a checkpoint of the state (``io/checkpoint.py``; replaces
-        dump_restart, dump.cxx:333-556)."""
-        return ckpt.save_checkpoint(path, self.state, self.grid,
-                                    self._checkpoint_meta(extra))
+        dump_restart, dump.cxx:333-556), and the accumulated tracer
+        trajectories beside it in ``<path>.traj.npz``, so that they survive
+        a quota kill (dump_tracer_restart, tracer.cxx:199-253)."""
+        out = ckpt.save_checkpoint(path, self.state, self.grid,
+                                   self._checkpoint_meta(extra))
+        if self._traj is not None:
+            self._traj.save_npz(str(path) + ".traj.npz")
+        return out
 
     def restore(self, path):
         """Load a checkpoint saved by :meth:`checkpoint` into this
-        identically configured simulation, on its device."""
+        identically configured simulation, on its device, with its tracer
+        trajectories where it has them."""
         meta = ckpt.load_meta(path)
         state = ckpt.load_checkpoint(path, self.state, self.device)
         self.state = state
         self.step_count = int(meta["extra"].get("step_count",
                                                 int(state.step)))
+        tr = str(path) + ".traj.npz"
+        if os.path.exists(tr):
+            self._traj = iotracers.TrajectoryAccumulator.load_npz(tr)
         return self.state
