@@ -2,9 +2,11 @@
 """Smoke test of vpic_tpu_torch on one NVIDIA GPU: the port's three push
 paths on the bench deck at full size, through its hand-written CUDA
 kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
-and assembly), and the production turbulence deck and the reconnection
+and assembly), the production turbulence deck and the reconnection
 decks (trecon, sigma, turbulence_fan) at full size through the port's
-CLI, with their diagnostics, tracer trajectories, readers and restarts.
+CLI, with their diagnostics, tracer trajectories, readers and restarts,
+and open particle boundaries (absorbing and custom walls, emitters,
+in-step injection) and the collisions deck.
 
     python3 chip_smoke.py
 
@@ -121,7 +123,36 @@ no result line):
               collect_trajectories call timed; the CLI in
               a process of its own for 50 steps with the deck's dumps on,
               then again from its step-25 checkpoint: every step-50 dump
-              and the step-50 energies byte for byte the first run's.
+              and the step-50 energies byte for byte the first run's;
+13. open      - the open box of tests/test_boundary_emit.py:drifting_box
+              at 256^2, 64 per cell (4 194 304 electrons in 5 242 880
+              slots, ut 0.3, drift 0.5 along x, absorbing x faces, y and z
+              periodic): first each variant's 16^2 box on the card and on
+              the CPU (energies to 1e-6 and equal counts where nothing
+              random is drawn); then at full size the variants absorb,
+              tally (AbsorbTally), reflux (MaxwellianReflux), link
+              (LinkBoundary), emitter (ex = -0.1 and a ChildLangmuir
+              emitter on the low x face) and injector (a
+              user_particle_injection hook refilling the low x cells
+              through make_injector with rhob updated), each 25 steps from
+              finalize, then three timed 16-step windows with the launch
+              counts (one push and num_comm_round walk_only launches per
+              step), finite energies and no dropped movers, and a trace
+              split by step part with its host reads; absorbed = tally =
+              n0 - alive, the reflux walls lose nothing, the link ring
+              counts every hit; the push entry with count_pending=False on
+              lanes stopped with NEIGHBOR_ABSORB (absorb) and handler codes
+              (tally), and one round's walk_only launch on the reflux
+              round's buffer, against their plain versions and twins
+              (the quantum allowance where a float word cannot meet the
+              bar), both timed against their bounds; absorb again on
+              fused_push=False (energies equal the fused run's to 1e-6);
+              the reflux and emitter boxes 10 steps, a checkpoint and 10
+              more, against a second build (equal checksum_fields)
+              restored and run 10 steps: every array bitwise equal; the
+              collisions deck at its defaults and at 256^2 (the hook alone
+              keeps sum |u|^2 to 1e-6, the anisotropy falls, three timed
+              windows and a trace) and through the CLI for 50 steps.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -136,7 +167,13 @@ in phase 11's timed windows, its error over the six species, its times
 on eT) and on each deck of phase 12 (``trecon_*``, ``sigma_*``,
 ``turbulence_fan_*``: launches, error, the species that needed the
 quantum allowance, the times on the electrons, the step, busy device ms,
-device ops, dropped movers and the readers' ms).  The last line is {"ok": true, "device": {...}}.  Without a CUDA
+device ops, dropped movers and the readers' ms) and on phase 13
+(``open_*``: the push launches in the absorb box's timed windows, the
+walk_only launches per step, the error over the open checks, the push's
+times on the absorb box and the walk_only entry's on the reflux round's
+buffer (``open_walk_*``), and per variant its step, busy device ms, ops,
+idle share, host reads, counts and launches per step; ``collisions_*``).
+The last line is {"ok": true, "device": {...}}.  Without a CUDA
 device the script exits 2.
 """
 
@@ -318,21 +355,24 @@ PUSH_FLOATS = ("dx", "dy", "dz", "ux", "uy", "uz", "mdx", "mdy", "mdz")
 WALK_FLOATS = ("x", "y", "z", "ux", "uy", "uz", "rx", "ry", "rz")
 
 
-def check_push(label, sp, interp, nb, g, n_walk, quantum=False):
+def check_push(label, sp, interp, nb, g, n_walk, quantum=False,
+               count_pending=True):
     """The push entry against the plain push and its fixed-point twin, and
     a rerun; returns the accumulator's max abs error.  ``quantum``: the
     float bound also allows each contribution its fixed-point rounding,
     half of 2^-S (a word whose sum|c| is below about 1e6 2^-S, as the
     slowest lanes of a 3D deck give, cannot meet 1e-6 * sum|c| in fixed
-    point)."""
+    point).  ``count_pending=False``: the push of an open deck, which
+    leaves its stopped and exhausted lanes to the boundary rounds."""
     import torch
     from vpic_tpu_torch.particles import deposit, push, push_cuda
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
-    run = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
+    kw = dict(n_walk=n_walk, count_pending=count_pending)
+    run = lambda: push_cuda.advance_p(sp, interp, acc0, nb, g, **kw)
     ko, kacc = run()
     check_rerun(label, (ko, kacc), run(), PUSH_FLOATS + ("i", "pc", "nm"))
-    po, pacc = push.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk)
-    _, tacc = push.advance_p_fixed(sp, interp, acc0, nb, g, n_walk=n_walk)
+    po, pacc = push.advance_p(sp, interp, acc0, nb, g, **kw)
+    _, tacc = push.advance_p_fixed(sp, interp, acc0, nb, g, **kw)
     seg_cap = push.segment_cap(n_walk)
     absacc = abs_deposit(push.pushed_walk_state(sp, interp, g), nb, g,
                          seg_cap, counts=quantum)
@@ -351,18 +391,27 @@ def check_push(label, sp, interp, nb, g, n_walk, quantum=False):
     return err
 
 
-def check_walk(label, st, nb, g, n_iter):
+def check_walk(label, st, nb, g, n_iter, quantum=False):
+    """The walk_only entry against the plain walk and its fixed-point twin,
+    and a rerun; returns the accumulator's max abs error.  ``quantum`` as
+    in :func:`check_push`."""
     import torch
-    from vpic_tpu_torch.particles import push, push_cuda
+    from vpic_tpu_torch.particles import deposit, push, push_cuda
     acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=st.x.device)
     run = lambda: push_cuda.streak_walk(st, acc0, nb, g, n_iter)
     ko, kacc = run()
     check_rerun(label, (ko, kacc), run(), push.WalkState._fields)
     po, pacc = push.streak_walk(st, acc0, nb, g, n_iter)
     _, tacc = push.streak_walk_fixed(st, acc0, nb, g, n_iter)
-    absacc = abs_deposit(st, nb, g, 4 * n_iter + 8)
+    seg_cap = 4 * n_iter + 8
+    absacc = abs_deposit(st, nb, g, seg_cap, counts=quantum)
+    floor = 0.0
+    if quantum:
+        absacc, num = absacc
+        floor = num * (0.5 / deposit.fixed_scale(st.q, seg_cap,
+                                                 st.x.shape[0]))
     err = compare(label, ko, po, kacc, pacc, tacc, absacc, WALK_FLOATS,
-                  ("vox", "pcode", "active"))
+                  ("vox", "pcode", "active"), floor)
     log(f"  {label}: walk_only ok (active {int(st.active.sum())}, "
         f"acc max abs err {err:.3g}, acc bitwise the twin's, rerun bitwise "
         "equal)")
@@ -555,6 +604,14 @@ def bound(nbytes, ops):
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+def held_to_bound(label, ms, bound_ms):
+    """Fail where a measured time beats its bound: the bound then counts
+    work that the timed call does not do."""
+    if ms < bound_ms:
+        raise AssertionError(f"{label}: {ms:.4f} ms beats its bound "
+                             f"{bound_ms:.4f} ms")
+
+
 # float32 operations counted in csrc/push_walk.cu: push() per live lane,
 # segment() (deposit words included) per walked segment
 PUSH_OPS, SEGMENT_OPS = 120, 110
@@ -614,6 +671,7 @@ def time_push(label, sp, interp, nb, g, n_walk, pairs):
                       cuda_ms(run_k, 20), cuda_ms(run_p, 5))
     kernel_ms, ops = profiled_ms(run_k, 20, ("push_walk_kernel",), 1)
     bound_ms, bound_by = push_bound(sp.max_np, live, pairs, g.nv)
+    held_to_bound(f"{label}: the push kernel alone", kernel_ms, bound_ms)
     log(f"  timing, {label} ({live} lanes in {sp.max_np} slots): wrapper "
         f"{k1:.4f} / {k2:.4f} ms ({ops:.1f} device ops per call), kernel "
         f"alone {kernel_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; bound "
@@ -769,15 +827,18 @@ def _step_parts(events, dev):
     return parts, sum(e.id in launch for e in dev)
 
 
-def phase_trace(sim, step_s, label="main path"):
+def phase_trace(sim, step_s, label="main path", parts=None):
     """A torch.profiler trace of TRACE_STEPS main-path steps (one sort
     super-cycle): per step, the device busy time (union of kernel and copy
     intervals), the device operations, the busy device time of each step
     part and of the busiest kernels; the idle share under the profiler,
     and, given the unprofiled step time ``step_s``, the one derived from
     the busy time.  Returns per step the busy device ms (``busy_ms``), the
-    device ops (``ops``) and, for each step part, both (``parts``)."""
-    from vpic_tpu_torch.engine.step import PHASES
+    device ops (``ops``), the host reads (``reads``: device-to-host
+    copies) and, for each step part, both (``parts``).  Every part of
+    ``parts`` (default: sort, push and field) must have busy time."""
+    from vpic_tpu_torch.engine.step import CORE_PHASES, PHASES
+    parts_needed = CORE_PHASES if parts is None else parts
     if sim.step_count % (sim.opts.resort_interval * 4):
         raise AssertionError("traced window must start on a super-cycle")
     # a trace taken again starts one super-cycle later; one runtime call
@@ -794,12 +855,14 @@ def phase_trace(sim, step_s, label="main path"):
     for e in dev:
         by_kernel[e.name] += e.time_range.elapsed_us()
     per = lambda us: us / TRACE_STEPS / 1e3
+    reads = sum("DtoH" in e.name for e in dev) / TRACE_STEPS
     log(f"  trace of the {label}, {TRACE_STEPS} steps under "
         f"torch.profiler: device busy "
         f"{per(busy):.4f} ms/step, device ops {len(dev) / TRACE_STEPS:.1f}"
         f"/step ({placed} of {len(dev)} with their launch call; {lost} "
-        f"runtime calls without a device event), wall "
-        f"{per(wall_us):.4f} ms/step, idle share {1 - busy / wall_us:.4f}")
+        f"runtime calls without a device event), host reads {reads:.1f}"
+        f"/step, wall {per(wall_us):.4f} ms/step, idle share "
+        f"{1 - busy / wall_us:.4f}")
     if step_s is not None:
         log(f"  derived idle share without the profiler: 1 - busy / step = "
             f"1 - {per(busy):.4f} / {step_s * 1e3:.4f} = "
@@ -807,15 +870,16 @@ def phase_trace(sim, step_s, label="main path"):
     part_ops = collections.Counter(parts)
     log("  busy device ms/step (device ops/step) by step part: " + ", ".join(
         f"{k} {per(part_busy[k]):.4f} ({part_ops[k] / TRACE_STEPS:.1f})"
-        for k in PHASES) + f", outside the parts {per(part_busy[None]):.4f} "
+        for k in PHASES if part_ops[k] or k in parts_needed)
+        + f", outside the parts {per(part_busy[None]):.4f} "
         f"({part_ops[None] / TRACE_STEPS:.1f})")
     log("  busiest kernels, device ms/step: " + "; ".join(
         f"{name[:60]} {per(us):.4f}"
         for name, us in by_kernel.most_common(6)))
-    if not all(part_busy[k] > 0 for k in PHASES):
+    if not all(part_busy[k] > 0 for k in parts_needed):
         raise AssertionError(f"the trace attributes no device time to a "
                              f"step part: {part_busy}")
-    return dict(busy_ms=per(busy), ops=len(dev) / TRACE_STEPS,
+    return dict(busy_ms=per(busy), ops=len(dev) / TRACE_STEPS, reads=reads,
                 parts={k: dict(busy_ms=per(part_busy[k]),
                                ops=part_ops[k] / TRACE_STEPS)
                        for k in PHASES})
@@ -905,6 +969,7 @@ def phase_deposit(sim, device):
     kernel_ms, ops = profiled_ms(run_k, 20, ("deposit_",), 3)
     lanes = int(valid.sum())
     bound_ms, bound_by = deposit_bound(vox.numel(), lanes, g.nv)
+    held_to_bound("the deposit kernels alone", kernel_ms, bound_ms)
     log(f"  timing, 128^2 sorted electrons' segment 1 ({vox.numel()} "
         f"lanes, {lanes} valid): wrapper {k1:.4f} / {k2:.4f} ms ({ops:.1f} "
         f"device ops per call), its kernels alone {kernel_ms:.4f} ms, plain "
@@ -1177,6 +1242,10 @@ def phase_merge(g, device):
     mb_ms, mb_by = mark_bound(n, n_m, m_cap, tiles)
     tb_ms, tb_by = tables_bound(n_m, nvk)
     ab_ms, ab_by = merge_bound(n, n_m, nvk, tiles)
+    for name, t, b in (("mark", mark_alone, mb_ms), ("tables", tab_alone,
+                                                     tb_ms),
+                       ("assembly", asm_alone, ab_ms)):
+        held_to_bound(f"the {name} kernel alone", t, b)
     log(f"  timing, bench shape: mark wrapper {mk1:.4f} / {mk2:.4f} ms "
         f"({mark_ops:.1f} device ops per call), kernel alone "
         f"{mark_alone:.4f} ms, plain {mp1:.4f} / {mp2:.4f} ms, bound "
@@ -1892,20 +1961,19 @@ def recon_drift_limit(name):
     return max(RECON_DRIFT_BAR, 2 * JAX_DRIFT_25.get(name, 0.0))
 
 
-def check_push_bar(label, sp, interp, nb, g, n_walk):
-    """check_push at the 1e-6 * sum|c| float bar, and where a species'
-    fixed-point words cannot meet it, again with the quantum allowance of
-    the turbulence deck.  Returns (max abs err, whether it needed the
-    allowance)."""
+def check_bar(check, label, *args, **kw):
+    """``check`` (check_push or check_walk) at the 1e-6 * sum|c| float
+    bar, and where fixed-point words cannot meet it, again with the
+    quantum allowance of the turbulence deck.  Returns (max abs err,
+    whether it needed the allowance)."""
     try:
-        return check_push(label, sp, interp, nb, g, n_walk), False
+        return check(label, *args, **kw), False
     except AssertionError as e:
         if "beyond 1e-6*sum|c|" not in str(e):
             raise
         log(f"  {label}: {e}; checked again with half a fixed-point quantum "
             "per contribution")
-        return check_push(label, sp, interp, nb, g, n_walk,
-                          quantum=True), True
+        return check(label, *args, quantum=True, **kw), True
 
 
 def recon_kernel(name, sim):
@@ -1923,8 +1991,8 @@ def recon_kernel(name, sim):
     electrons = None
     for sp in st.species:
         sp = aux.sort_p(sp)
-        err, q = check_push_bar(f"{name} {sp.name} (n_walk {n_walk})", sp,
-                                interp, nb, g, n_walk)
+        err, q = check_bar(check_push, f"{name} {sp.name} (n_walk "
+                           f"{n_walk})", sp, interp, nb, g, n_walk)
         errs.append(err)
         if q:
             quantum.append(sp.name)
@@ -2156,6 +2224,7 @@ def phase_recon(device, card):
     import shutil
     import tempfile
     import torch
+    from vpic_tpu_torch.engine.step import CORE_PHASES
     fields = {}
     for name in RECON:
         tmp = tempfile.mkdtemp(prefix=f"{name}_smoke_")
@@ -2186,7 +2255,7 @@ def phase_recon(device, card):
             f"{trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step, "
             f"idle share {1 - trace['busy_ms'] / (step_s * 1e3):.4f}; sort / "
             f"push / field busy " + " / ".join(
-                f"{parts[k]['busy_ms']:.4f}" for k in parts)
+                f"{parts[k]['busy_ms']:.4f}" for k in CORE_PHASES)
             + f" ms; push kernel on the electrons {t['kernel_ms']:.4f} ms "
             f"alone against a {t['bound_ms']:.4f} ms bound; drift "
             f"{drift:.4e} over {RECON_DRIFT_STEPS} steps; dropped movers "
@@ -2210,6 +2279,558 @@ def phase_recon(device, card):
     return fields
 
 
+# -- phase 13: open particle boundaries --------------------------------------
+
+# tests/test_boundary_emit.py:drifting_box at production size: 2D 256^2
+# cells, 64 per cell (4 194 304 electrons in 1.25x the slots), ut 0.3 and a
+# drift of 0.5 along x; absorbing fields on the x faces, y and z periodic.
+# Its 16^2 version (16 per cell) runs on the card and on the CPU.
+OPEN_FULL = dict(nx=256, ppc=64)
+OPEN_SMALL = dict(nx=16, ppc=16)
+OPEN_VARIANTS = ("absorb", "tally", "reflux", "link", "emitter", "injector")
+# the variants that draw no random number: card and CPU agree to 1e-6
+OPEN_NO_DRAWS = ("absorb", "tally", "link")
+OPEN_WARM, OPEN_SMALL_STEPS, OPEN_RESTART = 25, 12, 10
+# the collisions deck at its defaults (32^2, 64 per cell) and at 256^2;
+# the CLI runs it at its defaults
+COLL_SIZES = {"32^2": {}, "256^2": {"COLL_NX": "256"}}
+COLL_DECK, COLL_CLI_STEPS = "vpic_tpu_torch/decks/collisions.py", 50
+
+
+def open_box(device, variant, nx, ppc):
+    """The open box with the x faces of ``variant``: "absorb" (both x faces
+    absorbing), "tally" (AbsorbTally), "reflux" (MaxwellianReflux, ut 0.2
+    both ways), "link" (LinkBoundary), "emitter" (absorbing, the uniform
+    ex = -0.1 of tests/test_boundary_emit.py:_emitter_sim and a
+    ChildLangmuir emitter of 2 lanes per cell on the low x face) or
+    "injector" (absorbing, and the user_particle_injection hook refilling
+    the low x cells with 8 nx lanes per step through ``make_injector``,
+    rhob updated, positions, momenta and ages drawn from the state's
+    random state)."""
+    import dataclasses
+    from vpic_tpu_torch import Simulation
+    from vpic_tpu_torch.boundary.models import (AbsorbTally, LinkBoundary,
+                                                MaxwellianReflux)
+    from vpic_tpu_torch.core import random as rnd
+    from vpic_tpu_torch.core.types import PERIODIC_FIELDS
+    from vpic_tpu_torch.emit.models import ChildLangmuir
+    sim = Simulation(seed=2, device=device)
+    sim.define_units(1.0, 1.0)
+    L = 1.0
+    sim.define_timestep(0.7 * sim.courant_length(L, L, L, nx, nx, 1))
+    sim.define_absorbing_grid(0, 0, 0, L, L, L, nx, nx, 1)
+    for face in (1, 2, 4, 5):
+        sim.set_domain_field_bc(face, PERIODIC_FIELDS)
+        sim.set_domain_particle_bc(face, "periodic")
+    n = nx * nx * ppc
+    e = sim.define_species("electron", -1.0, int(1.25 * n))
+    sim.inject_particle(
+        e, sim.uniform(n, 0.05, 0.95), sim.uniform(n, 0, L),
+        sim.uniform(n, 0, L), sim.maxwellian(n, 0.3) + 0.5,
+        sim.maxwellian(n, 0.3), sim.maxwellian(n, 0.3), q=-1.0 / n)
+    handler = dict(tally=AbsorbTally(n_species=1),
+                   reflux=MaxwellianReflux(ut_para=(0.2,), ut_perp=(0.2,)),
+                   link=LinkBoundary(capacity=65536)).get(variant)
+    if handler is not None:
+        sim.define_boundary(handler)
+        for face in (0, 3):
+            sim.set_domain_particle_bc(face, handler)
+    hooks = {}
+    if variant == "emitter":
+        sim.set_field("ex", lambda x, y, z: -0.1)
+        sim.define_surface_emitter(ChildLangmuir(
+            sid=0, q_m=-1.0, components=((), ()), n_emit_per_face=2,
+            ut_para=0.05, ut_perp=0.05), face=0)
+    if variant == "injector":
+        inj = sim.make_injector(e)
+        K, dx = 8 * nx, sim.grid.dx
+
+        def refill(state, acc, f):
+            rng, key = rnd.split(state.rng)
+            state = dataclasses.replace(state, rng=rng)
+            dev = state.interpolator.device
+            u = lambda k, hi: rnd.uniform(rnd.fold(key, k), K, 0.0, hi,
+                                          dev).double()
+            m = lambda k: 0.3 * rnd.normal(rnd.fold(key, k), K, dev)
+            return inj(state, acc, f, x=u(0, dx), y=u(1, L), z=u(2, L),
+                       ux=m(3) + 0.5, uy=m(4), uz=m(5), q=-1.0 / n,
+                       age=rnd.uniform(rnd.fold(key, 6), K, device=dev),
+                       update_rhob=True)
+
+        hooks["user_particle_injection"] = refill
+    sim.finalize(**hooks)
+    return sim
+
+
+def alive_count(sim):
+    return int(sim.state.species[0].alive.sum())
+
+
+def open_counts(sim, variant, n0):
+    """The variant's particle counts: live lanes, lanes gone since
+    finalize, and the tally or the link ring's count."""
+    out = dict(alive=alive_count(sim), gone=n0 - alive_count(sim),
+               dropped=sim.mover_counts()["electron"])
+    if variant == "tally":
+        out["tally"] = int(sim.boundary_tallies(0)[0])
+    if variant == "link":
+        out["ring"] = int(sim.boundary_tallies(0)["count"])
+    return out
+
+
+def open_windows(sim, label, unfused=False, e_refs=None):
+    """WINDOWS timed windows of STEPS steps with the launch counts set to 0
+    just before and read just after: per step one push launch (unfused:
+    one deposit launch and one walk_only launch) and num_comm_round
+    walk_only launches, finite energies, no dropped movers; with
+    ``e_refs`` the energies at the end of each window equal them to 1e-6.
+    Returns (launches, median step s, the energies of each window)."""
+    import math
+    import statistics
+    import torch
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    for mod in (push_cuda, deposit_cuda, sort_cuda):
+        mod.reset_launch_counts()
+    step_s, energies = [], []
+    for w in range(WINDOWS):
+        nm0 = sim.mover_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance(STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e1, nm1 = sim.energies(), sim.mover_counts()
+        if not all(math.isfinite(v) for v in e1.values()):
+            raise AssertionError(f"{label}: non-finite energies {e1}")
+        drops = {k: nm1[k] - nm0[k] for k in nm1}
+        if any(drops.values()):
+            raise AssertionError(f"{label}: dropped movers {drops}")
+        if e_refs is not None:
+            for k, v in e_refs[w].items():
+                if abs(e1[k] - v) > 1e-6 * abs(v) + 1e-12:
+                    raise AssertionError(f"{label}: energy {k} {e1[k]!r} vs "
+                                         f"the fused path's {v!r}")
+        energies.append(e1)
+        step_s.append(dt / STEPS)
+        log(f"  {label} window {w + 1}/{WINDOWS} (steps "
+            f"{sim.step_count - STEPS}-{sim.step_count}): {dt:.4f} s, "
+            f"{dt / STEPS * 1e3:.4f} ms/step, live {alive_count(sim)}"
+            + (", energies equal the fused path's to 1e-6"
+               if e_refs is not None else ""))
+    launches = dict(push_walk=push_cuda.launches["push"],
+                    walk_only=push_cuda.launches["walk_only"],
+                    deposit_sorted=deposit_cuda.launches["deposit_sorted"],
+                    **sort_cuda.launches)
+    steps = WINDOWS * STEPS
+    rounds = sim.opts.num_comm_round
+    want = dict(push_walk=0 if unfused else steps,
+                walk_only=steps * (rounds + int(unfused)),
+                deposit_sorted=steps if unfused else 0)
+    if any(launches[k] != v for k, v in want.items()) or sum(
+            launches.values()) != sum(want.values()):
+        raise AssertionError(f"{label} launches {launches}, expected {want}")
+    med = statistics.median(step_s)
+    log(f"  {label}: median {med * 1e3:.4f} ms/step (min "
+        f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f}), kernel "
+        f"launches {launches}")
+    return launches, med, energies
+
+
+def walk_traffic(st, nb, g, seg_cap):
+    """The plain walk from WalkState ``st``: (lane, segment) pairs, the
+    distinct voxels whose neighbor table a crossing reads, and the
+    distinct voxels a segment deposits into."""
+    import torch
+    from vpic_tpu_torch.particles import push
+    pairs, crossed, deposited = 0, [], []
+    for _ in range(seg_cap):
+        if not bool(st.active.any()):
+            break
+        pairs += int(st.active.sum())
+        before = st
+        st, dep_vox, _ = push.walk_segment(st, nb, g)
+        deposited.append(dep_vox[before.active])
+        # a lane that walks on or stops read its voxel's neighbor entry;
+        # one that ends its streak in the voxel read none
+        read = before.active & (st.active | (st.pcode != before.pcode))
+        crossed.append(before.vox[read])
+    distinct = lambda v: int(torch.unique(torch.cat(v)).numel()) if v else 0
+    return pairs, distinct(crossed), distinct(deposited)
+
+
+def time_walk(label, st, nb, g, n_iter):
+    """The walk_only entry on ``st``: the wrapper (CUDA events), the kernel
+    alone (profiler) and the plain version, each against the bound of
+    what it must move.  The kernel: per lane x, y, z, vox, ux, uy, uz, q,
+    rx, ry, rz, pcode and active read and the 11 words of its state
+    written, one neighbor entry of each voxel a crossing leaves, the 12
+    fixed-point words (int64) of each voxel it deposits into written.
+    The wrapper (the function ``acc -> acc + deposits``): the lanes and
+    neighbor entries, the (nv, 12) float32 accumulator read and written.
+    SEGMENT_OPS per walked segment.  Fails where a time beats its
+    bound."""
+    import torch
+    from vpic_tpu_torch.particles import push, push_cuda
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=st.x.device)
+    run_k = lambda: push_cuda.streak_walk(st, acc0, nb, g, n_iter)
+    run_p = lambda: push.streak_walk(st, acc0, nb, g, n_iter)
+    p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
+                      cuda_ms(run_k, 20), cuda_ms(run_p, 5))
+    kernel_ms, ops = profiled_ms(run_k, 20, ("push_walk_kernel",), 1)
+    n = st.x.shape[0]
+    pairs, crossed, deposited = walk_traffic(st, nb, g, 4 * n_iter + 8)
+    lanes = n * (12 * 4 + 1 + 11 * 4) + crossed * 4
+    bound_ms, bound_by = bound(lanes + deposited * 12 * 8,
+                               SEGMENT_OPS * pairs)
+    wrapper_bound_ms, _ = bound(lanes + g.nv * 12 * 4 * 2,
+                                SEGMENT_OPS * pairs)
+    held_to_bound(f"{label}: the walk kernel alone", kernel_ms, bound_ms)
+    held_to_bound(f"{label}: the walk wrapper", min(k1, k2),
+                  wrapper_bound_ms)
+    log(f"  timing, {label} ({int(st.active.sum())} active of {n} lanes, "
+        f"{pairs} (lane, segment) pairs, {crossed} voxels crossed out of, "
+        f"{deposited} deposited into): wrapper {k1:.4f} / {k2:.4f} ms "
+        f"({ops:.1f} device ops per call; bound {wrapper_bound_ms:.4f} ms), "
+        f"kernel alone {kernel_ms:.4f} ms, plain {p1:.4f} / {p2:.4f} ms; "
+        f"the kernel's bound {bound_ms:.4f} ms ({bound_by}), the kernel at "
+        f"{bound_ms / kernel_ms:.4f} of it")
+    return dict(ms=min(k1, k2), kernel_ms=kernel_ms, plain_ms=min(p1, p2),
+                bound_ms=bound_ms, bound_by=bound_by,
+                wrapper_bound_ms=wrapper_bound_ms)
+
+
+def open_push(sim):
+    """The step's push of the open box's sorted electrons (the kernel,
+    pending lanes left to the rounds): (sorted species, pushed species,
+    interpolator, neighbor table, n_walk)."""
+    import torch
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux, push_cuda
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    sp = aux.sort_p(st.species[0])
+    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=sp.dx.device)
+    pushed, _ = push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=n_walk,
+                                    count_pending=False)
+    return sp, pushed, interp, nb, n_walk
+
+
+def open_kernel_push(sim, variant):
+    """The push entry with count_pending=False on the open box after its
+    timed windows, against its plain version and twin: lanes stopped on
+    the x faces with NEIGHBOR_ABSORB (absorb) or their handler's codes
+    (tally).  Returns (max abs err, timing dict)."""
+    from vpic_tpu_torch.core.types import NEIGHBOR_ABSORB
+    sp, pushed, interp, nb, n_walk = open_push(sim)
+    pc = pushed.pc
+    codes = int((pc == NEIGHBOR_ABSORB).sum()) if variant == "absorb" \
+        else int((pc <= -9).sum())
+    if not codes:
+        raise AssertionError(f"open {variant}: the push stopped no lane on "
+                             "an x face")
+    label = (f"open {variant} {sim.grid.nx}^2 ({codes} lanes stopped on the x "
+             "faces)")
+    err, quantum = check_bar(check_push, label, sp, interp, nb, sim.grid,
+                             n_walk, count_pending=False)
+    t = {}
+    if variant == "absorb":
+        c = walk_counts(sp, interp, nb, sim.grid, n_walk)
+        t = time_push(f"open absorb {sim.grid.nx}^2 sorted electrons", sp,
+                      interp, nb, sim.grid, n_walk, c["pairs"])
+    return err, dict(t, quantum=quantum)
+
+
+def open_kernel_walk(sim):
+    """One round's walk_only launch on its max_inj buffer, on the reflux
+    box after its timed windows: the pending lanes of the step's push
+    compacted, the reflux handler applied (its lanes walk on with new
+    momenta), against the plain walk and twin, and timed.  Returns (max
+    abs err, timing dict)."""
+    from vpic_tpu_torch.core import random as rnd
+    from vpic_tpu_torch.particles import boundary
+    _, pushed, _, nb, n_walk = open_push(sim)
+    st = sim.state
+    sel, valid, b = boundary.pending_buffer(pushed, sim.opts.max_inj)
+    b, live, _, _ = boundary.resolve_buffer(
+        b, valid, st.field, sim.grid, 0, tuple(sim._boundary_handlers),
+        st.boundary_state, rnd.split(st.rng)[1], st.step)
+    walk, walkable = boundary.buffer_walk_state(b, live)
+    n = int(walkable.sum())
+    if not n:
+        raise AssertionError("open reflux: no lane to walk in the round")
+    label = (f"open reflux round buffer ({int(valid.sum())} pending, {n} "
+             f"refluxed, {walk.x.shape[0]} lanes)")
+    err, quantum = check_bar(check_walk, label, walk, nb, sim.grid, n_walk)
+    return err, dict(time_walk(label, walk, nb, sim.grid, n_walk),
+                     quantum=quantum)
+
+
+def open_small(device):
+    """Each variant's 16^2 box for OPEN_SMALL_STEPS steps on the card and
+    on the CPU: energies to 1e-6 where nothing random is drawn, finite,
+    and no dropped mover, but in the injector box.  That box refills
+    8 nx lanes a step into 1.25 n slots and fills them by step 11 or so:
+    the lanes that do not fit are dropped and counted, and a step may
+    drop lanes only where it leaves the species full."""
+    import math
+    for variant in OPEN_VARIANTS:
+        runs = []
+        for dev in (device, "cpu"):
+            sim = open_box(dev, variant, **OPEN_SMALL)
+            n0 = alive_count(sim)
+            for step in range(OPEN_SMALL_STEPS):
+                nm0 = sim.mover_counts()["electron"]
+                sim.advance(1)
+                sp = sim.state.species[0]
+                if (sim.mover_counts()["electron"] > nm0
+                        and (variant != "injector"
+                             or int(sp.np) != sp.max_np)):
+                    raise AssertionError(
+                        f"open {variant} 16^2 on {dev}: step {step + 1} "
+                        f"dropped movers with np {int(sp.np)} of "
+                        f"{sp.max_np}")
+            runs.append((sim.energies(), open_counts(sim, variant, n0)))
+        (eg, cg), (ec, cc) = runs
+        if not all(math.isfinite(v) for v in (*eg.values(), *ec.values())):
+            raise AssertionError(f"open {variant} 16^2: energies {eg} {ec}")
+        worst = max(abs(eg[k] - ec[k]) / abs(ec[k]) for k in ec if ec[k])
+        if variant in OPEN_NO_DRAWS:
+            for k in ec:
+                if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
+                    raise AssertionError(f"open {variant} 16^2: energy {k} "
+                                         f"{eg[k]!r} vs CPU {ec[k]!r}")
+            if cg != cc:
+                raise AssertionError(f"open {variant} 16^2: counts {cg} vs "
+                                     f"CPU {cc}")
+        log(f"  open {variant} 16^2, {OPEN_SMALL_STEPS} steps: card {cg}, "
+            f"CPU {cc}, largest relative energy difference {worst:.3e}"
+            + (" (no random draws: within 1e-6)" if variant in OPEN_NO_DRAWS
+               else " (random draws)"))
+
+
+def open_variant(device, variant, card, unfused=False, e_refs=None):
+    """A variant at full size: OPEN_WARM steps from finalize, then to a
+    step that is a multiple of 4, WINDOWS timed windows of STEPS steps and
+    a trace.  Returns (sim, record, window energies)."""
+    import math
+    label = f"open {variant}" + (" fused_push=False" if unfused else "")
+    t0 = time.perf_counter()
+    sim = open_box(device, variant, **OPEN_FULL)
+    if unfused:
+        sim.modify_runparams(fused_push=False)
+    n0 = alive_count(sim)
+    log(f"  {label}: {sim.grid.nx}x{sim.grid.ny} cells, {n0} electrons in "
+        f"{sim.state.species[0].max_np} slots, particle faces "
+        f"{sim.grid.pbc}, built in {time.perf_counter() - t0:.2f} s")
+    sim.advance(OPEN_WARM)
+    e = sim.energies()
+    if not all(math.isfinite(v) for v in e.values()):
+        raise AssertionError(f"{label}: energies {e} after {OPEN_WARM} steps")
+    c = open_counts(sim, variant, n0)
+    log(f"  {label} after {OPEN_WARM} steps: {c}, total energy "
+        f"{sum(e.values()):.6e}")
+    sim.advance(-sim.step_count % 4)
+    launches, step_s, energies = open_windows(sim, label, unfused, e_refs)
+    # the counts at the end of the windows: a trace that the profiler
+    # takes again runs more steps
+    c, at = open_counts(sim, variant, n0), sim.step_count
+    # the unfused push sorts at 256^2 only on the species' own interval
+    # (sorted_deposit is off above nv = 120 000), which this deck leaves 0
+    parts = ("step.push", "step.field", "step.boundary") + (
+        () if unfused else ("step.sort",)) + (
+        ("step.emit",) if variant in ("emitter", "injector") else ())
+    trace = phase_trace(sim, step_s, f"{label} path", parts)
+    if c["dropped"]:
+        raise AssertionError(f"{label}: dropped movers {c}")
+    if variant == "reflux" and c["gone"]:
+        raise AssertionError(f"{label}: the reflux walls lost {c['gone']}")
+    if variant == "tally" and c["tally"] != c["gone"]:
+        raise AssertionError(f"{label}: tally {c['tally']} != lanes gone "
+                             f"{c['gone']}")
+    if variant == "link" and c["ring"] != c["gone"]:
+        raise AssertionError(f"{label}: ring count {c['ring']} != lanes "
+                             f"gone {c['gone']}")
+    p = trace["parts"]
+    rec = dict(step_ms=step_s * 1e3, busy_ms=trace["busy_ms"],
+               ops_per_step=trace["ops"],
+               idle_share=1 - trace["busy_ms"] / (step_s * 1e3),
+               host_reads_per_step=trace["reads"],
+               push_launches=launches["push_walk"],
+               boundary_busy_ms=p["step.boundary"]["busy_ms"],
+               emit_busy_ms=p["step.emit"]["busy_ms"],
+               push_launches_per_step=launches["push_walk"]
+               / (WINDOWS * STEPS),
+               walk_only_launches_per_step=launches["walk_only"]
+               / (WINDOWS * STEPS), **c)
+    log(f"{label} path ({card}): step {step_s * 1e3:.4f} ms, device busy "
+        f"{trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step, idle "
+        f"share {rec['idle_share']:.4f}, host reads {trace['reads']:.1f}/"
+        f"step; busy ms " + ", ".join(f"{k} {v['busy_ms']:.4f}"
+                                      for k, v in p.items())
+        + f"; launches per step: push {rec['push_launches_per_step']}, "
+        f"walk_only {rec['walk_only_launches_per_step']}; counts at step "
+        f"{at} {c}")
+    return sim, rec, energies
+
+
+def open_restart(device, variant, tmp):
+    """Two builds from one seed (equal checksum_fields); the first runs
+    OPEN_RESTART steps, a checkpoint and OPEN_RESTART more, the second is
+    restored from the checkpoint and runs OPEN_RESTART steps: every array
+    of the two states (fields, particles, rng, boundary_state) bitwise
+    equal."""
+    import numpy as np
+    import torch
+    from vpic_tpu_torch.interop import state_to_numpy
+    a = open_box(device, variant, **OPEN_FULL)
+    b = open_box(device, variant, **OPEN_FULL)
+    if a.checksum_fields() != b.checksum_fields():
+        raise AssertionError(f"open {variant}: two builds from one seed "
+                             "differ")
+    a.advance(OPEN_RESTART)
+    path = os.path.join(tmp, f"open_{variant}")
+    t0 = time.perf_counter()
+    a.checkpoint(path)
+    save_s = time.perf_counter() - t0
+    a.advance(OPEN_RESTART)
+    first = state_to_numpy(a.state)
+    del a
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    b.restore(path)
+    load_s = time.perf_counter() - t0
+    b.advance(OPEN_RESTART)
+    second = state_to_numpy(b.state)
+    same = lambda x, y: (x.dtype == y.dtype and x.shape == y.shape
+                         and x.tobytes() == y.tobytes())
+    bad = [k for k in first if k not in second or not same(
+        np.asarray(first[k]), np.asarray(second[k]))]
+    if set(first) != set(second) or bad:
+        raise AssertionError(f"open {variant}: the restarted run differs in "
+                             f"{bad[:8]}")
+    log(f"  open {variant} restart: checksum_fields of two builds equal "
+        f"({b.checksum_fields()[:16]}...), step {2 * OPEN_RESTART} of the "
+        f"restored run bitwise the first run's ({len(first)} arrays: fields,"
+        f" particles, rng {first['rng'].tolist()}, boundary_state); save "
+        f"{save_s:.2f} s, restore {load_s:.2f} s")
+
+
+def phase_collisions(device, card):
+    """The collisions deck on the card at its defaults and at 256^2: the
+    hook alone keeps sum |u|^2 to float roundoff, the anisotropy falls over
+    the run, WINDOWS timed windows (one push launch per step and no other
+    kernel) and a trace; then the deck at its defaults through the CLI in
+    a process of its own for COLL_CLI_STEPS steps.  Returns the record's
+    fields."""
+    import importlib
+    import torch
+    fields = {}
+    mod = importlib.import_module("vpic_tpu_torch.decks.collisions")
+    for name, size in COLL_SIZES.items():
+        saved = {k: os.environ.get(k) for k in size}
+        os.environ.update(size)
+        try:
+            sim = mod.deck(device=device)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        sp = sim.state.species[0]
+        u2 = lambda s: float((s.ux.double() ** 2 + s.uy.double() ** 2
+                              + s.uz.double() ** 2)[s.alive].sum())
+        hook = sim._hooks["user_particle_collisions"]
+        k0, k1 = u2(sp), u2(hook(sim.state).species[0])
+        if not abs(k1 - k0) <= 1e-6 * k0:
+            raise AssertionError(f"collisions {name}: the hook changed "
+                                 f"sum |u|^2 by {(k1 - k0) / k0:.3e}")
+        a0 = mod.anisotropy(sim)
+        sim.advance(WARM_STEPS)
+        launches, step_s = push_only_windows(sim, f"collisions {name}")
+        trace = phase_trace(sim, step_s, f"collisions {name} path",
+                            ("step.sort", "step.push", "step.field",
+                             "step.collide"))
+        a1 = mod.anisotropy(sim)
+        if not a1 < a0:
+            raise AssertionError(f"collisions {name}: anisotropy {a0} -> "
+                                 f"{a1}")
+        log(f"collisions {name} path ({card}): {int(sp.np)} electrons; the "
+            f"hook alone changes sum |u|^2 by {(k1 - k0) / k0:.3e}; "
+            f"anisotropy {a0:.4f} -> {a1:.4f} over {sim.step_count} steps; "
+            f"step {step_s * 1e3:.4f} ms, device busy {trace['busy_ms']:.4f} "
+            f"ms/step, {trace['ops']:.1f} ops/step, idle share "
+            f"{1 - trace['busy_ms'] / (step_s * 1e3):.4f}, collide busy "
+            f"{trace['parts']['step.collide']['busy_ms']:.4f} ms/step")
+        key = f"collisions_{name.replace('^2', 'sq')}"
+        fields.update({f"{key}_launches": launches["push_walk"],
+                       f"{key}_step_ms": step_s * 1e3,
+                       f"{key}_busy_ms": trace["busy_ms"],
+                       f"{key}_collide_busy_ms":
+                       trace["parts"]["step.collide"]["busy_ms"]})
+        del sim
+        torch.cuda.empty_cache()
+    cli_s = deck_cli(COLL_DECK, {}, COLL_CLI_STEPS)
+    log(f"collisions CLI ({card}): {COLL_DECK} --num-step {COLL_CLI_STEPS} "
+        f"in {cli_s:.2f} s")
+    fields["collisions_cli_s"] = cli_s
+    return fields
+
+
+def phase_open(device, card):
+    """Phase 13: the open box's variants at full size, the kernels on its
+    open faces, the 16^2 boxes on card and CPU, the restarts, and the
+    collisions deck.  Returns the push record's open_* and collisions_*
+    fields."""
+    import shutil
+    import tempfile
+    import torch
+    open_small(device)
+    fields, errs = {}, []
+    refs = None
+    for variant in OPEN_VARIANTS:
+        sim, rec, energies = open_variant(device, variant, card)
+        if variant == "absorb":
+            refs = energies
+            fields["open_launches"] = rec["push_launches"]
+            fields["open_walk_only_launches_per_step"] = rec[
+                "walk_only_launches_per_step"]
+        if variant in ("absorb", "tally"):
+            err, t = open_kernel_push(sim, variant)
+            errs.append(err)
+            fields[f"open_{variant}_quantum"] = t.pop("quantum")
+            fields.update({f"open_{k}": v for k, v in t.items()})
+        if variant == "reflux":
+            err, t = open_kernel_walk(sim)
+            errs.append(err)
+            fields.update({f"open_walk_{k}": v for k, v in t.items()})
+        fields.update({f"open_{variant}_{k}": v for k, v in rec.items()})
+        del sim
+        torch.cuda.empty_cache()
+    if fields["open_absorb_gone"] != fields["open_tally_tally"]:
+        raise AssertionError(
+            f"open: absorb lost {fields['open_absorb_gone']} lanes, the "
+            f"tally counted {fields['open_tally_tally']}")
+    log(f"  open: absorbed {fields['open_absorb_gone']} = tally "
+        f"{fields['open_tally_tally']} = n0 - alive of the tally run, at "
+        "the end of the windows")
+    sim, rec, _ = open_variant(device, "absorb", card, unfused=True,
+                               e_refs=refs)
+    fields.update({f"open_absorb_unfused_{k}": v for k, v in rec.items()})
+    del sim
+    torch.cuda.empty_cache()
+    tmp = tempfile.mkdtemp(prefix="open_smoke_")
+    try:
+        for variant in ("reflux", "emitter"):
+            open_restart(device, variant, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    fields["open_max_abs_err"] = max(errs)
+    fields.update(phase_collisions(device, card))
+    return fields
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2224,13 +2845,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/12] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/13] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/12] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/13] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -2238,17 +2859,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/12] kernel vs plain, small 3D grid")
+    log("[3/13] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/12] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/13] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/12] determinism: checked above, per case and species")
+    log("[4/13] determinism: checked above, per case and species")
 
-    log("[5/12] slice")
+    log("[5/13] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -2256,15 +2877,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/12] deposit kernel vs plain")
+    log("[6/13] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/12] merge re-sort kernels vs plain")
+    log("[7/13] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/12] path A: the unfused push")
+    log("[8/13] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/12] path B: the packed cycle with the merge re-sort")
+    log("[9/13] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -2274,12 +2895,14 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/12] determinism: the charge deposit on the card")
+    log("[10/13] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/12] the turbulence deck through the CLI")
+    log("[11/13] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/12] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/13] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
+    log("[13/13] open particle boundaries and the collisions deck")
+    opened = phase_open(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -2289,7 +2912,7 @@ def main():
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
-             **recon),
+             **recon, **opened),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

@@ -14,7 +14,9 @@ decision, the whole re-sort bitwise the plain one's, two runs bitwise
 equal.  The turbulence deck: the fixed-point rho and hydro deposits
 repeat bitwise and match float64 within 1e-6 * sum|contributions|; the
 push kernel on its q = 0 tracers (zero accumulator, finite scale) and on
-its bulk species at full shape (3D, reflecting walls).  Needs an NVIDIA
+its bulk species at full shape (3D, reflecting walls).  An open deck's
+push (pending lanes left to the boundary rounds) and a round's walk_only
+launch on its buffer.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -57,6 +59,30 @@ def test_walk_only_kernel_matches_plain(device, pbc_name, hot):
     g, nb, interp, sp = cs.small_grid_case(pbc_name, hot, device)
     st = cs.walk_state_from(sp, 5, 1.5 if hot else 0.3)
     cs.check_walk(f"{pbc_name} hot={hot}", st, nb, g, 2)
+
+
+@pytest.mark.parametrize("hot", [False, True], ids=["cold", "hot"])
+def test_open_push_and_round_match_plain(device, hot):
+    """An open deck's push (count_pending=False: stopped lanes keep their
+    codes and are not counted) and one boundary round's walk_only launch
+    on its buffer of the pushed lanes, as in chip_smoke.py phase 13, on
+    the small grid with an absorbing face: every pending lane is handed a
+    remaining displacement to walk, as a reflux handler would."""
+    from vpic_tpu_torch.particles import boundary
+    g, nb, interp, sp = cs.small_grid_case("reflect+absorb", hot, device)
+    cs.check_push(f"open hot={hot}", sp, interp, nb, g, n_walk=4,
+                  count_pending=False)
+    acc0 = torch.zeros((g.nv, 12), device=device)
+    pushed, _ = push_cuda.advance_p(sp, interp, acc0, nb, g, n_walk=4,
+                                    count_pending=False)
+    assert int(pushed.nm) == 0 and bool((pushed.pc != 0).any())
+    _, valid, b = boundary.pending_buffer(pushed, 1024)
+    b["pc"] = torch.where(valid, push.PC_EXHAUSTED, 0).to(torch.int32)
+    st, walkable = boundary.buffer_walk_state(b, valid)
+    assert int(walkable.sum()) == int((pushed.pc != 0).sum())
+    before = push_cuda.launches["walk_only"]
+    cs.check_walk(f"open round hot={hot}", st, nb, g, 4)
+    assert push_cuda.launches["walk_only"] == before + 2
 
 
 @pytest.mark.parametrize("hot", [False, True], ids=["cold", "hot"])

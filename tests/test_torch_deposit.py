@@ -37,6 +37,8 @@ from vpic_tpu_torch.particles import deposit, deposit_cuda, push_cuda
 from .test_torch_push import ACC, FLOATS, MAX_NP, N, PBCS, both_species, \
     case, particles
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 # the cases of tests/test_deposit_pallas.py: (n, nv, sorted)
 DEPOSIT_CASES = [(5000, 2000, True), (1024, 130 * 130, True),
                  (4096, 3000, False)]

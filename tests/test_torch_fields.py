@@ -42,6 +42,8 @@ from vpic_tpu_torch.field import ghost, stencil, sync
 from vpic_tpu_torch.particles import aux
 from vpic_tpu_torch.sf import interp
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 TOL = dict(rtol=2e-6, atol=1e-6)
 SHAPES = {"3d": (6, 5, 4), "2d": (8, 8, 1)}
 

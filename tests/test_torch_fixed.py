@@ -26,6 +26,8 @@ from vpic_tpu_torch.particles import deposit, push
 from .test_torch_push import ACC, MAX_NP, PBCS, both_species, case, \
     particles
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 # (n, nv, sorted) as in tests/test_torch_deposit.py
 DEPOSIT_CASES = [(5000, 2000, True), (1024, 130 * 130, True),
                  (4096, 3000, False)]

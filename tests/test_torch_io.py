@@ -48,6 +48,8 @@ from vpic_tpu_torch.io import banded, dump
 from vpic_tpu_torch.io.checkpoint import RotatingCheckpointer
 from vpic_tpu_torch.particles import aux
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 TURB = dict(TURB_NX="8", TURB_NY="8", TURB_NZ="8", TURB_PPC="2")
 HEADER = 103            # bytes of a V0 header
 

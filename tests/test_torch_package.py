@@ -27,6 +27,8 @@ from vpic_tpu_torch.engine.step import (StepOptions, make_advance,
 from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
 from vpic_tpu_torch.particles import push, push_cuda
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -129,12 +131,26 @@ def test_sort_cadence():
 
 
 def test_unported_configurations_raise():
+    """Migration between devices and multi-device grids are not ported.
+    Absorbing faces and the deck hooks are (the boundary rounds); the
+    packed cycle refuses them, as the JAX package's does, and an unknown
+    hook name raises."""
     g = Grid(nx=4, ny=4, nz=1, pbc=(NEIGHBOR_ABSORB,) * 6)
-    with pytest.raises(NotImplementedError):
-        make_advance(g, LocalComm(g))
+    make_advance(g, LocalComm(g))
+    with pytest.raises(NotImplementedError, match="migration"):
+        make_advance(g, LocalComm(g), pcomm=object())
+    with pytest.raises(ValueError, match="closed configuration"):
+        make_advance(g, LocalComm(g), packed=True)
     g = Grid(nx=4, ny=4, nz=1)
-    with pytest.raises(NotImplementedError):
-        make_advance(g, LocalComm(g), user_particle_injection=lambda s: s)
+    make_advance(g, LocalComm(g), user_particle_injection=lambda s: s)
+    with pytest.raises(ValueError, match="closed configuration"):
+        make_advance(g, LocalComm(g), packed=True,
+                     user_particle_collisions=lambda s: s)
+    with pytest.raises(TypeError, match="unknown deck hooks"):
+        make_advance(g, LocalComm(g), user_particle_push=print)
+    sim = vpic_tpu_torch.Simulation(device="cpu")
+    with pytest.raises(NotImplementedError, match="multi-device"):
+        sim.define_absorbing_grid(0, 0, 0, 1, 1, 1, 8, 8, 1, px=2)
 
 
 def test_path_switches_resolve_as_the_jax_package():

@@ -33,6 +33,8 @@ from vpic_tpu_torch.core.types import Grid, SpeciesState
 from vpic_tpu_torch.grid.partition import build_neighbor_table
 from vpic_tpu_torch.particles import push, push_cuda
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 NX, NY, NZ = 6, 5, 4
 DT = 0.04
 N, MAX_NP = 300, 512

@@ -37,6 +37,8 @@ from vpic_tpu_torch.io import banded, dump, native, readers
 from vpic_tpu_torch.particles import push
 from vpic_tpu_torch.post import fields as post
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 NX, NY = 8, 6
 
 

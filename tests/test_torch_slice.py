@@ -33,6 +33,8 @@ from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
 from vpic_tpu_torch.particles import aux, sort_cuda
 from vpic_tpu_torch.sf import interp as sfi
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 DECK = dict(nx=16, ny=16, nz=1, npart=4096)
 STEPS = 8
 

@@ -31,6 +31,8 @@ from vpic_tpu_torch.particles import aux, push, sort, sort_cuda
 
 from .test_sort_pallas import KW, _canon, _mk_sorted, _perturb
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 M_CAP = KW["m_cap"]
 
 

@@ -28,6 +28,8 @@ import vpic_tpu_torch
 from vpic_tpu_torch.interop import state_to_numpy
 from vpic_tpu_torch.io import tracers as ttr
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 N, NX, STRIDE, STEPS = 500, 8, 50, 6
 N_TR = N // STRIDE
 BAR = 1e-5

@@ -27,6 +27,8 @@ from vpic_tpu_torch.cli import run as cli
 from vpic_tpu_torch.core.types import FIELD_COMPONENTS
 from vpic_tpu_torch.interop import state_to_numpy
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 DECK = Path(__file__).resolve().parents[1] / "vpic_tpu_torch" / "decks" \
     / "turbulence.py"
 SIZE = dict(TURB_NX="8", TURB_NY="8", TURB_NZ="8", TURB_PPC="2")

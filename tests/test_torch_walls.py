@@ -48,6 +48,8 @@ from vpic_tpu_torch.field import ghost, sync
 from vpic_tpu_torch.interop import state_to_numpy
 from vpic_tpu_torch.sf import hydro
 
+from tests import torch_decks  # noqa: F401  (one torch thread)
+
 CODES = {"pec": PEC_FIELDS, "symmetric": SYMMETRIC_FIELDS, "pmc": PMC_FIELDS,
          "absorb": ABSORB_FIELDS}
 GHOSTS = ("ghost_tang_b", "ghost_norm_e", "ghost_div_b")

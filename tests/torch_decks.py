@@ -14,6 +14,11 @@ size, built once in each package.
   checkpoint at step 2; a second call restarted from it reaches step 4
   with the same bytes in every dump of step 4.  Without ``--device`` it
   asks for the card and raises where there is none.
+
+Importing this module sets PyTorch to one CPU thread (the port's test
+files all import it): the tests' tensors are small, and pytest-xdist runs
+one test process per worker, so PyTorch's default of a thread per core
+would oversubscribe the cores many times over.
 """
 
 import importlib
@@ -31,6 +36,8 @@ STEPS = 8
 DRIFT_STEPS = 25
 BAR = 1e-5
 DECKS = Path(__file__).resolve().parents[1] / "vpic_tpu_torch" / "decks"
+
+torch.set_num_threads(1)
 
 
 def modules(mp, name, env):

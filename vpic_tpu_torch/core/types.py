@@ -22,6 +22,7 @@ flattening of a ``[z, y, x]`` array.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
@@ -234,6 +235,18 @@ SPECIES_COLUMNS = ("dx", "dy", "dz", "i", "ux", "uy", "uz", "q",
 _INT_COLUMNS = ("i", "pc", "tag")
 
 
+_SLOTS: dict = {}
+
+
+def slot_index(n: int, device) -> torch.Tensor:
+    """``arange(n)`` as int32 on ``device``, made once per (n, device):
+    the liveness test of every step reads it several times."""
+    key = (n, torch.device(device))
+    if key not in _SLOTS:
+        _SLOTS[key] = torch.arange(n, dtype=torch.int32, device=device)
+    return _SLOTS[key]
+
+
 @dataclasses.dataclass(frozen=True)
 class SpeciesState:
     """One particle species (``species_t`` + its particle array,
@@ -286,9 +299,8 @@ class SpeciesState:
     @property
     def alive(self) -> torch.Tensor:
         """(max_np,) bool: slot < np and not a zombie (i < 0)."""
-        slots = torch.arange(self.max_np, dtype=torch.int32,
-                             device=self.i.device)
-        return (slots < self.np) & (self.i >= 0)
+        return (slot_index(self.max_np, self.i.device) < self.np) & (
+            self.i >= 0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -322,9 +334,13 @@ class PackedSpecies:
 
 @dataclasses.dataclass(frozen=True)
 class SimState:
-    """Everything that evolves across a step.  The closed single-device
-    configuration has a single material (no per-voxel material grid), no
-    random state and no boundary-handler state."""
+    """Everything that evolves across a step.  The single-device
+    configuration has a single material (no per-voxel material grid).
+    ``rng`` is the counter-based random state of ``core/random.py`` (the
+    JAX package's ``jax.random`` key), drawn from by the boundary rounds,
+    the reflux handler, the emitters and the deck hooks;
+    ``boundary_state`` holds one state per custom boundary handler
+    (``boundary/models.py``: tally counters, link rings)."""
 
     field: FieldState
     interpolator: torch.Tensor      # (nv, 18) float32, layout IP below
@@ -332,6 +348,8 @@ class SimState:
     grid_arrays: GridArrays
     materials: MaterialTable
     step: torch.Tensor              # 0-d int32
+    rng: Optional[torch.Tensor] = None   # (2,) int64, on the host
+    boundary_state: tuple = ()
 
 
 # Interpolator component layout (interpolator_t, sf_interface.h:45-58)

@@ -1,7 +1,11 @@
 """Deck API of the port (``vpic_tpu/deck/api.py``; the reference's deck
 vocabulary, vpic.hxx:126-555), for single-device decks: periodic or local
-field faces, periodic or reflecting particle faces, one vacuum material,
-particles injected at set-up.
+field faces; periodic, reflecting, absorbing or custom particle faces
+(``define_boundary``: ``MaxwellianReflux``, ``AbsorbTally``,
+``LinkBoundary``); surface and volume emitters; particles injected at
+set-up and, through ``make_injector`` from the ``user_particle_injection``
+hook, during the run; the four ``user_*`` hooks of ``finalize``; one
+vacuum material.
 
     sim = Simulation(seed=0, device="cuda")
     sim.define_units(1.0, 1.0)
@@ -16,6 +20,16 @@ particles injected at set-up.
     sim.finalize()
     sim.advance(16)
     sim.energies(), sim.mover_counts()
+
+An open deck (absorbing walls and drifting electrons):
+
+    sim.define_absorbing_grid(0, 0, 0, L, L, L, nx, ny, 1)
+    tally = sim.define_boundary(AbsorbTally(n_species=1))
+    sim.set_domain_particle_bc(0, tally)
+    sim.define_surface_emitter(ChildLangmuir(sid=0, q_m=-1.0,
+                                             components=((), ())), face=0)
+    sim.finalize(user_particle_injection=refill)
+    sim.boundary_tallies(tally)
 
 ``advance`` runs a plain loop of steps with the per-species sort cadence
 of :func:`vpic_tpu_torch.engine.step.step_sort_flags`; the host's step
@@ -41,9 +55,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..boundary.models import BoundaryHandler, handler_code
 from ..comm.facecomm import LocalComm
 from ..core import diagnostics
+from ..core import random as rnd
 from ..core.types import (
+    ABSORB_FIELDS,
     ANTI_SYMMETRIC_FIELDS,
     FieldState,
     Grid,
@@ -55,9 +72,10 @@ from ..core.types import (
     vacuum_material_table,
 )
 from ..diag import energy_dist as ed
+from ..emit import models as emodels
 from ..engine.init import initialize_state
-from ..engine.step import (StepOptions, make_advance, resolve_paths,
-                           step_sort_flags)
+from ..engine.step import (StepOptions, make_advance, needs_boundary,
+                           resolve_paths, step_sort_flags)
 from ..field import stencil
 from ..field.slabs import own_slice
 from ..grid.partition import make_grid_arrays
@@ -70,6 +88,7 @@ from ..io.global_header import write_global_header
 from ..particles import aux as paux
 from ..particles import push as ppush
 from ..sf import hydro as sfhydro
+from . import inject as dinject
 
 
 @dataclasses.dataclass
@@ -108,6 +127,9 @@ class Simulation:
                                "CUDA device is available")
         self.device = device
         self.seed = seed
+        # the deck's numpy stream (maxwellian, uniform): the JAX package's,
+        # so both packages load identical particles
+        self.rng = np.random.default_rng(seed)
         self.cvac = 1.0
         self.eps0 = 1.0
         self.dt = 0.0
@@ -118,6 +140,8 @@ class Simulation:
         self._field_sets: List[tuple] = []
         self.opts = StepOptions()
         self._hooks: dict = {}
+        self._boundary_handlers: list = []
+        self._emitters: list = []
         self._advance_packed = None
         self._traj = None
         self.state: Optional[SimState] = None
@@ -151,6 +175,13 @@ class Simulation:
                                (px, py, pz), PERIODIC_FIELDS,
                                PERIODIC_FIELDS)
 
+    def define_absorbing_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                              px=1, py=1, pz=1, pbc="absorb"):
+        """partition_absorbing_box (partition.c:88-140) on one device:
+        absorbing fields on every face, particles ``pbc``."""
+        return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
+                               (px, py, pz), ABSORB_FIELDS, _PBC_MAP[pbc])
+
     def define_reflecting_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
                                px=1, py=1, pz=1):
         """partition_metal_box (partition.c:142-177) on one device."""
@@ -174,13 +205,55 @@ class Simulation:
         self.grid = dataclasses.replace(self.grid, fbc=tuple(fbc))
 
     def set_domain_particle_bc(self, face: int, bc):
-        """set_pbc analogue; ``bc`` is 'periodic', 'absorb', 'reflect' or
-        a raw code (the step runs periodic and reflecting faces)."""
-        if isinstance(bc, str) and bc not in _PBC_MAP:
+        """set_pbc analogue; ``bc`` is 'periodic', 'absorb', 'reflect', a
+        raw code, or a handler registered with :meth:`define_boundary`."""
+        if isinstance(bc, BoundaryHandler):
+            bc = handler_code(self._boundary_handlers.index(bc), face)
+        elif isinstance(bc, str) and bc not in _PBC_MAP:
             raise ValueError(f"unknown particle boundary {bc!r}")
         pbc = list(self.grid.pbc)
         pbc[face] = _PBC_MAP.get(bc, bc)
         self.grid = dataclasses.replace(self.grid, pbc=tuple(pbc))
+
+    def define_boundary(self, handler):
+        """Register a custom particle boundary handler (add_boundary,
+        src/grid/add_boundary.c:9-32); use it with
+        :meth:`set_domain_particle_bc`."""
+        self._boundary_handlers.append(handler)
+        return handler
+
+    def define_surface_emitter(self, model, face=None, components=None,
+                               region=None):
+        """Register a surface emitter (define_surface_emitter,
+        deck_wrapper.cxx:390-463) on every cell of a domain ``face``, on
+        an explicit (vox, face) component list, or on every exterior-cell
+        face that touches ``region(x, y, z)``."""
+        if components is None:
+            if region is not None:
+                vox, faces = emodels.region_surface_components(self.grid,
+                                                               region)
+                components = (tuple(vox.tolist()), tuple(faces.tolist()))
+            else:
+                if face is None:
+                    raise ValueError("give a face, components or a region")
+                vox = emodels.domain_face_components(self.grid, face)
+                components = (tuple(vox.tolist()), (face,) * len(vox))
+        model = dataclasses.replace(model, components=components)
+        model.bind(self.grid)
+        self._emitters.append(model)
+        return model
+
+    def define_volume_emitter(self, model, region):
+        """Register a volume emitter (define_volume_emitter,
+        deck_wrapper.cxx:346-383): every cell inside ``region(x, y, z)``
+        becomes a face-less component (face = -1), which the face laws
+        skip."""
+        vox, faces = emodels.region_volume_components(self.grid, region)
+        model = dataclasses.replace(
+            model, components=(tuple(vox.tolist()), tuple(faces.tolist())))
+        model.bind(self.grid)
+        self._emitters.append(model)
+        return model
 
     def define_material(self, name, eps=1.0, mu=1.0, sigma=0.0, zeta=0.0):
         if (eps, mu, sigma, zeta) != (1.0, 1.0, 0.0, 0.0) or self.materials:
@@ -225,16 +298,37 @@ class Simulation:
         Z, Y, X = np.meshgrid(axes[2], axes[1], axes[0], indexing="ij")
         return X, Y, Z
 
-    def inject_particle(self, species, x, y, z, ux, uy, uz, q, tag=0):
+    def inject_particle(self, species, x, y, z, ux, uy, uz, q, tag=0,
+                        update_rhob=False):
         """Vectorized injection at global coordinates (misc.cxx:16-106);
-        placement happens at finalize."""
+        placement happens at finalize, where ``update_rhob`` deposits -q
+        into rhob (misc.cxx:92-96)."""
         x = np.atleast_1d(np.asarray(x, np.float64))
         arr = lambda v: np.broadcast_to(
             np.atleast_1d(np.asarray(v, np.float64)), x.shape)
         species["batches"].append(dict(
             x=x, y=arr(y), z=arr(z), ux=arr(ux), uy=arr(uy), uz=arr(uz),
             q=arr(q), tag=np.broadcast_to(
-                np.atleast_1d(np.asarray(tag, np.int32)), x.shape)))
+                np.atleast_1d(np.asarray(tag, np.int32)), x.shape),
+            update_rhob=bool(update_rhob)))
+
+    def make_injector(self, species):
+        """The in-step injector of ``species`` (a name or the handle of
+        define_species), to call from the ``user_particle_injection``
+        hook (``deck/inject.py``)."""
+        if self.grid is None:
+            raise RuntimeError("define a grid first")
+        h = (self._species_by_name(species) if isinstance(species, str)
+             else species)
+        return dinject.Injector(sid=h["sid"], g=self.grid)
+
+    def maxwellian(self, n, ut):
+        """n normal momenta of thermal spread ut from the deck's numpy
+        stream (mt_{d,f}randn analogue, mtrand.h:39-146)."""
+        return self.rng.normal(0.0, ut, size=n)
+
+    def uniform(self, n, lo, hi):
+        return self.rng.uniform(lo, hi, size=n)
 
     # -- finalize ----------------------------------------------------------
     def _initial_state(self) -> SimState:
@@ -259,6 +353,7 @@ class Simulation:
             return np.where(far, 1.0, t), np.where(far, n - 1, ic) + 1
 
         species = []
+        rhob_batches = []
         for h in self._species:
             cols = {k: [] for k in ("dx", "dy", "dz", "i", "ux", "uy", "uz",
                                     "q", "tag")}
@@ -284,6 +379,9 @@ class Simulation:
                 for k in ("ux", "uy", "uz", "q"):
                     cols[k].append(b[k][own].astype(np.float32))
                 cols["tag"].append(b["tag"][own].astype(np.int32))
+                if b["update_rhob"]:
+                    rhob_batches.append({k: cols[k][-1] for k in
+                                         ("i", "q", "dx", "dy", "dz")})
             total = sum(len(c) for c in cols["dx"])
             if total > h["max_np"]:
                 raise ValueError(f"species {h['name']}: {total} > max_np "
@@ -300,6 +398,11 @@ class Simulation:
                                                 device=dev), **upd)
             species.append(sp)
 
+        for b in rhob_batches:
+            t = {k: torch.as_tensor(v, device=dev) for k, v in b.items()}
+            f = paux.accumulate_rhob(f, g, t["i"], -t["q"], t["dx"], t["dy"],
+                                     t["dz"], torch.ones_like(t["q"],
+                                                              dtype=bool))
         return SimState(
             field=f,
             interpolator=torch.zeros((g.nv, 18), dtype=torch.float32,
@@ -307,9 +410,16 @@ class Simulation:
             species=tuple(species),
             grid_arrays=make_grid_arrays(g, device=dev),
             materials=vacuum_material_table(dev),
-            step=torch.tensor(0, dtype=torch.int32, device=dev))
+            step=torch.tensor(0, dtype=torch.int32, device=dev),
+            rng=rnd.make_key(self.seed * 65537),
+            boundary_state=tuple(h.init_state(len(self._species), dev)
+                                 for h in self._boundary_handlers))
 
     def finalize(self, **hooks):
+        """Build the state and the step; ``hooks`` are the deck's
+        ``user_particle_collisions``, ``user_particle_injection``,
+        ``user_current_injection`` and ``user_field_injection`` sections
+        (``engine/step.py:make_advance``)."""
         g = self.grid
         if g is None:
             raise RuntimeError("define a grid first")
@@ -327,25 +437,33 @@ class Simulation:
 
     def _build_advance(self):
         g = self.grid
-        self._advance = make_advance(g, self.comm, self.opts, **self._hooks)
+        kw = dict(emitters=tuple(self._emitters),
+                  boundary_handlers=tuple(self._boundary_handlers),
+                  **self._hooks)
+        self._advance = make_advance(g, self.comm, self.opts, **kw)
         self._advance_packed = (
-            make_advance(g, self.comm, self.opts, packed=True, **self._hooks)
+            make_advance(g, self.comm, self.opts, packed=True, **kw)
             if self._packed_ok() else None)
 
     def _packed_ok(self) -> bool:
         """The packed cycle (``vpic_tpu/deck/api.py:651-711``) runs only
         under ``merge_sort``, the one path where the layout carries
-        meaning (the key0/ctot carry), and needs the fused push and
-        untagged particles; ``make_advance`` admits only closed decks, so
-        nothing creates, kills or migrates particles."""
+        meaning (the key0/ctot carry), and needs the fused push, untagged
+        particles and a closed deck: no boundary rounds, emitters or deck
+        hooks, so that nothing creates, kills or migrates particles."""
         paths = resolve_paths(self.grid, self.opts)
-        return paths.merge_sort and paths.fused and not any(self._tagged)
+        closed = not (needs_boundary(
+            self.grid, None, self._emitters, self._boundary_handlers,
+            self._hooks.get("user_particle_injection"))
+            or any(v is not None for v in self._hooks.values()))
+        return (paths.merge_sort and paths.fused and closed
+                and not any(self._tagged))
 
     def modify_runparams(self, **kw):
         """Runtime overrides of ``num_step`` and of :class:`StepOptions`
         fields on a built deck (modify_runparams, dump.cxx:824-890): the
-        advance is rebuilt from the new options, and a packed state is
-        unpacked first."""
+        advance is rebuilt from the new options with the deck's handlers,
+        emitters and hooks, and a packed state is unpacked first."""
         names = {f.name for f in dataclasses.fields(StepOptions)}
         unknown = sorted(set(kw) - names - {"num_step"})
         if unknown:
@@ -430,12 +548,26 @@ class Simulation:
             if nm:
                 msg = (f"ignoring {nm} unprocessed movers for species "
                        f"{name!r} by step {self.step_count} (a lane still "
-                       "moving at the walk's segment cap)")
+                       "moving at the walk's segment cap, left pending "
+                       "after the boundary rounds, or emitted or injected "
+                       "past max_np: raise max_inj, num_comm_round or the "
+                       "species' max_np)")
                 if log is not None:
                     log(f"WARNING: {msg}")
                 else:
                     warnings.warn(msg, RuntimeWarning, stacklevel=2)
         return counts
+
+    def boundary_tallies(self, handler):
+        """A handler's state (given as the handler or its index) as numpy:
+        the tally counters of ``AbsorbTally``, the ring of
+        ``LinkBoundary``."""
+        idx = (handler if isinstance(handler, int)
+               else self._boundary_handlers.index(handler))
+        st = self.state.boundary_state[idx]
+        if isinstance(st, dict):
+            return {k: v.cpu().numpy() for k, v in st.items()}
+        return st.cpu().numpy()
 
     def checksum_fields(self):
         """SHA-1 of the full field state (output_checksum_fields,

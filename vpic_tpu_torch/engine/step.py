@@ -1,10 +1,13 @@
 """The time step of the single-device configuration
 (``vpic_tpu/engine/step.py``; vpic_simulation::advance, advance.cxx:13-244):
 
-  sort (cadence below) -> advance_p per species -> clear_jf +
-  unload_accumulator + synchronize_jf -> advance_b(1/2) -> advance_e ->
-  advance_b(1/2) -> (interval) div-E clean -> (interval) div-B clean ->
-  (interval) shared-face sync -> load_interpolator
+  sort (cadence below) -> user particle collisions -> advance_p per
+  species -> emitters -> user particle injection -> boundary rounds x
+  num_comm_round + finish -> clear_jf + unload_accumulator +
+  synchronize_jf -> user current injection -> advance_b(1/2) ->
+  advance_e -> user field injection -> advance_b(1/2) -> (interval) div-E
+  clean -> (interval) div-B clean -> (interval) shared-face sync ->
+  load_interpolator
 
 The push takes one of three paths (:func:`resolve_paths`):
 
@@ -16,39 +19,54 @@ The push takes one of three paths (:func:`resolve_paths`):
   ``merge_sort=True``): the fused kernel on ``PackedSpecies`` rows, sorted
   by the merge re-sort (its CUDA assembly kernel) or a full sort.
 
-Field faces may be periodic or local (PEC, symmetric, PMC, absorbing);
-particle faces periodic or reflecting.  Configurations that need boundary
-rounds (absorbing or custom particle faces, migration), emitters,
-injection or collision hooks, or several devices are not ported:
-:func:`make_advance` raises for them.
+Field faces may be periodic or local (PEC, symmetric, PMC, absorbing).
+Particle faces may be periodic, reflecting, absorbing or custom
+(``boundary/models.py``).  Absorbing and custom faces, emitters and the
+injection hook need the boundary rounds (``particles/boundary.py``),
+whose walks run on the kernel's walk_only entry; the packed cycle refuses
+them and the collision hook, as the JAX package's does.  Migration
+between devices is not ported: :func:`make_advance` raises for ``pcomm``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import NamedTuple, Optional
 
 import torch
 from torch.profiler import record_function
 
+from ..core import random as rnd
 from ..core.types import (FIELD_COMPONENTS, FieldState, Grid,
                           NEIGHBOR_REFLECT, PackedSpecies, PERIODIC_FIELDS,
                           SimState)
 from ..field import ghost, stencil, sync
 from ..particles import aux as paux
+from ..particles import boundary as pboundary
 from ..particles import push as ppush
 from ..particles import push_cuda
 from ..sf import interp as sfi
 
 # profiler scopes of the step's parts: a torch.profiler trace attributes
-# each device kernel to the scope that launched it
-PHASES = ("step.sort", "step.push", "step.field")
+# each device kernel to the scope that launched it.  The first three run
+# on every path; the others only where the deck has a collision hook,
+# emitters or an injection hook, or boundary rounds.
+PHASES = ("step.sort", "step.push", "step.field", "step.collide",
+          "step.emit", "step.boundary")
+CORE_PHASES = PHASES[:3]
+HOOKS = ("user_particle_collisions", "user_particle_injection",
+         "user_current_injection", "user_field_injection")
 
 
 @dataclasses.dataclass(frozen=True)
 class StepOptions:
     """Runtime controls (vpic.cxx:13-48 defaults)."""
 
+    # boundary rounds per step (num_comm_round, vpic.cxx:17)
+    num_comm_round: int = 3
+    # capacity of a round's pending buffer (the particle injector)
+    max_inj: int = 16384
     # div-E clean, div-B clean and shared-face sync on the steps that are
     # multiples of these (0: never)
     clean_div_e_interval: int = 0
@@ -179,6 +197,29 @@ def clean_div_b(f: FieldState, g: Grid, comm) -> FieldState:
     return _where(rms > 0, f2, f)
 
 
+def needs_boundary(g: Grid, pcomm=None, emitters=(), boundary_handlers=(),
+                   user_particle_injection=None) -> bool:
+    """Whether anything can leave a lane pending after the push or add one
+    mid-step: migration, absorbing or custom faces, handlers, emitters or
+    injection (``vpic_tpu/engine/step.py:178-184``).  Periodic and
+    reflecting faces resolve inside the walk; without rounds a lane left
+    pending is a dropped mover (advance.cxx:98-103)."""
+    return (pcomm is not None or bool(boundary_handlers) or bool(emitters)
+            or user_particle_injection is not None
+            or any(b not in (PERIODIC_FIELDS, NEIGHBOR_REFLECT)
+                   for b in g.pbc))
+
+
+def _injection(hook):
+    """The injection hook as ``(state, acc, f) -> (state, acc, f)``: a
+    hook of one parameter takes and returns the state (both signatures of
+    ``vpic_tpu/engine/step.py:344-356``)."""
+    params = inspect.signature(hook).parameters.values()
+    if len(params) >= 3 or any(p.kind == p.VAR_POSITIONAL for p in params):
+        return hook
+    return lambda state, acc, f: (hook(state), acc, f)
+
+
 def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  pcomm=None, emitters=(), boundary_handlers=(),
                  packed: bool = False, **hooks):
@@ -187,21 +228,31 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
     (:func:`step_sort_flags`) and ``step`` is the host's count of the
     state's step, which sets the interval cleans (the step is never read
     from the device).  ``packed``: the species are ``PackedSpecies``,
-    which needs the fused push."""
+    which needs the fused push and a closed configuration.  ``hooks``: the
+    deck's ``user_*`` sections (deck_wrapper.cxx:16-36): collisions
+    ``state -> state`` after the sort, injection ``(state, acc, f) ->
+    (state, acc, f)`` or ``state -> state`` after the emitters, current
+    and field injection ``state -> state`` after the current unload and
+    after advance_e."""
     ghost.check_faces(g)
-    unported = [k for k, v in hooks.items() if v is not None]
-    if pcomm is not None or emitters or boundary_handlers or unported:
-        raise NotImplementedError(
-            "boundary rounds, emitters and deck hooks are not ported "
-            f"(got hooks {unported})")
-    if any(b not in (PERIODIC_FIELDS, NEIGHBOR_REFLECT) for b in g.pbc):
-        raise NotImplementedError(
-            f"particle boundary codes {g.pbc} need boundary rounds, which "
-            "are not ported")
+    unknown = sorted(set(hooks) - set(HOOKS))
+    if unknown:
+        raise TypeError(f"unknown deck hooks {unknown}")
+    if pcomm is not None:
+        raise NotImplementedError("migration between devices is not ported")
+    collide = hooks.get("user_particle_collisions")
+    inject = hooks.get("user_particle_injection")
+    inject_j = hooks.get("user_current_injection")
+    inject_f = hooks.get("user_field_injection")
+    boundary = needs_boundary(g, pcomm, emitters, boundary_handlers, inject)
     n_walk = walk_segments(g, opts)
     paths = resolve_paths(g, opts)
-    if packed and not paths.fused:
-        raise ValueError("the packed advance needs the fused push")
+    if packed and (not paths.fused or boundary or collide is not None):
+        raise ValueError("the packed advance needs the fused push and a "
+                         "closed configuration (no boundary rounds, "
+                         "emitters, injection or collisions)")
+    if inject is not None:
+        inject = _injection(inject)
 
     def sort(sp):
         if not packed:
@@ -217,30 +268,89 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
             return push_cuda.advance_p_packed(sp, interp, acc, nb, g,
                                               n_walk=n_walk)
         return push_cuda.advance_p(sp, interp, acc, nb, g, n_walk=n_walk,
-                                   fused=paths.fused)
+                                   fused=paths.fused,
+                                   count_pending=not boundary)
+
+    # the columns that the emitters, the injector and the rounds write in
+    # place; the injector may write the tags too
+    written = pboundary.WRITTEN + (("tag",) if inject is not None else ())
+
+    def rounds(state: SimState, f, acc, nb):
+        """num_comm_round boundary rounds over every species, then the
+        leftovers counted (``vpic_tpu/engine/step.py:358-383``).  Each
+        (round, species) draws from its own key of one split of the
+        state's random state.  The rounds scatter into the species'
+        columns in place (the step owns them)."""
+        rng, key = rnd.split(state.rng)
+        bstate = state.boundary_state
+        species = list(state.species)
+        for r in range(opts.num_comm_round if species else 0):
+            for k, sp in enumerate(species):
+                species[k], f, acc, bstate = pboundary.process_boundary(
+                    sp, f, acc, nb, g, None, opts.max_inj, n_walk,
+                    handlers=boundary_handlers, bstate=bstate,
+                    key=rnd.fold(key, r * len(species) + k),
+                    step=state.step)
+        species = tuple(pboundary.finish_boundary(sp) for sp in species)
+        return dataclasses.replace(state, species=species, rng=rng,
+                                   boundary_state=bstate), f, acc
 
     def advance(state: SimState, do_sort, step: int) -> SimState:
         nb = state.grid_arrays.neighbor
         acc = torch.zeros((g.nv, 12), dtype=torch.float32,
                           device=state.interpolator.device)
+        # the field as the step starts: as in the JAX package, the
+        # emitters, the injection hook and the rounds take it from here
+        f = state.field
+        given = state
         species = []
         for sp, ds in zip(state.species, do_sort):
             if ds:
                 with record_function(PHASES[0]):
                     sp = sort(sp)
+            species.append(sp)
+        state = dataclasses.replace(state, species=tuple(species))
+        if collide is not None:
+            with record_function(PHASES[3]):
+                state = collide(state)
+        species = []
+        for sp in state.species:
             with record_function(PHASES[1]):
                 sp, acc = push(sp, state.interpolator, acc, nb)
             species.append(sp)
+        if boundary:
+            # the push made most columns anew; copy those still shared
+            # with the state the step received before writing in place
+            with record_function(PHASES[5]):
+                species = [pboundary.owned(sp, sp0, written)
+                           for sp, sp0 in zip(species, given.species)]
         state = dataclasses.replace(state, species=tuple(species))
 
+        if emitters or inject is not None:
+            with record_function(PHASES[4]):
+                for emitter in emitters:
+                    state, acc, f = emitter(state, acc, f)
+                if inject is not None:
+                    state, acc, f = inject(state, acc, f)
+        if boundary:
+            with record_function(PHASES[5]):
+                state, f, acc = rounds(state, f, acc, nb)
+
         with record_function(PHASES[2]):
-            f = sfi.clear_jf(state.field, g)
-            if species:
+            f = sfi.clear_jf(f, g)
+            if state.species:
                 f = sfi.unload_accumulator(f, acc, g)
             f = sync.synchronize_jf(f, g, comm)
-
+        if inject_j is not None:
+            state = inject_j(dataclasses.replace(state, field=f))
+            f = state.field
+        with record_function(PHASES[2]):
             f = stencil.advance_b(f, g, 0.5)
             f = stencil.advance_e(f, g, state.materials, None, comm)
+        if inject_f is not None:
+            state = inject_f(dataclasses.replace(state, field=f))
+            f = state.field
+        with record_function(PHASES[2]):
             f = stencil.advance_b(f, g, 0.5)
 
             if _interval_hit(step, opts.clean_div_e_interval):
@@ -250,7 +360,7 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
             if _interval_hit(step, opts.sync_shared_interval):
                 f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
 
-            interp = (sfi.load_interpolator(f, g) if species
+            interp = (sfi.load_interpolator(f, g) if state.species
                       else state.interpolator)
         return dataclasses.replace(state, field=f, interpolator=interp,
                                    step=state.step + 1)

@@ -6,9 +6,13 @@ JAX), so a state built by ``vpic_tpu`` can be loaded into the port with
 :func:`state_from_numpy` and both packages can start from one state.
 
 Keys: ``field/<component>``, ``interpolator``, ``neighbor``,
-``materials/<column>``, ``step``, and per species k ``species/<k>/<column>``
+``materials/<column>``, ``step``, per species k ``species/<k>/<column>``
 for the particle columns, ``np``, ``nm`` and the static ``name``, ``sid``,
-``max_np``, ``sort_interval`` and ``q_m``.
+``max_np``, ``sort_interval`` and ``q_m``; per boundary handler h its
+state, ``boundary_state/<h>`` (an array) or ``boundary_state/<h>/<key>``
+(a dict of arrays); and ``rng``, the port's random state (the JAX
+package's ``jax.random`` key has no counterpart and is not carried: a
+state loaded from it takes the ``rng`` given to :func:`state_from_numpy`).
 """
 
 from __future__ import annotations
@@ -46,6 +50,14 @@ def state_to_numpy(state) -> dict:
     d.update({f"materials/{k}": to_numpy(getattr(state.materials, k))
               for k in MATERIAL_COLUMNS})
     d["step"] = to_numpy(state.step)
+    if isinstance(getattr(state, "rng", None), torch.Tensor):
+        d["rng"] = to_numpy(state.rng)
+    for h, hs in enumerate(getattr(state, "boundary_state", ())):
+        if isinstance(hs, dict):
+            d.update({f"boundary_state/{h}/{k}": to_numpy(v)
+                      for k, v in hs.items()})
+        else:
+            d[f"boundary_state/{h}"] = to_numpy(hs)
     for k, sp in enumerate(state.species):
         pre = f"species/{k}/"
         for c in SPECIES_COLUMNS + ("np", "nm"):
@@ -56,7 +68,25 @@ def state_to_numpy(state) -> dict:
     return d
 
 
-def state_from_numpy(d: dict, device="cpu") -> SimState:
+def _boundary_state(d: dict, t) -> tuple:
+    out, h = [], 0
+    while True:
+        pre = f"boundary_state/{h}"
+        if pre in d:
+            out.append(t(d[pre]))
+        else:
+            keys = [k for k in d if k.startswith(pre + "/")]
+            if not keys:
+                return tuple(out)
+            out.append({k[len(pre) + 1:]: t(d[k]) for k in sorted(keys)})
+        h += 1
+
+
+def state_from_numpy(d: dict, device="cpu", rng=None) -> SimState:
+    """The port's state from :func:`state_to_numpy`'s dict, on ``device``.
+    Its random state (on the host) is ``d``'s, or, where ``d`` holds none
+    (a state of the JAX package), ``rng`` (``core.random.make_key(seed)``);
+    without either it is None, and a step that draws raises."""
     t = lambda a: torch.as_tensor(np.array(a), device=device)
     species = []
     k = 0
@@ -74,4 +104,6 @@ def state_from_numpy(d: dict, device="cpu") -> SimState:
         grid_arrays=GridArrays(neighbor=t(d["neighbor"])),
         materials=MaterialTable(**{c: t(d[f"materials/{c}"])
                                    for c in MATERIAL_COLUMNS}),
-        step=t(d["step"]))
+        step=t(d["step"]),
+        rng=torch.as_tensor(np.array(d["rng"])) if "rng" in d else rng,
+        boundary_state=_boundary_state(d, t))

@@ -2,6 +2,7 @@
 (``vpic_tpu/particles/aux.py``).
 
 - accumulate_rho_p   (src/species_advance/standard/rho_p.c:24-79)
+- accumulate_rhob    (src/species_advance/standard/boundary_p.c:9-71)
 - accumulate_hydro_p (src/species_advance/standard/hydro_p.c:25-161)
 - sort_p             (src/species_advance/standard/sort_p.c:16-102): a
   stable sort by plain voxel that also compacts zombies and free slots to
@@ -9,7 +10,7 @@
 - sort_p_packed, sort_p_packed_merge: the same for a PackedSpecies, by a
   full sort or by the merge re-sort (``sort.py``, ``sort_cuda.py``).
 
-The two deposits sum in int64 fixed point (:func:`deposit_nodes`), so on
+The deposits sum in int64 fixed point (:func:`deposit_nodes`), so on
 the card they repeat bit for bit whatever order the atomics of
 ``index_add_`` take: integer addition is associative.  One implementation
 serves both devices.
@@ -37,16 +38,19 @@ HYDRO = dict(jx=0, jy=1, jz=2, rho=3, px=4, py=5, pz=6, ke=7,
 DEPOSIT_CHUNK = 1 << 18
 
 
+def _by_node(axis: int, low, high):
+    """(n, 8): per node of ``_NODE_OFFS``, ``high`` where the node's offset
+    along ``axis`` is 1, else ``low``."""
+    return torch.stack([high if o[axis] else low for o in _NODE_OFFS], -1)
+
+
 def trilinear_weights(q, dx, dy, dz, r8V):
-    """(n, 8) trilinear node weights w/8 * (1 +/- x)(1 +/- y)(1 +/- z)."""
+    """(n, 8) trilinear node weights w/8 * (1 +/- x)(1 +/- y)(1 +/- z),
+    each the product ((w * wx) * wy) * wz."""
     w = r8V * q
-    ws = []
-    for ox, oy, oz in _NODE_OFFS:
-        wx = (1.0 + dx) if ox else (1.0 - dx)
-        wy = (1.0 + dy) if oy else (1.0 - dy)
-        wz = (1.0 + dz) if oz else (1.0 - dz)
-        ws.append(w * wx * wy * wz)
-    return torch.stack(ws, dim=-1)
+    wx, wy, wz = (_by_node(a, 1.0 - d, 1.0 + d)
+                  for a, d in enumerate((dx, dy, dz)))
+    return w[:, None] * wx * wy * wz
 
 
 def _r8V(g: Grid) -> float:
@@ -111,6 +115,38 @@ def accumulate_rho_p(f: FieldState, sp: SpeciesState, g: Grid) -> FieldState:
         lambda s: trilinear_weights(q[s], sp.dx[s], sp.dy[s], sp.dz[s],
                                     r8V)[:, :, None], bound, g)
     return f.replace(rhof=rhof.reshape(g.shape))
+
+
+def rhob_weights(g: Grid, vox, w):
+    """Boundary-corrected node weights for rhob (boundary_p.c:53-63): a
+    weight doubles on each domain-edge node plane its node sits on (the
+    low nodes of cells with index 1, the high nodes of cells with index n,
+    on every axis)."""
+    j = vox // g.nxg
+    ix = vox - j * g.nxg
+    iz = j // g.nyg
+    iy = j - iz * g.nyg
+    for a, (n, idx) in enumerate(((g.nx, ix), (g.ny, iy), (g.nz, iz))):
+        w = torch.where(_by_node(a, idx == 1, idx == n), w * 2.0, w)
+    return w
+
+
+def accumulate_rhob(f: FieldState, g: Grid, vox, q, dx, dy, dz,
+                    mask) -> FieldState:
+    """Deposit the masked lanes' charge into rhob with the boundary-
+    corrected weights of :func:`rhob_weights` (absorbed, emitted and
+    injected particles, boundary_p.c:9-71), in fixed point as
+    :func:`accumulate_rho_p`: one bound covers the three doublings."""
+    qm = torch.where(mask, q, 0.0)
+    vox0 = torch.where(mask, vox, 0)
+    r8V = _r8V(g)
+    col = torch.full((1,), 8.0, dtype=torch.float64, device=qm.device)
+    bound = _bound(qm, torch.ones_like(qm)[:, None], r8V, col)
+    rhob = deposit_nodes(
+        f.rhob.reshape(-1, 1), vox0,
+        lambda s: rhob_weights(g, vox0[s], trilinear_weights(
+            qm[s], dx[s], dy[s], dz[s], r8V))[:, :, None], bound, g)
+    return f.replace(rhob=rhob.reshape(g.shape))
 
 
 def hydro_moments(sp: SpeciesState, interp, g: Grid):

@@ -135,6 +135,24 @@ def deposit12_cols(q, sdx, sdy, sdz, smx, smy, smz):
     return tuple(cols)
 
 
+def compact_indices(mask, k: int, max_np: int):
+    """Stable indices of the first k true entries of ``mask``, padded with
+    ``max_np`` (``vpic_tpu/particles/push.py:121``): an O(n) prefix sum
+    and an O(k log n) search, with no host read.  Returns (sel, n_true,
+    valid): (k,) int64 indices, the 0-d int32 count of true entries, and
+    (k,) bool ``slot < n_true``."""
+    k = min(k, mask.shape[0])
+    # the j-th true entry is the first whose running count reaches j: a
+    # binary search of the k ranks in the running count, so nothing of
+    # length n is scattered
+    count = torch.cumsum(mask.to(torch.int32), 0)
+    rank = torch.arange(1, k + 1, dtype=torch.int32, device=mask.device)
+    n_true = count[-1]
+    valid = rank <= n_true
+    return (torch.where(valid, torch.searchsorted(count, rank), max_np),
+            n_true, valid)
+
+
 class WalkState(NamedTuple):
     """Streak-walker state, one (n,) tensor per quantity."""
     x: torch.Tensor
@@ -266,27 +284,31 @@ def pushed_walk_state(sp: SpeciesState, interp, g: Grid) -> WalkState:
 
 
 def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
-              n_walk: int = 4):
+              n_walk: int = 4, count_pending: bool = True):
     """One push of a whole species; returns (species, acc).
 
     The plain version of both kernel paths of ``push_cuda.advance_p``,
     the fused push+walk kernel and the unfused path with the deposit
     kernel (``vpic_tpu/particles/push.py:506-549``): both compute the same
     sums, so the flags that choose between them there have no counterpart
-    here."""
+    here.  ``count_pending``: see :func:`advance_p_steps`."""
     return advance_p_steps(sp, interp, acc, neighbor, g, n_walk,
-                           deposit.deposit_sorted_into, streak_walk)
+                           deposit.deposit_sorted_into, streak_walk,
+                           count_pending)
 
 
 def advance_p_steps(sp: SpeciesState, interp, acc, neighbor, g: Grid,
-                    n_walk: int, deposit_fn, walk_fn):
+                    n_walk: int, deposit_fn, walk_fn,
+                    count_pending: bool = True):
     """The unfused push.  Segment 1 of the walk runs over every slot and
     ``deposit_fn(acc, vox, contrib, alive, nv) -> (acc, dropped)`` adds
     its currents; the lanes still moving continue in ``walk_fn`` (a
     :func:`streak_walk`) with ``n_iter = n_walk - 1``.  Dead slots
-    (``slot >= np`` or ``i < 0``) keep their state.  ``nm`` adds the lanes
-    left pending (exhausted, or stopped by a boundary code) and any lane
-    the deposit dropped."""
+    (``slot >= np`` or ``i < 0``) keep their state.  ``nm`` adds any lane
+    the deposit dropped and, with ``count_pending``, the lanes left
+    pending (exhausted, or stopped by a boundary code).  Without it they
+    are left to the boundary rounds that follow, which count what they
+    cannot resolve (``vpic_tpu/particles/push.py:488-490, 612-615``)."""
     alive = sp.alive
     st = pushed_walk_state(sp, interp, g)
     st, dep_vox, contrib = walk_segment(st, neighbor, g)
@@ -295,7 +317,9 @@ def advance_p_steps(sp: SpeciesState, interp, acc, neighbor, g: Grid,
 
     pend = st.pcode != PC_DONE
     keep = lambda new, old: torch.where(alive, new, old)
-    nm = sp.nm + torch.sum(alive & pend).to(torch.int32) + dropped
+    nm = sp.nm + dropped
+    if count_pending:
+        nm = nm + torch.sum(alive & pend).to(torch.int32)
     sp = sp.replace(
         dx=keep(st.x, sp.dx), dy=keep(st.y, sp.dy), dz=keep(st.z, sp.dz),
         i=keep(st.vox, sp.i),
@@ -306,7 +330,7 @@ def advance_p_steps(sp: SpeciesState, interp, acc, neighbor, g: Grid,
 
 
 def advance_p_fixed(sp: SpeciesState, interp, acc, neighbor, g: Grid,
-                    n_walk: int = 4):
+                    n_walk: int = 4, count_pending: bool = True):
     """:func:`advance_p` with the push kernel's fixed-point deposit
     (``deposit.deposit_fixed`` at the kernel's scale from ``sp.q``): the
     plain twin of ``push_cuda.advance_p``, whose accumulator it equals bit
@@ -315,7 +339,8 @@ def advance_p_fixed(sp: SpeciesState, interp, acc, neighbor, g: Grid,
     dep = deposit.deposit_fixed(scale)
     fix = torch.zeros((g.nv, 12), dtype=torch.int64, device=acc.device)
     sp, fix = advance_p_steps(sp, interp, fix, neighbor, g, n_walk, dep,
-                              functools.partial(streak_walk, deposit_fn=dep))
+                              functools.partial(streak_walk, deposit_fn=dep),
+                              count_pending)
     return sp, deposit.unfix(acc, fix, scale)
 
 

@@ -252,7 +252,8 @@ def _push(inputs: dict, n: int, sp, g: Grid, acc, neighbor, n_walk, device,
 
 
 def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
-              n_walk: int = 4, fused: bool = True):
+              n_walk: int = 4, fused: bool = True,
+              count_pending: bool = True):
     """Kernel version of :func:`push.advance_p`: the same results.
     ``fused``: the push+walk kernel, which agrees with the plain version
     exactly on voxels, ``pc`` and the particle floats, and on ``acc`` to
@@ -263,9 +264,14 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
     walk_only entry (:func:`streak_walk`).  The JAX package takes its
     deposit kernel only under ``sorted_deposit``; this one is exact for
     lanes in any order, so the unfused path always takes it, and
-    ``sorted_deposit`` only sets the sort cadence (``engine/step.py``)."""
+    ``sorted_deposit`` only sets the sort cadence (``engine/step.py``).
+    ``count_pending``: the lanes left exhausted or stopped by a boundary
+    code add to ``nm``; without it they are left to the boundary rounds
+    (their ``pc`` and remaining displacement are in the outputs either
+    way)."""
     if sp.dx.device.type == "cpu":
-        return plain.advance_p(sp, interp, acc, neighbor, g, n_walk=n_walk)
+        return plain.advance_p(sp, interp, acc, neighbor, g, n_walk=n_walk,
+                               count_pending=count_pending)
     device = cuda_device(sp.dx)
     n = sp.max_np
     for k in ("dx", "dy", "dz", "ux", "uy", "uz", "q"):
@@ -278,14 +284,15 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
         from . import deposit_cuda
         return plain.advance_p_steps(sp, interp, acc, neighbor, g, n_walk,
                                      deposit_cuda.deposit_sorted_into,
-                                     streak_walk)
+                                     streak_walk, count_pending)
 
     inputs = dict(x=sp.dx, y=sp.dy, z=sp.dz, vox=sp.i, ux=sp.ux, uy=sp.uy,
                   uz=sp.uz, q=sp.q, np=sp.np, interp=interp)
     out, acc, counters = _push(inputs, n, sp, g, acc, neighbor, n_walk,
                                device)
-    # pending lanes (exhausted + stopped) are drops, as in the plain version
-    nm = sp.nm + counters[0] + counters[1]
+    # pending lanes (exhausted + stopped) are drops unless boundary rounds
+    # follow, as in the plain version
+    nm = sp.nm + counters[0] + counters[1] if count_pending else sp.nm
     sp = sp.replace(dx=out["x_out"], dy=out["y_out"], dz=out["z_out"],
                     i=out["vox_out"], ux=out["ux_out"], uy=out["uy_out"],
                     uz=out["uz_out"], mdx=out["rx_out"], mdy=out["ry_out"],
