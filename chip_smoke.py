@@ -5,8 +5,10 @@ kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
 and assembly), the production turbulence deck and the reconnection
 decks (trecon, sigma, turbulence_fan) at full size through the port's
 CLI, with their diagnostics, tracer trajectories, readers and restarts,
-and open particle boundaries (absorbing and custom walls, emitters,
-in-step injection) and the collisions deck.
+open particle boundaries (absorbing and custom walls, emitters,
+in-step injection) and the collisions deck, and materials (conductive,
+dielectric and magnetic regions through the field solver, dumps and
+checkpoints).
 
     python3 chip_smoke.py
 
@@ -152,7 +154,27 @@ no result line):
               restored and run 10 steps: every array bitwise equal; the
               collisions deck at its defaults and at 256^2 (the hook alone
               keeps sum |u|^2 to 1e-6, the anisotropy falls, three timed
-              windows and a trace) and through the CLI for 50 steps.
+              windows and a trace) and through the CLI for 50 steps;
+14. materials - the material box (the bench deck's plasma, 2D 256^2, 32
+              per cell, 2 097 152 electrons and as many ions, with
+              tests/test_materials_diag.py:wave_box's fields, copper on
+              x > 0.75 and a dielectric of eps (2, 3, 4), mu 1.5 on
+              0.25 < y < 0.5): its 32^2 version (8 per cell) on the card
+              and on the CPU for 16 steps (ids and coefficient table
+              bitwise equal, energies to 1e-6); at full size 25 steps
+              with finite energies and no dropped mover, a checkpoint at
+              step 10 restored into a second build and run to step 25
+              (every array bitwise equal), the rms div E error after the
+              interval clean no larger than before it, dump_fields read
+              back with the eight id planes equal to the state's; the
+              push kernel on both species against its plain version and
+              twin (the quantum allowance only where the float bar cannot
+              be met, the species named), the electrons timed against the
+              bound; three timed 16-step windows (one push launch per
+              species per step) and a trace, and the same of the deck
+              built with one vacuum material; the particle-free wave box
+              at 256^2 for 320 steps, vacuum against copper on x > 0.5:
+              the copper run's E energy below 0.75 of vacuum's.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -172,7 +194,12 @@ device ops, dropped movers and the readers' ms) and on phase 13
 walk_only launches per step, the error over the open checks, the push's
 times on the absorb box and the walk_only entry's on the reflux round's
 buffer (``open_walk_*``), and per variant its step, busy device ms, ops,
-idle share, host reads, counts and launches per step; ``collisions_*``).
+idle share, host reads, counts and launches per step; ``collisions_*``)
+and on phase 14 (``materials_*``: launches, error, the species that needed
+the quantum allowance, the times on the electrons, the step, busy ms, ops
+and idle share, ``step.field``'s busy ms and ops against the one-vacuum
+deck's (``materials_vacuum_*``), drift, dropped movers, the rms div E
+error around a clean and the damping ratio).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA
 device the script exits 2.
 """
@@ -518,9 +545,9 @@ def walk_counts(sp, interp, nb, g, n_walk, warp=32):
 PROFILE_ATTEMPTS = 5
 # small kernels launched at the start and at the end of every trace:
 # where the profiler loses a trace's first or last device records (seen
-# after long traces: the first five of each later trace), it is these
-# that it loses, not fn's
-PAD_SCOPE, PAD_OPS = "smoke.profiler_pad", 16
+# after long traces: the first five of each later trace; after phase 13,
+# the first 25), it is these that it loses, not fn's
+PAD_SCOPE, PAD_OPS = "smoke.profiler_pad", 128
 _RUNTIME = ("LaunchKernel", "Memcpy", "Memset")
 
 
@@ -2831,6 +2858,336 @@ def phase_open(device, card):
     return fields
 
 
+# -- phase 14: materials -----------------------------------------------------
+
+# the material box: tests/test_materials_diag.py:wave_box's fields and
+# materials in the bench deck's plasma (vpic_tpu_torch/decks/bench_deck.py),
+# 2D 256^2, 32 per cell: 2 097 152 electrons and as many ions; copper
+# (sigma 5) on x > 0.75, a dielectric (eps 2, 3, 4, mu 1.5) on 0.25 < y <
+# 0.5 defined after it, so that it wins where they overlap.  The 32^2
+# version (8 per cell) runs on the card and on the CPU.
+MAT_FULL = dict(nx=256, ppc=32)
+MAT_SMALL = dict(nx=32, ppc=8)
+MAT_SMALL_STEPS, MAT_STEPS, MAT_CKPT = 16, 25, 10
+# the JAX test's damping run: 20 steps at 16^2 and 0.6 Courant is the
+# physical time of 320 steps at 256^2
+WAVE_NX, WAVE_STEPS, WAVE_BAR = 256, 320, 0.75
+
+
+def material_box(device, nx, ppc, vacuum=False, seed=0):
+    """The material box on ``device`` (``vacuum``: the same deck with one
+    vacuum material and no region)."""
+    import dataclasses
+    import numpy as np
+    from vpic_tpu_torch import Simulation
+    sim = Simulation(seed=seed, device=device)
+    sim.opts = dataclasses.replace(sim.opts, resort_interval=2)
+    sim.define_units(1.0, 1.0)
+    L = 1.0
+    sim.define_timestep(0.9 * sim.courant_length(L, L, L, nx, nx, 1))
+    sim.define_periodic_grid(0, 0, 0, L, L, L, nx, nx, 1)
+    sim.define_material("vacuum")
+    if not vacuum:
+        copper = sim.define_material("copper", sigma=5.0)
+        diel = sim.define_material("dielectric", eps=(2.0, 3.0, 4.0),
+                                   mu=1.5)
+        sim.set_region_material(lambda x, y, z: x > 0.75, copper)
+        sim.set_region_material(lambda x, y, z: (y > 0.25) & (y < 0.5),
+                                diel)
+    npart = nx * nx * ppc
+    e = sim.define_species("electron", -1.0, int(npart * 1.0625))
+    i = sim.define_species("ion", 1.0 / 25.0, int(npart * 1.0625),
+                           sort_interval=8)
+    rng = np.random.default_rng(seed + 1)
+    x, y, z = (rng.uniform(0, L, npart) for _ in range(3))
+    for sp, sgn, ut in ((e, -1.0, 0.2), (i, 1.0, 0.04)):
+        sim.inject_particle(sp, x, y, z, *(rng.normal(0, ut, npart)
+                                           for _ in range(3)),
+                            q=sgn / npart)
+    sim.set_field("ey", lambda x, y, z: 0.1 * np.sin(2 * np.pi * x))
+    sim.set_field("cbz", lambda x, y, z: 0.1 * np.sin(2 * np.pi * x))
+    sim.finalize()
+    return sim
+
+
+def wave_box(device, conductor, nx):
+    """tests/test_materials_diag.py:wave_box at ``nx``^2 on ``device``:
+    no particles, ey = cbz = 0.1 sin(2 pi x), copper on x > 0.5."""
+    import numpy as np
+    from vpic_tpu_torch import Simulation
+    sim = Simulation(seed=4, device=device)
+    sim.define_units(1.0, 1.0)
+    L = 1.0
+    sim.define_timestep(0.6 * sim.courant_length(L, L, L, nx, nx, 1))
+    sim.define_periodic_grid(0, 0, 0, L, L, L, nx, nx, 1)
+    sim.define_material("vacuum")
+    if conductor:
+        copper = sim.define_material("copper", eps=1.0, sigma=5.0)
+        sim.set_region_material(lambda x, y, z: x > 0.5, copper)
+    sim.set_field("ey", lambda x, y, z: 0.1 * np.sin(2 * np.pi * x))
+    sim.set_field("cbz", lambda x, y, z: 0.1 * np.sin(2 * np.pi * x))
+    sim.finalize()
+    return sim
+
+
+def material_arrays(sim):
+    """The state's id grids and coefficient table as numpy arrays."""
+    from vpic_tpu_torch.interop import state_to_numpy
+    return {k: v for k, v in state_to_numpy(sim.state).items()
+            if k.startswith(("material_grid/", "materials/"))}
+
+
+def material_small(device):
+    """The 32^2 material box on the card and on the CPU for
+    MAT_SMALL_STEPS steps: ids and coefficient table bitwise equal,
+    energies to 1e-6, finite, no dropped mover.  Returns the largest
+    relative energy difference."""
+    import math
+    import numpy as np
+    runs = []
+    for dev in (device, "cpu"):
+        sim = material_box(dev, **MAT_SMALL)
+        arrays = material_arrays(sim)
+        sim.advance(MAT_SMALL_STEPS)
+        runs.append((arrays, sim.energies(), sim.mover_counts()))
+    (ag, eg, ng), (ac, ec, nc) = runs
+    if set(ag) != set(ac) or not all(
+            ag[k].dtype == ac[k].dtype and np.array_equal(ag[k], ac[k])
+            for k in ac):
+        raise AssertionError("material box 32^2: ids or table differ "
+                             "between card and CPU")
+    if not all(math.isfinite(v) for v in (*eg.values(), *ec.values())):
+        raise AssertionError(f"material box 32^2: energies {eg} {ec}")
+    for k in ec:
+        if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
+            raise AssertionError(f"material box 32^2: energy {k} {eg[k]!r} "
+                                 f"vs CPU {ec[k]!r}")
+    if any(ng.values()) or any(nc.values()):
+        raise AssertionError(f"material box 32^2: dropped movers {ng} {nc}")
+    worst = max(abs(eg[k] - ec[k]) / abs(ec[k]) for k in ec if ec[k])
+    log(f"  material box 32^2, {MAT_SMALL_STEPS} steps: {len(ac)} id and "
+        f"table arrays bitwise equal on card and CPU, energies within 1e-6 "
+        f"(largest relative difference {worst:.3e}), no dropped movers")
+    return worst
+
+
+def material_kernel(sim):
+    """The push kernel on both species of the material box, voxel-sorted as
+    the step sorts them, against its plain version and twin; the electrons
+    timed against the bound.  Returns (max abs err, the species that
+    needed the quantum allowance, timing dict)."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    errs, quantum, species = [], [], []
+    for sp in st.species:
+        sp = aux.sort_p(sp)
+        err, q = check_bar(check_push, f"material box {sp.name} (n_walk "
+                           f"{n_walk})", sp, interp, nb, g, n_walk)
+        errs.append(err)
+        if q:
+            quantum.append(sp.name)
+        species.append(sp)
+    log(f"  material box: the float bar needed the quantum allowance for "
+        f"{quantum or 'no species'}")
+    c = walk_counts(species[0], interp, nb, g, n_walk)
+    t = time_push("material box electrons", species[0], interp, nb, g,
+                  n_walk, c["pairs"])
+    return max(errs), quantum, t
+
+
+def rms_div_e(state, g, comm):
+    """The rms div E error of ``state`` with rho accumulated from its
+    particles, as the interval clean measures it."""
+    from vpic_tpu_torch.engine.step import _rms
+    from vpic_tpu_torch.field import stencil, sync
+    from vpic_tpu_torch.particles import aux
+    from vpic_tpu_torch.sf import interp as sfi
+    f = sfi.clear_rhof(state.field, g)
+    for sp in state.species:
+        f = aux.accumulate_rho_p(f, sp, g)
+    f = sync.synchronize_rho(f, g, comm)
+    f = stencil.compute_div_e_err(f, g, state.materials, state.material_grid,
+                                  comm)
+    return float(_rms(g, comm, stencil.local_rms_div_e_err(f, g)))
+
+
+def material_run(device, tmp):
+    """MAT_STEPS steps from finalize with a checkpoint at step MAT_CKPT:
+    finite energies, no dropped mover; a second build restored from the
+    checkpoint and run to MAT_STEPS bitwise equal in every array; the rms
+    div E error after the interval clean no larger than before it; the
+    ids of dump_fields read back equal to the state's.  Returns (sim,
+    record)."""
+    import dataclasses
+    import math
+    import numpy as np
+    import torch
+    from vpic_tpu_torch.engine.step import clean_div_e
+    from vpic_tpu_torch.interop import state_to_numpy
+    from vpic_tpu_torch.io import readers
+    from vpic_tpu_torch.core.types import MATERIAL_ID_FIELDS
+    t0 = time.perf_counter()
+    a = material_box(device, **MAT_FULL)
+    g, st = a.grid, a.state
+    mg = st.material_grid
+    log(f"  material box: {g.nx}x{g.ny} cells, species "
+        + ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
+                    for sp in st.species)
+        + f", {st.materials.decayx.numel()} materials, cells by material "
+        f"{torch.bincount(mg.cmat[1:-1, 1:-1, 1:-1].reshape(-1)).tolist()}, "
+        f"built in {time.perf_counter() - t0:.2f} s")
+    e0 = sum(a.energies().values())
+    a.advance(MAT_CKPT)
+    path = os.path.join(tmp, "materials")
+    a.checkpoint(path)
+    a.advance(MAT_STEPS - MAT_CKPT)
+    e1, nm = a.energies(), a.mover_counts()
+    if not all(math.isfinite(v) for v in e1.values()):
+        raise AssertionError(f"material box: energies {e1}")
+    if any(nm.values()):
+        raise AssertionError(f"material box: dropped movers {nm}")
+    first = state_to_numpy(a.state)
+    before = rms_div_e(a.state, g, a.comm)
+    after = rms_div_e(dataclasses.replace(
+        a.state, field=clean_div_e(a.state, g, a.comm)), g, a.comm)
+    if not after <= before:
+        raise AssertionError(f"material box: rms div E error {before!r} -> "
+                             f"{after!r} across a clean")
+    t0 = time.perf_counter()
+    fpath = a.dump_fields(os.path.join(tmp, "fields"))
+    _, out = readers.read_fields(fpath)
+    dump_ms = (time.perf_counter() - t0) * 1e3
+    for k, name in enumerate(MATERIAL_ID_FIELDS):
+        if not np.array_equal(out["materials"][..., k],
+                              first[f"material_grid/{name}"]):
+            raise AssertionError(f"material box: dumped {name} differs from "
+                                 "the state's")
+    b = material_box(device, **MAT_FULL)
+    b.restore(path)
+    b.advance(MAT_STEPS - MAT_CKPT)
+    second = state_to_numpy(b.state)
+    del b
+    torch.cuda.empty_cache()
+    same = lambda x, y: (x.dtype == y.dtype and x.shape == y.shape
+                         and x.tobytes() == y.tobytes())
+    bad = [k for k in first if k not in second or not same(
+        np.asarray(first[k]), np.asarray(second[k]))]
+    if set(first) != set(second) or bad:
+        raise AssertionError(f"material box: the restarted run differs in "
+                             f"{bad[:8]}")
+    drift = (sum(e1.values()) - e0) / e0
+    log(f"  material box: {MAT_STEPS} steps, total energy {e0!r} -> "
+        f"{sum(e1.values())!r} ({drift:.4e}), dropped movers {nm}; rms div "
+        f"E error {before:.6e} before the clean, {after:.6e} after; "
+        f"dump_fields + read_fields {dump_ms:.1f} ms, the eight id planes "
+        f"equal the state's; restored from step {MAT_CKPT} and run to step "
+        f"{MAT_STEPS}: {len(first)} arrays bitwise the first run's")
+    return a, dict(drift=drift, dropped_movers=sum(nm.values()),
+                   rms_div_e_before=before, rms_div_e_after=after)
+
+
+def material_damping(device):
+    """The particle-free wave box at WAVE_NX^2, vacuum against copper, for
+    WAVE_STEPS steps: the copper run's E energy below WAVE_BAR of the
+    vacuum run's (tests/test_materials_diag.py's bar).  Returns the
+    ratio."""
+    import math
+    import torch
+    ee = {}
+    for conductor in (False, True):
+        sim = wave_box(device, conductor, WAVE_NX)
+        sim.advance(WAVE_STEPS)
+        e = sim.energies()
+        ee[conductor] = e["ex"] + e["ey"] + e["ez"]
+        del sim
+        torch.cuda.empty_cache()
+    ratio = ee[True] / ee[False]
+    if not (math.isfinite(ratio) and ratio < WAVE_BAR):
+        raise AssertionError(f"wave box {WAVE_NX}^2: copper E energy "
+                             f"{ee[True]!r} vs vacuum {ee[False]!r}")
+    log(f"  wave box {WAVE_NX}^2, {WAVE_STEPS} steps: E energy copper "
+        f"{ee[True]!r}, vacuum {ee[False]!r}, ratio {ratio:.4f} (bar "
+        f"{WAVE_BAR})")
+    return ratio
+
+
+def material_timing(device, vacuum):
+    """A fresh material box (``vacuum``: its one-vacuum twin) after
+    WARM_STEPS steps: WINDOWS timed windows of STEPS steps (one push
+    launch per species per step) and a trace split by step part.  Returns
+    (launches, median step s, trace, the total energy at the end of the
+    windows over the one at their start)."""
+    import torch
+    label = "material box" + (", one vacuum material" if vacuum else "")
+    sim = material_box(device, vacuum=vacuum, **MAT_FULL)
+    sim.advance(WARM_STEPS)
+    e0 = sum(sim.energies().values())
+    launches, step_s = push_only_windows(sim, label)
+    growth = sum(sim.energies().values()) / e0
+    trace = phase_trace(sim, step_s, f"{label} path")
+    del sim
+    torch.cuda.empty_cache()
+    return launches, step_s, trace, growth
+
+
+def phase_materials(device, card):
+    """Phase 14: the material box.  Returns the push record's materials_*
+    fields."""
+    import shutil
+    import tempfile
+    import torch
+    small = material_small(device)
+    tmp = tempfile.mkdtemp(prefix="materials_smoke_")
+    try:
+        sim, rec = material_run(device, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    err, quantum, t = material_kernel(sim)
+    del sim
+    torch.cuda.empty_cache()
+    launches, step_s, trace, growth = material_timing(device, False)
+    _, vstep_s, vtrace, vgrowth = material_timing(device, True)
+    ratio = material_damping(device)
+    field, vfield = trace["parts"]["step.field"], vtrace["parts"][
+        "step.field"]
+    log(f"material box path ({card}): step {step_s * 1e3:.4f} ms, device "
+        f"busy {trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step, "
+        f"idle share {1 - trace['busy_ms'] / (step_s * 1e3):.4f}; step.field "
+        f"{field['busy_ms']:.4f} ms ({field['ops']:.1f} ops) against "
+        f"{vfield['busy_ms']:.4f} ms ({vfield['ops']:.1f} ops) with one "
+        f"vacuum material (step {vstep_s * 1e3:.4f} ms, busy "
+        f"{vtrace['busy_ms']:.4f} ms/step); push kernel on the electrons "
+        f"{t['kernel_ms']:.4f} ms alone against a {t['bound_ms']:.4f} ms "
+        f"bound; total energy over the timed windows x{growth:.4e} (one "
+        f"vacuum material x{vgrowth:.4e})")
+    return {
+        "materials_launches": launches["push_walk"],
+        "materials_launches_per_step": launches["push_walk"]
+        / (WINDOWS * STEPS),
+        "materials_max_abs_err": err,
+        "materials_quantum_species": quantum,
+        **{f"materials_{k}": v for k, v in t.items()},
+        "materials_step_ms": step_s * 1e3,
+        "materials_busy_ms": trace["busy_ms"],
+        "materials_ops_per_step": trace["ops"],
+        "materials_idle_share": 1 - trace["busy_ms"] / (step_s * 1e3),
+        "materials_field_busy_ms": field["busy_ms"],
+        "materials_field_ops": field["ops"],
+        "materials_vacuum_step_ms": vstep_s * 1e3,
+        "materials_vacuum_busy_ms": vtrace["busy_ms"],
+        "materials_vacuum_field_busy_ms": vfield["busy_ms"],
+        "materials_vacuum_field_ops": vfield["ops"],
+        "materials_window_energy_ratio": growth,
+        "materials_vacuum_window_energy_ratio": vgrowth,
+        "materials_damping_ratio": ratio,
+        "materials_small_max_rel_energy_diff": small,
+        **{f"materials_{k}": v for k, v in rec.items()},
+    }
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2845,13 +3202,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/13] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/14] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/13] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/14] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -2859,17 +3216,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/13] kernel vs plain, small 3D grid")
+    log("[3/14] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/13] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/14] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/13] determinism: checked above, per case and species")
+    log("[4/14] determinism: checked above, per case and species")
 
-    log("[5/13] slice")
+    log("[5/14] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -2877,15 +3234,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/13] deposit kernel vs plain")
+    log("[6/14] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/13] merge re-sort kernels vs plain")
+    log("[7/14] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/13] path A: the unfused push")
+    log("[8/14] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/13] path B: the packed cycle with the merge re-sort")
+    log("[9/14] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -2895,14 +3252,16 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/13] determinism: the charge deposit on the card")
+    log("[10/14] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/13] the turbulence deck through the CLI")
+    log("[11/14] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/13] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/14] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/13] open particle boundaries and the collisions deck")
+    log("[13/14] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
+    log("[14/14] materials: the material box")
+    materials = phase_materials(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -2912,7 +3271,7 @@ def main():
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
-             **recon, **opened),
+             **recon, **opened, **materials),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

@@ -16,7 +16,8 @@ repeat bitwise and match float64 within 1e-6 * sum|contributions|; the
 push kernel on its q = 0 tracers (zero accumulator, finite scale) and on
 its bulk species at full shape (3D, reflecting walls).  An open deck's
 push (pending lanes left to the boundary rounds) and a round's walk_only
-launch on its buffer.  Needs an NVIDIA
+launch on its buffer.  The 32^2 material box (copper and a dielectric in
+the bench deck's plasma) on the card and on the CPU.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -269,3 +270,10 @@ def test_unfused_push_matches_plain(device, hot):
     for name in cs.PUSH_FLOATS + ("i", "pc", "nm"):
         assert cs._bitwise_equal(getattr(ko, name), getattr(po, name)), name
     _acc_ok(kacc, pacc, sp, interp, nb, g)
+
+
+def test_material_box_card_matches_cpu(device):
+    """chip_smoke.py phase 14's 32^2 material box (8 per cell) for 16 steps
+    on the card and on the CPU: the id grids and the coefficient table
+    bitwise equal, energies to 1e-6, no dropped mover."""
+    assert cs.material_small(device) <= 1e-6

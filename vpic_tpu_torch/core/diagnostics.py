@@ -108,7 +108,7 @@ def time_phases(sim, n_steps: int = 3) -> dict:
             sp, st.interpolator, acc0, nb, g, n_walk=n_walk))
     timed("advance_b", lambda: stencil.advance_b(st.field, g, 0.5))
     timed("advance_e", lambda: stencil.advance_e(st.field, g, st.materials,
-                                                 None, sim.comm))
+                                                 st.material_grid, sim.comm))
     timed("synchronize_jf", lambda: sync.synchronize_jf(st.field, g,
                                                         sim.comm))
     timed("load_interpolator", lambda: sfi.load_interpolator(st.field, g))

@@ -224,6 +224,30 @@ class MaterialTable:
     epsz: torch.Tensor
 
 
+MATERIAL_ID_FIELDS = ("ematx", "ematy", "ematz", "nmat", "fmatx", "fmaty",
+                      "fmatz", "cmat")
+
+
+@dataclasses.dataclass(frozen=True)
+class MaterialGrid:
+    """Per-voxel material ids (``field_t``'s emat/nmat/fmat/cmat,
+    field_advance.h:56-171), each an int32 tensor of ``Grid.shape``:
+    ``emat*`` on the E edges, ``nmat`` on the nodes, ``fmat*`` on the B
+    faces, ``cmat`` at the cell centres.  ``SimState.material_grid`` is
+    None for a deck whose every voxel is table row 0: the reference's
+    vacuum variant (standard/vacuum/vfa.c) against its per-voxel one
+    (standard/sfa.c)."""
+
+    ematx: torch.Tensor
+    ematy: torch.Tensor
+    ematz: torch.Tensor
+    nmat: torch.Tensor
+    fmatx: torch.Tensor
+    fmaty: torch.Tensor
+    fmatz: torch.Tensor
+    cmat: torch.Tensor
+
+
 def vacuum_material_table(device="cpu") -> MaterialTable:
     """Single vacuum material (eps=mu=1, sigma=0): decay=drive=rmu=1."""
     one = torch.ones((1,), dtype=torch.float32, device=device)
@@ -334,10 +358,12 @@ class PackedSpecies:
 
 @dataclasses.dataclass(frozen=True)
 class SimState:
-    """Everything that evolves across a step.  The single-device
-    configuration has a single material (no per-voxel material grid).
-    ``rng`` is the counter-based random state of ``core/random.py`` (the
-    JAX package's ``jax.random`` key), drawn from by the boundary rounds,
+    """Everything that evolves across a step.  ``material_grid`` holds
+    the per-voxel material ids where a deck assigns regions
+    (``set_region_material``), else None: every voxel is row 0 of
+    ``materials``.  ``rng`` is the counter-based random state of
+    ``core/random.py`` (the JAX package's ``jax.random`` key), drawn
+    from by the boundary rounds,
     the reflux handler, the emitters and the deck hooks;
     ``boundary_state`` holds one state per custom boundary handler
     (``boundary/models.py``: tally counters, link rings)."""
@@ -350,6 +376,7 @@ class SimState:
     step: torch.Tensor              # 0-d int32
     rng: Optional[torch.Tensor] = None   # (2,) int64, on the host
     boundary_state: tuple = ()
+    material_grid: Optional[MaterialGrid] = None
 
 
 # Interpolator component layout (interpolator_t, sf_interface.h:45-58)

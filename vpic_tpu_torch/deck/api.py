@@ -4,8 +4,10 @@ field faces; periodic, reflecting, absorbing or custom particle faces
 (``define_boundary``: ``MaxwellianReflux``, ``AbsorbTally``,
 ``LinkBoundary``); surface and volume emitters; particles injected at
 set-up and, through ``make_injector`` from the ``user_particle_injection``
-hook, during the run; the four ``user_*`` hooks of ``finalize``; one
-vacuum material.
+hook, during the run; the four ``user_*`` hooks of ``finalize``; any
+number of materials (``define_material``: eps, mu, sigma and zeta as
+scalars or per-axis triples) placed by ``set_region_material``, the last
+region to claim a point winning.
 
     sim = Simulation(seed=0, device="cuda")
     sim.define_units(1.0, 1.0)
@@ -15,6 +17,8 @@ vacuum material.
     sim.set_domain_particle_bc(2, "reflect")
     sim.define_material("vacuum")
     e = sim.define_species("electron", -1.0, max_np)
+    copper = sim.define_material("copper", sigma=5.0)
+    sim.set_region_material(lambda x, y, z: x > 0.75, copper)
     sim.inject_particle(e, x, y, z, ux, uy, uz, q)
     sim.set_field("cbx", lambda x, y, z: ...)
     sim.finalize()
@@ -64,12 +68,15 @@ from ..core.types import (
     ANTI_SYMMETRIC_FIELDS,
     FieldState,
     Grid,
+    MATERIAL_COLUMNS,
+    MATERIAL_ID_FIELDS,
+    MaterialGrid,
+    MaterialTable,
     NEIGHBOR_ABSORB,
     NEIGHBOR_REFLECT,
     PERIODIC_FIELDS,
     SimState,
     SpeciesState,
-    vacuum_material_table,
 )
 from ..diag import energy_dist as ed
 from ..emit import models as emodels
@@ -93,8 +100,9 @@ from . import inject as dinject
 
 @dataclasses.dataclass
 class _Material:
-    """A material's record for ``dump_materials`` (the JAX package's
-    ``_Material``)."""
+    """A material as defined (material_t, material.c): its id and the
+    per-axis permittivity, permeability, conductivity and magnetic
+    conductivity, in the deck's units."""
 
     name: str
     id: int
@@ -102,6 +110,51 @@ class _Material:
     mux: float; muy: float; muz: float
     sigmax: float; sigmay: float; sigmaz: float
     zetax: float; zetay: float; zetaz: float
+
+
+def _as3(v):
+    """A scalar as (v, v, v), or a 3-sequence as a tuple of floats."""
+    if np.isscalar(v):
+        return (float(v),) * 3
+    v = tuple(float(x) for x in v)
+    if len(v) != 3:
+        raise ValueError(f"a material parameter takes 1 or 3 values, not "
+                         f"{len(v)}")
+    return v
+
+
+def build_material_table(materials: List[_Material], g: Grid,
+                         device="cpu") -> MaterialTable:
+    """The FDTD coefficients of each material (new_material_coefficients,
+    standard/sfa.c:138-174), computed in float64 and rounded once to
+    float32: per axis with a = sigma dt / (eps eps0), decay = exp(-a) and
+    drive = 2 exp(-a/2) sinh(a/2) / (a eps) (1/eps where a = 0, 0 where
+    decay underflows to 0); rmu = 1/mu; nonconductive is 0 where any
+    sigma is nonzero."""
+    n = len(materials)
+    cols = {k: np.zeros((n,), np.float32) for k in MATERIAL_COLUMNS}
+    for m in materials:
+        i = m.id
+        conductive = False
+        for c in "xyz":
+            eps, sigma = getattr(m, "eps" + c), getattr(m, "sigma" + c)
+            a = (sigma * g.dt) / (eps * g.eps0)
+            decay = math.exp(-a)
+            if a == 0:
+                drive = 1.0 / eps
+            elif decay == 0:
+                drive = 0.0
+            else:
+                drive = (2.0 * math.exp(-0.5 * a) * math.sinh(0.5 * a)
+                         / (a * eps))
+            cols["decay" + c][i] = decay
+            cols["drive" + c][i] = drive
+            cols["eps" + c][i] = eps
+            cols["rmu" + c][i] = 1.0 / getattr(m, "mu" + c)
+            conductive |= a != 0
+        cols["nonconductive"][i] = 0.0 if conductive else 1.0
+    return MaterialTable(**{k: torch.as_tensor(v, device=device)
+                            for k, v in cols.items()})
 
 
 _PBC_MAP = {"periodic": PERIODIC_FIELDS, "absorb": NEIGHBOR_ABSORB,
@@ -136,6 +189,7 @@ class Simulation:
         self.num_step = 0
         self.grid: Optional[Grid] = None
         self.materials: List[_Material] = []
+        self._material_regions: List[tuple] = []
         self._species: List[dict] = []
         self._field_sets: List[tuple] = []
         self.opts = StepOptions()
@@ -256,13 +310,21 @@ class Simulation:
         return model
 
     def define_material(self, name, eps=1.0, mu=1.0, sigma=0.0, zeta=0.0):
-        if (eps, mu, sigma, zeta) != (1.0, 1.0, 0.0, 0.0) or self.materials:
-            raise NotImplementedError("only a single vacuum material is "
-                                      "ported")
-        m = _Material(name, 0, *(1.0,) * 3, *(1.0,) * 3, *(0.0,) * 3,
-                      *(0.0,) * 3)
+        """A material with the next id (define_material, vpic.hxx);
+        ``eps``, ``mu``, ``sigma`` and ``zeta`` are scalars or per-axis
+        triples.  Material 0 fills every point that no region claims."""
+        m = _Material(name, len(self.materials), *_as3(eps), *_as3(mu),
+                      *_as3(sigma), *_as3(zeta))
         self.materials.append(m)
         return m
+
+    def set_region_material(self, region_fn, material):
+        """Give ``material`` to every point of the id sublattices (E
+        edges, nodes, B faces, cell centres) whose position satisfies
+        ``region_fn(x, y, z)`` (set_region_material,
+        deck_wrapper.cxx:119-227).  Regions apply in order, so a later one
+        wins where two overlap; the ghost planes keep material 0."""
+        self._material_regions.append((region_fn, material.id))
 
     def define_species(self, name, q_m, max_np, sort_interval=0):
         # capacity rounded up to whole 1024-slot blocks, as the JAX package
@@ -343,6 +405,8 @@ class Simulation:
         f = FieldState.zeros(g, dev).replace(
             **{k: torch.as_tensor(v, device=dev) for k, v in field.items()})
 
+        matg = self._material_grid()
+
         def cellify(c, c0, c1, n):
             # robust float64 global -> (offset, cell) conversion
             t = n * ((c - c0) / (c1 - c0))
@@ -409,11 +473,47 @@ class Simulation:
                                      device=dev),
             species=tuple(species),
             grid_arrays=make_grid_arrays(g, device=dev),
-            materials=vacuum_material_table(dev),
+            materials=build_material_table(self.materials, g, dev),
             step=torch.tensor(0, dtype=torch.int32, device=dev),
             rng=rnd.make_key(self.seed * 65537),
             boundary_state=tuple(h.init_state(len(self._species), dev)
-                                 for h in self._boundary_handlers))
+                                 for h in self._boundary_handlers),
+            material_grid=matg)
+
+    def _material_grid(self) -> Optional[MaterialGrid]:
+        """The id grids of the deck's regions (``vpic_tpu/deck/api.py``'s
+        ``_build_shard_state``): ``emat*``, ``nmat`` and ``fmat*`` over
+        their components' owned sublattices, ``cmat`` at the cell centres,
+        the ghost planes left at 0; None without a region."""
+        if not self._material_regions:
+            return None
+        g = self.grid
+        comps = dict(ematx="ex", ematy="ey", ematz="ez", nmat="rhof",
+                     fmatx="cbx", fmaty="cby", fmatz="cbz", cmat=None)
+        ids = {}
+        for name in MATERIAL_ID_FIELDS:
+            comp = comps[name]
+            arr = np.zeros(g.shape, np.int32)
+            if comp is None:
+                centres = [g0 + (np.arange(1, n + 1) - 0.5) * d
+                           for g0, n, d in ((g.gx0, g.nx, g.dx),
+                                            (g.gy0, g.ny, g.dy),
+                                            (g.gz0, g.nz, g.dz))]
+                Z, Y, X = np.meshgrid(centres[2], centres[1], centres[0],
+                                      indexing="ij")
+                ix = (slice(1, g.nz + 1), slice(1, g.ny + 1),
+                      slice(1, g.nx + 1))
+            else:
+                X, Y, Z = self.component_coords(comp)
+                ix = tuple(own_slice(g, _KIND_OF[comp], a)
+                           for a in (2, 1, 0))
+            sub = np.zeros(arr[ix].shape, np.int32)
+            for region_fn, mid in self._material_regions:
+                inside = np.asarray(region_fn(X, Y, Z), bool)
+                sub = np.where(inside, np.int32(mid), sub)
+            arr[ix] = sub
+            ids[name] = torch.as_tensor(arr, device=self.device)
+        return MaterialGrid(**ids)
 
     def finalize(self, **hooks):
         """Build the state and the step; ``hooks`` are the deck's
@@ -524,7 +624,8 @@ class Simulation:
         g = self.grid
         st = self.state
         ef = stencil.finish_energy_f(
-            g, stencil.local_energy_f(st.field, g, st.materials, None))
+            g, stencil.local_energy_f(st.field, g, st.materials,
+                                      st.material_grid))
         out = dict(zip(("ex", "ey", "ez", "bx", "by", "bz"),
                        ef.cpu().tolist()))
         for h, sp in zip(self._species, st.species):

@@ -17,24 +17,24 @@ from ..sf import interp as sfi
 
 def initialize_state(state: SimState, g: Grid, comm) -> SimState:
     f = state.field
-    mat = state.materials
+    mat, matg = state.materials, state.material_grid
 
     f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
     f = stencil.compute_div_b_err(f, g)
     f = stencil.clean_div_b(f, g, comm)
-    f = stencil.compute_curl_b(f, g, mat, None, comm)
+    f = stencil.compute_curl_b(f, g, mat, matg, comm)
 
     f = sfi.clear_rhof(f, g)
     for sp in state.species:
         f = paux.accumulate_rho_p(f, sp, g)
     f = sync.synchronize_rho(f, g, comm)
-    f = stencil.compute_rhob(f, g, mat, None, comm)
+    f = stencil.compute_rhob(f, g, mat, matg, comm)
 
-    f = stencil.compute_div_e_err(f, g, mat, None, comm)
+    f = stencil.compute_div_e_err(f, g, mat, matg, comm)
     err, vol = stencil.local_rms_div_e_err(f, g)
     rms = stencil.finish_rms(g, comm.allsum(err), comm.allsum(vol))
     if bool(rms > 0):
-        f = stencil.clean_div_e(f, g, mat, None)
+        f = stencil.clean_div_e(f, g, mat, matg)
 
     f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
 

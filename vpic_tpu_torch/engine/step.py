@@ -177,13 +177,13 @@ def clean_div_e(state: SimState, g: Grid, comm) -> FieldState:
             sp = ppush.unpack_species(sp, g)
         f = paux.accumulate_rho_p(f, sp, g)
     f = sync.synchronize_rho(f, g, comm)
-    mat = state.materials
-    f = stencil.compute_div_e_err(f, g, mat, None, comm)
+    mat, matg = state.materials, state.material_grid
+    f = stencil.compute_div_e_err(f, g, mat, matg, comm)
     rms = _rms(g, comm, stencil.local_rms_div_e_err(f, g))
-    f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, None), g,
-                                   mat, None, comm)
+    f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, matg), g,
+                                   mat, matg, comm)
     rms1 = _rms(g, comm, stencil.local_rms_div_e_err(f1, g))
-    f2 = _where(rms1 > 0, stencil.clean_div_e(f1, g, mat, None), f1)
+    f2 = _where(rms1 > 0, stencil.clean_div_e(f1, g, mat, matg), f1)
     return _where(rms > 0, f2, f)
 
 
@@ -346,7 +346,8 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
             f = state.field
         with record_function(PHASES[2]):
             f = stencil.advance_b(f, g, 0.5)
-            f = stencil.advance_e(f, g, state.materials, None, comm)
+            f = stencil.advance_e(f, g, state.materials,
+                                  state.material_grid, comm)
         if inject_f is not None:
             state = inject_f(dataclasses.replace(state, field=f))
             f = state.field

@@ -1,5 +1,5 @@
-"""Yee-mesh FDTD field solver, vacuum path (``vpic_tpu/field/stencil.py``
-with a single material): whole-slab stencils over the owned region of
+"""Yee-mesh FDTD field solver (``vpic_tpu/field/stencil.py``): whole-slab
+stencils over the owned region of
 
 - advance_b            (standard/advance_b.c:12-161)
 - advance_e            (standard/advance_e.c:8-330, exponentially
@@ -10,9 +10,12 @@ with a single material): whole-slab stencils over the owned region of
 - compute_rhob         (standard/compute_rhob.c:8-12)
 - local_energy_f       (standard/energy_f.c:50-77)
 
-``matg`` must be None: coefficients are the scalars of material 0 (the
-reference's vacuum variant, standard/vacuum/vfa.c).  Reductions run in
-float64 like the reference.
+Material coefficients: with ``matg`` None every voxel takes row 0 of the
+table as a scalar (the reference's vacuum variant, standard/vacuum/vfa.c);
+otherwise each coefficient is gathered through the per-voxel ids
+(standard/sfa.c), over the whole ghosted id grid at each call, and sampled
+at the same shift as the field it multiplies.  Reductions run in float64
+like the reference.
 """
 
 from __future__ import annotations
@@ -34,10 +37,28 @@ def _ix(g: Grid, kind: str):
     return tuple(own_slice(g, kind, a) for a in (2, 1, 0))
 
 
-def _coef(mat: MaterialTable, matg, name: str):
-    if matg is not None:
-        raise NotImplementedError("per-voxel materials are not ported")
-    return getattr(mat, name)[0]
+def _coef_grid(mat: MaterialTable, matg, name: str, id_field: str):
+    """Coefficient ``name`` over the ghosted id grid ``id_field`` (one
+    gather; ``index_select`` takes the int32 ids as they are), or the
+    scalar of table row 0 without a material grid."""
+    table = getattr(mat, name)
+    if matg is None:
+        return table[0]
+    ids = getattr(matg, id_field)
+    return table.index_select(0, ids.reshape(-1)).view(ids.shape)
+
+
+def _at(g: Grid, c, kind: str, dx=0, dy=0, dz=0):
+    """A coefficient of :func:`_coef_grid` over ``kind``'s owned block
+    shifted by (dx, dy, dz); a scalar stays a scalar."""
+    return c if c.dim() == 0 else shifted(g, c, kind, dx, dy, dz)
+
+
+def _coef(mat: MaterialTable, matg, name: str, g: Grid, kind: str,
+          id_field: str, dx=0, dy=0, dz=0):
+    """Material coefficient sampled over ``kind``'s owned block, shifted as
+    the field it multiplies (``vpic_tpu/field/stencil.py:_coef``)."""
+    return _at(g, _coef_grid(mat, matg, name, id_field), kind, dx, dy, dz)
 
 
 def _add(arr, ix, v):
@@ -74,18 +95,19 @@ def _rmu_curl_b(f: FieldState, g: Grid, mat: MaterialTable, matg,
     backward differences (reads the tang-B ghost planes)."""
     px, py, pz = (_p(g, a, scale) for a in range(3))
 
-    def term(kind, cb_name, rmu, p, axis):
-        cb = getattr(f, cb_name)
-        d = {("dx", "dy", "dz")[axis]: -1}
-        c = _coef(mat, matg, rmu)
-        return p * (shifted(g, cb, kind) * c - shifted(g, cb, kind, **d) * c)
+    rmu = {a: _coef_grid(mat, matg, "rmu" + a, "fmat" + a) for a in "xyz"}
 
-    tcax = term("edge_x", "cbz", "rmuz", py, 1) - term("edge_x", "cby",
-                                                       "rmuy", pz, 2)
-    tcay = term("edge_y", "cbx", "rmux", pz, 2) - term("edge_y", "cbz",
-                                                       "rmuz", px, 0)
-    tcaz = term("edge_z", "cby", "rmuy", px, 0) - term("edge_z", "cbx",
-                                                       "rmux", py, 1)
+    def term(kind, a, p, axis):
+        # cB_a*rmu_a here and one cell back along ``axis``: each value
+        # times the coefficient of its own face
+        cb, c = getattr(f, "cb" + a), rmu[a]
+        d = {("dx", "dy", "dz")[axis]: -1}
+        return p * (shifted(g, cb, kind) * _at(g, c, kind)
+                    - shifted(g, cb, kind, **d) * _at(g, c, kind, **d))
+
+    tcax = term("edge_x", "z", py, 1) - term("edge_x", "y", pz, 2)
+    tcay = term("edge_y", "x", pz, 2) - term("edge_y", "z", px, 0)
+    tcaz = term("edge_z", "y", px, 0) - term("edge_z", "x", py, 1)
     return tcax, tcay, tcaz
 
 
@@ -110,12 +132,13 @@ def advance_e(f: FieldState, g: Grid, mat: MaterialTable, matg,
     curls = _rmu_curl_b(f, g, mat, matg, (1.0 + damp) * g.cvac * g.dt)
     out = {}
     for comp, curl in zip("xyz", curls):
-        ix = _ix(g, "edge_" + comp)
+        kind = "edge_" + comp
+        ix = _ix(g, kind)
         e = getattr(f, "e" + comp)
         tca_old = getattr(f, "tca" + comp)[ix]
         jf = getattr(f, "jf" + comp)[ix]
-        decay = _coef(mat, matg, "decay" + comp)
-        drive = _coef(mat, matg, "drive" + comp)
+        decay = _coef(mat, matg, "decay" + comp, g, kind, "emat" + comp)
+        drive = _coef(mat, matg, "drive" + comp, g, kind, "emat" + comp)
         tca = curl - damp * tca_old
         out["tca" + comp] = _set(getattr(f, "tca" + comp), ix, tca)
         out["e" + comp] = _set(e, ix, decay * e[ix] + drive * (tca - cj * jf))
@@ -124,16 +147,17 @@ def advance_e(f: FieldState, g: Grid, mat: MaterialTable, matg,
 
 
 def _div_eps_e(f: FieldState, g: Grid, mat, matg, scale: float):
-    """sum_a p_a*(eps_a*e_a - eps_a*e_a(shift -1)) over the nodes."""
+    """sum_a p_a*(eps_a*e_a - eps_a*e_a(shift -1)) over the nodes, each
+    e_a times the eps of its own edge."""
     kind = "node"
     total = None
-    for axis, (e_name, eps) in enumerate((("ex", "epsx"), ("ey", "epsy"),
-                                          ("ez", "epsz"))):
-        e = getattr(f, e_name)
+    for axis, a in enumerate("xyz"):
+        e = getattr(f, "e" + a)
         d = {("dx", "dy", "dz")[axis]: -1}
-        c = _coef(mat, matg, eps)
-        t = _p(g, axis, scale) * (shifted(g, e, kind) * c
-                                  - shifted(g, e, kind, **d) * c)
+        c = _coef_grid(mat, matg, "eps" + a, "emat" + a)
+        t = _p(g, axis, scale) * (shifted(g, e, kind) * _at(g, c, kind)
+                                  - shifted(g, e, kind, **d)
+                                  * _at(g, c, kind, **d))
         total = t if total is None else total + t
     return total
 
@@ -144,7 +168,7 @@ def compute_div_e_err(f: FieldState, g: Grid, mat: MaterialTable, matg,
     (compute_div_e_err.c:7-12)."""
     f = ghost.ghost_norm_e(f, g, comm)
     ix = _ix(g, "node")
-    nonc = _coef(mat, matg, "nonconductive")
+    nonc = _coef(mat, matg, "nonconductive", g, "node", "nmat")
     err = nonc * (_div_eps_e(f, g, mat, matg, 1.0)
                   - (1.0 / g.eps0) * (f.rhof[ix] + f.rhob[ix]))
     f = f.replace(div_e_err=_set(f.div_e_err, ix, err))
@@ -191,7 +215,7 @@ def clean_div_e(f: FieldState, g: Grid, mat: MaterialTable,
         d = {("dx", "dy", "dz")[axis]: 1}
         grad = (shifted(g, f.div_e_err, kind, **d)
                 - shifted(g, f.div_e_err, kind))
-        drive = _coef(mat, matg, "drive" + comp)
+        drive = _coef(mat, matg, "drive" + comp, g, kind, "emat" + comp)
         out["e" + comp] = _add(getattr(f, "e" + comp), _ix(g, kind),
                                drive * p * grad)
     return f.replace(**out)
@@ -233,7 +257,7 @@ def compute_rhob(f: FieldState, g: Grid, mat: MaterialTable, matg,
     """rhob = nonconductive*(eps0*div(eps*E) - rhof) (compute_rhob.c)."""
     f = ghost.ghost_norm_e(f, g, comm)
     ix = _ix(g, "node")
-    nonc = _coef(mat, matg, "nonconductive")
+    nonc = _coef(mat, matg, "nonconductive", g, "node", "nmat")
     rhob = nonc * (_div_eps_e(f, g, mat, matg, g.eps0) - f.rhof[ix])
     f = f.replace(rhob=_set(f.rhob, ix, rhob))
     return ghost.adjust_rhob(f, g, comm)
@@ -245,23 +269,26 @@ def local_energy_f(f: FieldState, g: Grid, mat: MaterialTable, matg):
     :func:`finish_energy_f`."""
     kind = "cell"
 
-    def wsum(name, coef, shifts, weight):
+    def wsum(name, coef, id_field, shifts, weight):
+        # every shifted value times the coefficient at the same shift
         arr = getattr(f, name)
-        c = _coef(mat, matg, coef)
+        c = _coef_grid(mat, matg, coef, id_field)
         total = 0.0
         for sh in shifts:
-            v = shifted(g, arr, kind, **dict(sh))
-            total = total + torch.sum((c * v * v).to(torch.float64))
+            d = dict(sh)
+            v = shifted(g, arr, kind, **d)
+            total = total + torch.sum((_at(g, c, kind, **d) * v * v)
+                                      .to(torch.float64))
         return weight * total
 
     e_sh = lambda a, b: ((), ((a, 1),), ((b, 1),), ((a, 1), (b, 1)))
     return torch.stack([
-        wsum("ex", "epsx", e_sh("dy", "dz"), 0.25),
-        wsum("ey", "epsy", e_sh("dz", "dx"), 0.25),
-        wsum("ez", "epsz", e_sh("dx", "dy"), 0.25),
-        wsum("cbx", "rmux", ((), (("dx", 1),)), 0.5),
-        wsum("cby", "rmuy", ((), (("dy", 1),)), 0.5),
-        wsum("cbz", "rmuz", ((), (("dz", 1),)), 0.5),
+        wsum("ex", "epsx", "ematx", e_sh("dy", "dz"), 0.25),
+        wsum("ey", "epsy", "ematy", e_sh("dz", "dx"), 0.25),
+        wsum("ez", "epsz", "ematz", e_sh("dx", "dy"), 0.25),
+        wsum("cbx", "rmux", "fmatx", ((), (("dx", 1),)), 0.5),
+        wsum("cby", "rmuy", "fmaty", ((), (("dy", 1),)), 0.5),
+        wsum("cbz", "rmuz", "fmatz", ((), (("dz", 1),)), 0.5),
     ])
 
 

@@ -6,7 +6,8 @@ JAX), so a state built by ``vpic_tpu`` can be loaded into the port with
 :func:`state_from_numpy` and both packages can start from one state.
 
 Keys: ``field/<component>``, ``interpolator``, ``neighbor``,
-``materials/<column>``, ``step``, per species k ``species/<k>/<column>``
+``materials/<column>``, ``material_grid/<id field>`` (int32, only for a
+state with a material grid), ``step``, per species k ``species/<k>/<column>``
 for the particle columns, ``np``, ``nm`` and the static ``name``, ``sid``,
 ``max_np``, ``sort_interval`` and ``q_m``; per boundary handler h its
 state, ``boundary_state/<h>`` (an array) or ``boundary_state/<h>/<key>``
@@ -23,9 +24,11 @@ import torch
 from .core.types import (
     FIELD_COMPONENTS,
     MATERIAL_COLUMNS,
+    MATERIAL_ID_FIELDS,
     SPECIES_COLUMNS,
     FieldState,
     GridArrays,
+    MaterialGrid,
     MaterialTable,
     SimState,
     SpeciesState,
@@ -42,13 +45,15 @@ def to_numpy(a) -> np.ndarray:
 
 
 def state_to_numpy(state) -> dict:
-    if getattr(state, "material_grid", None) is not None:
-        raise NotImplementedError("per-voxel material grids are not ported")
     d = {f"field/{k}": to_numpy(getattr(state.field, k)) for k in FIELD_COMPONENTS}
     d["interpolator"] = to_numpy(state.interpolator)
     d["neighbor"] = to_numpy(state.grid_arrays.neighbor)
     d.update({f"materials/{k}": to_numpy(getattr(state.materials, k))
               for k in MATERIAL_COLUMNS})
+    matg = getattr(state, "material_grid", None)
+    if matg is not None:
+        d.update({f"material_grid/{k}": to_numpy(getattr(matg, k))
+                  for k in MATERIAL_ID_FIELDS})
     d["step"] = to_numpy(state.step)
     if isinstance(getattr(state, "rng", None), torch.Tensor):
         d["rng"] = to_numpy(state.rng)
@@ -106,4 +111,7 @@ def state_from_numpy(d: dict, device="cpu", rng=None) -> SimState:
                                    for c in MATERIAL_COLUMNS}),
         step=t(d["step"]),
         rng=torch.as_tensor(np.array(d["rng"])) if "rng" in d else rng,
-        boundary_state=_boundary_state(d, t))
+        boundary_state=_boundary_state(d, t),
+        material_grid=(MaterialGrid(**{k: t(d[f"material_grid/{k}"])
+                                       for k in MATERIAL_ID_FIELDS})
+                       if "material_grid/ematx" in d else None))

@@ -3,8 +3,9 @@ reference's full-binary restart dump, src/vpic/dump.cxx:333-822).
 
 The port's own format: an npz of the :func:`vpic_tpu_torch.interop.
 state_to_numpy` arrays (named by state path, so a file says what it
-holds: fields, particles, the random state ``rng`` and each boundary
-handler's state, link rings included) and a JSON sidecar with the format version, the package name, the
+holds: fields, particles, the material ids where the deck has regions,
+the random state ``rng`` and each boundary handler's state, link rings
+included) and a JSON sidecar with the format version, the package name, the
 grid and species metadata and the caller's extras.  The deck workflow is
 the JAX package's: two-slot rotation (restart1/restart2 with rtoggle,
 decks/trecon-part/turbulence.cxx:1148-1247) and a quota-triggered final

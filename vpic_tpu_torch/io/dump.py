@@ -13,7 +13,7 @@ from pathlib import Path
 
 import numpy as np
 
-from ..core.types import FIELD_COMPONENTS, Grid
+from ..core.types import FIELD_COMPONENTS, MATERIAL_ID_FIELDS, Grid
 from ..grid.partition import shard_origin
 from ..interop import to_numpy as host
 
@@ -60,11 +60,17 @@ def dump_fields(state, g: Grid, fbase: str, step: int, shard=(0, 0, 0),
                 rank=0, nproc=1, ftag=True):
     """field_dump V0: the full ghosted field array as interleaved
     ``field_t`` records (16 f32 + 8 u16 material ids, 80 B/voxel;
-    dump.cxx:190-222).  One vacuum material: the ids are 0."""
+    dump.cxx:190-222): the ids ematx, ematy, ematz, nmat, fmatx, fmaty,
+    fmatz, cmat of the state's material grid, 0 without one."""
     rec = np.zeros((g.nv,), dtype=np.dtype([("f", "<f4", 16),
                                             ("m", "<u2", 8)]))
     for k, c in enumerate(FIELD_COMPONENTS):
         rec["f"][:, k] = host(getattr(state.field, c)).reshape(-1)
+    matg = getattr(state, "material_grid", None)
+    if matg is not None:
+        for k, c in enumerate(MATERIAL_ID_FIELDS):
+            rec["m"][:, k] = host(getattr(matg, c)).reshape(-1).astype(
+                np.uint16)
     path = _open(_fname(fbase, step, rank, ftag))
     with open(path, "wb") as f:
         write_header_v0(f, FIELD_DUMP, step, g, shard, rank, nproc)
