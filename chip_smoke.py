@@ -6,9 +6,10 @@ and assembly), the production turbulence deck and the reconnection
 decks (trecon, sigma, turbulence_fan) at full size through the port's
 CLI, with their diagnostics, tracer trajectories, readers and restarts,
 open particle boundaries (absorbing and custom walls, emitters,
-in-step injection) and the collisions deck, and materials (conductive,
+in-step injection) and the collisions deck, materials (conductive,
 dielectric and magnetic regions through the field solver, dumps and
-checkpoints).
+checkpoints), and several shards in one process on the card (halo
+exchanges, shared-face merges and particle migration).
 
     python3 chip_smoke.py
 
@@ -45,8 +46,10 @@ no result line):
 6. deposit  - the deposit kernel against its plain version on the card:
               segment-1 currents of both sorted 128^2 species and the cases
               of tests/test_deposit_pallas.py (two sorted, one unsorted),
-              the accumulator within 1e-6 * sum|contributions| per word,
-              two runs bitwise equal; the wrapper and its kernels alone
+              the accumulator within 1e-6 * sum|contributions| per word
+              of the plain version summed in float64 (the float32 one's
+              distance logged), bitwise the fixed-point twin, two runs
+              bitwise equal; the wrapper and its kernels alone
               timed against the plain version, one index_add_ and the
               bound;
 7. merge    - the merge re-sort's kernels against the plain passes of
@@ -174,7 +177,34 @@ no result line):
               species per step) and a trace, and the same of the deck
               built with one vacuum material; the particle-free wave box
               at 256^2 for 320 steps, vacuum against copper on x > 0.5:
-              the copper run's E energy below 0.75 of vacuum's.
+              the copper run's E energy below 0.75 of vacuum's;
+15. shards   - several shards in one process on the one card
+              (engine/distributed.py): the bench deck at 128^2 with
+              2 x 2 097 152 particles on 2 x 2 shards of 64^2 (capacity
+              1.25) beside its one-shard run and a second four-shard run
+              from the same seed: the push kernel on every shard's
+              species (stopped lanes left to the rounds) and its walk_only
+              entry on each shard's first round (the lanes received from
+              the neighbor shards) against the plain version and twin;
+              25 steps, then the fields over the global box to rtol 2e-4 /
+              atol 2e-5 and the energies to 1e-4 of the one-shard run
+              (tests/multi_device/test_shard.py's bars), alive counts
+              exact, no dropped mover and so no migration overflow left
+              after the rounds, the migrated lanes per step, the two
+              four-shard runs' checksums equal; three timed 16-step
+              windows of each deck with the launch counts (per shard one
+              push and three walk_only launches per species per step)
+              and the host seconds each shard waits for the others' turns,
+              a trace of each; 4 unfused steps on the shards (the deposit
+              kernel, held to its plain version on every shard's inputs
+              of the first of them) held to the one-shard deck's unfused
+              steps from the same step at the same bars, alive counts
+              exact; then the turbulence deck at its default size with
+              TURB_PZ=2 (its PEC z walls on the outer faces of the two
+              shards) through the CLI for 100 steps with its diagnostics
+              and again from its step-50 restart: per-rank dumps, every
+              step-100 dump of both ranks byte for byte, the hydro dumps'
+              shared node plane equal on both ranks, no dropped mover.
 
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
@@ -199,7 +229,15 @@ and on phase 14 (``materials_*``: launches, error, the species that needed
 the quantum allowance, the times on the electrons, the step, busy ms, ops
 and idle share, ``step.field``'s busy ms and ops against the one-vacuum
 deck's (``materials_vacuum_*``), drift, dropped movers, the rms div E
-error around a clean and the damping ratio).
+error around a clean and the damping ratio) and on phase 15
+(``shards_*``: the push launches in the four-shard windows, the error
+over every shard's checks, the step against the one-shard step, busy
+device ms, ops, the host wait for the other shards' turns, migrated lanes
+per step, the fields' and energies' distance from the one-shard run;
+``shards_walk_*``: the walk_only launches in those windows and the times
+of one round's walk on shard 0; the deposit kernel's ``shards_launches``
+in the unfused steps, its error over the shards' deposits and the
+unfused steps' distance from the one-shard run).
 The last line is {"ok": true, "device": {...}}.  Without a CUDA
 device the script exits 2.
 """
@@ -912,30 +950,74 @@ def phase_trace(sim, step_s, label="main path", parts=None):
                        for k in PHASES})
 
 
-def check_deposit(label, acc0, vox, cols, valid, nv):
-    """The deposit kernel against its plain version: acc within
-    1e-6 * sum|c| per word, two kernel runs bitwise equal, no lane
-    dropped; returns the max abs error."""
+def deposit_twin(acc0, vox, cols, valid, nv):
+    """The deposit kernel's result computed plainly: its scale 2^S
+    (deposit_scale_kernel: 2^(62 - e) with max|c| over the valid lanes
+    times n below 2^e) and its fixed-point sums (``deposit.deposit_fixed``,
+    ``deposit.unfix``).  Returns (acc, 2^S)."""
+    import torch
+    from vpic_tpu_torch.particles import deposit
+    c = torch.stack(cols, dim=-1).abs()
+    m = float(torch.where(valid[:, None], c, 0.0).max())
+    b = torch.tensor(m, dtype=torch.float64) * float(vox.shape[0])
+    scale = 1.0
+    if 0.0 < float(b) < float("inf"):
+        scale = 2.0 ** (62 - int(torch.frexp(b).exponent))
+    fix = torch.zeros((nv, 12), dtype=torch.int64, device=vox.device)
+    fix, _ = deposit.deposit_fixed(scale)(fix, vox, cols, valid, nv)
+    return deposit.unfix(acc0, fix, scale), scale
+
+
+def check_deposit(label, acc0, vox, cols, valid, nv, quantum=False):
+    """The deposit kernel against its plain version summed in float64:
+    acc within 1e-6 * sum|c| per word, bitwise its fixed-point twin, two
+    kernel runs bitwise equal, no lane dropped; returns the max abs error.
+    The plain version's float32 ``index_add`` is off the exact sums by its
+    own roundoff, which past about a hundred lanes per word can exceed
+    1e-6 * sum|c| (the sharded bench deck's ions); its distance is logged.
+    ``quantum``: the bound also allows each contribution its fixed-point
+    rounding, half of 2^-S, as check_push's does (a word whose sum|c| is
+    below about 1e6 2^-S cannot meet 1e-6 * sum|c| in fixed point)."""
     import torch
     from vpic_tpu_torch.particles import deposit, deposit_cuda
     k1, d1 = deposit_cuda.deposit_sorted_into(acc0, vox, cols, valid, nv)
     k2, d2 = deposit_cuda.deposit_sorted_into(acc0, vox, cols, valid, nv)
-    p, _ = deposit.deposit_sorted_into(acc0, vox, cols, valid, nv)
+    t, scale = deposit_twin(acc0, vox, cols, valid, nv)
     if not torch.equal(k1, k2):
         raise AssertionError(f"{label}: two deposit runs differ")
     if int(d1) != 0 or int(d2) != 0:
         raise AssertionError(f"{label}: the deposit dropped {int(d1)} lanes")
-    c = torch.stack(cols, dim=-1).abs().to(torch.float64)
+    if not _bitwise_equal(k1, t):
+        raise AssertionError(f"{label}: the deposit differs from its "
+                             "fixed-point twin")
+    f64 = lambda x: x.to(torch.float64)
+    exact, _ = deposit.deposit_sorted_into(f64(acc0), vox,
+                                           [f64(c) for c in cols], valid, nv)
+    p, _ = deposit.deposit_sorted_into(acc0, vox, cols, valid, nv)
+    c = f64(torch.stack(cols, dim=-1).abs())
     absacc = torch.zeros((nv, 12), dtype=torch.float64, device=vox.device)
     absacc.index_add_(0, vox[valid].long(), c[valid])
-    err = (k1.to(torch.float64) - p.to(torch.float64)).abs()
-    limit = 1e-6 * absacc + 1e-30
+    floor = 0.0
+    if quantum:
+        num = torch.zeros_like(absacc).index_add_(
+            0, vox[valid].long(), (c[valid] != 0).to(torch.float64))
+        floor = num * (0.5 / scale)
+    err = (f64(k1) - exact).abs()
+    limit = 1e-6 * absacc + floor + 1e-30
+    plain_rel = float(((f64(p) - exact).abs() / (absacc + 1e-30)).max())
     if not bool((err <= limit).all()):
         worst = float((err / limit).max())
-        raise AssertionError(f"{label}: acc beyond 1e-6*sum|c| (worst "
-                             f"{worst:.3g}x the limit)")
+        raise AssertionError(f"{label}: acc beyond 1e-6*sum|c|"
+                             + (" + half a quantum per contribution"
+                                if quantum else "")
+                             + f" of the float64 sums (worst {worst:.3g}x "
+                             "the limit)")
     log(f"  {label}: deposit ok ({int(valid.sum())} lanes, two runs "
-        f"bitwise equal, acc max abs err {float(err.max()):.3g})")
+        f"bitwise equal, bitwise the fixed-point twin, acc max abs err "
+        f"{float(err.max()):.3g}, at most "
+        f"{float((err / (absacc + 1e-30)).max()):.3g} sum|c|; the float32 "
+        f"plain version at most {plain_rel:.3g} sum|c|"
+        + (f", 2^-S {1 / scale:.3g}" if quantum else "") + ")")
     return float(err.max())
 
 
@@ -1989,9 +2071,9 @@ def recon_drift_limit(name):
 
 
 def check_bar(check, label, *args, **kw):
-    """``check`` (check_push or check_walk) at the 1e-6 * sum|c| float
-    bar, and where fixed-point words cannot meet it, again with the
-    quantum allowance of the turbulence deck.  Returns (max abs err,
+    """``check`` (check_push, check_walk or check_deposit) at the 1e-6 *
+    sum|c| float bar, and where fixed-point words cannot meet it, again
+    with the quantum allowance of the turbulence deck.  Returns (max abs err,
     whether it needed the allowance)."""
     try:
         return check(label, *args, **kw), False
@@ -2101,7 +2183,7 @@ def recon_readers(name, sim, tmp):
             raise AssertionError(f"{name}: read_fields {c} differs from the "
                                  "state on the card")
     _, hydro = out["read_hydro"]
-    h = to_numpy(sim._hydro(el))
+    h = to_numpy(sim._hydro(el)[0])
     for k, col in enumerate(readers.HYDRO_NAMES):
         if not np.array_equal(hydro[col].reshape(-1), h[:, k]):
             raise AssertionError(f"{name}: read_hydro {col} differs")
@@ -3057,7 +3139,7 @@ def material_run(device, tmp):
         raise AssertionError(f"material box: rms div E error {before!r} -> "
                              f"{after!r} across a clean")
     t0 = time.perf_counter()
-    fpath = a.dump_fields(os.path.join(tmp, "fields"))
+    fpath, = a.dump_fields(os.path.join(tmp, "fields"))
     _, out = readers.read_fields(fpath)
     dump_ms = (time.perf_counter() - t0) * 1e3
     for k, name in enumerate(MATERIAL_ID_FIELDS):
@@ -3188,6 +3270,464 @@ def phase_materials(device, card):
     }
 
 
+# -- phase 15: several shards on one card ------------------------------------
+
+# the bench deck of __graft_entry__._build at full width, four shards of
+# 64^2 on the one card (capacity 1.25 per species, as _build gives sharded
+# runs); the one-shard run of the same deck is its reference
+SHARD_DECK = dict(nx=128, ny=128, nz=1, npart=2_097_152)
+SHARD_MESH = dict(px=2, py=2)
+SHARD_STEPS = 25
+# tests/multi_device/test_shard.py:test_two_shard_equivalence's bars
+SHARD_RTOL, SHARD_ATOL, SHARD_E_RTOL = 2e-4, 2e-5, 1e-4
+SHARD_FIELDS = ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx", "jfy", "jfz")
+SHARD_UNFUSED_STEPS = 4
+# the turbulence deck at its default size with its z axis (PEC walls) on
+# two shards
+TURB_SHARDED = dict(TURB_FULL, TURB_PZ="2")
+
+
+def shard_bench(device, **mesh):
+    from vpic_tpu_torch.decks import bench_deck
+    return bench_deck.build(**SHARD_DECK, **mesh, device=device)
+
+
+def shard_launch_counts():
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    return dict(push_walk=push_cuda.launches["push"],
+                walk_only=push_cuda.launches["walk_only"],
+                deposit_sorted=deposit_cuda.launches["deposit_sorted"],
+                **sort_cuda.launches)
+
+
+def reset_launch_counts():
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    for mod in (push_cuda, deposit_cuda, sort_cuda):
+        mod.reset_launch_counts()
+
+
+def shard_round_walks(sims):
+    """One step of each of ``sims`` with push_cuda.streak_walk recording
+    its input: per rank of the sharded deck ``sims[-1]``, the walk states
+    of its rounds (round, species order).  The recording is taken off
+    before returning."""
+    from vpic_tpu_torch.particles import push_cuda
+    rec, orig = collections.defaultdict(list), push_cuda.streak_walk
+    # each shard walks through its own neighbor table
+    rank_of = {st.grid_arrays.neighbor.data_ptr(): r
+               for r, st in enumerate(sims[-1].states)}
+
+    def recording(st, acc, nb, g, n_iter):
+        r = rank_of.get(nb.data_ptr())
+        if r is not None:
+            rec[r].append((st, nb, n_iter))
+        return orig(st, acc, nb, g, n_iter)
+
+    push_cuda.streak_walk = recording
+    try:
+        for sim in sims:
+            sim.advance(1)
+    finally:
+        push_cuda.streak_walk = orig
+    return rec
+
+
+def shard_kernels(one, four):
+    """The push kernel on every shard's species at finalize, voxel-sorted
+    as the step sorts them, its stopped lanes (migrate codes) left to the
+    rounds as the step leaves them, and its walk_only entry on each
+    shard's first round of the electrons (the buffer and the lanes
+    received from the neighbor shards), against the plain version and the
+    fixed-point twin; the walk on shard 0's round timed.  Steps ``one``
+    and ``four`` once.  Returns (max abs err, species that needed the
+    quantum allowance, the walk's timing)."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    g = four.grid
+    n_walk = walk_segments(g, four.opts)
+    errs, quantum = [], []
+    for r, st in enumerate(four.states):
+        for sp in st.species:
+            err, q = check_bar(check_push, f"shard {r} {sp.name}",
+                               aux.sort_p(sp), st.interpolator,
+                               st.grid_arrays.neighbor, g, n_walk,
+                               count_pending=False)
+            errs.append(err)
+            if q:
+                quantum.append(f"shard {r} {sp.name}")
+    rec = shard_round_walks([one, four])
+    buf = min(four.opts.max_inj, four.states[0].species[0].max_np)
+    timing = None
+    for r in range(g.n_shards):
+        walk, nb, n_iter = rec[r][0]
+        got = int(walk.active[buf:].sum())
+        if not got:
+            raise AssertionError(f"shard {r}: the first round received no "
+                                 "lane to walk")
+        label = (f"shard {r} round 1 electrons ({int(walk.active[:buf].sum())}"
+                 f" buffer lanes and {got} received of {walk.x.shape[0]})")
+        err, q = check_bar(check_walk, label, walk, nb, g, n_iter)
+        errs.append(err)
+        if q:
+            quantum.append(f"shard {r} walk")
+        if r == 0:
+            timing = time_walk(label, walk, nb, g, n_iter)
+    return max(errs), quantum, timing
+
+
+def count_migrants():
+    """A patch of particles.boundary.received_lanes that adds each round's
+    received lanes into a device counter per device (no host read in the
+    step); returns (counters, undo)."""
+    import torch
+    from vpic_tpu_torch.particles import boundary
+    orig, total = boundary.received_lanes, {}
+
+    def counting(recv):
+        cols, valid = orig(recv)
+        got = valid.sum(dtype=torch.int64)
+        total[got.device] = total.get(got.device, 0) + got
+        return cols, valid
+
+    boundary.received_lanes = counting
+
+    def undo():
+        boundary.received_lanes = orig
+    return total, undo
+
+
+def shard_compare(one, four):
+    """The four-shard deck against the one-shard deck at the same step:
+    the owned fields over the global box to rtol SHARD_RTOL / atol
+    SHARD_ATOL, energies to SHARD_E_RTOL, each species' alive count
+    exact, no dropped mover on either."""
+    import numpy as np
+    from vpic_tpu_torch.engine.distributed import alive_count, global_field
+    worst = {}
+    for comp in SHARD_FIELDS:
+        a, b = global_field(one, comp), global_field(four, comp)
+        if not np.allclose(b, a, rtol=SHARD_RTOL, atol=SHARD_ATOL):
+            raise AssertionError(f"4 shards against 1: {comp} beyond rtol "
+                                 f"{SHARD_RTOL} atol {SHARD_ATOL} (max "
+                                 f"{float(np.abs(a - b).max())!r})")
+        worst[comp] = float(np.abs(a - b).max())
+    e1, e4 = one.energies(), four.energies()
+    for k in e1:
+        if abs(e4[k] - e1[k]) > SHARD_E_RTOL * abs(e1[k]) + 1e-9:
+            raise AssertionError(f"4 shards against 1: energy {k} "
+                                 f"{e4[k]!r} vs {e1[k]!r}")
+    alive = [(alive_count(one, k), alive_count(four, k))
+             for k in range(len(one._species))]
+    if any(a != b for a, b in alive):
+        raise AssertionError(f"alive counts (1 shard, 4 shards) {alive}")
+    nm = (one.mover_counts(), four.mover_counts())
+    if any(v for m in nm for v in m.values()):
+        raise AssertionError(f"dropped movers (1 shard, 4 shards) {nm}")
+    erel = max(abs(e4[k] - e1[k]) / abs(e1[k]) for k in e1)
+    log(f"  step {four.step_count}: 4 shards against 1 shard, fields max "
+        f"abs diff {max(worst.values())!r} ({max(worst, key=worst.get)}), "
+        f"energies within {erel:.3e} relative, alive {alive}, dropped "
+        f"movers {nm[1]}")
+    return dict(field_diff=max(worst.values()), energy_rel=erel)
+
+
+def shard_windows(sim, label):
+    """WINDOWS timed windows of STEPS steps, the launch counts set to 0
+    just before and read just after: per shard and step one push launch
+    per species and num_comm_round walk_only launches per species, no
+    other kernel; finite energies, bounded drift, no dropped mover.
+    Returns (launches, median step s, min, max, barrier s per step)."""
+    import math
+    import statistics
+    import torch
+    n = sim.grid.n_shards
+    nsp = len(sim._species)
+    rv = sim.comms[0].rv if sim.comms else None
+    wait0 = list(rv.wait_s) if rv else [0.0]
+    reset_launch_counts()
+    step_s = []
+    for w in range(WINDOWS):
+        e0, nm0 = sim.energies(), sim.mover_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance(STEPS)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e1, nm1 = sim.energies(), sim.mover_counts()
+        if not all(math.isfinite(v) for v in e1.values()):
+            raise AssertionError(f"{label}: non-finite energies {e1}")
+        drops = {k: nm1[k] - nm0[k] for k in nm1}
+        if any(drops.values()):
+            raise AssertionError(f"{label}: dropped movers {drops}")
+        drift = (sum(e1.values()) - sum(e0.values())) / sum(e0.values())
+        if not abs(drift) < DRIFT_LIMIT:
+            raise AssertionError(f"{label}: energy drift {drift:.3e}")
+        step_s.append(dt / STEPS)
+        log(f"  {label} window {w + 1}/{WINDOWS} (steps "
+            f"{sim.step_count - STEPS}-{sim.step_count}): {dt:.4f} s, "
+            f"{dt / STEPS * 1e3:.4f} ms/step, energy drift {drift:.3e}")
+    launches = shard_launch_counts()
+    steps = WINDOWS * STEPS
+    want = dict(push_walk=steps * nsp * n,
+                walk_only=steps * nsp * n * sim.opts.num_comm_round
+                if n > 1 else 0)
+    if any(launches[k] != v for k, v in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        raise AssertionError(f"{label}: launches {launches}, expected "
+                             f"{want} and no other kernel")
+    barrier = (sum(rv.wait_s) - sum(wait0)) / n / steps if rv else 0.0
+    med = statistics.median(step_s)
+    log(f"  {label}: median {med * 1e3:.4f} ms/step (min "
+        f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f}), launches "
+        f"{launches}, host wait for the other shards' turns "
+        f"{barrier * 1e3:.4f} ms/step per shard")
+    return launches, med, min(step_s), max(step_s), barrier
+
+
+def record_deposits(n_calls):
+    """A patch of deposit_cuda.deposit_sorted_into that keeps a copy of
+    the inputs of its first ``n_calls`` calls, with the calling thread's
+    name (each shard steps in a thread of its own); returns (records,
+    undo)."""
+    import threading
+    from vpic_tpu_torch.particles import deposit_cuda
+    orig, rec = deposit_cuda.deposit_sorted_into, []
+
+    def recording(acc, vox, cols, valid, nv):
+        if len(rec) < n_calls:
+            rec.append((threading.current_thread().name, acc.clone(),
+                        vox.clone(), tuple(c.clone() for c in cols),
+                        valid.clone(), nv))
+        return orig(acc, vox, cols, valid, nv)
+
+    deposit_cuda.deposit_sorted_into = recording
+
+    def undo():
+        deposit_cuda.deposit_sorted_into = orig
+    return rec, undo
+
+
+def shard_unfused(device, twin):
+    """SHARD_UNFUSED_STEPS steps of the four-shard deck ``twin`` on the
+    unfused push, the launch counts set to 0 just before and read just
+    after: one deposit launch per shard, species and step and no push
+    launch.  The deposit kernel against its plain version on each shard's
+    inputs of the window's first step (each species, voxel-sorted, as the
+    step handed them to the kernel); then the same steps of a one-shard
+    deck brought to the same step on the fused path, and ``twin`` held to
+    it (shard_compare: fields, energies, exact alive counts, no dropped
+    mover).  Returns (launches, the deposit's max abs error, the
+    comparison)."""
+    import torch
+    g, nsp = twin.grid, len(twin._species)
+    one = shard_bench(device)
+    one.advance(twin.step_count)
+    for sim in (one, twin):
+        sim.modify_runparams(fused_push=False)
+    rec, undo = record_deposits(g.n_shards * nsp)
+    reset_launch_counts()
+    e0 = sum(twin.energies().values())
+    try:
+        twin.advance(SHARD_UNFUSED_STEPS)
+    finally:
+        undo()
+    unfused = shard_launch_counts()
+    want = SHARD_UNFUSED_STEPS * nsp * g.n_shards
+    if unfused["deposit_sorted"] != want or unfused["push_walk"] != 0:
+        raise AssertionError(f"unfused window launches {unfused}, expected "
+                             f"{want} deposit launches and no push launch")
+    e1 = sum(twin.energies().values())
+    log(f"  unfused push on {g.n_shards} shards, {SHARD_UNFUSED_STEPS} "
+        f"steps from step {twin.step_count - SHARD_UNFUSED_STEPS}: launches "
+        f"{unfused}, energy change {(e1 - e0) / e0:.3e}")
+    threads = sorted({r[0] for r in rec})
+    if len(rec) != g.n_shards * nsp or len(threads) != g.n_shards:
+        raise AssertionError(f"the unfused step's first deposits came from "
+                             f"{threads} ({len(rec)} calls)")
+    errs, quantum = [], []
+    for k, (name, acc, vox, cols, valid, nv) in enumerate(rec):
+        label = (f"{name} deposit {k % nsp + 1}/{nsp} (n={vox.shape[0]}, "
+                 f"nv={nv})")
+        err, q = check_bar(check_deposit, label, acc, vox, cols, valid, nv)
+        errs.append(err)
+        if q:
+            quantum.append(label)
+    del rec
+    one.advance(SHARD_UNFUSED_STEPS)
+    cmp = shard_compare(one, twin)
+    del one
+    torch.cuda.empty_cache()
+    return unfused, max(errs), dict(cmp, deposit_quantum=quantum)
+
+
+def shard_bench_phase(device, card):
+    """The bench deck on four shards of the card against its one-shard
+    run.  Returns the push, walk_only and deposit records of this path."""
+    import torch
+    t0 = time.perf_counter()
+    one, four, twin = (shard_bench(device), shard_bench(device, **SHARD_MESH),
+                       shard_bench(device, **SHARD_MESH))
+    torch.cuda.synchronize()
+    g = four.grid
+    log(f"  decks built in {time.perf_counter() - t0:.2f} s: {g.gpx}x{g.gpy} "
+        f"shards of {g.nx}x{g.ny} on {[str(d) for d in four.mesh]}, per "
+        "shard " + "; ".join(
+            ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
+                      for sp in st.species) for st in four.states))
+    err, quantum, walk_t = shard_kernels(one, four)
+    twin.advance(1)
+    for sim in (one, twin):
+        sim.advance(SHARD_STEPS - 1)
+    migrants, undo = count_migrants()
+    try:
+        four.advance(SHARD_STEPS - 1)
+    finally:
+        undo()
+    mig = sum(int(v) for v in migrants.values()) / (SHARD_STEPS - 1)
+    log(f"  migrated lanes: {mig:.1f} per step over {g.n_shards} shards "
+        f"(steps 1-{SHARD_STEPS}, both species)")
+    cmp = shard_compare(one, four)
+    # the timed windows and traces start on a sort super-cycle
+    pad = -four.step_count % (four.opts.resort_interval * 4)
+    for sim in (one, four, twin):
+        sim.advance(pad)
+    sums = [(s.checksum_fields(), s.checksum_species("electron"),
+             s.checksum_species("ion")) for s in (four, twin)]
+    if sums[0] != sums[1]:
+        raise AssertionError(f"two four-shard runs from one seed differ: "
+                             f"{sums}")
+    log(f"  two four-shard runs from one seed, step {four.step_count}: "
+        f"checksums equal (fields {sums[0][0][:12]}..., electrons "
+        f"{sums[0][1][:12]}..., ions {sums[0][2][:12]}...)")
+
+    # the main path of this phase: the four-shard deck's timed windows
+    launches, med4, lo4, hi4, barrier = shard_windows(four, "4 shards")
+    _, med1, lo1, hi1, _ = shard_windows(one, "1 shard")
+    trace4 = phase_trace(four, med4, "4-shard path", parts=())
+    trace1 = phase_trace(one, med1, "1-shard path")
+    del one, four
+    torch.cuda.empty_cache()
+
+    # the unfused push on the shards (the deposit kernel), held to the
+    # one-shard deck's unfused run from the same step
+    unf, deposit_err, unfused_cmp = shard_unfused(device, twin)
+    del twin
+    torch.cuda.empty_cache()
+    log(f"sharded bench deck ({card}; {SHARD_DECK['nx']}^2, 2 x "
+        f"{SHARD_DECK['npart']}, {g.n_shards} shards of {g.nx}^2 on one "
+        f"card): step {med4 * 1e3:.4f} ms (min "
+        f"{lo4 * 1e3:.4f}, max {hi4 * 1e3:.4f}) against 1 shard "
+        f"{med1 * 1e3:.4f} ms (min {lo1 * 1e3:.4f}, max {hi1 * 1e3:.4f}); "
+        f"device busy {trace4['busy_ms']:.4f} ms/step, "
+        f"{trace4['ops']:.1f} ops/step, idle share "
+        f"{1 - trace4['busy_ms'] / (med4 * 1e3):.4f} (1 shard: "
+        f"{trace1['busy_ms']:.4f} ms, {trace1['ops']:.1f} ops, "
+        f"{1 - trace1['busy_ms'] / (med1 * 1e3):.4f}); host wait for the "
+        f"other shards' turns "
+        f"{barrier * 1e3:.4f} ms/step per shard; {mig:.1f} migrated lanes "
+        "per step")
+    steps = WINDOWS * STEPS
+    push = dict(shards_launches=launches["push_walk"],
+                shards_launches_per_step=launches["push_walk"] / steps,
+                shards_max_abs_err=err, shards_quantum=quantum,
+                shards_step_ms=med4 * 1e3, shards_one_shard_step_ms=med1 * 1e3,
+                shards_busy_ms=trace4["busy_ms"], shards_ops=trace4["ops"],
+                shards_barrier_ms=barrier * 1e3,
+                shards_migrated_per_step=mig, **{
+                    f"shards_{k}": v for k, v in cmp.items()})
+    walk = dict(shards_walk_only_launches=launches["walk_only"],
+                **{f"shards_walk_{k}": v for k, v in walk_t.items()})
+    deposit = dict(shards_launches=unf["deposit_sorted"],
+                   shards_max_abs_err=deposit_err,
+                   shards_quantum=unfused_cmp.pop("deposit_quantum"), **{
+                       f"shards_unfused_{k}": v
+                       for k, v in unfused_cmp.items()})
+    return push, walk, deposit
+
+
+def shard_turb_cli(tmp):
+    """The turbulence deck at its default size with TURB_PZ=2 through the
+    CLI for TURB_STEPS steps with its diagnostics, then again from its
+    step-TURB_RESTART restart: every step-TURB_STEPS dump of both ranks
+    byte for byte the first run's, per-rank dumps of every kind, the
+    hydro dumps' shared node plane equal on both ranks (synchronized
+    faces), finite energies, no dropped mover.  Returns the two runs'
+    seconds."""
+    import numpy as np
+    from vpic_tpu_torch.io import readers
+    env = lambda out: dict(TURB_SHARDED, **TURB_DIAG, TURB_OUT=str(out))
+    first, second = os.path.join(tmp, "first"), os.path.join(tmp, "second")
+    t1 = deck_cli(TURB_DECK, env(first), TURB_STEPS)
+    t2 = deck_cli(TURB_DECK, env(second), TURB_STEPS, "--restart",
+                  os.path.join(first, "restart1", "restart"))
+    tags = tuple(f".{TURB_STEPS}.{r}" for r in range(2))
+    dumps = sorted(os.path.relpath(os.path.join(d, f), first)
+                   for d, _, files in os.walk(first) for f in files
+                   if f.endswith(tags) or os.path.basename(d)
+                   == f"T.{TURB_STEPS}")
+    kinds = collections.Counter(p.split(os.sep)[0] for p in dumps)
+    want = {"fields": 2, "hydro": 12, "particle": 8, "tracer": 4,
+            "spectra": 16}
+    ranks = collections.Counter(p.rsplit(".", 1)[1] for p in dumps
+                                if not p.startswith("spectra"))
+    if kinds != want or ranks != {"0": 13, "1": 13}:
+        raise AssertionError(f"step-{TURB_STEPS} dumps {dict(kinds)} by "
+                             f"rank {dict(ranks)}, expected {want}")
+    for rel in dumps:
+        a = open(os.path.join(first, rel), "rb").read()
+        if a != open(os.path.join(second, rel), "rb").read():
+            raise AssertionError(f"{rel}: the restarted run's bytes differ")
+    log(f"  TURB_PZ=2: restart from step {TURB_RESTART}: all {len(dumps)} "
+        f"step-{TURB_STEPS} dumps ({dict(kinds)}, ranks {dict(ranks)}) "
+        "byte-identical to the first run's")
+    planes = 0
+    for name in ("eT", "eB", "iT", "iB"):
+        base = os.path.join(first, "hydro", f"{name}hydro.{TURB_STEPS}")
+        (h0, lo), (h1, hi) = (readers.read_hydro(f"{base}.{r}")
+                              for r in range(2))
+        nz = h0["nz"]
+        for k, v in lo.items():
+            a, b = v[nz + 1, 1:, 1:], hi[k][1, 1:, 1:]
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name} hydro {k}: the shared node "
+                                     "plane differs between the ranks")
+        if not np.abs(lo["rho"][nz + 1]).max() > 0:
+            raise AssertionError(f"{name} hydro: no charge on the shared "
+                                 "plane")
+        planes += 1
+    en = read_energies(os.path.join(first, "rundata", "energies"))
+    if not all(np.isfinite(v) for vals in en.values() for v in vals):
+        raise AssertionError("non-finite energies in the sharded CLI run")
+    ck = os.path.join(first, "restart2", "restart")
+    meta = json.load(open(ck + ".json"))
+    with np.load(ck + ".npz") as data:
+        nm = {s["name"]: int(data[f"species/{k}/nm"].sum())
+              for k, s in enumerate(meta["species"])}
+    if any(nm.values()):
+        raise AssertionError(f"dropped movers in the sharded CLI run {nm}")
+    log(f"  TURB_PZ=2: the hydro dumps of {planes} species hold equal "
+        f"shared node planes on both ranks; energies finite; dropped "
+        f"movers by step {meta['extra']['step_count']} {nm}")
+    return t1, t2
+
+
+def phase_shards(device, card):
+    """Phase 15: several shards in one process on one card.  Returns the
+    push, walk_only and deposit records of its paths."""
+    import shutil
+    import tempfile
+    push, walk, deposit = shard_bench_phase(device, card)
+    tmp = tempfile.mkdtemp(prefix="shard_smoke_")
+    try:
+        t1, t2 = shard_turb_cli(tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"sharded turbulence deck ({card}; 64x32x32 on 2 z shards with PEC "
+        f"z walls): CLI {TURB_STEPS} steps with diagnostics {t1:.2f} s, "
+        f"restart {TURB_RESTART}->{TURB_STEPS} {t2:.2f} s")
+    return push, walk, deposit
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3202,13 +3742,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/14] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/15] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/14] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/15] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -3216,17 +3756,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/14] kernel vs plain, small 3D grid")
+    log("[3/15] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/14] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/15] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/14] determinism: checked above, per case and species")
+    log("[4/15] determinism: checked above, per case and species")
 
-    log("[5/14] slice")
+    log("[5/15] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -3234,15 +3774,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/14] deposit kernel vs plain")
+    log("[6/15] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/14] merge re-sort kernels vs plain")
+    log("[7/15] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/14] path A: the unfused push")
+    log("[8/15] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/14] path B: the packed cycle with the merge re-sort")
+    log("[9/15] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -3252,16 +3792,19 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/14] determinism: the charge deposit on the card")
+    log("[10/15] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/14] the turbulence deck through the CLI")
+    log("[11/15] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/14] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/15] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/14] open particle boundaries and the collisions deck")
+    log("[13/15] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/14] materials: the material box")
+    log("[14/15] materials: the material box")
     materials = phase_materials(device, card)
+    log("[15/15] several shards on the card: the bench deck on 4 shards, "
+        "the turbulence deck on 2")
+    shard_push, shard_walk, shard_dep = phase_shards(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -3271,11 +3814,12 @@ def main():
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
-             **recon, **opened, **materials),
+             **recon, **opened, **materials, **shard_push, **shard_walk),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",
-             launches=dep_launches, max_abs_err=dep_err, **dep_t),
+             launches=dep_launches, max_abs_err=dep_err, **dep_t,
+             **shard_dep),
         dict(name="merge_mark", source=merge_source,
              replaces="vpic_tpu/particles/sort_pallas.py:85",
              launches=mrg_launches["merge_mark"], **mark_t,

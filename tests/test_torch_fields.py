@@ -194,14 +194,16 @@ def test_accumulate_rho_p(shape):
 
 
 def test_non_periodic_faces_raise():
-    """Local faces are ported (tests/test_torch_walls.py); a face joined
-    to another shard and a grid of several shards still raise."""
+    """Local faces are ported (tests/test_torch_walls.py) and so are faces
+    between shards (tests/test_torch_shard.py), which a grid gets from
+    its shard counts: REMOTE_FIELDS is no code of a global face and
+    raises, and a sharded grid refuses the one-shard exchange."""
     g = Grid(nx=4, ny=4, nz=1, fbc=(REMOTE_FIELDS,) + (PERIODIC_FIELDS,) * 5)
     f = FieldState.zeros(g)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bad field boundary codes"):
         ghost.ghost_tang_b(f, g, LocalComm(g))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="bad field boundary codes"):
         sync.synchronize_jf(f, g, LocalComm(g))
     g = Grid(nx=4, ny=4, nz=1, gpx=2)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="ShardComm"):
         ghost.ghost_div_b(FieldState.zeros(g), g, LocalComm(g))

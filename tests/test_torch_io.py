@@ -200,7 +200,7 @@ def test_hydro_dumps(pair, tmp_path, name):
     # the banded hydro dump of the same moments
     g = tsim.grid
     sid = tsim._species_by_name(name)["sid"]
-    path = banded.hydro_dump(tsim._hydro(name), g, tmp_path / "bh",
+    path = banded.hydro_dump(tsim._hydro(name)[0], g, tmp_path / "bh",
                              banded.DumpParameters(), 2, sid, 1.0)
     _, out, _ = jbanded.read_banded(path)
     got = np.stack([out[v] for v in banded.HYDRO_VARS], axis=-1)

@@ -415,7 +415,7 @@ def test_dump_fields_bytes_and_ids_match_jax(tmp_path):
     # one state in both packages
     t.state = state_from_numpy(state_to_numpy(j.state), rng=rnd.make_key(0))
     jp = jdump.dump_fields(j.state, j.grid, str(tmp_path / "j"), 0)
-    tp = t.dump_fields(str(tmp_path / "t"))
+    tp, = t.dump_fields(str(tmp_path / "t"))
     assert tp.read_bytes() == jp.read_bytes()
     _, out = readers.read_fields(tp)
     ids = out["materials"]

@@ -50,6 +50,27 @@ def test_imports_without_jax():
     assert r.stdout.strip() == "ok"
 
 
+def test_no_module_imports_jax_even_in_a_function():
+    """No statement of the port (nor of chip_smoke.py), at any depth,
+    imports jax, jaxlib or the JAX package: a lazy import inside a
+    function escapes the import test above."""
+    import ast
+    files = sorted((ROOT / "vpic_tpu_torch").rglob("*.py")) + [
+        ROOT / "chip_smoke.py"]
+    bad = []
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            names = ([a.name for a in node.names]
+                     if isinstance(node, ast.Import) else
+                     [node.module or ""] if isinstance(node, ast.ImportFrom)
+                     and node.level == 0 else [])
+            bad += [f"{path.relative_to(ROOT)}:{node.lineno} {n}"
+                    for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "vpic_tpu")]
+    assert len(files) > 40
+    assert not bad, bad
+
+
 def test_cuda_simulation_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -131,14 +152,15 @@ def test_sort_cadence():
 
 
 def test_unported_configurations_raise():
-    """Migration between devices and multi-device grids are not ported.
-    Absorbing faces and the deck hooks are (the boundary rounds); the
-    packed cycle refuses them, as the JAX package's does, and an unknown
-    hook name raises."""
+    """Absorbing faces, the deck hooks and migration between shards are
+    ported (the boundary rounds); the packed cycle refuses them, as the
+    JAX package's does, and an unknown hook name raises.  A sharded grid
+    takes a ShardComm per shard, and its cells must split evenly."""
     g = Grid(nx=4, ny=4, nz=1, pbc=(NEIGHBOR_ABSORB,) * 6)
     make_advance(g, LocalComm(g))
-    with pytest.raises(NotImplementedError, match="migration"):
-        make_advance(g, LocalComm(g), pcomm=object())
+    make_advance(g, LocalComm(g), pcomm=LocalComm(g))
+    with pytest.raises(ValueError, match="closed configuration"):
+        make_advance(g, LocalComm(g), pcomm=LocalComm(g), packed=True)
     with pytest.raises(ValueError, match="closed configuration"):
         make_advance(g, LocalComm(g), packed=True)
     g = Grid(nx=4, ny=4, nz=1)
@@ -149,8 +171,12 @@ def test_unported_configurations_raise():
     with pytest.raises(TypeError, match="unknown deck hooks"):
         make_advance(g, LocalComm(g), user_particle_push=print)
     sim = vpic_tpu_torch.Simulation(device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        sim.define_absorbing_grid(0, 0, 0, 1, 1, 1, 8, 8, 1, px=2)
+    assert sim.define_absorbing_grid(0, 0, 0, 1, 1, 1, 8, 8, 1,
+                                     px=2).gpx == 2
+    with pytest.raises(ValueError, match="equal shards"):
+        sim.define_absorbing_grid(0, 0, 0, 1, 1, 1, 8, 8, 1, px=3)
+    with pytest.raises(ValueError, match="ShardComm"):
+        LocalComm(Grid(nx=4, ny=4, nz=1, gpx=2))
 
 
 def test_path_switches_resolve_as_the_jax_package():

@@ -129,7 +129,7 @@ def test_fields_and_hydro_read_back_as_the_state(dumps):
     assert not fields["materials"].any()
     hdr, hydro = readers.read_hydro(t["hydro"])
     assert hdr["step"] == tsim.step_count and hdr["sp_id"] == 0
-    h = tsim._hydro("electron").numpy()
+    h = tsim._hydro("electron")[0].numpy()
     for k, name in enumerate(readers.HYDRO_NAMES):
         np.testing.assert_array_equal(hydro[name].reshape(-1), h[:, k],
                                       err_msg=name)

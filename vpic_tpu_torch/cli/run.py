@@ -12,7 +12,8 @@ Usage:
 The deck module defines ``deck(device) -> Simulation`` (grid, species,
 fields and particles configured; ``finalize()`` may be called by the deck
 or is called here) and may define ``diagnostics(sim)``, called after every
-step.  ``--device`` (default ``cuda``) is passed to the deck: the run is
+step.  A sharded deck (``px, py, pz`` in its grid) runs every shard on the
+device, each in its own thread (``engine/distributed.py``).  ``--device`` (default ``cuda``) is passed to the deck: the run is
 on the card unless ``--device cpu`` is asked for, and raises where there
 is no card.
 """
@@ -60,7 +61,7 @@ def main(argv=None):
 
     mod = load_deck(args.deck)
     sim = mod.deck(device=args.device)
-    if sim.state is None:
+    if not sim.states:
         sim.finalize()
 
     if args.restart:
@@ -87,7 +88,9 @@ def main(argv=None):
         if (args.status_interval > 0
                 and sim.step_count % args.status_interval == 0):
             el = time.time() - t0
-            total = sum(int(s.np) for s in sim.state.species) or 1
+            # every shard's live count (np) of every species
+            total = sum(int(s.np) for st in sim.states
+                        for s in st.species) or 1
             log(f"step {sim.step_count}/{sim.num_step} ({el:.1f}s, "
                 f"{total * steps_done / el:.3e} pushes/s)")
             sim.warn_dropped_movers(log=log)

@@ -32,22 +32,30 @@ def _host(t) -> np.ndarray:
     return np.ascontiguousarray(to_numpy(t))
 
 
+def _states(state) -> list:
+    return list(state) if isinstance(state, (list, tuple)) else [state]
+
+
 def checksum_fields(state) -> str:
     """SHA-1 over every field component (output_checksum_fields,
-    misc.cxx:109-139)."""
+    misc.cxx:109-139); of a list of per-shard states, each component of
+    every shard in rank order (the bytes of the JAX package's stacked
+    state)."""
     h = hashlib.sha1()
     for name in FIELD_COMPONENTS:
-        h.update(_host(getattr(state.field, name)))
+        for st in _states(state):
+            h.update(_host(getattr(st.field, name)))
     return h.hexdigest()
 
 
 def checksum_species(state, sid: int) -> str:
-    """SHA-1 over the live particles of one species in canonical order
-    (by voxel, then tag, then dx), so it does not depend on the slots
-    (output_checksum_species, misc.cxx:141-171)."""
-    sp = state.species[sid]
-    alive = _host(sp.alive)
-    cols = [_host(getattr(sp, k))[alive]
+    """SHA-1 over the live particles of one species (of every shard of a
+    list of states) in canonical order (by voxel, then tag, then dx), so
+    it does not depend on the slots (output_checksum_species,
+    misc.cxx:141-171)."""
+    sps = [st.species[sid] for st in _states(state)]
+    cols = [np.concatenate([_host(getattr(sp, k))[_host(sp.alive)]
+                            for sp in sps])
             for k in ("i", "tag", "dx", "dy", "dz", "ux", "uy", "uz", "q")]
     order = np.lexsort((cols[2], cols[1], cols[0]))
     h = hashlib.sha1()
@@ -77,19 +85,27 @@ def time_phases(sim, n_steps: int = 3) -> dict:
     """Seconds per call of each part of the step, each run ``n_steps``
     times on its own after one warm-up call, with the card synchronized
     before and after (a debugging aid: the step itself runs the parts
-    back to back)."""
+    back to back).  On a sharded deck each call runs the part on every
+    shard, in the shards' threads."""
+    from ..engine import distributed as dist
     from ..engine.step import walk_segments
     from ..field import stencil, sync
     from ..particles import aux as paux
     from ..particles import push_cuda
     from ..sf import interp as sfi
 
-    g, st = sim.grid, sim.state
-    dev = st.interpolator.device
-    nb = st.grid_arrays.neighbor
+    g = sim.grid
     n_walk = walk_segments(g, sim.opts)
-    sync_dev = (lambda: torch.cuda.synchronize(dev)) \
-        if dev.type == "cuda" else (lambda: None)
+    devs = {st.interpolator.device for st in sim.states}
+
+    def sync_dev():
+        for d in devs:
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
+
+    def each(fn):
+        return lambda: dist.run_shards(sim.comms, fn, sim.states)
+
     out = {}
 
     def timed(name, fn):
@@ -101,17 +117,24 @@ def time_phases(sim, n_steps: int = 3) -> dict:
         sync_dev()
         out[name] = (time.perf_counter() - t0) / n_steps
 
-    acc0 = torch.zeros((g.nv, 12), dtype=torch.float32, device=dev)
-    for sp in st.species:
-        timed(f"sort[{sp.name}]", lambda: paux.sort_p(sp))
-        timed(f"advance_p[{sp.name}]", lambda: push_cuda.advance_p(
-            sp, st.interpolator, acc0, nb, g, n_walk=n_walk))
-    timed("advance_b", lambda: stencil.advance_b(st.field, g, 0.5))
-    timed("advance_e", lambda: stencil.advance_e(st.field, g, st.materials,
-                                                 st.material_grid, sim.comm))
-    timed("synchronize_jf", lambda: sync.synchronize_jf(st.field, g,
-                                                        sim.comm))
-    timed("load_interpolator", lambda: sfi.load_interpolator(st.field, g))
-    timed("unload_accumulator", lambda: sfi.unload_accumulator(st.field,
-                                                               acc0, g))
+    def acc0(st):
+        return torch.zeros((g.nv, 12), dtype=torch.float32,
+                           device=st.interpolator.device)
+
+    for k, h in enumerate(sim._species):
+        timed(f"sort[{h['name']}]",
+              each(lambda c, st: paux.sort_p(st.species[k])))
+        timed(f"advance_p[{h['name']}]", each(lambda c, st: push_cuda.advance_p(
+            st.species[k], st.interpolator, acc0(st),
+            st.grid_arrays.neighbor, g, n_walk=n_walk)))
+    timed("advance_b", each(lambda c, st: stencil.advance_b(st.field, g,
+                                                            0.5)))
+    timed("advance_e", each(lambda c, st: stencil.advance_e(
+        st.field, g, st.materials, st.material_grid, c)))
+    timed("synchronize_jf", each(lambda c, st: sync.synchronize_jf(
+        st.field, g, c)))
+    timed("load_interpolator", each(lambda c, st: sfi.load_interpolator(
+        st.field, g)))
+    timed("unload_accumulator", each(lambda c, st: sfi.unload_accumulator(
+        st.field, acc0(st), g)))
     return out

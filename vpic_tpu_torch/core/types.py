@@ -59,8 +59,10 @@ FACE_DIR = (-1, -1, -1, 1, 1, 1)
 
 @dataclasses.dataclass(frozen=True)
 class Grid:
-    """Static grid geometry, units and topology of one domain (the scalar
-    part of ``grid_t``, src/grid/grid.h:112-167)."""
+    """Static grid geometry, units and topology (the scalar part of
+    ``grid_t``, src/grid/grid.h:112-167).  ``nx, ny, nz`` are the cells
+    of one shard; a ``(gpz, gpy, gpx)`` mesh of equal shards covers the
+    global box (``gnx = nx * gpx``...), every shard sharing this Grid."""
 
     nx: int
     ny: int
@@ -81,6 +83,9 @@ class Grid:
     # field / particle boundary condition per global face (-x,-y,-z,+x,+y,+z)
     fbc: tuple = (PERIODIC_FIELDS,) * 6
     pbc: tuple = (PERIODIC_FIELDS,) * 6
+    # join_domain wiring (vpic.hxx:313-331): join[face] is None (the
+    # Cartesian ring) or a tuple with join[face][s] = the axis position of
+    # the shard adjacent through ``face`` to the shard at position s
     join: tuple = (None,) * 6
 
     @property
@@ -140,6 +145,14 @@ class Grid:
     def shape(self) -> tuple:
         """Ghosted array shape, ``[z, y, x]`` order."""
         return (self.nzg, self.nyg, self.nxg)
+
+    @property
+    def is_multishard(self) -> bool:
+        return self.gpx * self.gpy * self.gpz > 1
+
+    @property
+    def n_shards(self) -> int:
+        return self.gpx * self.gpy * self.gpz
 
     def voxel(self, x, y, z):
         return x + self.nxg * (y + self.nyg * z)

@@ -1,8 +1,8 @@
 """Deck API of the port (``vpic_tpu/deck/api.py``; the reference's deck
-vocabulary, vpic.hxx:126-555), for single-device decks: periodic or local
-field faces; periodic, reflecting, absorbing or custom particle faces
-(``define_boundary``: ``MaxwellianReflux``, ``AbsorbTally``,
-``LinkBoundary``); surface and volume emitters; particles injected at
+vocabulary, vpic.hxx:126-555): periodic or local field faces; periodic,
+reflecting, absorbing or custom particle faces (``define_boundary``:
+``MaxwellianReflux``, ``AbsorbTally``, ``LinkBoundary``); one shard or
+several (``px, py, pz``); surface and volume emitters; particles injected at
 set-up and, through ``make_injector`` from the ``user_particle_injection``
 hook, during the run; the four ``user_*`` hooks of ``finalize``; any
 number of materials (``define_material``: eps, mu, sigma and zeta as
@@ -35,6 +35,14 @@ An open deck (absorbing walls and drifting electrons):
     sim.finalize(user_particle_injection=refill)
     sim.boundary_tallies(tally)
 
+A sharded deck gives ``px, py, pz`` to ``define_*_grid`` (and may rewire
+a sharded axis with ``join_domain``): ``finalize(devices=...)`` builds one
+state per shard, shard r on ``devices[r % len(devices)]`` (default: every
+shard on the simulation's device), and ``state`` is then the list of
+per-shard states in rank order (``states`` is that list on any deck).
+Every shard steps in its own thread (``engine/distributed.py``); the
+diagnostics sum over the shards and the dumps write one file per rank.
+
 ``advance`` runs a plain loop of steps with the per-species sort cadence
 of :func:`vpic_tpu_torch.engine.step.step_sort_flags`; the host's step
 count sets the interval cleans.  ``modify_runparams(fused_push=False)`` or
@@ -60,12 +68,13 @@ import numpy as np
 import torch
 
 from ..boundary.models import BoundaryHandler, handler_code
-from ..comm.facecomm import LocalComm
+from ..comm.facecomm import OPP
 from ..core import diagnostics
 from ..core import random as rnd
 from ..core.types import (
     ABSORB_FIELDS,
     ANTI_SYMMETRIC_FIELDS,
+    FACE_AXIS,
     FieldState,
     Grid,
     MATERIAL_COLUMNS,
@@ -80,12 +89,12 @@ from ..core.types import (
 )
 from ..diag import energy_dist as ed
 from ..emit import models as emodels
-from ..engine.init import initialize_state
+from ..engine import distributed as dist
 from ..engine.step import (StepOptions, make_advance, needs_boundary,
                            resolve_paths, step_sort_flags)
 from ..field import stencil
 from ..field.slabs import own_slice
-from ..grid.partition import make_grid_arrays
+from ..grid.partition import make_grid_arrays, shard_origin
 from ..io import banded
 from ..io import checkpoint as ckpt
 from ..io import dump as iodump
@@ -94,7 +103,6 @@ from ..io import tracers as iotracers
 from ..io.global_header import write_global_header
 from ..particles import aux as paux
 from ..particles import push as ppush
-from ..sf import hydro as sfhydro
 from . import inject as dinject
 
 
@@ -169,9 +177,9 @@ _KIND_OF = {
 
 
 class Simulation:
-    """Top-level simulation object (vpic_simulation analogue) on one
-    device: the card unless ``device="cpu"`` is asked for.  A CUDA device
-    raises when no GPU is available."""
+    """Top-level simulation object (vpic_simulation analogue) on the card
+    unless ``device="cpu"`` is asked for.  A CUDA device raises when no
+    GPU is available."""
 
     def __init__(self, seed: int = 0, device="cuda"):
         device = torch.device(device)
@@ -198,8 +206,12 @@ class Simulation:
         self._emitters: list = []
         self._advance_packed = None
         self._traj = None
-        self.state: Optional[SimState] = None
+        self.states: List[SimState] = []
         self.step_count = 0
+        # per shard, in rank order: its device and its ShardComm, set by
+        # finalize
+        self.mesh = [device]
+        self.comms: list = []
 
     # -- units / time ----------------------------------------------------
     def define_units(self, cvac: float, eps0: float):
@@ -222,34 +234,59 @@ class Simulation:
     # -- grid / materials / species ----------------------------------------
     def define_periodic_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
                              px=1, py=1, pz=1):
-        """partition_periodic_box (partition.c:36-85) on one device."""
-        if (px, py, pz) != (1, 1, 1):
-            raise NotImplementedError("multi-device grids are not ported")
+        """partition_periodic_box (partition.c:36-85): ``nx, ny, nz``
+        global cells on ``px, py, pz`` shards."""
         return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
                                (px, py, pz), PERIODIC_FIELDS,
                                PERIODIC_FIELDS)
 
     def define_absorbing_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
                               px=1, py=1, pz=1, pbc="absorb"):
-        """partition_absorbing_box (partition.c:88-140) on one device:
-        absorbing fields on every face, particles ``pbc``."""
+        """partition_absorbing_box (partition.c:88-140): absorbing fields
+        on every face, particles ``pbc``."""
         return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
                                (px, py, pz), ABSORB_FIELDS, _PBC_MAP[pbc])
 
     def define_reflecting_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz,
                                px=1, py=1, pz=1):
-        """partition_metal_box (partition.c:142-177) on one device."""
+        """partition_metal_box (partition.c:142-177)."""
         return self._make_grid(x0, y0, z0, x1, y1, z1, nx, ny, nz,
                                (px, py, pz), ANTI_SYMMETRIC_FIELDS,
                                NEIGHBOR_REFLECT)
 
     def _make_grid(self, x0, y0, z0, x1, y1, z1, nx, ny, nz, shards, fbc,
                    pbc):
-        if shards != (1, 1, 1):
-            raise NotImplementedError("multi-device grids are not ported")
-        self.grid = Grid(nx=nx, ny=ny, nz=nz, dt=self.dt, cvac=self.cvac,
-                         eps0=self.eps0, gx0=x0, gy0=y0, gz0=z0, gx1=x1,
-                         gy1=y1, gz1=z1, fbc=(fbc,) * 6, pbc=(pbc,) * 6)
+        px, py, pz = (int(p) for p in shards)
+        if min(px, py, pz) < 1 or nx % px or ny % py or nz % pz:
+            raise ValueError(f"{(nx, ny, nz)} cells do not split into "
+                             f"{(px, py, pz)} equal shards")
+        self.grid = Grid(nx=nx // px, ny=ny // py, nz=nz // pz, dt=self.dt,
+                         cvac=self.cvac, eps0=self.eps0, gx0=x0, gy0=y0,
+                         gz0=z0, gx1=x1, gy1=y1, gz1=z1, gpx=px, gpy=py,
+                         gpz=pz, fbc=(fbc,) * 6, pbc=(pbc,) * 6)
+        return self.grid
+
+    def join_domain(self, face: int, neighbors):
+        """Custom wiring of a sharded axis (join_domain, vpic.hxx:313-331;
+        grid/ops.c join_grid): ``neighbors[s]`` is the axis position of
+        the shard adjacent through ``face`` to the shard at position s.
+        Joined faces are interior: field halos and migrating lanes follow
+        the wiring and no local boundary applies.  Wire both opposite
+        faces consistently."""
+        g = self.grid
+        n = (g.gpx, g.gpy, g.gpz)[FACE_AXIS[face]]
+        neighbors = tuple(int(v) for v in neighbors)
+        if n < 2:
+            raise ValueError("join_domain needs a sharded axis")
+        if sorted(neighbors) != list(range(n)):
+            raise ValueError(f"neighbors must be a permutation of 0..{n - 1}")
+        join = list(g.join)
+        join[face] = neighbors
+        opp = join[OPP[face]]
+        if opp is not None and any(opp[t] != s
+                                   for s, t in enumerate(neighbors)):
+            raise ValueError("the wiring disagrees with the opposite face's")
+        self.grid = dataclasses.replace(g, join=tuple(join))
         return self.grid
 
     def set_domain_field_bc(self, face: int, bc: int):
@@ -341,16 +378,17 @@ class Simulation:
             raise ValueError(f"unknown field component {comp!r}")
         self._field_sets.append((comp, fn))
 
-    def component_coords(self, comp: str):
+    def component_coords(self, comp: str, shard=(0, 0, 0)):
         """Sparse [z,y,x] meshgrids of the positions of one component's
-        owned sublattice (deck_wrapper.cxx:467-503)."""
+        owned sublattice on one shard (deck_wrapper.cxx:467-503)."""
         g = self.grid
         kind = _KIND_OF[comp]
         axes = []
-        for a, (gmin, d) in enumerate(((g.gx0, g.dx), (g.gy0, g.dy),
-                                       (g.gz0, g.dz))):
+        for a, (gmin, d, n) in enumerate(((g.gx0, g.dx, g.nx),
+                                          (g.gy0, g.dy, g.ny),
+                                          (g.gz0, g.dz, g.nz))):
             sl = own_slice(g, kind, a)
-            idx = np.arange(sl.start, sl.stop)
+            idx = np.arange(sl.start, sl.stop) + shard[a] * n
             node_aligned = (
                 kind == "node"
                 or (kind.startswith("edge_") and "xyz".index(kind[-1]) != a)
@@ -393,19 +431,29 @@ class Simulation:
         return self.rng.uniform(lo, hi, size=n)
 
     # -- finalize ----------------------------------------------------------
-    def _initial_state(self) -> SimState:
+    def _initial_state(self, shard=(0, 0, 0), dev=None) -> SimState:
+        """The state of one shard before ``initialize_state``
+        (``vpic_tpu/deck/api.py:_build_shard_state``): its field regions,
+        its material ids, the injected particles it owns (the far-wall
+        rule on the last shard of a local high-x face, misc.cxx:37-40),
+        its random state (seed * 65537 + rank)."""
         g = self.grid
-        dev = self.device
+        dev = self.device if dev is None else dev
+        sx, sy, sz = shard
+        lo = shard_origin(g, shard)
+        hi = tuple(o + (b - a) / p for o, a, b, p in zip(
+            lo, (g.gx0, g.gy0, g.gz0), (g.gx1, g.gy1, g.gz1),
+            (g.gpx, g.gpy, g.gpz)))
         field = {k: np.zeros(g.shape, np.float32) for k in _KIND_OF}
         for comp, fn in self._field_sets:
-            x, y, z = self.component_coords(comp)
+            x, y, z = self.component_coords(comp, shard)
             ix = tuple(own_slice(g, _KIND_OF[comp], a) for a in (2, 1, 0))
             field[comp][ix] = np.broadcast_to(
                 np.asarray(fn(x, y, z), np.float32), x.shape)
         f = FieldState.zeros(g, dev).replace(
             **{k: torch.as_tensor(v, device=dev) for k, v in field.items()})
 
-        matg = self._material_grid()
+        matg = self._material_grid(shard, dev)
 
         def cellify(c, c0, c1, n):
             # robust float64 global -> (offset, cell) conversion
@@ -422,19 +470,17 @@ class Simulation:
             cols = {k: [] for k in ("dx", "dy", "dz", "i", "ux", "uy", "uz",
                                     "q", "tag")}
             for b in h["batches"]:
-                own = ((b["x"] >= g.gx0) & (b["y"] >= g.gy0)
-                       & (b["z"] >= g.gz0) & (b["x"] < g.gx1)
-                       & (b["y"] < g.gy1) & (b["z"] < g.gz1))
+                inside = [(b[c] >= lo[a]) & (b[c] < hi[a])
+                          for a, c in enumerate("xyz")]
+                own = inside[0] & inside[1] & inside[2]
                 # far-wall ownership on a local high-x face (misc.cxx:37-40)
-                if g.fbc[3] != PERIODIC_FIELDS:
-                    own |= ((b["x"] == g.gx1) & (b["y"] >= g.gy0)
-                            & (b["z"] >= g.gz0) & (b["y"] < g.gy1)
-                            & (b["z"] < g.gz1))
+                if sx == g.gpx - 1 and g.fbc[3] != PERIODIC_FIELDS:
+                    own |= (b["x"] == hi[0]) & inside[1] & inside[2]
                 if not own.any():
                     continue
-                dxv, ix = cellify(b["x"][own], g.gx0, g.gx1, g.nx)
-                dyv, iy = cellify(b["y"][own], g.gy0, g.gy1, g.ny)
-                dzv, iz = cellify(b["z"][own], g.gz0, g.gz1, g.nz)
+                dxv, ix = cellify(b["x"][own], lo[0], hi[0], g.nx)
+                dyv, iy = cellify(b["y"][own], lo[1], hi[1], g.ny)
+                dzv, iz = cellify(b["z"][own], lo[2], hi[2], g.nz)
                 cols["dx"].append(dxv.astype(np.float32))
                 cols["dy"].append(dyv.astype(np.float32))
                 cols["dz"].append(dzv.astype(np.float32))
@@ -472,19 +518,21 @@ class Simulation:
             interpolator=torch.zeros((g.nv, 18), dtype=torch.float32,
                                      device=dev),
             species=tuple(species),
-            grid_arrays=make_grid_arrays(g, device=dev),
+            grid_arrays=make_grid_arrays(g, shard, device=dev),
             materials=build_material_table(self.materials, g, dev),
             step=torch.tensor(0, dtype=torch.int32, device=dev),
-            rng=rnd.make_key(self.seed * 65537),
+            rng=rnd.make_key(self.seed * 65537
+                             + sx + g.gpx * (sy + g.gpy * sz)),
             boundary_state=tuple(h.init_state(len(self._species), dev)
                                  for h in self._boundary_handlers),
             material_grid=matg)
 
-    def _material_grid(self) -> Optional[MaterialGrid]:
-        """The id grids of the deck's regions (``vpic_tpu/deck/api.py``'s
-        ``_build_shard_state``): ``emat*``, ``nmat`` and ``fmat*`` over
-        their components' owned sublattices, ``cmat`` at the cell centres,
-        the ghost planes left at 0; None without a region."""
+    def _material_grid(self, shard, dev) -> Optional[MaterialGrid]:
+        """The id grids of the deck's regions on one shard
+        (``vpic_tpu/deck/api.py``'s ``_build_shard_state``): ``emat*``,
+        ``nmat`` and ``fmat*`` over their components' owned sublattices,
+        ``cmat`` at the cell centres, the ghost planes left at 0; None
+        without a region."""
         if not self._material_regions:
             return None
         g = self.grid
@@ -495,16 +543,17 @@ class Simulation:
             comp = comps[name]
             arr = np.zeros(g.shape, np.int32)
             if comp is None:
-                centres = [g0 + (np.arange(1, n + 1) - 0.5) * d
-                           for g0, n, d in ((g.gx0, g.nx, g.dx),
-                                            (g.gy0, g.ny, g.dy),
-                                            (g.gz0, g.nz, g.dz))]
+                centres = [g0 + (np.arange(1, n + 1) + s * n - 0.5) * d
+                           for g0, n, d, s in ((g.gx0, g.nx, g.dx, shard[0]),
+                                               (g.gy0, g.ny, g.dy, shard[1]),
+                                               (g.gz0, g.nz, g.dz,
+                                                shard[2]))]
                 Z, Y, X = np.meshgrid(centres[2], centres[1], centres[0],
                                       indexing="ij")
                 ix = (slice(1, g.nz + 1), slice(1, g.ny + 1),
                       slice(1, g.nx + 1))
             else:
-                X, Y, Z = self.component_coords(comp)
+                X, Y, Z = self.component_coords(comp, shard)
                 ix = tuple(own_slice(g, _KIND_OF[comp], a)
                            for a in (2, 1, 0))
             sub = np.zeros(arr[ix].shape, np.int32)
@@ -512,37 +561,43 @@ class Simulation:
                 inside = np.asarray(region_fn(X, Y, Z), bool)
                 sub = np.where(inside, np.int32(mid), sub)
             arr[ix] = sub
-            ids[name] = torch.as_tensor(arr, device=self.device)
+            ids[name] = torch.as_tensor(arr, device=dev)
         return MaterialGrid(**ids)
 
-    def finalize(self, **hooks):
+    def finalize(self, devices=None, **hooks):
         """Build the state and the step; ``hooks`` are the deck's
         ``user_particle_collisions``, ``user_particle_injection``,
         ``user_current_injection`` and ``user_field_injection`` sections
-        (``engine/step.py:make_advance``)."""
+        (``engine/step.py:make_advance``).  ``devices``: where the shards
+        go, shard r on ``devices[r % len(devices)]`` (default: the
+        simulation's device)."""
         g = self.grid
         if g is None:
             raise RuntimeError("define a grid first")
         if not self.materials:
             self.define_material("vacuum")
-        self.comm = LocalComm(g)
         self._hooks = hooks
         # each species' injected tags: nothing after finalize creates or
         # tags particles, so these bound its tagged lanes for good
         self._tagged = [sum(int(np.count_nonzero(b["tag"]))
                             for b in h["batches"]) for h in self._species]
+        self.mesh = dist.make_mesh(g, devices or [self.device])
+        self.comms = dist.make_comms(g, self.mesh)
         self._build_advance()
-        self.state = initialize_state(self._initial_state(), g, self.comm)
-        return self.state
+        self.states = dist.make_distributed_init(g, self.comms)(
+            [self._initial_state(s, d) for s, d in
+             zip(dist.shard_coords(g), self.mesh)])
+        return self.states
 
     def _build_advance(self):
         g = self.grid
         kw = dict(emitters=tuple(self._emitters),
                   boundary_handlers=tuple(self._boundary_handlers),
                   **self._hooks)
-        self._advance = make_advance(g, self.comm, self.opts, **kw)
+        self._advance = dist.make_distributed_advance(g, self.comms,
+                                                      self.opts, **kw)
         self._advance_packed = (
-            make_advance(g, self.comm, self.opts, packed=True, **kw)
+            make_advance(g, self.comms[0], self.opts, packed=True, **kw)
             if self._packed_ok() else None)
 
     def _packed_ok(self) -> bool:
@@ -551,6 +606,9 @@ class Simulation:
         meaning (the key0/ctot carry), and needs the fused push, untagged
         particles and a closed deck: no boundary rounds, emitters or deck
         hooks, so that nothing creates, kills or migrates particles."""
+        if self.grid.is_multishard:
+            # migration mutates lanes every step (vpic_tpu/deck/api.py:667)
+            return False
         paths = resolve_paths(self.grid, self.opts)
         closed = not (needs_boundary(
             self.grid, None, self._emitters, self._boundary_handlers,
@@ -572,29 +630,57 @@ class Simulation:
             self.num_step = int(kw.pop("num_step"))
         if not kw:
             return
-        if self._state is not None:
-            self.state = self.state
+        if self.comms:
+            self.states = self.states
         self.opts = dataclasses.replace(self.opts, **kw)
-        if self._state is not None:
+        if self.comms:
             self._build_advance()
 
-    # -- state: under the packed cycle the species live in a packed
-    # mirror between steps; the unpacked view is made when it is read -----
+    # -- state: one per shard, in rank order; under the packed cycle the
+    # species live in a packed mirror between steps and the unpacked view
+    # is made when it is read ---------------------------------------------
     @property
-    def state(self) -> Optional[SimState]:
+    def states(self) -> List[SimState]:
+        """The per-shard states in rank order (empty before finalize)."""
         if self._state_stale:
-            self._state = dataclasses.replace(
+            self._states = [dataclasses.replace(
                 self._pstate, species=tuple(
                     ppush.unpack_species(sp, self.grid)
-                    for sp in self._pstate.species))
+                    for sp in self._pstate.species))]
             self._state_stale = False
-        return self._state
+        return self._states
 
-    @state.setter
-    def state(self, value: Optional[SimState]):
-        self._state = value
+    @states.setter
+    def states(self, value):
+        self._states = list(value)
         self._pstate = None
         self._state_stale = False
+
+    def _one(self, items, what):
+        if len(items) > 1:
+            raise ValueError(f"a sharded deck has one {what} per shard: "
+                             f"read {what}s")
+        return items[0] if items else None
+
+    @property
+    def state(self) -> Optional[SimState]:
+        """The state of an unsharded deck (the JAX package's
+        ``sim.state``); None before finalize."""
+        return self._one(self.states, "state")
+
+    @state.setter
+    def state(self, value: SimState):
+        self.states = [value]
+
+    @property
+    def comm(self):
+        """The exchange of an unsharded deck (a one-shard ``ShardComm``)."""
+        return self._one(self.comms, "comm")
+
+    def _shard_states(self):
+        """(shard, rank, state) of every shard, in rank order."""
+        return zip(dist.shard_coords(self.grid), range(self.grid.n_shards),
+                   self.states)
 
     # -- stepping ----------------------------------------------------------
     def advance(self, n=1):
@@ -603,11 +689,11 @@ class Simulation:
         for _ in range(n):
             flags = step_sort_flags(self.step_count, g, self.opts, intervals)
             if self._advance_packed is None:
-                self.state = self._advance(self.state, flags,
-                                           self.step_count)
+                self.states = self._advance(self.states, flags,
+                                            self.step_count)
             else:
                 if self._pstate is None:
-                    st = self._state
+                    st = self._states[0]
                     self._pstate = dataclasses.replace(st, species=tuple(
                         ppush.pack_species(paux.sort_p(sp), g)
                         for sp in st.species))
@@ -615,28 +701,34 @@ class Simulation:
                                                     self.step_count)
                 self._state_stale = True
             self.step_count += 1
-        return self.state
+        return self.states
 
     # -- diagnostics -------------------------------------------------------
     def energies(self):
         """dump_energies values (dump.cxx:37-78): 6 field energies and the
         kinetic energy of each species, as Python floats."""
         g = self.grid
-        st = self.state
-        ef = stencil.finish_energy_f(
-            g, stencil.local_energy_f(st.field, g, st.materials,
-                                      st.material_grid))
+        ef, ep = 0.0, [0.0] * len(self._species)
+        # summed over the shards in rank order, in float64
+        for st in self.states:
+            ef = ef + stencil.local_energy_f(st.field, g, st.materials,
+                                             st.material_grid).cpu()
+            ep = [e + float(ppush.energy_p(sp, st.interpolator, g))
+                  for e, sp in zip(ep, st.species)]
         out = dict(zip(("ex", "ey", "ez", "bx", "by", "bz"),
-                       ef.cpu().tolist()))
-        for h, sp in zip(self._species, st.species):
-            e = float(ppush.energy_p(sp, st.interpolator, g))
+                       stencil.finish_energy_f(g, ef).tolist()))
+        for h, e in zip(self._species, ep):
             out[h["name"]] = e * (g.cvac * g.cvac / h["q_m"])
         return out
 
     def mover_counts(self):
         """Per-species cumulative dropped-mover counts (the reference's
         "Ignoring %i unprocessed movers", advance.cxx:98-103)."""
-        return {sp.name: int(sp.nm) for sp in self.state.species}
+        counts = {h["name"]: 0 for h in self._species}
+        for st in self.states:
+            for sp in st.species:
+                counts[sp.name] += int(sp.nm)
+        return counts
 
     def warn_dropped_movers(self, log=None):
         """Warn (advance.cxx:98-103) when a species dropped movers since
@@ -660,24 +752,26 @@ class Simulation:
         return counts
 
     def boundary_tallies(self, handler):
-        """A handler's state (given as the handler or its index) as numpy:
-        the tally counters of ``AbsorbTally``, the ring of
-        ``LinkBoundary``."""
+        """A handler's state (given as the handler or its index) as numpy,
+        summed over the shards (the reference's per-rank counters of
+        absorb_tally.c): the tally counters of ``AbsorbTally``, the ring
+        of ``LinkBoundary`` (read ``states[r].boundary_state`` for each
+        shard's ring)."""
         idx = (handler if isinstance(handler, int)
                else self._boundary_handlers.index(handler))
-        st = self.state.boundary_state[idx]
-        if isinstance(st, dict):
-            return {k: v.cpu().numpy() for k, v in st.items()}
-        return st.cpu().numpy()
+        per = [st.boundary_state[idx] for st in self.states]
+        if isinstance(per[0], dict):
+            return {k: sum(p[k].cpu().numpy() for p in per) for k in per[0]}
+        return sum(p.cpu().numpy() for p in per)
 
     def checksum_fields(self):
-        """SHA-1 of the full field state (output_checksum_fields,
-        misc.cxx:109-139)."""
-        return diagnostics.checksum_fields(self.state)
+        """SHA-1 of the full field state of every shard
+        (output_checksum_fields, misc.cxx:109-139)."""
+        return diagnostics.checksum_fields(self.states)
 
     def checksum_species(self, sp_name):
         return diagnostics.checksum_species(
-            self.state, self._species_by_name(sp_name)["sid"])
+            self.states, self._species_by_name(sp_name)["sid"])
 
     def time_phases(self, n_steps=3):
         """Seconds per call of each part of the step (the p/s/g/f/u_time
@@ -701,26 +795,32 @@ class Simulation:
             append)
 
     def dump_fields(self, fbase, ftag=True):
-        return iodump.dump_fields(self.state, self.grid, fbase,
-                                  self.step_count, ftag=ftag)
+        """One file per rank; returns their paths in rank order."""
+        g = self.grid
+        return [iodump.dump_fields(st, g, fbase, self.step_count, shard,
+                                   rank, g.n_shards, ftag)
+                for shard, rank, st in self._shard_states()]
 
     def dump_grid(self, fbase):
-        return iodump.dump_grid(self.state, self.grid, fbase)
+        g = self.grid
+        return [iodump.dump_grid(st, g, fbase, shard, rank, g.n_shards)
+                for shard, rank, st in self._shard_states()]
 
     def _hydro(self, sp_name):
-        """The (nv, 14) hydro moments of one species, cleared, accumulated
-        and synchronized (dump.cxx:224-265), on the state's device."""
-        g, st = self.grid, self.state
-        sp = st.species[self._species_by_name(sp_name)["sid"]]
-        h = sfhydro.clear_hydro(g, st.interpolator.device)
-        h = paux.accumulate_hydro_p(h, sp, st.interpolator, g)
-        return sfhydro.synchronize_hydro(h, g, self.comm)
+        """Each shard's (nv, 14) hydro moments of one species, cleared,
+        accumulated and synchronized (dump.cxx:224-265), the shared faces
+        merged across the shards (sf_interface.h:156-163), on the shard's
+        device."""
+        return dist.make_distributed_hydro(
+            self.grid, self.comms,
+            self._species_by_name(sp_name)["sid"])(self.states)
 
     def dump_hydro(self, sp_name, fbase, ftag=True):
-        h = self._species_by_name(sp_name)
-        return iodump.dump_hydro(self._hydro(sp_name), self.grid, fbase,
-                                 self.step_count, h["sid"], h["q_m"],
-                                 ftag=ftag)
+        g, h = self.grid, self._species_by_name(sp_name)
+        return [iodump.dump_hydro(one, g, fbase, self.step_count, h["sid"],
+                                  h["q_m"], shard, rank, g.n_shards, ftag)
+                for (shard, rank, _), one in zip(self._shard_states(),
+                                                 self._hydro(sp_name))]
 
     def dump_species(self, fname):
         """ASCII species listing (dump.cxx:82-101)."""
@@ -733,11 +833,11 @@ class Simulation:
 
     def dump_particles(self, sp_name, fbase, ftag=True):
         """Time-centered particle dump (dump.cxx:267-325)."""
-        st = self.state
-        sp = st.species[self._species_by_name(sp_name)["sid"]]
-        return iodump.dump_particles(
-            ppush.center_p(sp, st.interpolator, self.grid), self.grid,
-            fbase, self.step_count, ftag=ftag)
+        g, sid = self.grid, self._species_by_name(sp_name)["sid"]
+        return [iodump.dump_particles(
+            ppush.center_p(st.species[sid], st.interpolator, g), g, fbase,
+            self.step_count, shard, rank, g.n_shards, ftag)
+            for shard, rank, st in self._shard_states()]
 
     # -- tracers (the pdlfs tracer deck library, trecon-part/tracer.cxx) --
     def make_tracers(self, src_species, name, stride=1, max_np=None,
@@ -771,15 +871,25 @@ class Simulation:
             self._traj = iotracers.TrajectoryAccumulator()
         if not any(self._tagged):
             return
-        st = self.state
+        g = self.grid
         for h, cap in zip(self._species, self._tagged):
             if not cap:
                 continue
-            sp = st.species[h["sid"]]
-            rec = iotracers.collect_records(
-                dict(tag=sp.tag, alive=sp.alive, dx=sp.dx, dy=sp.dy,
-                     dz=sp.dz, i=sp.i, ux=sp.ux, uy=sp.uy, uz=sp.uz),
-                self.step_count, self.grid.dt, capacity=cap)
+            recs = []
+            for shard, _, st in self._shard_states():
+                sp = st.species[h["sid"]]
+                rec = iotracers.collect_records(
+                    dict(tag=sp.tag, alive=sp.alive, dx=sp.dx, dy=sp.dy,
+                         dz=sp.dz, i=sp.i, ux=sp.ux, uy=sp.uy, uz=sp.uz),
+                    self.step_count, g.dt, capacity=cap)
+                if rec.shape[0]:
+                    # voxels on the global ghosted grid, so that one origin
+                    # decodes every shard's records (exact below 2^24; the
+                    # same voxels on one shard)
+                    rec[:, 4] = iotracers.globalize_voxels(
+                        g, rec[:, 4].astype(np.int64), shard)
+                recs.append(rec)
+            rec = np.concatenate(recs, axis=0)
             if rec.shape[0]:
                 self._traj.add(h["name"], rec)
 
@@ -813,14 +923,17 @@ class Simulation:
         """In-deck KE diagnostics (energy.cxx:1-201): the per-cell
         energy-band distribution and the global log-KE spectrum."""
         h = self._species_by_name(sp_name)
-        sp = self.state.species[h["sid"]]
-        alive = sp.alive
-        dist = ed.energy_band_dist(self.grid, sp.ux, sp.uy, sp.uz, sp.i,
-                                   alive, nex, emax, vth)
-        edist = ed.energy_spectrum(sp.ux, sp.uy, sp.uz, alive, vth,
-                                   nbin=nbin)
-        return [ed.dump_energy_diag(dirname, self.step_count, h["name"], 0,
-                                    dist, edist)]
+        out = []
+        for _, rank, st in self._shard_states():
+            sp = st.species[h["sid"]]
+            alive = sp.alive
+            band = ed.energy_band_dist(self.grid, sp.ux, sp.uy, sp.uz, sp.i,
+                                       alive, nex, emax, vth)
+            edist = ed.energy_spectrum(sp.ux, sp.uy, sp.uz, alive, vth,
+                                       nbin=nbin)
+            out.append(ed.dump_energy_diag(dirname, self.step_count,
+                                           h["name"], rank, band, edist))
+        return out
 
     def standard_diagnostics(self, outdir=".", *, energies_interval=50,
                              fields_interval=0, hydro_interval=None,
@@ -866,8 +979,11 @@ class Simulation:
             if energies_interval and s % energies_interval == 0:
                 self.dump_energies(f"{out}/rundata/energies", append=s != 0)
             if fields_interval and (s == 1 or s % fields_interval == 0):
-                banded.field_dump(self.state, self.grid,
-                                  f"{out}/fields/fields.{s}.0", fdp, s)
+                g = self.grid
+                for shard, rank, st in self._shard_states():
+                    banded.field_dump(st, g, f"{out}/fields/fields.{s}."
+                                      f"{rank}", fdp, s, shard, rank,
+                                      g.n_shards)
             if hydro_interval and s % hydro_interval == 0:
                 for name in hydro_species:
                     self.dump_hydro(name, f"{out}/hydro/{name}hydro")
@@ -876,9 +992,9 @@ class Simulation:
                     self.dump_particles(name,
                                         f"{out}/particle/{name}particle")
             if restart_interval and s and s % restart_interval == 0:
-                rot.save(self.state, self.grid, self._checkpoint_meta())
+                rot.save(self.states, self.grid, self._checkpoint_meta())
             if rot.over_quota():
-                rot.save(self.state, self.grid, self._checkpoint_meta())
+                rot.save(self.states, self.grid, self._checkpoint_meta())
                 return False
             return True
 
@@ -896,7 +1012,7 @@ class Simulation:
         dump_restart, dump.cxx:333-556), and the accumulated tracer
         trajectories beside it in ``<path>.traj.npz``, so that they survive
         a quota kill (dump_tracer_restart, tracer.cxx:199-253)."""
-        out = ckpt.save_checkpoint(path, self.state, self.grid,
+        out = ckpt.save_checkpoint(path, self.states, self.grid,
                                    self._checkpoint_meta(extra))
         if self._traj is not None:
             self._traj.save_npz(str(path) + ".traj.npz")
@@ -907,11 +1023,10 @@ class Simulation:
         identically configured simulation, on its device, with its tracer
         trajectories where it has them."""
         meta = ckpt.load_meta(path)
-        state = ckpt.load_checkpoint(path, self.state, self.device)
-        self.state = state
-        self.step_count = int(meta["extra"].get("step_count",
-                                                int(state.step)))
+        self.states = ckpt.load_checkpoint(path, self.states, self.mesh)
+        self.step_count = int(meta["extra"].get(
+            "step_count", int(self.states[0].step)))
         tr = str(path) + ".traj.npz"
         if os.path.exists(tr):
             self._traj = iotracers.TrajectoryAccumulator.load_npz(tr)
-        return self.state
+        return self.states

@@ -21,7 +21,12 @@ does.
 
 Every argument is an array (numpy or a tensor) of one common length K, or
 a scalar; ``valid`` masks lanes off (a masked lane costs a zombie slot
-that the next sort reclaims).
+that the next sort reclaims).  On a sharded deck every shard calls the
+hook with the same global coordinates and keeps the lanes it owns: the
+step binds its shard's comm around the hook (``comm.facecomm.bound``)
+and the injector takes its shard's box from it, as the JAX package's
+takes it from ``lax.axis_index``; called anywhere else on a sharded grid
+it raises.
 """
 
 from __future__ import annotations
@@ -31,7 +36,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..comm import facecomm
 from ..core.types import PERIODIC_FIELDS, Grid
+from ..grid.partition import shard_origin
 from ..particles.aux import accumulate_rhob
 from ..particles.boundary import claim_block, scatter_into
 from ..particles.push import PC_EXHAUSTED
@@ -78,18 +85,31 @@ class Injector:
         ok = (torch.ones((K,), dtype=torch.bool, device=dev)
               if valid is None else arr(valid, torch.bool))
 
-        # ownership: inside, or on the high wall where that face is a local
-        # boundary (the far-wall rule, misc.cxx:38-40)
-        def own(c, c0, c1, hi_bc):
-            inside = (c >= c0) & (c < c1)
-            return inside | ((c == c1) & (hi_bc != PERIODIC_FIELDS))
+        # this shard's box (partition_periodic_box's layout)
+        comm = facecomm.current()
+        if comm is None and g.is_multishard:
+            raise RuntimeError("on a sharded grid the injector runs inside "
+                               "the step's user_particle_injection hook, "
+                               "which gives it its shard")
+        shard = (0, 0, 0) if comm is None else comm.shard
+        shards = (g.gpx, g.gpy, g.gpz)
+        lo = shard_origin(g, shard)
+        hi = tuple(o + (b - a) / p for o, a, b, p in zip(
+            lo, (g.gx0, g.gy0, g.gz0), (g.gx1, g.gy1, g.gz1), shards))
 
-        ok = (ok & own(x, g.gx0, g.gx1, g.fbc[3])
-              & own(y, g.gy0, g.gy1, g.fbc[4])
-              & own(z, g.gz0, g.gz1, g.fbc[5]))
-        dx, ix = _cellify(x, g.gx0, g.gx1, g.nx)
-        dy, iy = _cellify(y, g.gy0, g.gy1, g.ny)
-        dz, iz = _cellify(z, g.gz0, g.gz1, g.nz)
+        # ownership: inside, or on the high wall where that face is a local
+        # boundary (the far-wall rule, misc.cxx:38-40), on the last shard
+        # of the axis
+        def own(a, c):
+            inside = (c >= lo[a]) & (c < hi[a])
+            far = (shard[a] == shards[a] - 1
+                   and g.fbc[3 + a] != PERIODIC_FIELDS)
+            return inside | ((c == hi[a]) & far)
+
+        ok = ok & own(0, x) & own(1, y) & own(2, z)
+        dx, ix = _cellify(x, lo[0], hi[0], g.nx)
+        dy, iy = _cellify(y, lo[1], hi[1], g.ny)
+        dz, iz = _cellify(z, lo[2], hi[2], g.nz)
         vox = ix + g.nxg * (iy + g.nyg * iz)
 
         # the static slot block at np; masked-off lanes become zombies,

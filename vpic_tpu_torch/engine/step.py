@@ -1,5 +1,5 @@
-"""The time step of the single-device configuration
-(``vpic_tpu/engine/step.py``; vpic_simulation::advance, advance.cxx:13-244):
+"""The time step of one shard (``vpic_tpu/engine/step.py``;
+vpic_simulation::advance, advance.cxx:13-244):
 
   sort (cadence below) -> user particle collisions -> advance_p per
   species -> emitters -> user particle injection -> boundary rounds x
@@ -24,8 +24,12 @@ Particle faces may be periodic, reflecting, absorbing or custom
 (``boundary/models.py``).  Absorbing and custom faces, emitters and the
 injection hook need the boundary rounds (``particles/boundary.py``),
 whose walks run on the kernel's walk_only entry; the packed cycle refuses
-them and the collision hook, as the JAX package's does.  Migration
-between devices is not ported: :func:`make_advance` raises for ``pcomm``.
+them and the collision hook, as the JAX package's does.  On a sharded
+grid every shard runs this step in its own thread
+(``engine/distributed.py``) with its ``ShardComm`` as ``comm`` and
+``pcomm``: the field exchanges and the sums go through it, and ``pcomm``
+turns the boundary rounds on, which carry the lanes that cross to
+another shard.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.profiler import record_function
 
+from ..comm import facecomm
 from ..core import random as rnd
 from ..core.types import (FIELD_COMPONENTS, FieldState, Grid,
                           NEIGHBOR_REFLECT, PackedSpecies, PERIODIC_FIELDS,
@@ -67,6 +72,10 @@ class StepOptions:
     num_comm_round: int = 3
     # capacity of a round's pending buffer (the particle injector)
     max_inj: int = 16384
+    # lanes sent per face per round between shards (None: the buffer's
+    # capacity); the rest are retried in the next round
+    # (boundary_p.c:341-385)
+    mig_cap: Optional[int] = None
     # div-E clean, div-B clean and shared-face sync on the steps that are
     # multiples of these (0: never)
     clean_div_e_interval: int = 0
@@ -223,8 +232,8 @@ def _injection(hook):
 def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  pcomm=None, emitters=(), boundary_handlers=(),
                  packed: bool = False, **hooks):
-    """The advance function ``(state, do_sort, step) -> state`` of a
-    single-device configuration; ``do_sort`` holds one flag per species
+    """The advance function ``(state, do_sort, step) -> state`` of one
+    shard (``pcomm``: its ``ShardComm`` on a sharded grid); ``do_sort`` holds one flag per species
     (:func:`step_sort_flags`) and ``step`` is the host's count of the
     state's step, which sets the interval cleans (the step is never read
     from the device).  ``packed``: the species are ``PackedSpecies``,
@@ -238,8 +247,6 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
     unknown = sorted(set(hooks) - set(HOOKS))
     if unknown:
         raise TypeError(f"unknown deck hooks {unknown}")
-    if pcomm is not None:
-        raise NotImplementedError("migration between devices is not ported")
     collide = hooks.get("user_particle_collisions")
     inject = hooks.get("user_particle_injection")
     inject_j = hooks.get("user_current_injection")
@@ -272,8 +279,9 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                                    count_pending=not boundary)
 
     # the columns that the emitters, the injector and the rounds write in
-    # place; the injector may write the tags too
-    written = pboundary.WRITTEN + (("tag",) if inject is not None else ())
+    # place; the injector and lanes from another shard write the tags too
+    written = pboundary.WRITTEN + (
+        ("tag",) if inject is not None or pcomm is not None else ())
 
     def rounds(state: SimState, f, acc, nb):
         """num_comm_round boundary rounds over every species, then the
@@ -287,10 +295,10 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         for r in range(opts.num_comm_round if species else 0):
             for k, sp in enumerate(species):
                 species[k], f, acc, bstate = pboundary.process_boundary(
-                    sp, f, acc, nb, g, None, opts.max_inj, n_walk,
+                    sp, f, acc, nb, g, pcomm, opts.max_inj, n_walk,
                     handlers=boundary_handlers, bstate=bstate,
                     key=rnd.fold(key, r * len(species) + k),
-                    step=state.step)
+                    step=state.step, mig_cap=opts.mig_cap)
         species = tuple(pboundary.finish_boundary(sp) for sp in species)
         return dataclasses.replace(state, species=species, rng=rng,
                                    boundary_state=bstate), f, acc
@@ -331,7 +339,9 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                 for emitter in emitters:
                     state, acc, f = emitter(state, acc, f)
                 if inject is not None:
-                    state, acc, f = inject(state, acc, f)
+                    # the injector finds its shard's box through the comm
+                    with facecomm.bound(pcomm):
+                        state, acc, f = inject(state, acc, f)
         if boundary:
             with record_function(PHASES[5]):
                 state, f, acc = rounds(state, f, acc, nb)

@@ -1,14 +1,15 @@
-"""Ghost fills and local boundary adjusts of the Yee mesh on one device
+"""Ghost fills and local boundary adjusts of the Yee mesh
 (``vpic_tpu/field/ghost.py``; reference local.c:50-445 and
 remote.c:61-297).
 
-A periodic face receives the opposite face's mirror plane through
-:class:`~vpic_tpu_torch.comm.facecomm.LocalComm`; every other face is a
-local face (PEC/anti-symmetric, symmetric, PMC or the absorbing Higdon
-face), whose ghost plane and adjusts are computed here.  On one device
-the JAX package's blend of the two (``_blend``, ``_apply_local_mask``)
-reduces to: an unjoined face takes the local value.  ``REMOTE_FIELDS``
-faces and several shards raise NotImplementedError.
+Each face takes either the plane its neighbor sends through the comm's
+exchange (a periodic face, or a face between two shards) or its local
+boundary value (PEC/anti-symmetric, symmetric, PMC or the absorbing
+Higdon face).  On a sharded non-periodic axis every shard receives the
+wrapped plane and only the outermost shards' outer faces take the local
+value, as ``comm.is_global_boundary(face)`` says (the JAX package's
+``_blend`` and ``_apply_local_mask``, whose traced mask is a plain bool
+per shard here).  The local adjusts touch only those faces.
 """
 
 from __future__ import annotations
@@ -24,7 +25,6 @@ from ..core.types import (
     Grid,
     PERIODIC_FIELDS,
     PMC_FIELDS,
-    REMOTE_FIELDS,
     SYMMETRIC_FIELDS,
 )
 from .slabs import own_slice
@@ -39,14 +39,18 @@ _LOCAL = (ANTI_SYMMETRIC_FIELDS, SYMMETRIC_FIELDS, PMC_FIELDS, ABSORB_FIELDS)
 
 
 def check_faces(g: Grid) -> None:
-    """Raise for the field faces one device cannot hold."""
-    if (g.gpx, g.gpy, g.gpz) != (1, 1, 1) or REMOTE_FIELDS in g.fbc:
-        raise NotImplementedError(
-            f"field boundary codes {g.fbc} on {(g.gpx, g.gpy, g.gpz)} "
-            "shards: several shards are not ported")
+    """Raise for a field boundary code that is not a global face's."""
     bad = [b for b in g.fbc if b != PERIODIC_FIELDS and b not in _LOCAL]
     if bad:
         raise ValueError(f"bad field boundary codes {bad}")
+
+
+def _is_local(comm, g: Grid, face: int, recv) -> bool:
+    """Whether ``face`` takes its local boundary value: nothing was
+    received there, or it is a non-periodic face on the global boundary
+    (``vpic_tpu/field/ghost.py:_blend``)."""
+    return recv is None or (g.fbc[face] != PERIODIC_FIELDS
+                            and comm.is_global_boundary(face))
 
 
 def _kp_ix(g: Grid, kind: str, axis: int, idx: int, shift=(0, 0, 0)):
@@ -98,10 +102,11 @@ def ghost_tang_b(f: FieldState, g: Grid, comm) -> FieldState:
     for face in range(6):
         X, (Y, Z), lo, gi, mi, fi = _face_geom(g, face)
         bc = g.fbc[face]
+        local = _is_local(comm, g, face, recv[face])
         for k, (T, other) in enumerate(((Y, Z), (Z, Y))):
             kind = "face_" + "xyz"[T]
             cb = out[_CB[T]]
-            if bc == PERIODIC_FIELDS:
+            if not local:
                 val = recv[face][k]
             elif bc == ANTI_SYMMETRIC_FIELDS:
                 val = cb[_kp_ix(g, kind, X, mi)].clone()
@@ -158,7 +163,8 @@ def ghost_norm_e(f: FieldState, g: Grid, comm) -> FieldState:
         bc = g.fbc[face]
         e, tca = out[_E[X]], out[_TCA[X]]
         gix = _kp_ix(g, kind, X, gi)
-        if bc == PERIODIC_FIELDS:
+        if not _is_local(comm, g, face, recv[face]):
+            # the remote path exchanges E only (remote.c:136-206)
             e[gix] = recv[face]
             continue
         e_m, tca_m = e[_kp_ix(g, kind, X, mi)], tca[_kp_ix(g, kind, X, mi)]
@@ -190,7 +196,7 @@ def ghost_div_b(f: FieldState, g: Grid, comm) -> FieldState:
         bc = g.fbc[face]
         gix = _kp_ix(g, "cell", X, gi)
         mirror = dbe[_kp_ix(g, "cell", X, mi)]
-        if bc == PERIODIC_FIELDS:
+        if not _is_local(comm, g, face, recv[face]):
             dbe[gix] = recv[face]
         elif bc == ANTI_SYMMETRIC_FIELDS:
             dbe[gix] = mirror.clone()
@@ -207,15 +213,15 @@ def ghost_div_b(f: FieldState, g: Grid, comm) -> FieldState:
 # ---------------------------------------------------------------------------
 
 
-def _adjust(f: FieldState, g: Grid, plane, rule) -> FieldState:
-    """For each face in turn, ``rule(bc)`` gives None (leave the face) or
-    a function of the face plane; ``plane(face)`` gives, per component it
-    sets, (kind, axis, index) of the plane."""
+def _adjust(f: FieldState, g: Grid, comm, plane, rule) -> FieldState:
+    """For each face on the global boundary in turn, ``rule(bc)`` gives
+    None (leave the face) or a function of the face plane; ``plane(face)``
+    gives, per component it sets, (kind, axis, index) of the plane."""
     check_faces(g)
     out = {}
     for face in range(6):
         fn = rule(g.fbc[face])
-        if fn is None:
+        if fn is None or not comm.is_global_boundary(face):
             continue
         for c, (kind, X, idx) in plane(face).items():
             if c not in out:
@@ -264,7 +270,7 @@ def _node_plane(g: Grid, name: str):
 
 
 def adjust_tang_e(f: FieldState, g: Grid, comm) -> FieldState:
-    return _adjust(f, g, _tang_plane(g, (_E, _TCA)),
+    return _adjust(f, g, comm, _tang_plane(g, (_E, _TCA)),
                    _only(ANTI_SYMMETRIC_FIELDS))
 
 
@@ -272,22 +278,22 @@ def adjust_norm_b(f: FieldState, g: Grid, comm) -> FieldState:
     def plane(face):
         X, _, _, _, _, fi = _face_geom(g, face)
         return {_CB[X]: ("face_" + "xyz"[X], X, fi)}
-    return _adjust(f, g, plane, _only(SYMMETRIC_FIELDS))
+    return _adjust(f, g, comm, plane, _only(SYMMETRIC_FIELDS))
 
 
 def adjust_div_e_err(f: FieldState, g: Grid, comm) -> FieldState:
-    return _adjust(f, g, _node_plane(g, "div_e_err"),
+    return _adjust(f, g, comm, _node_plane(g, "div_e_err"),
                    _only(ANTI_SYMMETRIC_FIELDS, ABSORB_FIELDS))
 
 
 def adjust_jf(f: FieldState, g: Grid, comm) -> FieldState:
-    return _adjust(f, g, _tang_plane(g, (_JF,)), _zero_or_double)
+    return _adjust(f, g, comm, _tang_plane(g, (_JF,)), _zero_or_double)
 
 
 def adjust_rhof(f: FieldState, g: Grid, comm) -> FieldState:
-    return _adjust(f, g, _node_plane(g, "rhof"), _zero_or_double)
+    return _adjust(f, g, comm, _node_plane(g, "rhof"), _zero_or_double)
 
 
 def adjust_rhob(f: FieldState, g: Grid, comm) -> FieldState:
-    return _adjust(f, g, _node_plane(g, "rhob"),
+    return _adjust(f, g, comm, _node_plane(g, "rhob"),
                    _only(ANTI_SYMMETRIC_FIELDS))

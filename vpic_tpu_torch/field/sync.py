@@ -1,8 +1,9 @@
-"""Shared-face synchronization, periodic faces (``vpic_tpu/field/sync.py``;
-reference remote.c:298-622).
+"""Shared-face synchronization (``vpic_tpu/field/sync.py``; reference
+remote.c:298-622) of periodic faces and of the faces between shards.
 
 Three sequential axis passes (x, y, z) merge edge and corner values
-transitively.  With uniform spacing the reference's weights reduce to:
+transitively.  A face on the global boundary of a non-periodic axis keeps
+its own values (the JAX package's mask).  With uniform spacing the reference's weights reduce to:
 jf and rhof summed, rhob averaged, tangential E and normal B averaged.
 """
 
@@ -12,7 +13,7 @@ import torch
 
 from ..core.types import FieldState, Grid
 from . import ghost
-from .ghost import _CB, _E, _JF, _TCA, CYC, _face_geom, _kp_ix
+from .ghost import _CB, _E, _JF, _TCA, CYC, _face_geom, _is_local, _kp_ix
 
 
 def _merge_pass(arrays: dict, g: Grid, comm, axis: int, specs):
@@ -30,7 +31,7 @@ def _merge_pass(arrays: dict, g: Grid, comm, axis: int, specs):
 
     err = 0.0
     for face in faces:
-        if recv[face] is None:
+        if _is_local(comm, g, face, recv[face]):
             continue
         X, _, _, _, _, fi = _face_geom(g, face)
         for k, (key, kind, combine) in enumerate(specs):

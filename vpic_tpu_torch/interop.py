@@ -14,6 +14,13 @@ state, ``boundary_state/<h>`` (an array) or ``boundary_state/<h>/<key>``
 (a dict of arrays); and ``rng``, the port's random state (the JAX
 package's ``jax.random`` key has no counterpart and is not carried: a
 state loaded from it takes the ``rng`` given to :func:`state_from_numpy`).
+
+Several shards: the JAX package stacks them into one state whose every
+leaf has leading ``(gpz, gpy, gpx)`` axes (``distributed.stack_shards``);
+the port holds a list in rank order.  :func:`states_to_numpy` and
+:func:`states_from_numpy` go between the list and the stacked dict, whose
+species' ``name``, ``sid``, ``max_np`` and ``sort_interval`` are not
+stacked (``q_m`` is, as it is a leaf of the JAX package's state).
 """
 
 from __future__ import annotations
@@ -115,3 +122,46 @@ def state_from_numpy(d: dict, device="cpu", rng=None) -> SimState:
         material_grid=(MaterialGrid(**{k: t(d[f"material_grid/{k}"])
                                        for k in MATERIAL_ID_FIELDS})
                        if "material_grid/ematx" in d else None))
+
+
+def _static(key: str) -> bool:
+    return key.startswith("species/") and key.rsplit("/", 1)[1] in _STATIC
+
+
+def stack_numpy(dicts: list, shards: tuple) -> dict:
+    """Per-shard dicts in rank order -> one dict whose arrays carry the
+    leading ``shards`` = (gpz, gpy, gpx) axes; one shard's dict as it is
+    (the JAX package stacks only the states of a mesh)."""
+    if len(dicts) == 1:
+        return dicts[0]
+    return {k: v if _static(k) else
+            np.stack([d[k] for d in dicts]).reshape(shards + np.shape(v))
+            for k, v in dicts[0].items()}
+
+
+def unstack_numpy(d: dict, n: int) -> list:
+    """:func:`stack_numpy`'s inverse for ``n`` shards."""
+    if n == 1:
+        return [d]
+    flat = {k: v if _static(k) else
+            np.asarray(v).reshape((n,) + np.shape(v)[3:])
+            for k, v in d.items()}
+    return [{k: v if _static(k) else v[r] for k, v in flat.items()}
+            for r in range(n)]
+
+
+def states_to_numpy(states, shards: tuple) -> dict:
+    """The stacked dict of per-shard states (the port's list in rank
+    order, or a stacked JAX state as it is)."""
+    if not isinstance(states, (list, tuple)):
+        return state_to_numpy(states)
+    return stack_numpy([state_to_numpy(st) for st in states], shards)
+
+
+def states_from_numpy(d: dict, n: int, devices, rngs=None) -> list:
+    """The port's per-shard states (rank order) from a stacked dict, shard
+    r on ``devices[r % len(devices)]``; ``rngs``: each shard's random
+    state where ``d`` holds none (a state of the JAX package)."""
+    return [state_from_numpy(one, devices[r % len(devices)],
+                             None if rngs is None else rngs[r])
+            for r, one in enumerate(unstack_numpy(d, n))]

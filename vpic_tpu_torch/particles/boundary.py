@@ -1,26 +1,29 @@
-"""Boundary rounds: absorption, custom handlers and the continuation of
-unfinished streak walks (``vpic_tpu/particles/boundary.py``; the
-reference's guard-list drain, boundary_p.c:77-505).
+"""Boundary rounds: absorption, custom handlers, migration between shards
+and the continuation of unfinished streak walks
+(``vpic_tpu/particles/boundary.py``; the reference's guard-list drain,
+boundary_p.c:77-505).
 
 Each species carries per-lane boundary codes (``pc``).  A round compacts
 every pending lane (``pc != 0``) into one buffer of fixed capacity
 ``max_inj`` (the particle_injector_t analogue, species_advance.h:48-55),
-deposits absorbed lanes into rhob, runs the custom handlers, walks the
-lanes left ``PC_EXHAUSTED`` (the push kernel's ``walk_only`` entry on the
-card, ``push.streak_walk`` on the CPU) and scatters the buffer back.
+deposits absorbed lanes into rhob, runs the custom handlers, sends the
+lanes that left through a face between shards to the neighbor shard (one
+payload of 12 words per lane per face of a sharded axis, at most
+``mig_cap`` lanes; the rest keep their code and go in a later round), walks the lanes left
+``PC_EXHAUSTED`` together with the lanes received (the push kernel's
+``walk_only`` entry on the card, ``push.streak_walk`` on the CPU),
+scatters the buffer back and appends the received lanes at ``np``.
 Dead lanes are tombstoned with ``i = -1`` and reclaimed by the next
 ``aux.sort_p``.  Nothing reads the host: a round costs the same whether
 or not anything is pending, as in the JAX package.
-
-Migration between devices (the JAX package's steps 2 and 5) belongs to
-the multi-device configuration, which the port does not have.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..core.types import FieldState, Grid, NEIGHBOR_ABSORB, SpeciesState
+from ..core.types import (FACE_AXIS, FieldState, Grid, NEIGHBOR_ABSORB,
+                          NEIGHBOR_MIGRATE_BASE, SpeciesState)
 from . import push_cuda
 from .aux import accumulate_rhob
 from .push import PC_EXHAUSTED, WalkState, compact_indices
@@ -30,7 +33,11 @@ from .push import PC_EXHAUSTED, WalkState, compact_indices
 _COLUMNS = dict(dx="dx", dy="dy", dz="dz", vox="i", ux="ux", uy="uy",
                 uz="uz", q="q", mdx="mdx", mdy="mdy", mdz="mdz", pc="pc")
 # the species columns that the rounds, the emitters and the injector write
+# (and the tags, where lanes arrive from another shard or the injector)
 WRITTEN = tuple(_COLUMNS.values())
+# a migration payload's rows; tag and vox ride as float32 bit patterns
+_PAYLOAD = ("dx", "dy", "dz", "ux", "uy", "uz", "q", "mdx", "mdy", "mdz",
+            "tag", "vox")
 
 
 def scatter_into(col, idx, valid, vals):
@@ -84,15 +91,17 @@ def claim_block(sp: SpeciesState, wanted):
             sp.replace(np=sp.np + top, nm=sp.nm + lost))
 
 
-def pending_buffer(sp: SpeciesState, max_inj: int):
+def pending_buffer(sp: SpeciesState, max_inj: int, tags: bool = False):
     """Compact every pending lane (alive, ``pc != 0``) of ``sp`` into one
     buffer of ``min(max_inj, max_np)`` lanes.  Returns (sel, valid, b):
     the species slot of each buffer lane, which lanes hold one, and the
-    buffer's columns (``_COLUMNS``; empty lanes carry q = 0, pc = 0)."""
+    buffer's columns (``_COLUMNS``, and ``tag`` where ``tags``; empty
+    lanes carry q = 0, pc = 0)."""
     sel, _, valid = compact_indices(sp.alive & (sp.pc != 0),
                                     min(max_inj, sp.max_np), sp.max_np)
     safe = torch.where(valid, sel, 0)
-    b = {k: getattr(sp, c)[safe] for k, c in _COLUMNS.items()}
+    cols = dict(_COLUMNS, tag="tag") if tags else _COLUMNS
+    b = {k: getattr(sp, c)[safe] for k, c in cols.items()}
     b["q"] = torch.where(valid, b["q"], 0.0)
     b["pc"] = torch.where(valid, b["pc"], 0)
     return sel, valid, b
@@ -105,8 +114,11 @@ def resolve_buffer(b, valid, f: FieldState, g: Grid, sid: int, handlers=(),
     addresses (with its own key under ``key``).  Returns (b, live, f,
     bstate)."""
     absorbed = b["pc"] == NEIGHBOR_ABSORB
-    f = accumulate_rhob(f, g, b["vox"], b["q"], b["dx"], b["dy"], b["dz"],
-                        absorbed)
+    if NEIGHBOR_ABSORB in g.pbc:
+        # (no lane can carry the code where no face absorbs: the deposit
+        # would add zeros)
+        f = accumulate_rhob(f, g, b["vox"], b["q"], b["dx"], b["dy"],
+                            b["dz"], absorbed)
     live = valid & ~absorbed
     if handlers:
         from ..boundary.models import decode_handler
@@ -136,29 +148,153 @@ def buffer_walk_state(b, live):
     return st, walkable
 
 
+def migration_faces(g: Grid) -> tuple:
+    """The faces through which a lane can leave for another shard: both
+    faces of every sharded axis (the neighbor table gives migrate codes
+    nowhere else)."""
+    shards = (g.gpx, g.gpy, g.gpz)
+    return tuple(f for f in range(6) if shards[FACE_AXIS[f]] > 1)
+
+
+def remap_voxel_through_face(g: Grid, vox, face):
+    """The voxel on the destination shard of a lane that left through
+    ``face`` (an int, or a tensor of faces): the same transverse cell, the
+    axis coordinate at the entering edge (cell 1 after a high face, cell
+    n after a low one; every shard has the same local dims)
+    (``vpic_tpu/particles/boundary.py:_remap_voxel_through_face``)."""
+    face = torch.as_tensor(face, device=vox.device)
+    axis = face % 3
+    pick = lambda x, y, z: torch.where(axis == 0, x,
+                                       torch.where(axis == 1, y, z))
+    stride = pick(1, g.nxg, g.nxg * g.nyg)
+    c = (vox // stride) % pick(g.nxg, g.nyg, g.nzg)
+    return (vox + (torch.where(face >= 3, 1, pick(g.nx, g.ny, g.nz)) - c)
+            * stride).to(vox.dtype)
+
+
+_SLOTS: dict = {}
+
+
+def _face_slots(faces, device):
+    """(6,) int64: each face's payload slot among ``faces``, len(faces)
+    for the others; and arange(len(faces)); made once per device."""
+    key = (faces, torch.device(device))
+    if key not in _SLOTS:
+        slot = [faces.index(f) if f in faces else len(faces)
+                for f in range(6)]
+        _SLOTS[key] = (torch.tensor(slot, device=device),
+                       torch.arange(len(faces), device=device))
+    return _SLOTS[key]
+
+
+def migration_payloads(b, live, g: Grid, kcap: int):
+    """Step 2 of a round: per face of a sharded axis, the (kcap, 12)
+    float32 payload of the first ``kcap`` live lanes whose code says they
+    left through it (columns ``_PAYLOAD``: the position mirrored on the
+    face's axis, leaving at +1 enters at -1, and the destination voxel;
+    rows past the face's lanes hold zeros and voxel -1, so that nothing
+    unset reaches a dead slot), and which buffer lanes went
+    (the others keep their code and are retried in the next round).  All
+    faces at once: one table of payloads, written by one row scatter."""
+    faces = migration_faces(g)
+    slot_of, slots = _face_slots(faces, live.device)
+    face = NEIGHBOR_MIGRATE_BASE - b["pc"]
+    mig = live & (face >= 0) & (face < 6)
+    fs = slot_of[face.clamp(0, 5).long()]
+    # each lane's rank among the lanes that leave through its face: a
+    # running count along the lanes of each face's row (the inner axis,
+    # which the card scans fast)
+    mine = mig[None, :] & (fs[None, :] == slots[:, None])
+    rank = torch.cumsum(mine.to(torch.int32), 1, dtype=torch.int32).gather(
+        0, fs.clamp(max=len(faces) - 1)[None, :])[0] - 1
+    sent = mig & (rank < kcap)
+    dest = torch.where(sent, fs * kcap + rank, len(faces) * kcap)
+    axis = face % 3
+    pos = [torch.where(axis == a, -b[k], b[k])
+           for a, k in enumerate(("dx", "dy", "dz"))]
+    vox = remap_voxel_through_face(g, b["vox"], face)
+    rows = torch.stack(pos + [b[k] for k in _PAYLOAD[3:10]]
+                       + [b["tag"].view(torch.float32),
+                          vox.view(torch.float32)], 1)
+    table = torch.zeros((len(faces) * kcap + 1, len(_PAYLOAD)),
+                        dtype=torch.float32, device=live.device)
+    table[:, 11] = torch.tensor(-1, dtype=torch.int32).view(torch.float32)
+    table.index_copy_(0, dest, rows)
+    return {f: table[k * kcap:(k + 1) * kcap]
+            for k, f in enumerate(faces)}, sent
+
+
+def received_lanes(recv: dict):
+    """Step 5's input: the lanes of every received payload (faces in
+    order), compacted to a prefix.  Returns (columns, valid)."""
+    rows = torch.cat([recv[f] for f in sorted(recv) if recv[f] is not None])
+    k = rows.shape[0]
+    sel, _, valid = compact_indices(rows[:, 11].view(torch.int32) >= 0, k, k)
+    rows = rows[torch.where(valid, sel, 0)]
+    cols = {name: rows[:, r] for r, name in enumerate(_PAYLOAD)}
+    cols["tag"] = cols["tag"].view(torch.int32)
+    cols["vox"] = cols["vox"].view(torch.int32)
+    return cols, valid
+
+
 def process_boundary(sp: SpeciesState, f: FieldState, acc, neighbor,
                      g: Grid, pcomm, max_inj: int, n_walk: int = 4,
-                     handlers=(), bstate=(), key=None, step=None):
-    """One boundary round for one species: compact, absorb, handle, walk
+                     handlers=(), bstate=(), key=None, step=None,
+                     mig_cap=None):
+    """One boundary round for one species: compact, absorb, handle,
+    migrate (``pcomm``: the shard's ``ShardComm``; every shard runs the
+    round), walk the buffer and the received lanes in one call
     (``push_cuda.streak_walk``: the kernel's walk_only entry on the card),
-    scatter back.  Returns (sp, f, acc, bstate).  The buffer is scattered
-    into ``sp``'s own columns in place: the caller owns them (see
-    :func:`owned`); the JAX package's version copies each column."""
-    if pcomm is not None:
-        raise NotImplementedError("migration between devices is not "
-                                  "ported")
-    sel, valid, b = pending_buffer(sp, max_inj)
+    scatter back, append the received lanes.  Returns (sp, f, acc,
+    bstate).  The buffer is scattered into ``sp``'s own columns in place:
+    the caller owns them (see :func:`owned`); the JAX package's version
+    copies each column.  Received lanes past ``max_np`` are dropped and
+    counted in ``nm`` (the JAX package drops them without a count)."""
+    sel, valid, b = pending_buffer(sp, max_inj, tags=pcomm is not None)
     b, live, f, bstate = resolve_buffer(b, valid, f, g, sp.sid, handlers,
                                         bstate, key, step)
+    recv = None
+    if pcomm is not None and migration_faces(g):
+        n = valid.shape[0]
+        kcap = n if mig_cap is None else min(mig_cap, n)
+        payloads, sent = migration_payloads(b, live, g, kcap)
+        recv = pcomm.exchange(payloads)
+        live = live & ~sent
     st, walkable = buffer_walk_state(b, live)
+    nb = walkable.shape[0]
+    if recv is not None:
+        r, rvalid = received_lanes(recv)
+        ridx, rfits, rok, sp = claim_block(sp, rvalid)
+        st_r = WalkState(
+            x=r["dx"], y=r["dy"], z=r["dz"],
+            vox=torch.where(rok, r["vox"], 0), ux=r["ux"], uy=r["uy"],
+            uz=r["uz"], rx=r["mdx"], ry=r["mdy"], rz=r["mdz"],
+            q=torch.where(rok, r["q"], 0.0),
+            pcode=torch.zeros_like(r["vox"]), active=rok)
+        st = WalkState(*(torch.cat([a, c]) for a, c in zip(st, st_r)))
     st, acc = push_cuda.streak_walk(st, acc, neighbor, g, n_walk)
+    if recv is not None:
+        st, st_r = (WalkState(*(t[:nb] for t in st)),
+                    WalkState(*(t[nb:] for t in st)))
+        pend = st_r.pcode != 0
+        res = dict(
+            dx=st_r.x, dy=st_r.y, dz=st_r.z,
+            i=torch.where(rok, st_r.vox, -1),
+            ux=st_r.ux, uy=st_r.uy, uz=st_r.uz,
+            q=torch.where(rok, r["q"], 0.0),
+            mdx=torch.where(pend, st_r.rx, 0.0),
+            mdy=torch.where(pend, st_r.ry, 0.0),
+            mdz=torch.where(pend, st_r.rz, 0.0),
+            pc=torch.where(rok, st_r.pcode, 0), tag=r["tag"])
+        for c, v in res.items():
+            scatter_into(getattr(sp, c), ridx, rfits, v)
 
     mix = lambda walked, kept: torch.where(walkable, walked, kept)
     pc = torch.where(walkable, st.pcode, torch.where(live, b["pc"], 0))
     pend = pc != 0
     res = dict(
         dx=mix(st.x, b["dx"]), dy=mix(st.y, b["dy"]), dz=mix(st.z, b["dz"]),
-        # dead buffer lanes (absorbed or killed) are tombstoned
+        # dead buffer lanes (absorbed, killed or migrated) are tombstoned
         vox=torch.where(live, mix(st.vox, b["vox"]), -1),
         ux=mix(st.ux, b["ux"]), uy=mix(st.uy, b["uy"]),
         uz=mix(st.uz, b["uz"]),

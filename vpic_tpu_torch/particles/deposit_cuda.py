@@ -15,7 +15,9 @@ plain float ``index_add`` to float32 roundoff.  Its second result counts
 valid lanes whose voxel lies outside ``[0, nv)``: those are skipped, and
 the count is 0 in any valid call.
 
-``launches["deposit_sorted"]`` counts the kernel's launches.
+``launches["deposit_sorted"]`` counts the kernel's launches.  The
+binding and the count are made under ``push_cuda._lock`` (shards call
+from their own threads).
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import ctypes
 import torch
 
 from . import deposit as plain
-from .push_cuda import build, check_tensor, cuda_device
+from .push_cuda import _lock, build, check_tensor, cuda_device
 
 launches = {"deposit_sorted": 0}
 
@@ -42,6 +44,11 @@ _bound = None
 
 
 def _lib():
+    with _lock:
+        return _bind()
+
+
+def _bind():
     global _bound
     if _bound is None:
         lib = build()
@@ -87,7 +94,8 @@ def deposit_sorted_into(acc, vox, contrib_cols, valid, nv: int):
     if err != 0:
         raise RuntimeError(f"deposit_sorted kernel launch failed: "
                            f"cudaError {err}")
-    launches["deposit_sorted"] += 1
+    with _lock:
+        launches["deposit_sorted"] += 1
     acc_out = torch.empty_like(acc)
     err = lib.vpic_acc_unfix(fix.data_ptr(), scale.data_ptr(),
                              acc.data_ptr(), acc_out.data_ptr(), 12 * nv,

@@ -22,6 +22,14 @@ deposit, from max|q|), the push+walk kernel, and ``acc_unfix`` (acc + the
 fixed-point sums, which it clears).  Their scratch (the int64 accumulator,
 the scale and the lane counters) is allocated once per (device, nv,
 stream) and left zero by each call, so a call allocates only its outputs.
+
+Several shards may call from their own threads (``engine/distributed.py``).
+Every shard launches on its device's current stream, so calls on one
+device share one stream, which orders them: the scratch of a (device,
+nv, stream) serves each call in turn.  ``_lock`` makes the build, the
+scratch's creation, the launch counts and the enqueue of a call's
+kernels together with the reads of its lane counters one step that no
+other thread interleaves.
 """
 
 from __future__ import annotations
@@ -31,6 +39,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
@@ -47,6 +56,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 NVCC_LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 launches = {"push": 0, "walk_only": 0}
+_lock = threading.RLock()
 
 _POINTERS = ("x", "y", "z", "vox", "ux", "uy", "uz", "q", "rx", "ry", "rz",
              "pcode", "active", "np", "interp", "neighbor", "scale",
@@ -124,8 +134,13 @@ def build() -> ctypes.CDLL:
     """Build (if the sources changed) and load the kernels' library.  The
     compiler's resource report is kept beside it in ``<library>.log``."""
     global _lib
-    if _lib is not None:
-        return _lib
+    with _lock:
+        if _lib is None:
+            _lib = _load()
+    return _lib
+
+
+def _load() -> ctypes.CDLL:
     so = library_path()
     if not so.exists():
         BUILD_DIR.mkdir(exist_ok=True)
@@ -145,7 +160,6 @@ def build() -> ctypes.CDLL:
     if lib.vpic_push_args_size() != ctypes.sizeof(_PushArgs):
         raise RuntimeError("PushArgs layout differs between push_walk.cu "
                            "and push_cuda.py")
-    _lib = lib
     return lib
 
 
@@ -178,12 +192,13 @@ def _scratch_for(device, nv: int, stream: int):
     and 2^S.  Zero between calls: the scale kernel and ``acc_unfix`` clear
     what the call used."""
     key = (device, nv, stream)
-    if key not in _scratch:
-        _scratch[key] = (
-            torch.zeros((nv, 12), dtype=torch.int64, device=device),
-            torch.zeros((4,), dtype=torch.int32, device=device),
-            torch.zeros((), dtype=torch.float64, device=device))
-    return _scratch[key]
+    with _lock:
+        if key not in _scratch:
+            _scratch[key] = (
+                torch.zeros((nv, 12), dtype=torch.int64, device=device),
+                torch.zeros((4,), dtype=torch.int32, device=device),
+                torch.zeros((), dtype=torch.float64, device=device))
+        return _scratch[key]
 
 
 _OUTPUTS = ("x_out", "y_out", "z_out", "vox_out", "ux_out", "uy_out",
@@ -196,7 +211,7 @@ def _run(inputs: dict, n: int, walk_only: int, seg_cap: int, params,
     ``out``, and launch the scale kernel, the walk kernel and acc +
     fix/scale on the current stream.  Returns (outputs, new acc,
     [exhausted, stopped] lane counters); the counters are scratch that the
-    next call on the stream overwrites."""
+    next call on the stream overwrites.  The caller holds ``_lock``."""
     check_tensor("acc", acc, torch.float32, (g.nv, 12), device)
     check_tensor("neighbor", neighbor, torch.int32, (g.nv, 6), device)
     if n >= 2 ** 31 or 12 * g.nv >= 2 ** 31:
@@ -245,9 +260,10 @@ def _push(inputs: dict, n: int, sp, g: Grid, acc, neighbor, n_walk, device,
     check_tensor("interp", inputs["interp"], torch.float32, (g.nv, 18),
                  device)
     check_tensor("np", inputs["np"], torch.int32, (), device)
-    res = _run(inputs, n, 0, segment_cap(n_walk), push_params(sp, g), g,
-               acc, neighbor, device, out)
-    launches["push"] += 1
+    with _lock:
+        res = _run(inputs, n, 0, segment_cap(n_walk), push_params(sp, g), g,
+                   acc, neighbor, device, out)
+        launches["push"] += 1
     return res
 
 
@@ -288,11 +304,12 @@ def advance_p(sp: SpeciesState, interp, acc, neighbor, g: Grid,
 
     inputs = dict(x=sp.dx, y=sp.dy, z=sp.dz, vox=sp.i, ux=sp.ux, uy=sp.uy,
                   uz=sp.uz, q=sp.q, np=sp.np, interp=interp)
-    out, acc, counters = _push(inputs, n, sp, g, acc, neighbor, n_walk,
-                               device)
-    # pending lanes (exhausted + stopped) are drops unless boundary rounds
-    # follow, as in the plain version
-    nm = sp.nm + counters[0] + counters[1] if count_pending else sp.nm
+    with _lock:
+        out, acc, counters = _push(inputs, n, sp, g, acc, neighbor, n_walk,
+                                   device)
+        # pending lanes (exhausted + stopped) are drops unless boundary
+        # rounds follow, as in the plain version
+        nm = sp.nm + counters[0] + counters[1] if count_pending else sp.nm
     sp = sp.replace(dx=out["x_out"], dy=out["y_out"], dz=out["z_out"],
                     i=out["vox_out"], ux=out["ux_out"], uy=out["uy_out"],
                     uz=out["uz_out"], mdx=out["rx_out"], mdy=out["ry_out"],
@@ -322,11 +339,13 @@ def advance_p_packed(psp: PackedSpecies, interp, acc, neighbor, g: Grid,
                   vox=(p[7] + 0.5).to(torch.int32), np=psp.np, interp=interp)
     out = dict(x_out=pk[0], y_out=pk[1], z_out=pk[2], ux_out=pk[3],
                uy_out=pk[4], uz_out=pk[5])
-    out, acc, counters = _push(inputs, n, psp, g, acc, neighbor, n_walk,
-                               device, out)
+    with _lock:
+        out, acc, counters = _push(inputs, n, psp, g, acc, neighbor, n_walk,
+                                   device, out)
+        nm = psp.nm + counters[0] + counters[1]
     pk[6].copy_(p[6])
     pk[7].copy_(out["vox_out"])
-    return psp.replace(pk=pk, nm=psp.nm + counters[0] + counters[1]), acc
+    return psp.replace(pk=pk, nm=nm), acc
 
 
 def streak_walk(st: WalkState, acc, neighbor, g: Grid, n_iter: int):
@@ -348,9 +367,10 @@ def streak_walk(st: WalkState, acc, neighbor, g: Grid, n_iter: int):
     inputs = {k: getattr(st, k) for k in ("x", "y", "z", "vox", "ux", "uy",
                                           "uz", "q", "rx", "ry", "rz",
                                           "pcode", "active")}
-    out, acc, _ = _run(inputs, n, 1, 4 * n_iter + 8, (0.0,) * 4, g, acc,
-                       neighbor, device)
-    launches["walk_only"] += 1
+    with _lock:
+        out, acc, _ = _run(inputs, n, 1, 4 * n_iter + 8, (0.0,) * 4, g,
+                           acc, neighbor, device)
+        launches["walk_only"] += 1
 
     st = WalkState(x=out["x_out"], y=out["y_out"], z=out["z_out"],
                    vox=out["vox_out"], ux=out["ux_out"], uy=out["uy_out"],

@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from . import sort as plain
-from .push_cuda import build, check_tensor, cuda_device
+from .push_cuda import _lock, build, check_tensor, cuda_device
 
 launches = {"merge_mark": 0, "merge_tables": 0, "merge_assemble": 0}
 sort_counts: dict = {}
@@ -68,6 +68,11 @@ _bound = None
 
 
 def _lib():
+    with _lock:
+        return _bind()
+
+
+def _bind():
     global _bound
     if _bound is None:
         lib = build()
