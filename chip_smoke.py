@@ -2,14 +2,17 @@
 """Smoke test of vpic_tpu_torch on one NVIDIA GPU: the port's three push
 paths on the bench deck at full size, through its hand-written CUDA
 kernels (push+walk, sorted deposit, and the merge re-sort's mark, tables
-and assembly), the production turbulence deck and the reconnection
+and assembly; the probe kernels of the tools path), the production
+turbulence deck and the reconnection
 decks (trecon, sigma, turbulence_fan) at full size through the port's
 CLI, with their diagnostics, tracer trajectories, readers and restarts,
 open particle boundaries (absorbing and custom walls, emitters,
 in-step injection) and the collisions deck, materials (conductive,
 dielectric and magnetic regions through the field solver, dumps and
-checkpoints), and several shards in one process on the card (halo
-exchanges, shared-face merges and particle migration).
+checkpoints), several shards in one process on the card (halo
+exchanges, shared-face merges and particle migration), and the tools path
+(the probe kernels and the drift comparison against the float64
+reference).
 
     python3 chip_smoke.py
 
@@ -204,8 +207,25 @@ no result line):
               shards) through the CLI for 100 steps with its diagnostics
               and again from its step-50 restart: per-rank dumps, every
               step-100 dump of both ranks byte for byte, the hydro dumps'
-              shared node plane equal on both ranks, no dropped mover.
-
+              shared node plane equal on both ranks, no dropped mover;
+16. tools    - the tools' entry points (vpic_tpu_torch.tools:
+              probe_batched.main and vpu_layout_probe.main, their launch
+              counts zeroed before and read after); each probe kernel of
+              csrc/probes.cu at its tool's shapes bitwise its plain
+              version and a rerun (the chain at 1024 reps on the tool's
+              seven shapes, on ones and on uniform [0, 3)); gather3d and
+              deposit2d on random operands within K * 2^-24 * sum|terms|
+              of the plain bf16-in, float32-sum version; each kernel
+              timed through its wrapper (CUDA events) and alone
+              (profiler) against its plain version, its bound and, for
+              gather3d, deposit2d and stack8, one PyTorch call
+              (torch.einsum on prepared bf16 operands, an index of the
+              prepared bf16 window); drift_compare.compare at 16^2 with
+              16 000 particles over 24 steps and at 128^2 with 65 536
+              over 8 (the float64 host reference stepping the same
+              deck): |drift_excess| <= 1e-6, every field RMS <= 1e-5 or
+              twice the JAX package's own at that size, no dropped
+              mover.
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
 path, the accumulator's or rows' max abs error against the plain version,
@@ -237,7 +257,14 @@ per step, the fields' and energies' distance from the one-shard run;
 ``shards_walk_*``: the walk_only launches in those windows and the times
 of one round's walk on shard 0; the deposit kernel's ``shards_launches``
 in the unfused steps, its error over the shards' deposits and the
-unfused steps' distance from the one-shard run).
+unfused steps' distance from the one-shard run).  The six probe
+kernels' records (phase 16) carry their launches in the tools' entry
+points, 0.0 as their error (bitwise), the chain's per-shape wrapper times
+(``shapes_ms``) and, for gather3d and deposit2d, the error on random
+operands (``random_max_abs_err``, and over 2^-24 * sum|terms|); their
+bounds count the products of gather3d and deposit2d at the bf16 tensor
+cores' 989 TFLOP/s, and the chain's five float32 instructions per element
+and rep at 67 TFLOP/s.
 The last line is {"ok": true, "device": {...}}.  Without a CUDA
 device the script exits 2.
 """
@@ -3728,6 +3755,289 @@ def phase_shards(device, card):
     return push, walk, deposit
 
 
+# -- phase 16: the tools path ------------------------------------------------
+# the probe kernels of csrc/probes.cu, each at the shapes of the tool it
+# replaces, and the drift comparison against the float64 reference
+
+PROBE_SOURCE = "vpic_tpu_torch/csrc/probes.cu"
+PROBE_REPLACES = {"vpu_chain": "tools/vpu_layout_probe.py:22",
+                  "gather3d": "tools/probe_batched.py:47",
+                  "deposit2d": "tools/probe_batched.py:67",
+                  "stack8": "tools/probe_batched.py:87",
+                  "onehot3d": "tools/probe_batched.py:110",
+                  "io4d": "tools/probe_batched.py:125"}
+# (steps, particles in all, nx): the tool's defaults, then the bench
+# deck's grid with the particles cut to what the float64 host reference
+# (about 30 us per particle and step) steps in about 20 s
+DRIFT_RUNS = {"16^2": (24, 16_000, 16), "128^2": (8, 65_536, 128)}
+DRIFT_EXCESS_BAR = 1e-6     # BASELINE.md's drift bar
+# each relative field RMS against the float64 reference: at most 1e-5, or
+# twice the JAX package's own where that is larger.  The JAX package's
+# figures are tools/drift_compare.py's on the CPU at the same sizes
+# (JAX 0.9.0): cby, whose scale is about 1/80 of cbx's, carries the
+# float32 roundoff of the larger fields and passes 1e-5 by step 24.
+FIELD_RMS_BAR = 1e-5
+JAX_FIELD_RMS = {
+    "16^2": dict(ex=6.07908632091533e-07, ey=1.0922707902294337e-06,
+                 ez=4.4291943421409304e-07, cbx=1.9093514110537682e-07,
+                 cby=1.0834232764605484e-05, cbz=1.9263340934129703e-07),
+    "128^2": dict(ex=4.1553237325431004e-07, ey=1.9740199642310457e-06,
+                  ez=2.3886897376491967e-07, cbx=9.739423841494975e-08,
+                  cby=9.199359579177384e-06, cbz=9.429463305199806e-08)}
+
+
+def check_bitwise(label, out, other, what):
+    """``out`` bitwise equal to ``other`` (float32 compared as int32)."""
+    import torch
+    if out.shape != other.shape:
+        raise AssertionError(f"{label}: shape {tuple(out.shape)} against "
+                             f"{tuple(other.shape)} of {what}")
+    a, b = out.contiguous().view(torch.int32), other.contiguous().view(
+        torch.int32)
+    if not torch.equal(a, b):
+        raise AssertionError(f"{label}: differs from {what} in "
+                             f"{int((a != b).sum())} elements")
+
+
+def check_probe(name, device):
+    """Probe ``name``'s kernel on the tool's inputs against its plain
+    version on the card: bitwise, and bitwise across two runs."""
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    args = pb.tool_inputs(name, device)
+    k1, k2 = pb.PROBES[name](*args), pb.PROBES[name](*args)
+    plain = pb.PLAIN[name](*args)
+    torch.cuda.synchronize()
+    check_bitwise(f"{name} at the tool's shapes", k1, plain,
+                  "the plain version")
+    check_bitwise(f"{name} at the tool's shapes", k1, k2, "a rerun")
+    if not bool(torch.isfinite(k1).all()):
+        raise AssertionError(f"{name}: non-finite output")
+
+
+def check_contraction(name, device, seed=5):
+    """gather3d or deposit2d on random float32 operands (not one-hot) at
+    the tool's shapes, against the plain bf16-in, float32-sum version:
+    within K * 2^-24 * sum|terms| per output, K the contraction depth, the
+    worst case of a float32 sum in any order (the tensor cores' order is
+    not the plain version's).  Returns (max abs err, max err over
+    2^-24 * sum|terms|)."""
+    import numpy as np
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    shapes = [a.shape for a in pb.tool_inputs(name, "cpu")]
+    rng = np.random.default_rng(seed)
+    a, oh = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
+                             device=device) for s in shapes)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        plain = pb.PLAIN[name](a, oh)
+        mag = pb.PLAIN[name](a.abs(), oh.abs()).double()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    k1, k2 = pb.PROBES[name](a, oh), pb.PROBES[name](a, oh)
+    torch.cuda.synchronize()
+    check_bitwise(f"{name} on random operands", k1, k2, "a rerun")
+    depth = shapes[0][1] if name == "gather3d" else shapes[0][1] * shapes[0][2]
+    err = (k1.double() - plain.double()).abs()
+    ratio = float((err / (mag * 2.0 ** -24)).max())
+    if not ratio <= depth:
+        raise AssertionError(f"{name} on random operands: error "
+                             f"{ratio:.3f} x 2^-24 sum|terms|, above K = "
+                             f"{depth}")
+    log(f"  {name} on random operands: max |kernel - plain| "
+        f"{float(err.max()):.3e}, at most {ratio:.4f} x 2^-24 sum|terms| "
+        f"(bar K = {depth})")
+    return float(err.max()), ratio
+
+
+def check_chains(device):
+    """The chain kernel at 1024 reps on every shape of the tool, on its
+    input (ones) and on one drawn uniform on [0, 3): bitwise its plain
+    version and its rerun, the rows past ``rows`` zeros."""
+    import torch
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
+    gen = torch.Generator(device=device).manual_seed(16)
+    for rows in vp.ROWS:
+        shape = vp.block_shape(rows)
+        for label, x in (
+                ("ones", torch.ones(shape, device=device)),
+                ("uniform", 3 * torch.rand(shape, device=device,
+                                           generator=gen))):
+            k1, k2 = vp.chain(x, rows), vp.chain(x, rows)
+            plain = vp.chain_plain(x, rows)
+            torch.cuda.synchronize()
+            what = f"vpu chain {shape} rows {rows} ({label})"
+            check_bitwise(what, k1, plain, "the plain version")
+            check_bitwise(what, k1, k2, "a rerun")
+            if bool(k1[rows:].any()):
+                raise AssertionError(f"vpu chain rows {rows}: rows past "
+                                     "the window are not zero")
+    log(f"  vpu chain: {vp.REPS} reps on the {len(vp.ROWS)} shapes of the "
+        "tool, ones and uniform [0, 3): bitwise the plain version and a "
+        "rerun")
+
+
+def time_tool_kernel(label, run_k, run_p, kernel_name, bound_ms, bound_by,
+                     library=None):
+    """The wrapper (CUDA events), the kernel alone (profiler), the plain
+    version and the one PyTorch call (where there is one) against the
+    bound; fails where the kernel alone beats its bound."""
+    p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
+                      cuda_ms(run_k, 20), cuda_ms(run_p, 5))
+    kernel_ms, ops = profiled_ms(run_k, 20, (kernel_name,), 1)
+    library_ms = cuda_ms(library, 20) if library is not None else None
+    held_to_bound(f"{label}: the kernel alone", kernel_ms, bound_ms)
+    lib = (f", one PyTorch call {library_ms:.4f} ms"
+           if library_ms is not None else "")
+    log(f"  timing, {label}: wrapper {k1:.4f} / {k2:.4f} ms ({ops:.1f} "
+        f"device ops per call), kernel alone {kernel_ms:.4f} ms, plain "
+        f"{p1:.4f} / {p2:.4f} ms{lib}; bound {bound_ms:.6f} ms "
+        f"({bound_by}), the kernel at {bound_ms / kernel_ms:.4f} of it")
+    return dict(ms=min(k1, k2), kernel_ms=kernel_ms, plain_ms=min(p1, p2),
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+
+def time_probes(device):
+    """Each probe of probe_batched on the tool's inputs; gather3d and
+    deposit2d beside torch.einsum on the prepared bf16 operands, stack8
+    beside an index of the prepared bf16 window."""
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    out = {}
+    for name in pb.PROBES:
+        args = pb.tool_inputs(name, device)
+        res = pb.PROBES[name](*args)
+        bound_ms, bound_by = pb.probe_bound(name, args, res)
+        library = None
+        if name in ("gather3d", "deposit2d"):
+            a, oh = (t.to(torch.bfloat16) for t in args)
+            eq = "aw,rwl->arl" if name == "gather3d" else "krl,rwl->kw"
+            library = lambda eq=eq, a=a, oh=oh: torch.einsum(eq, a, oh)
+        elif name == "stack8":
+            win, loc = args[0].to(torch.bfloat16), args[1].long()
+            library = lambda win=win, loc=loc: win[:, loc]
+        out[name] = time_tool_kernel(
+            name, lambda name=name, args=args: pb.PROBES[name](*args),
+            lambda name=name, args=args: pb.PLAIN[name](*args),
+            pb.KERNEL_NAMES[name], bound_ms, bound_by, library)
+    return out
+
+
+def time_chains(device):
+    """The chain kernel at the tool's dense (8, n) shape (wrapper, alone,
+    plain, bound) and through its wrapper on each of the tool's shapes,
+    and on the same window without the block's zero rows where it has
+    some: two passes over the shapes in turn, the second one kept (the
+    first shape of the first pass may meet the card's clocks still
+    rising)."""
+    import torch
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
+    blocks = {}
+    for rows in vp.ROWS:
+        shape = vp.block_shape(rows)
+        blocks[f"{rows}x{shape[1]}"] = (rows, shape)
+        if rows < shape[0]:
+            blocks[f"{rows}x{shape[1]} unpadded"] = (rows, (rows, shape[1]))
+    passes = []
+    for _ in range(2):
+        passes.append({})
+        for key, (rows, shape) in blocks.items():
+            x = torch.ones(shape, device=device)
+            passes[-1][key] = cuda_ms(lambda: vp.chain(x, rows), 20)
+    per_shape = passes[-1]
+    log("  vpu chain through its wrapper, first pass (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in passes[0].items()))
+    x = torch.ones(vp.block_shape(8), device=device)
+    bound_ms, bound_by = vp.chain_bound(8, x)
+    t = time_tool_kernel(f"vpu chain (8, {x.shape[1]}), {vp.REPS} reps",
+                         lambda: vp.chain(x, 8),
+                         lambda: vp.chain_plain(x, 8), "vpu_chain_kernel",
+                         bound_ms, bound_by)
+    log("  vpu chain through its wrapper, second pass (ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in per_shape.items()))
+    return dict(t, shapes_ms=per_shape)
+
+
+def phase_drift(device):
+    """drift_compare.compare at each size of DRIFT_RUNS, held to the drift
+    bar, the field RMS bar and no dropped mover.  Returns the records."""
+    from vpic_tpu_torch.tools import drift_compare as dc
+    recs = {}
+    for label, (steps, npart, nx) in DRIFT_RUNS.items():
+        rec = dc.compare(steps, npart, nx, device)
+        log(f"  drift_compare {label}: {json.dumps(rec)}")
+        if not abs(rec["drift_excess"]) <= DRIFT_EXCESS_BAR:
+            raise AssertionError(f"drift_compare {label}: |drift_excess| "
+                                 f"{abs(rec['drift_excess']):.3e} above "
+                                 f"{DRIFT_EXCESS_BAR}")
+        bars = {k: max(FIELD_RMS_BAR, 2 * v)
+                for k, v in JAX_FIELD_RMS[label].items()}
+        over = {k: (v, bars[k]) for k, v in rec["field_rms"].items()
+                if not v <= bars[k]}
+        if over:
+            raise AssertionError(f"drift_compare {label}: field_rms above "
+                                 f"its bar (value, bar): {over}")
+        log(f"  drift_compare {label}: field_rms over the JAX package's "
+            "own: " + ", ".join(f"{k} {v / JAX_FIELD_RMS[label][k]:.3f}"
+                                for k, v in rec["field_rms"].items()))
+        if any(rec["dropped_movers"].values()):
+            raise AssertionError(f"drift_compare {label}: dropped movers "
+                                 f"{rec['dropped_movers']}")
+        recs[label] = rec
+    return recs
+
+
+def phase_tools(device, card):
+    """Phase 16: the tools' entry points on the card (their main path: the
+    launch counts are zeroed before and read after them), each probe
+    kernel against its plain version and timed, and the drift comparison.
+    Returns the kernels-line entries of the six probe kernels."""
+    from vpic_tpu_torch.tools import probe_batched as pb
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
+    for counts in (pb.launches, vp.launches):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    if pb.main([]) != 0 or vp.main([]) != 0:
+        raise AssertionError("a tool's entry point failed")
+    launches = dict(vp.launches, **pb.launches)
+    log(f"  the tools' entry points: {time.perf_counter() - t0:.2f} s, "
+        f"launches {launches}")
+    missing = [k for k, v in launches.items() if v < 1]
+    if missing:
+        raise AssertionError(f"kernels not launched by the tools: {missing}")
+
+    for name in pb.PROBES:
+        check_probe(name, device)
+    log(f"  {', '.join(pb.PROBES)}: bitwise the plain versions at the "
+        "tool's shapes, and bitwise across two runs")
+    random_err = {name: check_contraction(name, device)
+                  for name in ("gather3d", "deposit2d")}
+    check_chains(device)
+    times = time_probes(device)
+    times["vpu_chain"] = time_chains(device)
+    t0 = time.perf_counter()
+    drift = phase_drift(device)
+    log(f"drift_compare ({card}): " + "; ".join(
+        f"{k} excess {r['drift_excess']:.3e}, max field_rms "
+        f"{max(r['field_rms'].values()):.3e}, port {r['wall_fw']} s, "
+        f"reference {r['wall_ref']} s" for k, r in drift.items())
+        + f" ({time.perf_counter() - t0:.1f} s)")
+    kernels = []
+    for name in ("vpu_chain", *pb.PROBES):
+        entry = dict(name=name, route="cuda", source=PROBE_SOURCE,
+                     replaces=PROBE_REPLACES[name],
+                     launches=launches[name], max_abs_err=0.0,
+                     **times[name])
+        if name in random_err:
+            entry["random_max_abs_err"], entry["random_err_over_eps_sum"] = \
+                random_err[name]
+        kernels.append(entry)
+    return kernels, drift
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3742,13 +4052,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/15] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/16] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/15] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/16] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -3756,17 +4066,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/15] kernel vs plain, small 3D grid")
+    log("[3/16] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/15] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/16] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/15] determinism: checked above, per case and species")
+    log("[4/16] determinism: checked above, per case and species")
 
-    log("[5/15] slice")
+    log("[5/16] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -3774,15 +4084,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/15] deposit kernel vs plain")
+    log("[6/16] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/15] merge re-sort kernels vs plain")
+    log("[7/16] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/15] path A: the unfused push")
+    log("[8/16] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/15] path B: the packed cycle with the merge re-sort")
+    log("[9/16] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -3792,19 +4102,22 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/15] determinism: the charge deposit on the card")
+    log("[10/16] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/15] the turbulence deck through the CLI")
+    log("[11/16] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/15] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/16] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/15] open particle boundaries and the collisions deck")
+    log("[13/16] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/15] materials: the material box")
+    log("[14/16] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/15] several shards on the card: the bench deck on 4 shards, "
+    log("[15/16] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
+    log("[16/16] the tools path: the probe kernels of tools/ and the drift "
+        "comparison against the float64 reference")
+    tool_kernels, _ = phase_tools(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -3840,7 +4153,7 @@ def main():
     for k in kernels:
         k["route"] = "cuda"
         k["launches_per_step"] = main_launches[k["name"]] / steps
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels + tool_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))
     return 0

@@ -17,7 +17,10 @@ push kernel on its q = 0 tracers (zero accumulator, finite scale) and on
 its bulk species at full shape (3D, reflecting walls).  An open deck's
 push (pending lanes left to the boundary rounds) and a round's walk_only
 launch on its buffer.  The 32^2 material box (copper and a dielectric in
-the bench deck's plasma) on the card and on the CPU.  Needs an NVIDIA
+the bench deck's plasma) on the card and on the CPU.  The probe kernels
+of csrc/probes.cu (the tools path): each at its tool's shapes bitwise its
+plain version and a rerun, the chain at 1024 reps on every shape of
+tools/vpu_layout_probe.py.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -277,3 +280,20 @@ def test_material_box_card_matches_cpu(device):
     on the card and on the CPU: the id grids and the coefficient table
     bitwise equal, energies to 1e-6, no dropped mover."""
     assert cs.material_small(device) <= 1e-6
+
+
+@pytest.mark.parametrize("name", ["gather3d", "deposit2d", "stack8",
+                                  "onehot3d", "io4d"])
+def test_probe_kernel_matches_plain(device, name):
+    from vpic_tpu_torch.tools import probe_batched
+    before = probe_batched.launches[name]
+    cs.check_probe(name, device)
+    assert probe_batched.launches[name] == before + 2
+
+
+def test_vpu_chain_kernel_matches_plain(device):
+    from vpic_tpu_torch.tools import vpu_layout_probe
+    before = vpu_layout_probe.launches["vpu_chain"]
+    cs.check_chains(device)
+    assert vpu_layout_probe.launches["vpu_chain"] == \
+        before + 4 * len(vpu_layout_probe.ROWS)

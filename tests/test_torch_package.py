@@ -77,16 +77,26 @@ def test_cuda_simulation_raises_without_gpu(monkeypatch):
         vpic_tpu_torch.Simulation(seed=0, device="cuda")
 
 
-@pytest.mark.parametrize("entry", ["Simulation", "bench_deck.build"])
+@pytest.mark.parametrize("entry", [
+    "Simulation", "bench_deck.build", "tools.probe_batched.main",
+    "tools.vpu_layout_probe.main", "tools.drift_compare.main",
+    "tools.drift_compare.compare"])
 def test_the_card_is_the_default_device(monkeypatch, entry):
     """Without ``device`` the entry points run on the card, so they raise
     where there is none."""
+    from vpic_tpu_torch.tools import (drift_compare, probe_batched,
+                                      vpu_layout_probe)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = {
+        "Simulation": lambda: vpic_tpu_torch.Simulation(),
+        "bench_deck.build": lambda: bench_deck.build(nx=4, ny=4, nz=1,
+                                                     npart=256),
+        "tools.probe_batched.main": lambda: probe_batched.main([]),
+        "tools.vpu_layout_probe.main": lambda: vpu_layout_probe.main([]),
+        "tools.drift_compare.main": lambda: drift_compare.main([]),
+        "tools.drift_compare.compare": lambda: drift_compare.compare()}
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        if entry == "Simulation":
-            vpic_tpu_torch.Simulation()
-        else:
-            bench_deck.build(nx=4, ny=4, nz=1, npart=256)
+        calls[entry]()
 
 
 def _small_push_args(device="cpu"):
