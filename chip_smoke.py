@@ -215,12 +215,16 @@ no result line):
               version and a rerun (the chain at 1024 reps on the tool's
               seven shapes, on ones and on uniform [0, 3)); gather3d and
               deposit2d on random operands within K * 2^-24 * sum|terms|
-              of the plain bf16-in, float32-sum version; each kernel
-              timed through its wrapper (CUDA events) and alone
-              (profiler) against its plain version, its bound and, for
-              gather3d, deposit2d and stack8, one PyTorch call
-              (torch.einsum on prepared bf16 operands, an index of the
-              prepared bf16 window); drift_compare.compare at 16^2 with
+              of the plain bf16-in, float32-sum version and bitwise
+              across a rerun, at the tools' shapes and at two ragged
+              shapes of their plan (tools/mma_plan.py: short splits and
+              column tiles, 5 to 20 rows); each kernel timed through its
+              wrapper (CUDA events) and alone (profiler) against its
+              plain version, its bound and, for gather3d, deposit2d and
+              stack8, one PyTorch call (torch.einsum on prepared bf16
+              operands, an index of the prepared bf16 window), gather3d
+              and deposit2d alone over einsum of the same call logged;
+              drift_compare.compare at 16^2 with
               16 000 particles over 24 steps and at 128^2 with 65 536
               over 8 (the float64 host reference stepping the same
               deck): |drift_excess| <= 1e-6, every field RMS <= 1e-5 or
@@ -3766,6 +3770,11 @@ PROBE_REPLACES = {"vpu_chain": "tools/vpu_layout_probe.py:22",
                   "stack8": "tools/probe_batched.py:87",
                   "onehot3d": "tools/probe_batched.py:110",
                   "io4d": "tools/probe_batched.py:125"}
+# ragged shapes of the tensor-core probes' plan, (a shape, oh shape):
+# a single split, a short last split and column tile, two 16-row tiles
+PROBE_RAGGED = {
+    "gather3d": [((5, 48), (3, 48, 32)), ((20, 200), (2, 200, 100))],
+    "deposit2d": [((7, 3, 32), (3, 40, 32)), ((20, 5, 48), (5, 70, 48))]}
 # (steps, particles in all, nx): the tool's defaults, then the bench
 # deck's grid with the particles cut to what the float64 host reference
 # (about 30 us per particle and step) steps in about 20 s
@@ -3815,17 +3824,18 @@ def check_probe(name, device):
         raise AssertionError(f"{name}: non-finite output")
 
 
-def check_contraction(name, device, seed=5):
+def check_contraction(name, device, seed=5, shapes=None):
     """gather3d or deposit2d on random float32 operands (not one-hot) at
-    the tool's shapes, against the plain bf16-in, float32-sum version:
-    within K * 2^-24 * sum|terms| per output, K the contraction depth, the
-    worst case of a float32 sum in any order (the tensor cores' order is
-    not the plain version's).  Returns (max abs err, max err over
-    2^-24 * sum|terms|)."""
+    ``shapes`` (default: the tool's), against the plain bf16-in,
+    float32-sum version: within K * 2^-24 * sum|terms| per output, K the
+    contraction depth, the worst case of a float32 sum in any order (the
+    tensor cores' order is not the plain version's), and bitwise across a
+    rerun.  Returns (max abs err, max err over 2^-24 * sum|terms|)."""
     import numpy as np
     import torch
     from vpic_tpu_torch.tools import probe_batched as pb
-    shapes = [a.shape for a in pb.tool_inputs(name, "cpu")]
+    if shapes is None:
+        shapes = [a.shape for a in pb.tool_inputs(name, "cpu")]
     rng = np.random.default_rng(seed)
     a, oh = (torch.as_tensor(rng.normal(size=s).astype(np.float32),
                              device=device) for s in shapes)
@@ -3846,7 +3856,8 @@ def check_contraction(name, device, seed=5):
         raise AssertionError(f"{name} on random operands: error "
                              f"{ratio:.3f} x 2^-24 sum|terms|, above K = "
                              f"{depth}")
-    log(f"  {name} on random operands: max |kernel - plain| "
+    log(f"  {name} on random operands {tuple(shapes[0])} x "
+        f"{tuple(shapes[1])}: max |kernel - plain| "
         f"{float(err.max()):.3e}, at most {ratio:.4f} x 2^-24 sum|terms| "
         f"(bar K = {depth})")
     return float(err.max()), ratio
@@ -3922,6 +3933,10 @@ def time_probes(device):
             name, lambda name=name, args=args: pb.PROBES[name](*args),
             lambda name=name, args=args: pb.PLAIN[name](*args),
             pb.KERNEL_NAMES[name], bound_ms, bound_by, library)
+        if name in ("gather3d", "deposit2d"):
+            t = out[name]
+            log(f"  {name}: the kernel alone over torch.einsum of this "
+                f"call {t['kernel_ms'] / t['library_ms']:.4f}")
     return out
 
 
@@ -4015,6 +4030,9 @@ def phase_tools(device, card):
         "tool's shapes, and bitwise across two runs")
     random_err = {name: check_contraction(name, device)
                   for name in ("gather3d", "deposit2d")}
+    for name, cases in PROBE_RAGGED.items():
+        for shapes in cases:
+            check_contraction(name, device, shapes=shapes)
     check_chains(device)
     times = time_probes(device)
     times["vpu_chain"] = time_chains(device)

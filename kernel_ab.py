@@ -36,6 +36,14 @@ every step (``merge_sort=True``, ``resort_interval=1``,
 ``step.sort`` busy device ms and device operations per step.  Each
 child prints one JSON line; the parent prints them all as a JSON list on
 its last line.  Needs one card; exits non-zero without one.
+
+    python3 kernel_ab.py --probes _archive/parent . . _archive/parent
+
+measures instead, per tree, the tools' two tensor-core probes (gather3d
+and deposit2d of ``vpic_tpu_torch/tools/probe_batched.py``) on the
+tool's inputs: each checked bitwise against that tree's plain version,
+then its kernel alone (torch.profiler), its wrapper (CUDA events) and
+``torch.einsum`` on the prepared bf16 operands.
 """
 
 import json
@@ -141,23 +149,62 @@ def measure(tree):
                 path_b_sort_ops=srt["ops"])
 
 
+def measure_probes(tree):
+    """The record of one tree's gather3d and deposit2d (run in a child
+    process)."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    device = torch.device("cuda", 0)
+    rec = dict(tree=tree, card=cs.card_line())
+    for name, eq in (("gather3d", "aw,rwl->arl"),
+                     ("deposit2d", "krl,rwl->kw")):
+        args = pb.tool_inputs(name, device)
+        run = lambda: pb.PROBES[name](*args)
+        cs.check_bitwise(f"{tree}: {name}", run(), pb.PLAIN[name](*args),
+                         "the plain version")
+        a, oh = (t.to(torch.bfloat16) for t in args)
+        kernel_ms, _ = cs.profiled_ms(run, REPS, (pb.KERNEL_NAMES[name],), 1)
+        rec[name] = dict(
+            kernel=pb.KERNEL_NAMES[name], kernel_ms=kernel_ms,
+            ms=cs.cuda_ms(run, REPS),
+            einsum_ms=cs.cuda_ms(lambda: torch.einsum(eq, a, oh), REPS))
+    return rec
+
+
+def log_probes(tree, rec):
+    cs.log(f"{tree}: " + "; ".join(
+        f"{name} ({r['kernel']}) alone {r['kernel_ms']:.4f} ms, wrapper "
+        f"{r['ms']:.4f} ms, torch.einsum {r['einsum_ms']:.4f} ms"
+        for name, r in rec.items() if name in ("gather3d", "deposit2d"))
+        + f" ({rec['card']})")
+
+
 def main(argv):
-    if len(argv) == 2 and argv[0] == "--one":
-        print(json.dumps(measure(argv[1])), flush=True)
+    if len(argv) == 2 and argv[0] in ("--one", "--one-probes"):
+        fn = measure if argv[0] == "--one" else measure_probes
+        print(json.dumps(fn(argv[1])), flush=True)
         return 0
     import torch
-    if not argv or not torch.cuda.is_available():
+    probes = bool(argv) and argv[0] == "--probes"
+    trees = argv[1:] if probes else argv
+    if not trees or not torch.cuda.is_available():
         print("kernel_ab: needs tree roots and a CUDA device", file=sys.stderr)
         return 2
     here = os.path.abspath(__file__)
     out = []
-    for tree in argv:
-        r = subprocess.run([sys.executable, here, "--one", tree],
+    for tree in trees:
+        r = subprocess.run([sys.executable, here,
+                            "--one-probes" if probes else "--one", tree],
                            capture_output=True, text=True, timeout=900)
         if r.returncode != 0:
             print(r.stdout + r.stderr, file=sys.stderr)
             raise RuntimeError(f"kernel_ab: {tree} failed ({r.returncode})")
         rec = json.loads(r.stdout.strip().splitlines()[-1])
+        out.append(rec)
+        if probes:
+            log_probes(tree, rec)
+            continue
         d, m = rec["deposit"], rec["merge"]
         cs.log(f"{tree}: push wrapper {rec['ms']:.4f} ms, kernel alone "
                f"{rec['kernel_ms']:.4f} ms, {rec['ops_per_call']:.1f} device "
@@ -174,7 +221,6 @@ def main(argv):
                f"ops/step; path B sorting every step: step.sort busy "
                f"{rec['path_b_sort_busy_ms']:.4f} ms/step, "
                f"{rec['path_b_sort_ops']:.1f} ops/step ({rec['card']})")
-        out.append(rec)
     print(json.dumps(out))
     return 0
 

@@ -19,7 +19,10 @@ push (pending lanes left to the boundary rounds) and a round's walk_only
 launch on its buffer.  The 32^2 material box (copper and a dielectric in
 the bench deck's plasma) on the card and on the CPU.  The probe kernels
 of csrc/probes.cu (the tools path): each at its tool's shapes bitwise its
-plain version and a rerun, the chain at 1024 reps on every shape of
+plain version and a rerun, gather3d and deposit2d on random operands at
+the tool's and two ragged shapes (bitwise across a rerun, within K *
+2^-24 * sum|terms|) and their launcher's refusal of a plan off its
+constants, the chain at 1024 reps on every shape of
 tools/vpu_layout_probe.py.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
@@ -289,6 +292,48 @@ def test_probe_kernel_matches_plain(device, name):
     before = probe_batched.launches[name]
     cs.check_probe(name, device)
     assert probe_batched.launches[name] == before + 2
+
+
+@pytest.mark.parametrize("case", [0, 1, 2],
+                         ids=["tool-shape", "one-split", "ragged"])
+@pytest.mark.parametrize("name", ["gather3d", "deposit2d"])
+def test_probe_contraction_on_random_operands(device, name, case):
+    """The cluster split-K kernels on random operands, at the tool's
+    shapes and at the ragged shapes of their plan: bitwise across two
+    runs, within K * 2^-24 * sum|terms| of the plain float32 sum, one
+    launch per wrapper call."""
+    from vpic_tpu_torch.tools import probe_batched
+    shapes = None if case == 0 else cs.PROBE_RAGGED[name][case - 1]
+    before = probe_batched.launches[name]
+    cs.check_contraction(name, device, shapes=shapes)
+    assert probe_batched.launches[name] == before + 2
+
+
+@pytest.mark.parametrize("field", ["bn", "chunk", "splits"])
+@pytest.mark.parametrize("name", ["gather3d", "deposit2d"])
+def test_probe_launcher_refuses_a_plan_off_its_constants(device, name,
+                                                         field):
+    """A plan whose column tile, share or cluster differ from what the
+    kernel was built for is refused at launch (cudaErrorInvalidValue),
+    and nothing is counted."""
+    from vpic_tpu_torch.tools import probe_batched, probes_cuda
+    a, oh = probe_batched.tool_inputs(name, device)
+    if name == "gather3d":
+        plan = probe_batched.gather3d_plan(a.shape[0], *oh.shape)
+        shape, out = (a.shape[0], *oh.shape), torch.empty(
+            (a.shape[0], oh.shape[0], oh.shape[2]), device=device)
+    else:
+        plan = probe_batched.deposit2d_plan(*a.shape[:2], *oh.shape[1:])
+        shape, out = (*a.shape[:2], *oh.shape[1:]), torch.empty(
+            (a.shape[0], oh.shape[1]), device=device)
+    args = list(plan.args())
+    index = {"bn": 3, "chunk": 11, "splits": 2}[field]
+    args[index] = args[index] * 2 if field != "chunk" else args[index] + 1
+    before = probe_batched.launches[name]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        probes_cuda.launch(f"vpic_probe_{name}", probe_batched.launches,
+                           name, device, a, oh, out, *shape, *args)
+    assert probe_batched.launches[name] == before
 
 
 def test_vpu_chain_kernel_matches_plain(device):

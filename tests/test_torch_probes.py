@@ -9,6 +9,22 @@ the JAX tools they replace, on the CPU.
   the tool's shapes and at a second shape, against a float64 contraction
   of the bf16-rounded operands: within K * 2^-24 * sum|terms| per output,
   K the contraction depth (the worst case of a float32 sum in any order).
+- The plan of the tensor-core kernels (``vpic_tpu_torch/tools/
+  mma_plan.py``) at the tool's, the second and a ragged shape: at least
+  128 blocks and clusters of at most 8 at the tool's shapes, each (row,
+  column, depth) term in exactly one block, every bulk copy on 16-byte
+  boundaries, copies and cleared runs filling exactly what the products
+  read, shared memory within 227 KB, the launcher's integers carrying
+  the column tile and each rank's share; an emulation of the kernels
+  from the plan (per-split float32 partials summed in rank order)
+  bitwise the plain version at the tool's one-hot inputs and within the
+  float32 sum bound on random operands; the wrappers' refusal of shapes
+  outside the plan.  These check the plan, the Python model of the
+  kernels' copies and sums; the kernels' own copy code in
+  ``csrc/probes.cu`` is checked against the plain versions on the card
+  (``tests/test_torch_cuda.py``: test_probe_contraction_on_random_operands
+  at the tool's and the ragged shapes), and its launcher refuses a plan
+  whose tile, cluster or share differ from its constants.
 - The elementwise chain of ``tools/vpu_layout_probe.py`` at 1 and 16
   reps (``REPS_IN_KERNEL`` set on the tool's module), rows 1, 3 and 8 of
   a (max(rows, 8), 256) block drawn uniform on [0, 3).
@@ -26,6 +42,7 @@ from jax.experimental.pallas import tpu as pltpu
 
 import tools.probe_batched as jax_probes
 import tools.vpu_layout_probe as jax_vpu
+from vpic_tpu_torch.tools import mma_plan
 from vpic_tpu_torch.tools import probe_batched as pb
 from vpic_tpu_torch.tools import vpu_layout_probe as vp
 
@@ -69,28 +86,219 @@ CONTRACTIONS = {
 }
 
 
-@pytest.mark.parametrize("case", [0, 1], ids=["tool-shape", "second-shape"])
-@pytest.mark.parametrize("name", list(CONTRACTIONS))
-def test_contraction_within_the_float32_sum_bound(name, case):
-    a_shape, oh_shape = CONTRACTIONS[name][case]
-    rng = np.random.default_rng(10 + case)
-    a = torch.as_tensor(rng.normal(size=a_shape).astype(np.float32))
-    oh = torch.as_tensor(rng.normal(size=oh_shape).astype(np.float32))
-    got = pb.PROBES[name](a, oh).numpy().astype(np.float64)
+def _float64_contraction(name, a, oh):
+    """The exact product of the bf16-rounded operands, the same product
+    of their magnitudes (sum|terms| per output) and the depth K."""
     a64, oh64 = _bf16_64(a), _bf16_64(oh)
-    if name == "gather3d":
-        exact = np.einsum("aw,rwl->arl", a64, oh64)
-        mag = np.einsum("aw,rwl->arl", np.abs(a64), np.abs(oh64))
-        depth = a_shape[1]
-    else:
-        exact = np.einsum("krl,rwl->kw", a64, oh64)
-        mag = np.einsum("krl,rwl->kw", np.abs(a64), np.abs(oh64))
-        depth = a_shape[1] * a_shape[2]
+    eq = "aw,rwl->arl" if name == "gather3d" else "krl,rwl->kw"
+    depth = a.shape[1] if name == "gather3d" else a.shape[1] * a.shape[2]
+    return (np.einsum(eq, a64, oh64),
+            np.einsum(eq, np.abs(a64), np.abs(oh64)), depth)
+
+
+def _within_the_sum_bound(name, got, a, oh):
+    exact, mag, depth = _float64_contraction(name, a, oh)
     assert got.shape == exact.shape
-    err = np.abs(got - exact)
+    err = np.abs(got.astype(np.float64) - exact)
     assert (err <= depth * 2.0 ** -24 * mag).all(), float(
         (err / (mag * 2.0 ** -24)).max())
     assert err.max() > 0        # the operands are not one-hot
+
+
+def _random_operands(name, case):
+    a_shape, oh_shape = CONTRACTIONS[name][case]
+    rng = np.random.default_rng(10 + case)
+    return (torch.as_tensor(rng.normal(size=a_shape).astype(np.float32)),
+            torch.as_tensor(rng.normal(size=oh_shape).astype(np.float32)))
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["tool-shape", "second-shape"])
+@pytest.mark.parametrize("name", list(CONTRACTIONS))
+def test_contraction_within_the_float32_sum_bound(name, case):
+    a, oh = _random_operands(name, case)
+    _within_the_sum_bound(name, pb.PROBES[name](a, oh).numpy(), a, oh)
+
+
+# -- the plan of the tensor-core kernels (vpic_tpu_torch/tools/mma_plan.py) --
+
+# the tools' shapes, the second shapes above and a third, ragged in every
+# dimension: 20 rows (two 16-row tiles), a short last split and column tile
+PLAN_SHAPES = {
+    "gather3d": CONTRACTIONS["gather3d"] + [((20, 200), (2, 200, 100))],
+    "deposit2d": CONTRACTIONS["deposit2d"] + [((20, 5, 48), (5, 70, 48))],
+}
+PLAN_IDS = ["tool-shape", "second-shape", "ragged"]
+
+
+def plan_of(name, a_shape, oh_shape):
+    r, w, lane = oh_shape
+    if name == "gather3d":
+        return mma_plan.gather3d_plan(a_shape[0], r, w, lane)
+    return mma_plan.deposit2d_plan(a_shape[0], r, w, lane)
+
+
+def plan_cases():
+    return [pytest.param(name, case, id=f"{name}-{PLAN_IDS[case]}")
+            for name in PLAN_SHAPES for case in range(3)]
+
+
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_mma_plan_fills_the_card_at_the_tools_shapes(name):
+    """128 blocks or more for 132 SMs, clusters of at most 8 (the portable
+    size), and shared memory within the 227 KB a block may use."""
+    plan = plan_of(name, *PLAN_SHAPES[name][0])
+    assert plan.blocks_total >= 128
+    assert plan.splits == 8 and plan.grid[2] <= mma_plan.MAX_CLUSTER
+    assert plan.smem <= mma_plan.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("name,case", plan_cases())
+def test_mma_plan_covers_each_output_and_depth_once(name, case):
+    """Over all blocks, each (row, column, depth) term of C = A B lies in
+    exactly one block's rows, columns and split."""
+    plan = plan_of(name, *PLAN_SHAPES[name][case])
+    ncols = plan.r * plan.lane if name == "gather3d" else plan.w
+    depth = plan.w if name == "gather3d" else plan.r * plan.lane
+    count = np.zeros((plan.m, ncols, depth), np.uint8)
+    for b in plan.blocks():
+        assert plan.splits <= mma_plan.MAX_CLUSTER
+        count[np.ix_(np.asarray(b.rows), b.cols[b.cols >= 0], b.depth)] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("name,case", plan_cases())
+def test_mma_plan_copies_are_aligned_and_fill_what_the_products_read(
+        name, case):
+    """Every bulk copy starts and ends on 16-byte boundaries of its
+    operand and of shared memory; copies and cleared runs do not overlap
+    and write exactly the slab elements that the products read; the
+    bytes a block expects fit the mbarrier's count."""
+    plan = plan_of(name, *PLAN_SHAPES[name][case])
+    assert plan.smem <= mma_plan.SMEM_LIMIT
+    read = np.zeros(plan.smem // 4, bool)
+    rows = plan.mt * 16
+    a0, b0 = plan.a_off // 4, plan.b_off // 4
+    read[a0:a0 + rows * plan.lda].reshape(rows, plan.lda)[:, :plan.depth] = 1
+    b_rows, b_cols = ((plan.depth, plan.bn) if name == "gather3d"
+                      else (plan.bn, plan.depth))
+    read[b0:b0 + b_rows * plan.ldb].reshape(b_rows, plan.ldb)[:, :b_cols] = 1
+    for b in plan.blocks():
+        written = np.zeros(plan.smem // 4, np.int32)
+        for _, first, n, dst in b.copies:
+            assert (first * 4) % 16 == 0 and (n * 4) % 16 == 0
+            assert dst % 16 == 0 and n > 0
+            written[dst // 4:dst // 4 + n] += 1
+        for dst, nbytes in b.zeros:
+            written[dst // 4:(dst + nbytes) // 4] += 1
+        np.testing.assert_array_equal(written, read.astype(np.int32))
+        assert sum(n for _, _, n, _ in b.copies) * 4 < 2 ** 20
+
+
+@pytest.mark.parametrize("name,case", plan_cases())
+def test_mma_plan_args_carry_the_tile_and_each_ranks_share(name, case):
+    """The launcher's integers are the grid, the column tile, the tiling,
+    the layout, the share and the shared memory; the ranks' shares are
+    contiguous, in rank order, and cover the tile once."""
+    plan = plan_of(name, *PLAN_SHAPES[name][case])
+    assert plan.args() == (*plan.grid, mma_plan.BN[name], plan.mt,
+                           plan.depth, plan.lda, plan.ldb, plan.a_off,
+                           plan.b_off, plan.p_off, plan.chunk, plan.smem)
+    assert plan.mt == -(-plan.m // 16) and plan.depth % 16 == 0
+    covered = [e for q in range(plan.splits) for e in plan.share(q)]
+    assert covered == list(range(plan.tile))
+
+
+def emulate(plan, a, oh):
+    """The kernels' arithmetic on the CPU, from the plan alone (a model
+    of the kernels, not their code): each
+    block's shared memory starts as NaN and takes the plan's copies and
+    cleared runs; its partial is the float32 product of the bf16-rounded
+    slabs (the tensor cores' order within a split is not emulated); each
+    block then writes its share of the tile summed over the cluster's
+    partials in rank order.  Returns C and how often each element was
+    written."""
+    gather = plan.kind == "gather3d"
+    src = {"a": a.reshape(-1), "oh": oh.reshape(-1)}
+    ncols = plan.r * plan.lane if gather else plan.w
+    out = torch.full((plan.m * ncols,), float("nan"))
+    writes = torch.zeros(plan.m * ncols, dtype=torch.int64)
+    rows, bn, depth = plan.mt * 16, plan.bn, plan.depth
+    blocks, partial = list(plan.blocks()), {}
+    for b in blocks:
+        smem = torch.full((plan.smem // 4,), float("nan"))
+        for op, first, n, dst in b.copies:
+            smem[dst // 4:dst // 4 + n] = src[op][first:first + n]
+        for dst, nbytes in b.zeros:
+            smem[dst // 4:(dst + nbytes) // 4] = 0.0
+        a0, b0 = plan.a_off // 4, plan.b_off // 4
+        sa = smem[a0:a0 + rows * plan.lda].view(rows, plan.lda)[:, :depth]
+        if gather:
+            sb = smem[b0:b0 + depth * plan.ldb].view(depth, plan.ldb)[:, :bn]
+        else:
+            sb = smem[b0:b0 + bn * plan.ldb].view(bn, plan.ldb)[:, :depth].T
+        partial[b.index] = (pb._bf16(sa) @ pb._bf16(sb)).reshape(-1)
+    for b in blocks:
+        x, y, _ = b.index
+        e = torch.arange(b.share.start, b.share.stop)
+        s = partial[(x, y, 0)][e]
+        for q in range(1, plan.splits):
+            s = s + partial[(x, y, q)][e]
+        i, cols = e // bn, torch.as_tensor(b.cols)[e % bn]
+        keep = (i < plan.m) & (cols >= 0)
+        flat = i[keep] * ncols + cols[keep]
+        out[flat] = s[keep]
+        writes[flat] += 1
+    shape = (plan.m, plan.r, plan.lane) if gather else (plan.m, plan.w)
+    return out.view(shape), writes
+
+
+@pytest.mark.parametrize("name", list(PLAN_SHAPES))
+def test_split_sum_is_bitwise_the_plain_version_at_the_tools_inputs(name):
+    """At the tools' one-hot operands each split's partial holds at most
+    one term per output, and the rank-order sum of the splits is exact:
+    bitwise the plain version, every output written once."""
+    args = pb.tool_inputs(name, "cpu")
+    plan = plan_of(name, *(t.shape for t in args))
+    got, writes = emulate(plan, *args)
+    assert bool((writes == 1).all())
+    np.testing.assert_array_equal(bits(got.numpy()),
+                                  bits(pb.PLAIN[name](*args).numpy()))
+
+
+@pytest.mark.parametrize("name,case", plan_cases())
+def test_split_sum_within_the_float32_sum_bound(name, case):
+    """On random operands the per-split partials summed in rank order lie
+    within K * 2^-24 * sum|terms| of the exact product, K the depth."""
+    a_shape, oh_shape = PLAN_SHAPES[name][case]
+    rng = np.random.default_rng(20 + case)
+    a, oh = (torch.as_tensor(rng.normal(size=s).astype(np.float32))
+             for s in (a_shape, oh_shape))
+    got, writes = emulate(plan_of(name, a_shape, oh_shape), a, oh)
+    assert bool((writes == 1).all())
+    _within_the_sum_bound(name, got.numpy(), a, oh)
+
+
+REFUSED = [
+    ("gather3d", (33, 512), (8, 512, 128), "rows of output"),
+    ("gather3d", (32, 510), (8, 510, 128), "multiples of 4"),
+    ("gather3d", (32, 512), (8, 512, 126), "multiples of 4"),
+    ("gather3d", (32, 8192), (1, 8192, 128), "shared memory"),
+    ("deposit2d", (40, 8, 128), (8, 512, 128), "rows of output"),
+    ("deposit2d", (12, 9, 128), (9, 512, 128), "r <= 8"),
+    ("deposit2d", (12, 8, 120), (8, 512, 120), "multiple of 16"),
+    ("deposit2d", (32, 8, 1024), (8, 64, 1024), "shared memory"),
+]
+
+
+@pytest.mark.parametrize("name,a_shape,oh_shape,why", REFUSED,
+                         ids=[f"{c[0]}-{c[3]}" for c in REFUSED])
+def test_wrappers_refuse_shapes_the_kernels_do_not_take(name, a_shape,
+                                                        oh_shape, why):
+    """A shape outside the kernels' plan raises ValueError on every
+    device, before anything is built; the plain version is not taken."""
+    a, oh = torch.zeros(a_shape), torch.zeros(oh_shape)
+    with pytest.raises(ValueError, match=why):
+        pb.PROBES[name](a, oh)
 
 
 def test_stack8_masks_lanes_outside_the_window():

@@ -20,24 +20,48 @@
 //   whether a (1, n) row wastes 7 of 8 sublanes, has no counterpart: a
 //   warp takes 32 consecutive elements of any row.
 //
-// vpic_probe_gather3d    replaces tools/probe_batched.py:probe_gather3d,
-//   out[a,r,l] = sum_w bf16(win[a,w]) * bf16(oh[r,w,l]) in float32;
-// vpic_probe_deposit2d   replaces tools/probe_batched.py:probe_deposit2d,
-//   out[k,w] = sum_{r,l} bf16(c[k,r,l]) * bf16(oh[r,w,l]) in float32.
+// vpic_probe_gather3d    replaces tools/probe_batched.py:probe_gather3d
+//   (its pallas_call at :60), out[a,r,l] = sum_w bf16(win[a,w]) *
+//   bf16(oh[r,w,l]) in float32;
+// vpic_probe_deposit2d   replaces tools/probe_batched.py:probe_deposit2d
+//   (its pallas_call at :80), out[k,w] = sum_{r,l} bf16(c[k,r,l]) *
+//   bf16(oh[r,w,l]) in float32.
 //   Both are one product C = A B on the tensor cores, which is what the
 //   probes ask of the TPU's matrix unit: gather3d A = win (M = A, K = W),
 //   B[w, r*L + l] = oh[r,w,l]; deposit2d A = c (M = K_c, K = R*L),
-//   B[r*L + l, w] = oh[r,w,l]; oh is read through its (R, W, L) strides.
-//   Bound: bytes (oh's 2 MB in float32 dominates; the tool's shapes move
-//   2.29 and 2.17 MB, 0.68 and 0.65 us at 3.35 TB/s; 33.5 MFLOP of bf16
-//   products is 0.03 us at 989 TFLOP/s).  Design: nvcuda::wmma bf16
-//   16x16x16 fragments with float32 accumulation, a 16 x 64 tile of C per
-//   block of four warps (one 16x16 tile each), K staged 64 at a time in
-//   shared memory, where each operand is rounded to bf16 with
+//   B[r*L + l, w] = oh[r,w,l]. Each operand is rounded to bf16 with
 //   __float2bfloat16_rn (round to nearest even, as JAX's astype and
-//   torch's .to(torch.bfloat16)).  Rows, columns and depth past the
-//   operands are zeros in shared memory only (deposit2d's M = 12 becomes
-//   16 there).  K is summed in increasing order, 16 at a time.
+//   torch's .to(torch.bfloat16)).
+//   Bound: bytes (oh's 2 MB in float32 dominates; the tools' shapes move
+//   2.29 and 2.17 MB, 0.68 and 0.65 us at 3.35 TB/s; 33.5 MFLOP of bf16
+//   products is 0.03 us at 989 TFLOP/s). At these sizes what holds a
+//   kernel back is latency and too few blocks, not the card's rates.
+//   Design (the plan, tools/mma_plan.py, is tested on the CPU; the
+//   launchers refuse a plan off this file's constants): a block
+//   computes all rows of C for a tile of columns over one split of the
+//   depth, so oh is read once, by 128 blocks at the tools' shapes
+//   (gather3d: l tile x r x w split = 2 x 8 x 8; deposit2d: w tile x r =
+//   16 x 8). Its slabs of A and oh come in asynchronous bulk copies
+//   (cp.async.bulk) on one mbarrier, which expects their bytes before the
+//   first is issued; the block's threads issue one copy each, so all are
+//   in flight before any thread waits: deposit2d's oh[r, w0:w0+32, :] is
+//   one contiguous 16 KB run, gather3d's 64 runs of 256 B (issued from
+//   one warp, or as 16-byte cp.async, gather3d measured slower). One
+//   round trip of device memory per block, where the wmma kernels before
+//   made one per 64-deep step. mma.sync m16n8k16 bf16 reads the float32
+//   slabs and rounds each operand to bf16 in registers; the depth is
+//   summed 16 at a time in order.
+//   The splits of one column tile are one thread block cluster (at most
+//   8, the portable size): each block keeps its float32 partial in its
+//   shared memory, and after the cluster barrier block q reads its eighth
+//   of the tile from the partials of blocks 0..7 through distributed
+//   shared memory (all eight reads in flight), sums them in that order
+//   and writes C. No float atomics, no scratch in device memory, one
+//   launch, and the same sum order on every run. Rows, columns and depth
+//   past the operands are zeros in shared memory only.
+//   Not wgmma: it takes 64-row tiles, and C has 12 or 32 rows, so it
+//   would need the operands swapped, and it buys nothing on 0.03 us of
+//   products.
 //
 // vpic_probe_stack8      replaces tools/probe_batched.py:probe_stack8,
 //   out[a,s,l] = bf16(win[a, loc[s,l]]) in float32, 0 where loc lies
@@ -61,12 +85,12 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <cooperative_groups.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+namespace cg = cooperative_groups;
 
 __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
@@ -89,65 +113,268 @@ __global__ void vpu_chain_kernel(const float* __restrict__ x,
   o[idx] = acc;
 }
 
-// C (M x N, row-major) = A (M x K, row-major) B (K x N); B[k, n] read from
-// oh (R, W, L): gather3d B[w, r*L + l] (K = W, N = R*L), deposit2d
-// B[r*L + l, w] (K = R*L, N = W).
-constexpr int kBM = 16, kBN = 64, kBK = 64, kThreads = 128;
-constexpr int kLdA = kBK + 8, kLdB = kBN + 8, kLdC = kBN + 4;
+// gather3d and deposit2d: the plan's integers (tools/mma_plan.py,
+// MmaPlan.args, checked by check_plan at launch), a block of four warps,
+// 16-row tiles of C, mma.sync m16n8k16 bf16 with float32 accumulation.
+constexpr int kMmaThreads = 128;
+constexpr int kGatherBN = 64, kDepositBN = 32;
+constexpr int kMaxCluster = 8;   // the portable cluster size
 
+struct MmaPlan {
+  int M, R, W, L;            // rows of C, and oh's (R, W, L)
+  int mt, depth, lda, ldb;   // 16-row tiles, a split's depth, slab strides
+  int a_off, b_off, p_off;   // bytes into the block's shared memory
+  int chunk;                 // tile elements one rank of a cluster sums
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// One mbarrier per block takes every copy of the block: one arrival (the
+// thread that sets the expected bytes) and the copies' bytes.
+__device__ __forceinline__ void bar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n"
+               "fence.mbarrier_init.release.cluster;\n"
+               :: "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ void bar_expect_bytes(uint64_t* bar,
+                                                 uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void bar_wait(uint64_t* bar) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile("{\n.reg .pred p;\n"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                 "selp.u32 %0, 1, 0, p;\n}\n"
+                 : "=r"(done) : "r"(smem_u32(bar)) : "memory");
+  }
+}
+
+// floats * 4 bytes from global to shared memory, reported to bar
+__device__ __forceinline__ void bulk_copy(float* dst, const float* src,
+                                          int floats, uint64_t* bar) {
+  asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx"
+               "::bytes [%0], [%1], %2, [%3];\n"
+               :: "r"(smem_u32(dst)), "l"(src), "r"(floats * 4),
+                  "r"(smem_u32(bar)) : "memory");
+}
+
+__device__ __forceinline__ uint32_t bf16x2(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};\n"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+// The block's partial P (mt*16 x kBN) = A B over the split's depth, each
+// operand rounded to bf16 as it leaves shared memory.  A[m][k] at
+// As[m*lda + k]; B[k][n] at Bs[n*ldb + k] for deposit2d (oh's l is
+// contiguous) and at Bs[k*ldb + n] for gather3d.  Warp w takes the
+// m16n8 tiles w, w + 4, ...; each sums the depth 16 at a time in order.
 template <bool kDeposit>
-__global__ void __launch_bounds__(kThreads)
-    probe_mma_kernel(const float* __restrict__ a,
-                     const float* __restrict__ oh, float* __restrict__ out,
-                     int M, int N, int K, int W, int L) {
-  __shared__ __align__(32) __nv_bfloat16 As[kBM * kLdA];
-  __shared__ __align__(32) __nv_bfloat16 Bs[kBK * kLdB];
-  __shared__ __align__(32) float Cs[kBM * kLdC];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int warp = threadIdx.x / 32;
-  const long long plane = (long long)W * L;
+__device__ __forceinline__ void block_products(const MmaPlan& p,
+                                               const float* As,
+                                               const float* Bs, float* Ps) {
+  constexpr int kBN = kDeposit ? kDepositBN : kGatherBN, kNT = kBN / 8;
+  const int lane = threadIdx.x % 32, g = lane / 4, t = lane % 4;
+  for (int tile = threadIdx.x / 32; tile < p.mt * kNT;
+       tile += kMmaThreads / 32) {
+    const int m0 = tile / kNT * 16, n0 = tile % kNT * 8;
+    const float* a_lo = As + (m0 + g) * p.lda + 2 * t;
+    const float* a_hi = a_lo + 8 * p.lda;
+    const float* b = kDeposit ? Bs + (n0 + g) * p.ldb + 2 * t
+                              : Bs + 2 * t * p.ldb + n0 + g;
+    const int bk = kDeposit ? 1 : p.ldb;   // B's stride along the depth
+    float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int k0 = 0; k0 < p.depth; k0 += 16) {
+      const uint32_t a[4] = {bf16x2(a_lo[k0], a_lo[k0 + 1]),
+                             bf16x2(a_hi[k0], a_hi[k0 + 1]),
+                             bf16x2(a_lo[k0 + 8], a_lo[k0 + 9]),
+                             bf16x2(a_hi[k0 + 8], a_hi[k0 + 9])};
+      const float* bb = b + k0 * bk;
+      mma_bf16(d, a, bf16x2(bb[0], bb[bk]), bf16x2(bb[8 * bk], bb[9 * bk]));
+    }
+    float* c = Ps + (m0 + g) * kBN + n0 + 2 * t;
+    c[0] = d[0];
+    c[1] = d[1];
+    c[8 * kBN] = d[2];
+    c[8 * kBN + 1] = d[3];
+  }
+}
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-  wmma::fill_fragment(acc, 0.0f);
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    for (int t = threadIdx.x; t < kBM * kBK; t += kThreads) {
-      const int i = t / kBK, kk = t % kBK;
-      const int m = m0 + i, k = k0 + kk;
-      const float v = (m < M && k < K) ? a[(long long)m * K + k] : 0.0f;
-      As[i * kLdA + kk] = __float2bfloat16_rn(v);
-    }
-    for (int t = threadIdx.x; t < kBK * kBN; t += kThreads) {
-      // neighbouring threads on neighbouring l: coalesced reads of oh
-      const int kk = kDeposit ? t % kBK : t / kBN;
-      const int j = kDeposit ? t / kBK : t % kBN;
-      const int k = k0 + kk, n = n0 + j;
-      float v = 0.0f;
-      if (k < K && n < N) {
-        v = kDeposit ? oh[(k / L) * plane + (long long)n * L + k % L]
-                     : oh[(n / L) * plane + (long long)k * L + n % L];
-      }
-      Bs[kk * kLdB + j] = __float2bfloat16_rn(v);
-    }
-    __syncthreads();
+// The split-K sum: after the cluster barrier, the block of rank q sums
+// its share [q*chunk, (q+1)*chunk) of the tile over the partials of ranks
+// 0, 1, ..., S-1 in that order (distributed shared memory) and stores
+// rows < M, columns < ncols at out[i*ld_row + j]; the second barrier
+// keeps every partial alive until the last rank has read it.
+template <int kBN>
+__device__ __forceinline__ void cluster_sum(const MmaPlan& p, float* Ps,
+                                            float* out, long long ld_row,
+                                            int ncols) {
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();
+  const int splits = (int)cluster.num_blocks(), rank = cluster.block_rank();
+  const int end = min(p.mt * 16 * kBN, (rank + 1) * p.chunk);
+  for (int e = rank * p.chunk + threadIdx.x; e < end; e += kMmaThreads) {
+    float v[kMaxCluster];   // every read in flight before the first add
 #pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fa;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> fb;
-      wmma::load_matrix_sync(fa, As + kk, kLdA);
-      wmma::load_matrix_sync(fb, Bs + kk * kLdB + warp * 16, kLdB);
-      wmma::mma_sync(acc, fa, fb, acc);
-    }
-    __syncthreads();
+    for (int q = 0; q < kMaxCluster; ++q)
+      v[q] = q < splits ? *cluster.map_shared_rank(Ps + e, q) : 0.0f;
+    float s = v[0];
+#pragma unroll
+    for (int q = 1; q < kMaxCluster; ++q)
+      if (q < splits) s += v[q];
+    const int i = e / kBN, j = e % kBN;
+    if (i < p.M && j < ncols) out[i * ld_row + j] = s;
   }
-  wmma::store_matrix_sync(Cs + warp * 16, acc, kLdC, wmma::mem_row_major);
+  cluster.sync();
+}
+
+struct MmaSmem {
+  uint64_t* bar;
+  float *As, *Bs, *Ps;
+};
+
+// The block's shared memory; its mbarrier expects ``bytes`` before any
+// copy is issued.
+__device__ __forceinline__ MmaSmem mma_smem(const MmaPlan& p,
+                                            uint32_t bytes) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  MmaSmem s;
+  s.bar = reinterpret_cast<uint64_t*>(smem);
+  s.As = reinterpret_cast<float*>(smem + p.a_off);
+  s.Bs = reinterpret_cast<float*>(smem + p.b_off);
+  s.Ps = reinterpret_cast<float*>(smem + p.p_off);
+  if (threadIdx.x == 0) {
+    bar_init(s.bar);
+    bar_expect_bytes(s.bar, bytes);
+  }
   __syncthreads();
-  for (int t = threadIdx.x; t < kBM * kBN; t += kThreads) {
-    const int i = t / kBN, j = t % kBN;
-    if (m0 + i < M && n0 + j < N)
-      out[(long long)(m0 + i) * N + n0 + j] = Cs[i * kLdC + j];
+  return s;
+}
+
+// Rows [m, mt*16) of the A slab, over the depth, are zero.
+__device__ __forceinline__ void clear_rows_past_m(const MmaPlan& p,
+                                                  float* As) {
+  for (int i = p.M + threadIdx.x / 32; i < p.mt * 16; i += kMmaThreads / 32)
+    for (int k = threadIdx.x % 32; k < p.depth; k += 32)
+      As[i * p.lda + k] = 0.0f;
+}
+
+// Block (l tile, r, w split): C[a, r*L + l0 + j] over w in [w0, w0 + dw).
+__global__ void __launch_bounds__(kMmaThreads)
+    gather3d_kernel(const float* __restrict__ win,
+                    const float* __restrict__ oh, float* __restrict__ out,
+                    MmaPlan p) {
+  const int l0 = blockIdx.x * kGatherBN, r = blockIdx.y;
+  const int w0 = blockIdx.z * p.depth;
+  const int nl = min(kGatherBN, p.L - l0), dw = min(p.depth, p.W - w0);
+  const MmaSmem s = mma_smem(p, (uint32_t)((p.M + nl) * dw * 4));
+  // every copy of the block is issued before any thread waits
+  const float* ohr = oh + ((long long)r * p.W + w0) * p.L + l0;
+  for (int i = threadIdx.x; i < p.M + dw; i += kMmaThreads) {
+    if (i < p.M)
+      bulk_copy(s.As + i * p.lda, win + (long long)i * p.W + w0, dw, s.bar);
+    else
+      bulk_copy(s.Bs + (i - p.M) * p.ldb, ohr + (long long)(i - p.M) * p.L,
+                nl, s.bar);
   }
+  // what the products read and no copy writes: zeros
+  for (int i = threadIdx.x / 32; i < p.M; i += kMmaThreads / 32)
+    for (int k = dw + threadIdx.x % 32; k < p.depth; k += 32)
+      s.As[i * p.lda + k] = 0.0f;
+  clear_rows_past_m(p, s.As);
+  for (int k = threadIdx.x / 32; k < p.depth; k += kMmaThreads / 32)
+    for (int j = (k < dw ? nl : 0) + threadIdx.x % 32; j < kGatherBN; j += 32)
+      s.Bs[k * p.ldb + j] = 0.0f;
+  __syncthreads();
+  bar_wait(s.bar);
+  block_products<false>(p, s.As, s.Bs, s.Ps);
+  cluster_sum<kGatherBN>(p, s.Ps, out + (long long)r * p.L + l0,
+                         (long long)p.R * p.L, nl);
+}
+
+// Block (w tile, 0, r): C[k, w0 + j] over (r, l), l in [0, L).
+__global__ void __launch_bounds__(kMmaThreads)
+    deposit2d_kernel(const float* __restrict__ c,
+                     const float* __restrict__ oh, float* __restrict__ out,
+                     MmaPlan p) {
+  const int w0 = blockIdx.x * kDepositBN, r = blockIdx.z;
+  const int nw = min(kDepositBN, p.W - w0);
+  const MmaSmem s = mma_smem(p, (uint32_t)((nw + p.M) * p.L * 4));
+  // oh[r, w0:w0+nw, :] is one contiguous run, copied by the last thread
+  if (threadIdx.x == kMmaThreads - 1)
+    bulk_copy(s.Bs, oh + ((long long)r * p.W + w0) * p.L, nw * p.L, s.bar);
+  if (threadIdx.x < p.M)
+    bulk_copy(s.As + threadIdx.x * p.lda,
+              c + ((long long)threadIdx.x * p.R + r) * p.L, p.L, s.bar);
+  clear_rows_past_m(p, s.As);
+  for (int j = nw + threadIdx.x / 32; j < kDepositBN; j += kMmaThreads / 32)
+    for (int k = threadIdx.x % 32; k < p.L; k += 32) s.Bs[j * p.ldb + k] = 0.0f;
+  __syncthreads();
+  bar_wait(s.bar);
+  block_products<true>(p, s.As, s.Bs, s.Ps);
+  cluster_sum<kDepositBN>(p, s.Ps, out + w0, p.W, nw);
+}
+
+// The plan's integers against what the kernels were built for: a plan
+// that drifts from this file's constants is refused at launch.
+bool check_plan(const MmaPlan& p, bool deposit, int gx, int gy, int gz,
+                int bn, int smem) {
+  const int tile = p.mt * 16 * bn;
+  bool ok = bn == (deposit ? kDepositBN : kGatherBN) && gz >= 1 &&
+            gz <= kMaxCluster && p.mt == (p.M + 15) / 16 && p.mt <= 2 &&
+            p.chunk == (tile + gz - 1) / gz && p.depth % 16 == 0 &&
+            p.lda >= p.depth && p.a_off >= 16 &&
+            p.b_off >= p.a_off + p.mt * 16 * p.lda * 4 &&
+            p.p_off + tile * 4 <= smem && gx == (deposit ? (p.W + bn - 1) / bn
+                                                         : (p.L + bn - 1) / bn);
+  if (deposit)
+    ok = ok && gy == 1 && gz == p.R && p.depth == p.L && p.ldb >= p.L &&
+         p.p_off >= p.b_off + bn * p.ldb * 4;
+  else
+    ok = ok && gy == p.R && (long long)gz * p.depth >= p.W &&
+         p.ldb >= bn && p.p_off >= p.b_off + p.depth * p.ldb * 4;
+  return ok;
+}
+
+// One launch of a cluster of grid.z blocks along z.
+template <typename Kernel>
+int launch_clusters(Kernel kernel, const float* a, const float* oh,
+                    float* out, const MmaPlan& p, int gx, int gy, int gz,
+                    int smem, void* stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(gx, gy, gz);
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute cluster;
+  cluster.id = cudaLaunchAttributeClusterDimension;
+  cluster.val.clusterDim.x = 1;
+  cluster.val.clusterDim.y = 1;
+  cluster.val.clusterDim.z = gz;
+  cfg.attrs = &cluster;
+  cfg.numAttrs = 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, a, oh, out, p);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
 __global__ void stack8_kernel(const float* __restrict__ win,
@@ -213,23 +440,34 @@ int vpic_probe_vpu_chain(const float* x, float* o, int rows, int n,
   return (int)cudaGetLastError();
 }
 
-// win (A, W), oh (R, W, L), out (A, R, L), all float32.
+// win (A, W), oh (R, W, L), out (A, R, L), all float32, 16-byte aligned;
+// the plan of tools/mma_plan.py:gather3d_plan.
 int vpic_probe_gather3d(const float* win, const float* oh, float* out, int A,
-                        int R, int W, int L, void* stream) {
-  const int N = R * L;
-  dim3 grid((N + kBN - 1) / kBN, (A + kBM - 1) / kBM);
-  probe_mma_kernel<false><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      win, oh, out, A, N, W, W, L);
-  return (int)cudaGetLastError();
+                        int R, int W, int L, int gx, int gy, int gz, int bn,
+                        int mt, int depth, int lda, int ldb, int a_off,
+                        int b_off, int p_off, int chunk, int smem,
+                        void* stream) {
+  const MmaPlan p = {A, R, W, L, mt, depth, lda, ldb, a_off, b_off, p_off,
+                     chunk};
+  if (!check_plan(p, false, gx, gy, gz, bn, smem))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(gather3d_kernel, win, oh, out, p, gx, gy, gz, smem,
+                         stream);
 }
 
-// c (Kc, R, L), oh (R, W, L), out (Kc, W), all float32.
+// c (Kc, R, L), oh (R, W, L), out (Kc, W), all float32, 16-byte aligned;
+// the plan of tools/mma_plan.py:deposit2d_plan.
 int vpic_probe_deposit2d(const float* c, const float* oh, float* out, int Kc,
-                         int R, int W, int L, void* stream) {
-  dim3 grid((W + kBN - 1) / kBN, (Kc + kBM - 1) / kBM);
-  probe_mma_kernel<true><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      c, oh, out, Kc, W, R * L, W, L);
-  return (int)cudaGetLastError();
+                         int R, int W, int L, int gx, int gy, int gz, int bn,
+                         int mt, int depth, int lda, int ldb, int a_off,
+                         int b_off, int p_off, int chunk, int smem,
+                         void* stream) {
+  const MmaPlan p = {Kc, R, W, L, mt, depth, lda, ldb, a_off, b_off, p_off,
+                     chunk};
+  if (!check_plan(p, true, gx, gy, gz, bn, smem))
+    return (int)cudaErrorInvalidValue;
+  return launch_clusters(deposit2d_kernel, c, oh, out, p, gx, gy, gz, smem,
+                         stream);
 }
 
 // win (A, W) float32, loc (S, L) int32, out (A, S, L) float32.

@@ -19,7 +19,9 @@ Probes (W = 512, R = 8, LANE = 128; every operand float32 unless said):
 
 ``oh`` is the tool's one-hot ``oh[r,w,l] = (w == l + r)``.  Each wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
-tensors (a failed launch raises; there is no other fallback);
+tensors (a failed launch raises; there is no other fallback); gather3d
+and deposit2d refuse, on every device, the shapes their kernels' plan
+(``mma_plan.py``) does not take;
 ``launches`` counts the kernels' launches.  On the card each probe prints
 the tool's line and its kernel's time through the wrapper (CUDA events)
 beside its bound; a failed probe raises and the command exits non-zero.
@@ -35,6 +37,7 @@ import numpy as np
 import torch
 
 from ..particles.push_cuda import check_tensor, cuda_device
+from .mma_plan import deposit2d_plan, gather3d_plan
 from .probes_cuda import (BF16_TENSOR_OPS_PER_S, bound, card_line, cuda_ms,
                           launch, resolve_device)
 
@@ -97,31 +100,50 @@ def io4d_plain(ps):
 
 # -- wrappers -----------------------------------------------------------------
 
+def _check_aligned(*named):
+    """The bulk copies start at 16-byte boundaries of each operand."""
+    for name, t in named:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} does not start on a 16-byte boundary")
+
+
 def gather3d(win, oh):
+    """Takes the shapes of ``mma_plan.gather3d_plan``: win (a, w), oh (r,
+    w, lane) with 1 <= a <= 32, w and lane multiples of 4 and w up to
+    4352 at 32 rows; any other shape raises ValueError, on every
+    device."""
+    a, w = _dims("win", win, 2)
+    r, _, lane = _dims("oh", oh, 3)
+    plan = gather3d_plan(a, r, w, lane)
     if win.device.type == "cpu":
         return gather3d_plain(win, oh)
     device = cuda_device(win)
-    a, w = _dims("win", win, 2)
-    r, _, lane = _dims("oh", oh, 3)
     check_tensor("win", win, F32, (a, w), device)
     check_tensor("oh", oh, F32, (r, w, lane), device)
+    _check_aligned(("win", win), ("oh", oh))
     out = torch.empty((a, r, lane), dtype=F32, device=device)
     launch("vpic_probe_gather3d", launches, "gather3d", device,
-           win, oh, out, a, r, w, lane)
+           win, oh, out, a, r, w, lane, *plan.args())
     return out
 
 
 def deposit2d(c, oh):
+    """Takes the shapes of ``mma_plan.deposit2d_plan``: c (k, r, lane), oh
+    (r, w, lane) with 1 <= k <= 32, 1 <= r <= 8 and lane a multiple of 16
+    (up to 880 at 32 rows); any other shape raises ValueError, on every
+    device."""
+    k, r, lane = _dims("c", c, 3)
+    w = _dims("oh", oh, 3)[1]
+    plan = deposit2d_plan(k, r, w, lane)
     if c.device.type == "cpu":
         return deposit2d_plain(c, oh)
     device = cuda_device(c)
-    k, r, lane = _dims("c", c, 3)
-    w = _dims("oh", oh, 3)[1]
     check_tensor("c", c, F32, (k, r, lane), device)
     check_tensor("oh", oh, F32, (r, w, lane), device)
+    _check_aligned(("c", c), ("oh", oh))
     out = torch.empty((k, w), dtype=F32, device=device)
     launch("vpic_probe_deposit2d", launches, "deposit2d", device,
-           c, oh, out, k, r, w, lane)
+           c, oh, out, k, r, w, lane, *plan.args())
     return out
 
 
@@ -206,8 +228,8 @@ PLAIN = {"gather3d": gather3d_plain, "deposit2d": deposit2d_plain,
          "stack8": stack8_plain, "onehot3d": onehot3d_plain,
          "io4d": io4d_plain}
 # the kernel each wrapper launches, as the profiler names it
-KERNEL_NAMES = {"gather3d": "probe_mma_kernel<false>",
-                "deposit2d": "probe_mma_kernel<true>",
+KERNEL_NAMES = {"gather3d": "gather3d_kernel",
+                "deposit2d": "deposit2d_kernel",
                 "stack8": "stack8_kernel", "onehot3d": "onehot3d_kernel",
                 "io4d": "io4d_kernel"}
 
