@@ -1293,8 +1293,9 @@ def call_profile(fn, merge_kernels=0, reps=10):
     ``merge_kernels`` kernels named ``merge_*`` (traced again until they
     are all there and at most one runtime call lacks its device event):
     per call the device time of those kernels (``kernel_ms``), the device
-    busy time (``busy_ms``, the union of all device ops), the device ops,
-    the host reads (device to host copies) and the device ops by name."""
+    busy time (``busy_ms``, the union of all device ops), the sum of
+    their device times (``device_ms``), the device ops, the host reads
+    (device to host copies) and the device ops by name."""
     fn()
     merge = lambda dev: [e for e in dev if "merge_" in e.name]
     _, _, dev, _ = profiled(
@@ -1305,6 +1306,7 @@ def call_profile(fn, merge_kernels=0, reps=10):
     return dict(
         kernel_ms=sum(e.time_range.elapsed_us() for e in merge(dev))
         / reps / 1e3,
+        device_ms=sum(e.time_range.elapsed_us() for e in dev) / reps / 1e3,
         busy_ms=_busy_us([(e.time_range.start, e.time_range.end)
                           for e in dev]) / reps / 1e3,
         ops=len(dev) / reps,
@@ -3775,6 +3777,17 @@ PROBE_REPLACES = {"vpu_chain": "tools/vpu_layout_probe.py:22",
 PROBE_RAGGED = {
     "gather3d": [((5, 48), (3, 48, 32)), ((20, 200), (2, 200, 100))],
     "deposit2d": [((7, 3, 32), (3, 40, 32)), ((20, 5, 48), (5, 70, 48))]}
+# the chain's ragged cases, (rows, block shape, reps): reps around the
+# kernel's 16-rep unroll on rows 3 of (8, 1000), then zeros that start or
+# end off a 16-byte boundary (n not a multiple of 4) at 17 reps
+CHAIN_RAGGED = ([(3, (8, 1000), r) for r in (0, 1, 7, 17, 1024)]
+                + [(5, (5, 130), 17), (3, (8, 1001), 17), (5, (7, 130), 17),
+                   (1, (2, 3), 17)])
+# io4d's inputs besides the tool's, by name: R*L not a multiple of 4, a
+# contiguous slice along dim 0 (840 bytes into its storage), and R*L a
+# multiple of 4 from 4 bytes into its storage
+IO4D_CASES = {"ragged": (3, 7, 5, 6), "dim-0 slice": (3, 7, 5, 6),
+              "4 bytes in": (2, 7, 4, 8)}
 # (steps, particles in all, nx): the tool's defaults, then the bench
 # deck's grid with the particles cut to what the float64 host reference
 # (about 30 us per particle and step) steps in about 20 s
@@ -3810,12 +3823,16 @@ def check_bitwise(label, out, other, what):
 
 def check_probe(name, device):
     """Probe ``name``'s kernel on the tool's inputs against its plain
-    version on the card: bitwise, and bitwise across two runs."""
+    version on the card: bitwise, and bitwise across two runs, each
+    output first NaN in the allocator."""
     import torch
     from vpic_tpu_torch.tools import probe_batched as pb
     args = pb.tool_inputs(name, device)
-    k1, k2 = pb.PROBES[name](*args), pb.PROBES[name](*args)
     plain = pb.PLAIN[name](*args)
+    nan_cache(plain.shape, device)
+    k1 = pb.PROBES[name](*args)
+    nan_cache(plain.shape, device)
+    k2 = pb.PROBES[name](*args)
     torch.cuda.synchronize()
     check_bitwise(f"{name} at the tool's shapes", k1, plain,
                   "the plain version")
@@ -3863,57 +3880,127 @@ def check_contraction(name, device, seed=5, shapes=None):
     return float(err.max()), ratio
 
 
+def nan_cache(shape, device):
+    """Leave a NaN-filled block of ``shape`` free in the caching
+    allocator, so that the next output of that shape most likely starts
+    as NaN: an element a kernel leaves unwritten then shows."""
+    import torch
+    torch.full(shape, float("nan"), device=device)
+
+
+def check_chain_case(x, rows, reps):
+    """The chain kernel on ``x`` against its plain version and its rerun,
+    bitwise, each output first NaN in the allocator; the rows past
+    ``rows`` zeros."""
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
+    nan_cache(x.shape, x.device)
+    k1 = vp.chain(x, rows, reps)
+    nan_cache(x.shape, x.device)
+    k2 = vp.chain(x, rows, reps)
+    plain = vp.chain_plain(x, rows, reps)
+    what = f"vpu chain {tuple(x.shape)} rows {rows}, {reps} reps"
+    check_bitwise(what, k1, plain, "the plain version")
+    check_bitwise(what, k1, k2, "a rerun")
+    if bool(k1[rows:].any()):
+        raise AssertionError(f"{what}: rows past the window are not zero")
+
+
 def check_chains(device):
     """The chain kernel at 1024 reps on every shape of the tool, on its
-    input (ones) and on one drawn uniform on [0, 3): bitwise its plain
-    version and its rerun, the rows past ``rows`` zeros."""
+    input (ones) and on one drawn uniform on [0, 3), then on the ragged
+    cases of CHAIN_RAGGED (uniform): bitwise its plain version and its
+    rerun, the rows past ``rows`` zeros."""
     import torch
     from vpic_tpu_torch.tools import vpu_layout_probe as vp
     gen = torch.Generator(device=device).manual_seed(16)
     for rows in vp.ROWS:
         shape = vp.block_shape(rows)
-        for label, x in (
-                ("ones", torch.ones(shape, device=device)),
-                ("uniform", 3 * torch.rand(shape, device=device,
-                                           generator=gen))):
-            k1, k2 = vp.chain(x, rows), vp.chain(x, rows)
-            plain = vp.chain_plain(x, rows)
-            torch.cuda.synchronize()
-            what = f"vpu chain {shape} rows {rows} ({label})"
-            check_bitwise(what, k1, plain, "the plain version")
-            check_bitwise(what, k1, k2, "a rerun")
-            if bool(k1[rows:].any()):
-                raise AssertionError(f"vpu chain rows {rows}: rows past "
-                                     "the window are not zero")
+        check_chain_case(torch.ones(shape, device=device), rows, vp.REPS)
+        check_chain_case(3 * torch.rand(shape, device=device, generator=gen),
+                         rows, vp.REPS)
+    for rows, shape, reps in CHAIN_RAGGED:
+        check_chain_case(3 * torch.rand(shape, device=device, generator=gen),
+                         rows, reps)
     log(f"  vpu chain: {vp.REPS} reps on the {len(vp.ROWS)} shapes of the "
-        "tool, ones and uniform [0, 3): bitwise the plain version and a "
+        "tool, ones and uniform [0, 3), and the ragged cases (rows, shape, "
+        f"reps) {CHAIN_RAGGED}: bitwise the plain version and a rerun")
+
+
+def io4d_input(name, device):
+    """io4d's input ``name`` of IO4D_CASES, drawn with numpy from one
+    seed."""
+    import numpy as np
+    import torch
+    shape = IO4D_CASES[name]
+    rng = np.random.default_rng(12)
+    if name == "dim-0 slice":
+        full = rng.normal(size=(shape[0] + 1, *shape[1:]))
+        return torch.as_tensor(full.astype(np.float32), device=device)[1:]
+    skip = 1 if name == "4 bytes in" else 0
+    flat = rng.normal(size=skip + int(np.prod(shape))).astype(np.float32)
+    return torch.as_tensor(flat, device=device)[skip:].view(shape)
+
+
+def check_io4d(device):
+    """The io4d kernel on each input of IO4D_CASES, all on its one-float
+    path: bitwise its plain version and its rerun.  (The tool's input,
+    on the 16-byte path, is check_probe's.)"""
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    out_shape = lambda ps: (ps.shape[0], 16, *ps.shape[2:])
+    for name in IO4D_CASES:
+        ps = io4d_input(name, device)
+        plan = pb.io4d_plan(ps.shape[0], ps.shape[2] * ps.shape[3],
+                            ps.data_ptr() % 16 == 0)
+        if plan.width != 1:
+            raise AssertionError(f"io4d {name}: plan {plan}, expected the "
+                                 "one-float path")
+        nan_cache(out_shape(ps), device)
+        k1 = pb.io4d(ps)
+        nan_cache(out_shape(ps), device)
+        k2 = pb.io4d(ps)
+        what = f"io4d {name} {tuple(ps.shape)}"
+        check_bitwise(what, k1, pb.io4d_plain(ps), "the plain version")
+        check_bitwise(what, k1, k2, "a rerun")
+    torch.cuda.synchronize()
+    log(f"  io4d on {list(IO4D_CASES)}: bitwise the plain version and a "
         "rerun")
 
 
 def time_tool_kernel(label, run_k, run_p, kernel_name, bound_ms, bound_by,
                      library=None):
     """The wrapper (CUDA events), the kernel alone (profiler), the plain
-    version and the one PyTorch call (where there is one) against the
-    bound; fails where the kernel alone beats its bound."""
+    version and the one PyTorch call (where there is one: CUDA events,
+    and alone, the sum of its device events per call under the profiler)
+    against the bound; fails where the kernel alone beats its bound."""
     p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
                       cuda_ms(run_k, 20), cuda_ms(run_p, 5))
     kernel_ms, ops = profiled_ms(run_k, 20, (kernel_name,), 1)
-    library_ms = cuda_ms(library, 20) if library is not None else None
+    library_ms = library_kernel_ms = None
+    lib = ""
+    if library is not None:
+        library_ms = cuda_ms(library, 20)
+        library_kernel_ms = call_profile(library, reps=20)["device_ms"]
+        lib = (f", one PyTorch call {library_ms:.4f} ms (alone "
+               f"{library_kernel_ms:.4f} ms; the kernel alone over it "
+               f"{kernel_ms / library_kernel_ms:.4f})")
     held_to_bound(f"{label}: the kernel alone", kernel_ms, bound_ms)
-    lib = (f", one PyTorch call {library_ms:.4f} ms"
-           if library_ms is not None else "")
     log(f"  timing, {label}: wrapper {k1:.4f} / {k2:.4f} ms ({ops:.1f} "
         f"device ops per call), kernel alone {kernel_ms:.4f} ms, plain "
         f"{p1:.4f} / {p2:.4f} ms{lib}; bound {bound_ms:.6f} ms "
         f"({bound_by}), the kernel at {bound_ms / kernel_ms:.4f} of it")
-    return dict(ms=min(k1, k2), kernel_ms=kernel_ms, plain_ms=min(p1, p2),
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    t = dict(ms=min(k1, k2), kernel_ms=kernel_ms, plain_ms=min(p1, p2),
+             bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+    if library is not None:
+        t["library_kernel_ms"] = library_kernel_ms
+    return t
 
 
 def time_probes(device):
     """Each probe of probe_batched on the tool's inputs; gather3d and
     deposit2d beside torch.einsum on the prepared bf16 operands, stack8
-    beside an index of the prepared bf16 window."""
+    beside an index of the prepared bf16 window (each through CUDA events
+    and alone)."""
     import torch
     from vpic_tpu_torch.tools import probe_batched as pb
     out = {}
@@ -3933,20 +4020,16 @@ def time_probes(device):
             name, lambda name=name, args=args: pb.PROBES[name](*args),
             lambda name=name, args=args: pb.PLAIN[name](*args),
             pb.KERNEL_NAMES[name], bound_ms, bound_by, library)
-        if name in ("gather3d", "deposit2d"):
-            t = out[name]
-            log(f"  {name}: the kernel alone over torch.einsum of this "
-                f"call {t['kernel_ms'] / t['library_ms']:.4f}")
     return out
 
 
 def time_chains(device):
     """The chain kernel at the tool's dense (8, n) shape (wrapper, alone,
-    plain, bound) and through its wrapper on each of the tool's shapes,
-    and on the same window without the block's zero rows where it has
-    some: two passes over the shapes in turn, the second one kept (the
-    first shape of the first pass may meet the card's clocks still
-    rising)."""
+    plain, bound), and through its wrapper and alone (profiler) on each
+    of the tool's shapes and on the same window without the block's zero
+    rows where it has some: two passes over the shapes in turn, the
+    second one kept (the first shape of the first pass may meet the
+    card's clocks still rising)."""
     import torch
     from vpic_tpu_torch.tools import vpu_layout_probe as vp
     blocks = {}
@@ -3962,8 +4045,15 @@ def time_chains(device):
             x = torch.ones(shape, device=device)
             passes[-1][key] = cuda_ms(lambda: vp.chain(x, rows), 20)
     per_shape = passes[-1]
+    alone = {}
+    for key, (rows, shape) in blocks.items():
+        x = torch.ones(shape, device=device)
+        alone[key] = profiled_ms(lambda: vp.chain(x, rows), 20,
+                                 ("vpu_chain_kernel",), 1)[0]
     log("  vpu chain through its wrapper, first pass (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in passes[0].items()))
+    log("  vpu chain alone (profiler, ms): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in alone.items()))
     x = torch.ones(vp.block_shape(8), device=device)
     bound_ms, bound_by = vp.chain_bound(8, x)
     t = time_tool_kernel(f"vpu chain (8, {x.shape[1]}), {vp.REPS} reps",
@@ -3972,7 +4062,7 @@ def time_chains(device):
                          bound_ms, bound_by)
     log("  vpu chain through its wrapper, second pass (ms): " + ", ".join(
         f"{k} {v:.4f}" for k, v in per_shape.items()))
-    return dict(t, shapes_ms=per_shape)
+    return dict(t, shapes_ms=per_shape, shapes_kernel_ms=alone)
 
 
 def phase_drift(device):
@@ -4034,6 +4124,7 @@ def phase_tools(device, card):
         for shapes in cases:
             check_contraction(name, device, shapes=shapes)
     check_chains(device)
+    check_io4d(device)
     times = time_probes(device)
     times["vpu_chain"] = time_chains(device)
     t0 = time.perf_counter()

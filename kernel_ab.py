@@ -39,21 +39,35 @@ its last line.  Needs one card; exits non-zero without one.
 
     python3 kernel_ab.py --probes _archive/parent . . _archive/parent
 
-measures instead, per tree, the tools' two tensor-core probes (gather3d
-and deposit2d of ``vpic_tpu_torch/tools/probe_batched.py``) on the
-tool's inputs: each checked bitwise against that tree's plain version,
-then its kernel alone (torch.profiler), its wrapper (CUDA events) and
-``torch.einsum`` on the prepared bf16 operands.
+measures instead, per tree, four probe kernels of the tools: gather3d
+and deposit2d (``vpic_tpu_torch/tools/probe_batched.py``) on the tool's
+inputs beside ``torch.einsum`` on the prepared bf16 operands; the chain
+(``tools/vpu_layout_probe.py``, 1024 reps, drawn uniform on [0, 3)) on
+the dense (8, 16384) block and on rows 1 of its (8, 131072) block; io4d
+on the tool's input.  Each is checked bitwise against that tree's plain
+version, then timed alone (torch.profiler) and through its wrapper (CUDA
+events).  For the chain it also reads the SASS of the tree's built
+library (``cuobjdump -sass``, beside the toolkit's nvcc): the issued
+instructions per element and rep of the kernel's main loop (the
+instructions from the target of its backward branch to the branch, over
+the FMULs among them, one per element and rep); the issue ceiling of the
+dense block at 128 lane-instructions per SM and clock (3.35e13 per
+second at 1.98 GHz); and the SM clock (``nvidia-smi``) read half-way
+through a second of back-to-back chain calls.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
+import time
 
 import chip_smoke as cs
 
 REPS = 20
+# issued lane-instructions per second: 132 SMs x 128 lanes x 1.98 GHz
+ISSUE_LANES_PER_S = 132 * 128 * 1.98e9
 
 
 def measure(tree):
@@ -149,12 +163,90 @@ def measure(tree):
                 path_b_sort_ops=srt["ops"])
 
 
+_SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
+_SASS_LABEL = re.compile(r"^\s*(\.L_x_\d+):")
+_SASS_BRA = re.compile(r"\bBRA\b.*?(?:`\((\.L_x_\d+)\)|(0x[0-9a-f]+))")
+
+
+def sass_loops(so, kernel):
+    """The loops of the kernel whose name contains ``kernel`` in the
+    library ``so``: per backward branch, (instructions from its target to
+    it, NOPs left out; FMULs among them)."""
+    from vpic_tpu_torch.particles import push_cuda
+    cuobjdump = os.path.join(os.path.dirname(push_cuda._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", str(so)], capture_output=True,
+                          text=True, check=True).stdout
+    body = text.split("Function : ")
+    found = [b for b in body[1:] if kernel in b.splitlines()[0]]
+    if len(found) != 1:
+        raise RuntimeError(f"{len(found)} functions named {kernel} in {so}")
+    insns, labels, pending = [], {}, []
+    for line in found[0].splitlines():
+        m = _SASS_LABEL.match(line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = _SASS_INSN.search(line)
+        if m:
+            addr = int(m.group(1), 16)
+            for name in pending:
+                labels[name] = addr
+            pending = []
+            insns.append((addr, m.group(2)))
+    loops = []
+    for addr, op in insns:
+        m = _SASS_BRA.search(op)
+        if not m:
+            continue
+        target = labels[m.group(1)] if m.group(1) else int(m.group(2), 16)
+        if target <= addr:
+            ops = [o for a, o in insns if target <= a <= addr
+                   and not re.search(r"\bNOP\b", o)]
+            loops.append((len(ops), sum(bool(re.search(r"\bFMUL\b", o))
+                                        for o in ops)))
+    return loops
+
+
+def sm_clock_mhz(fn, seconds=1.0):
+    """The SM clock in MHz, read with nvidia-smi half-way through
+    ``seconds`` of back-to-back fn() calls (50 enqueued at a time, so
+    the card is busy while it is read)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    query, t0 = None, time.perf_counter()
+    while time.perf_counter() - t0 < seconds:
+        for _ in range(50):
+            fn()
+        if query is None and time.perf_counter() - t0 > seconds / 2:
+            query = subprocess.Popen(
+                ["nvidia-smi", "--id=0", "--query-gpu=clocks.sm",
+                 "--format=csv,noheader,nounits"], stdout=subprocess.PIPE,
+                text=True)
+    torch.cuda.synchronize()
+    return float(query.communicate(timeout=60)[0].split()[0])
+
+
+def chain_record(tree, vp, x, rows):
+    """The chain on ``x``: bitwise that tree's plain version, alone and
+    through its wrapper."""
+    run = lambda: vp.chain(x, rows)
+    cs.check_bitwise(f"{tree}: vpu chain rows {rows}", run(),
+                     vp.chain_plain(x, rows), "the plain version")
+    return dict(kernel="vpu_chain_kernel", shape=list(x.shape), rows=rows,
+                kernel_ms=cs.profiled_ms(run, REPS, ("vpu_chain_kernel",),
+                                         1)[0],
+                ms=cs.cuda_ms(run, REPS))
+
+
 def measure_probes(tree):
-    """The record of one tree's gather3d and deposit2d (run in a child
-    process)."""
+    """The record of one tree's gather3d, deposit2d, chain and io4d (run
+    in a child process)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
+    from vpic_tpu_torch.particles import push_cuda
     from vpic_tpu_torch.tools import probe_batched as pb
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
     device = torch.device("cuda", 0)
     rec = dict(tree=tree, card=cs.card_line())
     for name, eq in (("gather3d", "aw,rwl->arl"),
@@ -169,15 +261,46 @@ def measure_probes(tree):
             kernel=pb.KERNEL_NAMES[name], kernel_ms=kernel_ms,
             ms=cs.cuda_ms(run, REPS),
             einsum_ms=cs.cuda_ms(lambda: torch.einsum(eq, a, oh), REPS))
+    gen = torch.Generator(device=device).manual_seed(16)
+    xs = {rows: 3 * torch.rand(vp.block_shape(rows), device=device,
+                               generator=gen) for rows in (8, 1)}
+    for key, rows in (("vpu_chain", 8), ("vpu_chain_rows1", 1)):
+        rec[key] = chain_record(tree, vp, xs[rows], rows)
+    loops = sass_loops(push_cuda.library_path(), "vpu_chain_kernel")
+    insns, reps_per_turn = max(loops, key=lambda lp: lp[1])
+    per_rep = insns / reps_per_turn
+    window = rec["vpu_chain"]["shape"][0] * rec["vpu_chain"]["shape"][1]
+    rec["vpu_chain"].update(
+        sass_loops=loops, sass_per_rep=per_rep,
+        issue_ceiling_ms=per_rep * vp.REPS * window / ISSUE_LANES_PER_S * 1e3,
+        sm_clock_mhz=sm_clock_mhz(lambda: vp.chain(xs[8], 8)))
+    (ps,) = pb.tool_inputs("io4d", device)
+    run = lambda: pb.io4d(ps)
+    cs.check_bitwise(f"{tree}: io4d", run(), pb.io4d_plain(ps),
+                     "the plain version")
+    rec["io4d"] = dict(kernel="io4d_kernel",
+                       kernel_ms=cs.profiled_ms(run, REPS, ("io4d_kernel",),
+                                                1)[0],
+                       ms=cs.cuda_ms(run, REPS))
     return rec
 
 
 def log_probes(tree, rec):
-    cs.log(f"{tree}: " + "; ".join(
-        f"{name} ({r['kernel']}) alone {r['kernel_ms']:.4f} ms, wrapper "
-        f"{r['ms']:.4f} ms, torch.einsum {r['einsum_ms']:.4f} ms"
-        for name, r in rec.items() if name in ("gather3d", "deposit2d"))
-        + f" ({rec['card']})")
+    parts = []
+    for name, r in rec.items():
+        if not isinstance(r, dict):
+            continue
+        line = (f"{name} ({r['kernel']}) alone {r['kernel_ms']:.4f} ms, "
+                f"wrapper {r['ms']:.4f} ms")
+        if "einsum_ms" in r:
+            line += f", torch.einsum {r['einsum_ms']:.4f} ms"
+        if "sass_per_rep" in r:
+            line += (f", {r['sass_per_rep']:.4f} SASS instructions per "
+                     f"element and rep (loops {r['sass_loops']}), issue "
+                     f"ceiling {r['issue_ceiling_ms']:.4f} ms, SM clock "
+                     f"{r['sm_clock_mhz']:.0f} MHz")
+        parts.append(line)
+    cs.log(f"{tree}: " + "; ".join(parts) + f" ({rec['card']})")
 
 
 def main(argv):

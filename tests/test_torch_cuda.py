@@ -23,7 +23,9 @@ plain version and a rerun, gather3d and deposit2d on random operands at
 the tool's and two ragged shapes (bitwise across a rerun, within K *
 2^-24 * sum|terms|) and their launcher's refusal of a plan off its
 constants, the chain at 1024 reps on every shape of
-tools/vpu_layout_probe.py.  Needs an NVIDIA
+tools/vpu_layout_probe.py and at chip_smoke's ragged reps and windows,
+io4d at ragged and offset inputs, and the refusal of a chain or io4d
+plan off its block.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -341,4 +343,59 @@ def test_vpu_chain_kernel_matches_plain(device):
     before = vpu_layout_probe.launches["vpu_chain"]
     cs.check_chains(device)
     assert vpu_layout_probe.launches["vpu_chain"] == \
-        before + 4 * len(vpu_layout_probe.ROWS)
+        before + 4 * len(vpu_layout_probe.ROWS) + 2 * len(cs.CHAIN_RAGGED)
+
+
+@pytest.mark.parametrize("rows,shape,reps", cs.CHAIN_RAGGED,
+                         ids=[f"rows{r}-{s[0]}x{s[1]}-reps{k}"
+                              for r, s, k in cs.CHAIN_RAGGED])
+def test_vpu_chain_kernel_ragged(device, rows, shape, reps):
+    """The chain at reps around its 16-rep unroll and with zeros that
+    start or end off a 16-byte boundary: bitwise its plain version and a
+    rerun, the rows past the window zeros."""
+    from vpic_tpu_torch.tools import vpu_layout_probe
+    x = torch.as_tensor(np.random.default_rng(reps).uniform(
+        0, 3, size=shape).astype(np.float32), device=device)
+    before = vpu_layout_probe.launches["vpu_chain"]
+    cs.check_chain_case(x, rows, reps)
+    assert vpu_layout_probe.launches["vpu_chain"] == before + 2
+
+
+def test_io4d_kernel_on_ragged_and_offset_inputs(device):
+    """io4d with R*L not a multiple of 4, from a contiguous slice along
+    dim 0 and from 4 bytes into its storage: the one-float path, bitwise
+    its plain version and a rerun."""
+    from vpic_tpu_torch.tools import probe_batched
+    before = probe_batched.launches["io4d"]
+    cs.check_io4d(device)
+    assert probe_batched.launches["io4d"] == before + 2 * len(cs.IO4D_CASES)
+
+
+@pytest.mark.parametrize("field", ["pairs", "blocks", "head", "io4d width",
+                                   "io4d blocks"])
+def test_chain_and_io4d_launchers_refuse_a_plan_off_the_block(device,
+                                                              field):
+    """A plan that would leave a float unwritten, write one twice or
+    take 16-byte accesses off a 16-byte boundary is refused at launch
+    (cudaErrorInvalidValue), and nothing is counted."""
+    from vpic_tpu_torch.tools import probe_batched, probes_cuda
+    from vpic_tpu_torch.tools import vpu_layout_probe as vp
+    if field.startswith("io4d"):
+        ps = cs.io4d_input("4 bytes in", device)
+        b, _, r, lane = ps.shape
+        plan = probe_batched.io4d_plan(b, r * lane, True)
+        plan = (plan._replace(blocks=plan.blocks + 1)
+                if field == "io4d blocks" else plan)
+        out = torch.empty((b, 16, r, lane), device=device)
+        fn, counts, key = "vpic_probe_io4d", probe_batched.launches, "io4d"
+        args = (ps, out, b, r * lane, *plan)
+    else:
+        x = torch.ones((7, 130), device=device)
+        plan = vp.chain_plan(5, 130, 7)
+        plan = plan._replace(**{field: getattr(plan, field) + 1})
+        fn, counts, key = "vpic_probe_vpu_chain", vp.launches, "vpu_chain"
+        args = (x, torch.empty_like(x), 5, 130, 7, 17, *plan)
+    before = counts[key]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        probes_cuda.launch(fn, counts, key, device, *args)
+    assert counts[key] == before

@@ -28,6 +28,11 @@ the JAX tools they replace, on the CPU.
 - The elementwise chain of ``tools/vpu_layout_probe.py`` at 1 and 16
   reps (``REPS_IN_KERNEL`` set on the tool's module), rows 1, 3 and 8 of
   a (max(rows, 8), 256) block drawn uniform on [0, 3).
+- The launch plans of the chain and io4d kernels
+  (``vpu_layout_probe.chain_plan``, ``probe_batched.io4d_plan``) at the
+  tools' shapes and the card's ragged cases: a model of each kernel's
+  writes from its plan writes every output float once, bitwise the
+  plain version, with 16-byte accesses only on 16-byte boundaries.
 """
 
 import functools
@@ -40,6 +45,7 @@ import torch
 from jax.experimental import pallas as pl
 from jax.experimental.pallas import tpu as pltpu
 
+import chip_smoke
 import tools.probe_batched as jax_probes
 import tools.vpu_layout_probe as jax_vpu
 from vpic_tpu_torch.tools import mma_plan
@@ -395,3 +401,115 @@ def test_wrappers_refuse_tensors_off_cpu_and_card(name, monkeypatch):
         call = lambda: pb.PROBES[name](*args)
     with pytest.raises(ValueError, match="CUDA tensors"):
         call()
+
+
+# -- the launch plans of the chain and io4d kernels --------------------------
+
+# the tool's seven blocks, then chip_smoke's ragged cases (rows, shape)
+CHAIN_PLAN_CASES = ([(rows, vp.block_shape(rows)) for rows in vp.ROWS]
+                    + list(dict.fromkeys((rows, shape) for rows, shape, _
+                                         in chip_smoke.CHAIN_RAGGED)))
+
+
+def chain_model(x, rows, reps):
+    """The chain kernel's writes on the CPU, from its plan alone (a model
+    of the kernel, not its code): the output starts as NaN; thread g of
+    the grid writes its head float, its float4 g, g + T, ... and its tail
+    float of the zeros, then takes floats g and g + pairs of the window
+    through the chain.  Returns the output and how often each float was
+    written."""
+    out_rows, n = x.shape
+    plan = vp.chain_plan(rows, n, out_rows)
+    flat = x.reshape(-1).numpy()
+    out = np.full(flat.size, np.nan, np.float32)
+    writes = np.zeros(flat.size, np.int64)
+    g = np.arange(plan.blocks * vp.CHAIN_BLOCK)
+    first_vec = plan.window + plan.head
+    t = np.concatenate([np.arange(k, plan.vec4, g.size) for k in g])
+    zeros = [plan.window + g[g < plan.head],
+             (first_vec + 4 * t[:, None] + np.arange(4)).reshape(-1),
+             first_vec + 4 * plan.vec4 + g[g < plan.tail]]
+    for z in zeros:
+        out[z] = 0.0
+        np.add.at(writes, z, 1)
+    g = g[g < plan.pairs]
+    i = np.concatenate([g, g + plan.pairs])
+    i = i[i < plan.window]
+    out[i] = numpy_chain(flat[i], reps)
+    np.add.at(writes, i, 1)
+    return out.reshape(x.shape), writes
+
+
+@pytest.mark.parametrize("rows,shape", CHAIN_PLAN_CASES,
+                         ids=[f"rows{r}-{s[0]}x{s[1]}"
+                              for r, s in CHAIN_PLAN_CASES])
+def test_chain_plan_writes_each_float_once(rows, shape):
+    """At the tool's blocks and the card's ragged cases the plan writes
+    every float of the block exactly once, the chain on the window and
+    zeros after it, bitwise the plain version; the float4 stores start
+    on 16-byte boundaries, the head and tail are under four floats, and
+    the grid has no block to spare (256 at the tool's 2^17-float
+    windows)."""
+    plan = vp.chain_plan(rows, shape[1], shape[0])
+    x = torch.as_tensor(np.random.default_rng(rows).uniform(
+        0, 3, size=shape).astype(np.float32))
+    got, writes = chain_model(x, rows, 3)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(bits(got), bits(vp.chain_plain(x, rows, 3)))
+    assert plan.window == rows * shape[1]
+    assert plan.pairs == -(-plan.window // 2)
+    assert 0 <= plan.head < 4 and 0 <= plan.tail < 4
+    assert plan.vec4 == 0 or (plan.window + plan.head) % 4 == 0
+    assert plan.blocks == -(-plan.pairs // vp.CHAIN_BLOCK)
+    if plan.window == 1 << 17:
+        assert plan.blocks == 256
+
+
+IO4D_PLAN_CASES = {"tool": ((4, 7, pb.R, pb.LANE), True, 4),
+                   "ragged": ((3, 7, 5, 6), True, 1),
+                   "4 bytes in": ((2, 7, 4, 8), False, 1),
+                   "one block": ((1, 7, 1, 4), True, 4)}
+
+
+def io4d_model(ps, plan):
+    """io4d_kernel's writes on the CPU from its plan alone: thread t of
+    the grid moves ``width`` floats of one output plane.  Returns the
+    output (NaN where nothing was written) and the write counts."""
+    b, _, r, lane = ps.shape
+    p, w = r * lane, plan.width
+    src = ps.reshape(b, 7, p).numpy()
+    out = np.full((b, 16, p), np.nan, np.float32)
+    writes = np.zeros((b, 16, p), np.int64)
+    cols = p // w
+    t = np.arange(plan.blocks * pb.IO4D_BLOCK)
+    t = t[t < b * 16 * cols]
+    col, j, i = t % cols, t // cols % 16, t // cols // 16
+    for k in range(w):
+        c = col * w + k
+        a = src[i, 0, c] * np.float32(2) + src[i, 1, c]
+        head = np.where(a > 0, a, src[i, 2, c])
+        copy = src[i, np.clip(j - 1, 0, 6), c]
+        out[i, j, c] = np.where(j == 0, head,
+                                np.where(j <= 7, copy, np.float32(0)))
+        np.add.at(writes, (i, j, c), 1)
+    return out.reshape(b, 16, r, lane), writes
+
+
+@pytest.mark.parametrize("name", list(IO4D_PLAN_CASES))
+def test_io4d_plan_writes_each_float_once(name):
+    """16-byte accesses only where R*L is a multiple of 4 and the
+    operands are aligned; the plan writes every output float exactly
+    once, bitwise the plain version, with no block to spare (128 blocks
+    at the tool's shape)."""
+    shape, aligned, width = IO4D_PLAN_CASES[name]
+    b, p = shape[0], shape[2] * shape[3]
+    plan = pb.io4d_plan(b, p, aligned)
+    assert plan.width == width
+    assert plan.blocks == -(-b * 16 * p // width // pb.IO4D_BLOCK)
+    if name == "tool":
+        assert plan.blocks == 128
+    ps = torch.as_tensor(np.random.default_rng(4).normal(
+        size=shape).astype(np.float32))
+    got, writes = io4d_model(ps, plan)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(bits(got), bits(pb.io4d_plain(ps)))

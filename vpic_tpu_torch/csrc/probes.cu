@@ -11,14 +11,30 @@
 //   the (rows, n) window of an (out_rows, n) block: acc = x, then reps x
 //   { acc = acc*1.0000001f + 1; acc = acc > 2 ? acc - 1 : acc }; rows
 //   rows..out_rows-1 are written as zeros.  Bound: operations, five float32
-//   instructions per element and rep (multiply, add, compare, subtract,
+//   operations per element and rep (multiply, add, compare, subtract,
 //   select); 2^17 elements x 1024 reps x 5 = 6.7e8, 0.0100 ms at the
-//   published 67 TFLOP/s.  Design: one thread per element, neighbouring
-//   threads on neighbouring columns; each step is rounded as the source
-//   writes it (__fmul_rn, __fadd_rn, __fsub_rn, and -fmad=false), so
-//   no multiply and add are contracted into an FMA.  The TPU's question,
-//   whether a (1, n) row wastes 7 of 8 sublanes, has no counterpart: a
-//   warp takes 32 consecutive elements of any row.
+//   published 67 TFLOP/s, which counts an FFMA as two.  Each step is
+//   rounded on its own (__fmul_rn, __fadd_rn, __fsub_rn, -fmad=false), so
+//   the chain has no FFMA and is bound by issue: 128 lane-instructions per
+//   SM and clock, 3.35e13 per second on 132 SMs at 1.98 GHz.  Design: the
+//   instructions per rep are the lever.  The conditional subtract is
+//   acc - set.gt(acc, 2), set.gt giving 1.0f or 0.0f (acc - 0 is acc, -0
+//   included), so a rep is a multiply, an add, a compare and an add (the
+//   compare and a predicated add measured slower at the same count); the
+//   rep loop is unrolled kChainUnroll times, with a remainder loop for any
+//   reps.  What is left is latency: each rep is four dependent
+//   instructions, so a thread runs two independent chains, on floats g
+//   and g + ceil(window/2) of the window, the block's first rows*n floats
+//   (row-major): 256 blocks of 256 at the tool's shapes.  The zero floats
+//   after the window are written by the same threads before their chains,
+//   16 bytes per store with a scalar head and tail: blocks of their own
+//   for the zeros, in the same grid, left the chain's blocks unevenly
+//   spread over the SMs (rows 1 took 1.39x its window alone on an H100
+//   80GB HBM3 at 700 W, kernel_ab.py --probes).
+//   The plan, vpu_layout_probe.py:chain_plan, is tested on the CPU and
+//   checked by the launcher.  The TPU's question, whether a (1, n) row
+//   wastes 7 of 8 sublanes, has no counterpart: a warp takes 32
+//   consecutive elements of any row.
 //
 // vpic_probe_gather3d    replaces tools/probe_batched.py:probe_gather3d
 //   (its pallas_call at :60), out[a,r,l] = sum_w bf16(win[a,w]) *
@@ -77,8 +93,16 @@
 // vpic_probe_io4d        replaces tools/probe_batched.py:probe_io4d, per
 //   block i: a = 2*ps[i,0] + ps[i,1]; out[i,0] = a > 0 ? a : ps[i,2];
 //   out[i,1:8] = ps[i,0:7]; out[i,8:16] = 0.  Bound: bytes (0.38 MB,
-//   0.11 us).  Design: one block per i, threads along the (R*L) plane.
-//   2*x is exact, so the result does not depend on contraction.
+//   0.11 us).  Design: one thread per 16 bytes of one output plane (i, j,
+//   4 columns), 128 blocks of 128 at the tool's shape, so that every
+//   thread makes one round trip of device memory: plane 0 reads three
+//   float4 of ps[i, 0..2] and stores the head, planes 1-7 copy one
+//   float4, planes 8-15 store a zero float4.  Where R*L is not a multiple
+//   of 4 or ps does not start on 16 bytes, the same kernel moves one float
+//   per thread (the plan, probe_batched.py:io4d_plan, checked by the
+//   launcher).  2*x is exact, so the result does not depend on
+//   contraction.  A launch and one round trip cost more than the 0.11 us
+//   bound whatever the design.
 //
 // All six are launch-bound at the tools' shapes: each moves at most
 // 2.3 MB, under a microsecond of the card's memory rate.
@@ -96,21 +120,56 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__global__ void vpu_chain_kernel(const float* __restrict__ x,
-                                 float* __restrict__ o, int rows, int n,
-                                 long long total, int reps) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  float acc = 0.0f;
-  if (idx / n < rows) {
-    acc = x[idx];
-    const float c = 1.0000001f, one = 1.0f, two = 2.0f;
-    for (int k = 0; k < reps; ++k) {
-      acc = __fadd_rn(__fmul_rn(acc, c), one);
-      acc = acc > two ? __fsub_rn(acc, one) : acc;
+// The chain: kChainBlock threads a block, kChainUnroll reps a turn.
+constexpr int kChainBlock = 256, kChainUnroll = 16;
+
+// vpu_layout_probe.py:chain_plan: blocks of kChainBlock threads; thread g
+// takes floats g and g + pairs of the window (its first window floats,
+// pairs = ceil(window / 2)) through the chain.  Before that every thread
+// of the grid writes its share of the zeros after the window: float g
+// (g < head), float4 g, g + T, ... (< vec4) from the first 16-byte
+// boundary after those, T the grid's threads, and float g (g < tail)
+// after the float4.
+struct ChainPlan {
+  int window, pairs, blocks, head, vec4, tail;
+};
+
+// One rep, each operation rounded on its own.
+__device__ __forceinline__ float chain_rep(float acc) {
+  acc = __fadd_rn(__fmul_rn(acc, 1.0000001f), 1.0f);
+  float over;   // 1.0f where acc > 2, else 0.0f
+  asm("set.gt.f32.f32 %0, %1, %2;" : "=f"(over) : "f"(acc), "f"(2.0f));
+  return __fsub_rn(acc, over);
+}
+
+__global__ void __launch_bounds__(kChainBlock)
+    vpu_chain_kernel(const float* __restrict__ x, float* __restrict__ o,
+                     ChainPlan p, int reps) {
+  const int g = blockIdx.x * kChainBlock + threadIdx.x;
+  float* z = o + p.window;
+  float4* z4 = reinterpret_cast<float4*>(z + p.head);
+  for (int t = g; t < p.vec4; t += p.blocks * kChainBlock)
+    z4[t] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (g < p.head) z[g] = 0.0f;
+  if (g < p.tail) z[p.head + 4 * p.vec4 + g] = 0.0f;
+  if (g >= p.pairs) return;
+  const int j = g + p.pairs;
+  const bool second = j < p.window;
+  float a = x[g], b = second ? x[j] : 0.0f;
+  int k = 0;
+  for (; k + kChainUnroll <= reps; k += kChainUnroll) {
+#pragma unroll
+    for (int u = 0; u < kChainUnroll; ++u) {
+      a = chain_rep(a);
+      b = chain_rep(b);
     }
   }
-  o[idx] = acc;
+  for (; k < reps; ++k) {
+    a = chain_rep(a);
+    b = chain_rep(b);
+  }
+  o[g] = a;
+  if (second) o[j] = b;
 }
 
 // gather3d and deposit2d: the plan's integers (tools/mma_plan.py,
@@ -402,23 +461,36 @@ __global__ void onehot3d_kernel(const int4* __restrict__ loc,
                          v.z == w ? 1.0f : 0.0f, v.w == w ? 1.0f : 0.0f);
 }
 
-constexpr int kIoIn = 7, kIoOut = 16;
+constexpr int kIoIn = 7, kIoOut = 16, kIoBlock = 128;
 
-__global__ void io4d_kernel(const float* __restrict__ ps,
-                            float* __restrict__ out, int P) {
-  const float* src = ps + (long long)blockIdx.x * kIoIn * P;
-  float* dst = out + (long long)blockIdx.x * kIoOut * P;
-  for (int t = threadIdx.x; t < P; t += blockDim.x) {
-    float p[kIoIn];
-#pragma unroll
-    for (int j = 0; j < kIoIn; ++j) p[j] = src[j * P + t];
-    const float s = __fadd_rn(__fmul_rn(p[0], 2.0f), p[1]);
-    dst[t] = s > 0.0f ? s : p[2];
-#pragma unroll
-    for (int j = 0; j < kIoIn; ++j) dst[(1 + j) * P + t] = p[j];
-#pragma unroll
-    for (int j = kIoIn + 1; j < kIoOut; ++j) dst[j * P + t] = 0.0f;
-  }
+__device__ __forceinline__ float io_head(float p0, float p1, float p2) {
+  const float a = __fadd_rn(__fmul_rn(p0, 2.0f), p1);
+  return a > 0.0f ? a : p2;
+}
+
+__device__ __forceinline__ float4 io_head(float4 p0, float4 p1, float4 p2) {
+  return make_float4(io_head(p0.x, p1.x, p2.x), io_head(p0.y, p1.y, p2.y),
+                     io_head(p0.z, p1.z, p2.z), io_head(p0.w, p1.w, p2.w));
+}
+
+// One thread per V (float4 or float) of one output plane: thread t is
+// column t % cols of plane j = t / cols % 16 of block i = t / cols / 16,
+// cols = P / (floats in V).
+template <typename V>
+__global__ void __launch_bounds__(kIoBlock)
+    io4d_kernel(const V* __restrict__ ps, V* __restrict__ out, int B,
+                int cols) {
+  const int t = blockIdx.x * kIoBlock + threadIdx.x;
+  if (t >= B * kIoOut * cols) return;
+  const int col = t % cols, ij = t / cols, j = ij % kIoOut, i = ij / kIoOut;
+  const V* src = ps + (long long)i * kIoIn * cols + col;
+  V* dst = out + (long long)ij * cols + col;
+  if (j == 0)
+    *dst = io_head(src[0], src[cols], src[2 * cols]);
+  else if (j <= kIoIn)
+    *dst = src[(j - 1) * cols];
+  else
+    *dst = V{};
 }
 
 constexpr int kBlock = 256;
@@ -431,12 +503,27 @@ unsigned blocks_for(long long total) {
 
 extern "C" {
 
-// x, o: (out_rows, n) float32; the chain on rows [0, rows).
+// x, o: (out_rows, n) float32, o on a 16-byte boundary; the chain on rows
+// [0, rows); the plan of tools/vpu_layout_probe.py:chain_plan, refused
+// (cudaErrorInvalidValue) unless it covers the block exactly once.
 int vpic_probe_vpu_chain(const float* x, float* o, int rows, int n,
-                         int out_rows, int reps, void* stream) {
-  const long long total = (long long)out_rows * n;
-  vpu_chain_kernel<<<blocks_for(total), kBlock, 0, (cudaStream_t)stream>>>(
-      x, o, rows, n, total, reps);
+                         int out_rows, int reps, int window, int pairs,
+                         int blocks, int head, int vec4, int tail,
+                         void* stream) {
+  const ChainPlan p = {window, pairs, blocks, head, vec4, tail};
+  const long long zeros = (long long)(out_rows - rows) * n;
+  const bool ok =
+      rows >= 1 && rows <= out_rows && reps >= 0 &&
+      (long long)window == (long long)rows * n &&
+      pairs == window / 2 + window % 2 &&
+      blocks == (pairs + kChainBlock - 1) / kChainBlock && head >= 0 &&
+      head < 4 && tail >= 0 && tail < 4 && vec4 >= 0 &&
+      head + 4LL * vec4 + tail == zeros &&
+      (vec4 == 0 || (reinterpret_cast<uintptr_t>(o + window + head) & 15) ==
+                        0);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  vpu_chain_kernel<<<blocks, kChainBlock, 0, (cudaStream_t)stream>>>(
+      x, o, p, reps);
   return (int)cudaGetLastError();
 }
 
@@ -488,10 +575,27 @@ int vpic_probe_onehot3d(const int* loc, float* out, int R, int W, int L,
   return (int)cudaGetLastError();
 }
 
-// ps (B, 7, P), out (B, 16, P), float32.
-int vpic_probe_io4d(const float* ps, float* out, int B, int P,
-                    void* stream) {
-  io4d_kernel<<<B, kBlock, 0, (cudaStream_t)stream>>>(ps, out, P);
+// ps (B, 7, P), out (B, 16, P), float32; the plan of
+// tools/probe_batched.py:io4d_plan: width 4 (16-byte accesses; P a
+// multiple of 4, both pointers on 16-byte boundaries) or 1, and the
+// blocks that give one thread per width floats of out.
+int vpic_probe_io4d(const float* ps, float* out, int B, int P, int width,
+                    int blocks, void* stream) {
+  const bool vec = width == 4;
+  const bool ok =
+      (vec || width == 1) && P % width == 0 &&
+      (!vec || ((reinterpret_cast<uintptr_t>(ps) |
+                 reinterpret_cast<uintptr_t>(out)) & 15) == 0) &&
+      blocks == ((long long)B * kIoOut * (P / width) + kIoBlock - 1) /
+                    kIoBlock;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    io4d_kernel<float4><<<blocks, kIoBlock, 0, s>>>(
+        reinterpret_cast<const float4*>(ps), reinterpret_cast<float4*>(out),
+        B, P / 4);
+  else
+    io4d_kernel<float><<<blocks, kIoBlock, 0, s>>>(ps, out, B, P);
   return (int)cudaGetLastError();
 }
 

@@ -32,6 +32,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +45,9 @@ from .probes_cuda import (BF16_TENSOR_OPS_PER_S, bound, card_line, cuda_ms,
 W = 512
 R = 8
 LANE = 128
+
+# threads per block of io4d_kernel (csrc/probes.cu: kIoBlock)
+IO4D_BLOCK = 128
 
 launches = {"gather3d": 0, "deposit2d": 0, "stack8": 0, "onehot3d": 0,
             "io4d": 0}
@@ -176,6 +180,23 @@ def onehot3d(loc, w=W):
     return out
 
 
+class Io4dPlan(NamedTuple):
+    """The launch of ``io4d_kernel`` on (b, 7, p) -> (b, 16, p): each
+    thread moves ``width`` consecutive floats (4: one 16-byte access) of
+    one output plane, thread t on columns [width * (t % c), width * (t % c
+    + 1)) of plane t // c % 16 of block t // c // 16, c = p / width, in
+    ``blocks`` blocks of ``IO4D_BLOCK`` threads."""
+    width: int
+    blocks: int
+
+
+def io4d_plan(b: int, p: int, aligned: bool) -> Io4dPlan:
+    """16-byte accesses where p is a multiple of 4 and ps and out start on
+    16-byte boundaries (``aligned``), else one float per thread."""
+    width = 4 if aligned and p % 4 == 0 else 1
+    return Io4dPlan(width, -(-b * 16 * (p // width) // IO4D_BLOCK))
+
+
 def io4d(ps):
     if ps.device.type == "cpu":
         return io4d_plain(ps)
@@ -183,7 +204,9 @@ def io4d(ps):
     b, _, r, lane = _dims("ps", ps, 4)
     check_tensor("ps", ps, F32, (b, 7, r, lane), device)
     out = torch.empty((b, 16, r, lane), dtype=F32, device=device)
-    launch("vpic_probe_io4d", launches, "io4d", device, ps, out, b, r * lane)
+    aligned = (ps.data_ptr() | out.data_ptr()) % 16 == 0
+    launch("vpic_probe_io4d", launches, "io4d", device, ps, out, b, r * lane,
+           *io4d_plan(b, r * lane, aligned))
     return out
 
 

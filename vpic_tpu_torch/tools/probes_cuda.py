@@ -25,13 +25,15 @@ BF16_TENSOR_OPS_PER_S = 989e12
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _ARGTYPES = {
-    "vpic_probe_vpu_chain": [_P, _P, _I, _I, _I, _I, _P],
+    # the shape and reps, then vpu_layout_probe.py's ChainPlan
+    "vpic_probe_vpu_chain": [_P, _P] + [_I] * 10 + [_P],
     # the shape, then tools/mma_plan.py's MmaPlan.args()
     "vpic_probe_gather3d": [_P, _P, _P] + [_I] * 17 + [_P],
     "vpic_probe_deposit2d": [_P, _P, _P] + [_I] * 17 + [_P],
     "vpic_probe_stack8": [_P, _P, _P, _I, _I, _I, _I, _P],
     "vpic_probe_onehot3d": [_P, _P, _I, _I, _I, _P],
-    "vpic_probe_io4d": [_P, _P, _I, _I, _P],
+    # the shape, then probe_batched.py's Io4dPlan
+    "vpic_probe_io4d": [_P, _P, _I, _I, _I, _I, _P],
 }
 
 _bound = None

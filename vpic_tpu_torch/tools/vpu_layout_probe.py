@@ -24,6 +24,7 @@ from __future__ import annotations
 import argparse
 import sys
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -33,9 +34,13 @@ from .probes_cuda import bound, card_line, cuda_ms, launch, resolve_device
 REPS = 1024
 ROWS = (1, 2, 3, 4, 8, 16, 64)
 TOTAL = 1 << 17
-# float32 instructions per element and rep: multiply, add, compare,
-# subtract, select
+# float32 operations per element and rep that the bound counts: multiply,
+# add, compare, subtract, select (the kernel issues four instructions per
+# rep, the select folded into the subtract: csrc/probes.cu)
 OPS_PER_REP = 5
+
+# threads per block of the kernel (csrc/probes.cu: kChainBlock)
+CHAIN_BLOCK = 256
 
 launches = {"vpu_chain": 0}
 
@@ -61,6 +66,32 @@ def chain_plain(x: torch.Tensor, rows: int, reps: int = REPS):
     return out
 
 
+class ChainPlan(NamedTuple):
+    """The launch of ``vpu_chain_kernel`` on a row-major (out_rows, n)
+    block whose output starts on a 16-byte boundary: ``blocks`` blocks of
+    ``CHAIN_BLOCK`` threads; thread g takes floats g and g + ``pairs`` of
+    the window (the first ``window`` = rows * n floats, pairs =
+    ceil(window / 2)) through the chain, after writing zero float g of
+    the ``head`` floats after the window, zero float4 g, g + T, ... of the
+    ``vec4`` float4 from the next 16-byte boundary (T the grid's threads)
+    and zero float g of the ``tail`` floats after those."""
+    window: int
+    pairs: int
+    blocks: int
+    head: int
+    vec4: int
+    tail: int
+
+
+def chain_plan(rows: int, n: int, out_rows: int) -> ChainPlan:
+    window, end = rows * n, out_rows * n
+    aligned = min(end, -(-window // 4) * 4)
+    last = max(aligned, end // 4 * 4)
+    pairs = -(-window // 2)
+    return ChainPlan(window, pairs, -(-pairs // CHAIN_BLOCK),
+                     aligned - window, (last - aligned) // 4, end - last)
+
+
 def chain(x: torch.Tensor, rows: int, reps: int = REPS):
     """Kernel version of :func:`chain_plain` (the plain version for a CPU
     tensor)."""
@@ -74,7 +105,8 @@ def chain(x: torch.Tensor, rows: int, reps: int = REPS):
     check_tensor("x", x, torch.float32, x.shape, device)
     out = torch.empty_like(x)
     launch("vpic_probe_vpu_chain", launches, "vpu_chain", device,
-           x, out, rows, x.shape[1], x.shape[0], reps)
+           x, out, rows, x.shape[1], x.shape[0], reps,
+           *chain_plan(rows, x.shape[1], x.shape[0]))
     return out
 
 
