@@ -3788,6 +3788,27 @@ CHAIN_RAGGED = ([(3, (8, 1000), r) for r in (0, 1, 7, 17, 1024)]
 # multiple of 4 from 4 bytes into its storage
 IO4D_CASES = {"ragged": (3, 7, 5, 6), "dim-0 slice": (3, 7, 5, 6),
               "4 bytes in": (2, 7, 4, 8)}
+# stack8's inputs besides the tool's, by name: (a, w, s, lane), the floats
+# win and the ints loc start into their storage, and the plan's (stage,
+# width).  loc is drawn on [-w/4, 5w/4), so that every case has lanes
+# outside [0, w).
+STACK8_CASES = {
+    "tool shape": ((32, 512, 8, 128), 0, 0, (1, 4)),
+    "lane 6": ((4, 64, 3, 6), 0, 0, (1, 1)),
+    "ragged chunk": ((3, 64, 3, 100), 0, 0, (1, 4)),
+    "loc 4 bytes in": ((4, 64, 8, 16), 0, 1, (1, 1)),
+    "win 4 bytes in": ((4, 64, 8, 16), 1, 0, (0, 4)),
+    "one-row window": ((1, 512, 8, 128), 0, 0, (1, 4)),
+    "w 13": ((5, 13, 8, 16), 0, 0, (0, 4)),
+    "row past 48 KB": ((2, 12288, 8, 128), 0, 0, (0, 4))}
+# onehot3d's, by name: (r, w, lane), the ints loc starts into its storage
+# and the plan's width; loc drawn on [-2, w + 2)
+ONEHOT3D_CASES = {
+    "tool shape": ((8, 512, 128), 0, 4),
+    "lane 6": ((3, 7, 6), 0, 1),
+    "loc 4 bytes in": ((2, 40, 8), 1, 1),
+    "w 13": ((4, 13, 16), 0, 4),
+    "one row": ((1, 512, 128), 0, 4)}
 # (steps, particles in all, nx): the tool's defaults, then the bench
 # deck's grid with the particles cut to what the float64 host reference
 # (about 30 us per particle and step) steps in about 20 s
@@ -3828,15 +3849,8 @@ def check_probe(name, device):
     import torch
     from vpic_tpu_torch.tools import probe_batched as pb
     args = pb.tool_inputs(name, device)
-    plain = pb.PLAIN[name](*args)
-    nan_cache(plain.shape, device)
-    k1 = pb.PROBES[name](*args)
-    nan_cache(plain.shape, device)
-    k2 = pb.PROBES[name](*args)
-    torch.cuda.synchronize()
-    check_bitwise(f"{name} at the tool's shapes", k1, plain,
-                  "the plain version")
-    check_bitwise(f"{name} at the tool's shapes", k1, k2, "a rerun")
+    k1 = check_twice(f"{name} at the tool's shapes",
+                     lambda: pb.PROBES[name](*args), pb.PLAIN[name](*args))
     if not bool(torch.isfinite(k1).all()):
         raise AssertionError(f"{name}: non-finite output")
 
@@ -3888,19 +3902,26 @@ def nan_cache(shape, device):
     torch.full(shape, float("nan"), device=device)
 
 
+def check_twice(what, run, plain):
+    """run() twice, each output first NaN in the allocator: bitwise
+    ``plain`` and each other.  Returns the first output."""
+    nan_cache(plain.shape, plain.device)
+    k1 = run()
+    nan_cache(plain.shape, plain.device)
+    k2 = run()
+    check_bitwise(what, k1, plain, "the plain version")
+    check_bitwise(what, k1, k2, "a rerun")
+    return k1
+
+
 def check_chain_case(x, rows, reps):
     """The chain kernel on ``x`` against its plain version and its rerun,
     bitwise, each output first NaN in the allocator; the rows past
     ``rows`` zeros."""
     from vpic_tpu_torch.tools import vpu_layout_probe as vp
-    nan_cache(x.shape, x.device)
-    k1 = vp.chain(x, rows, reps)
-    nan_cache(x.shape, x.device)
-    k2 = vp.chain(x, rows, reps)
-    plain = vp.chain_plain(x, rows, reps)
     what = f"vpu chain {tuple(x.shape)} rows {rows}, {reps} reps"
-    check_bitwise(what, k1, plain, "the plain version")
-    check_bitwise(what, k1, k2, "a rerun")
+    k1 = check_twice(what, lambda: vp.chain(x, rows, reps),
+                     vp.chain_plain(x, rows, reps))
     if bool(k1[rows:].any()):
         raise AssertionError(f"{what}: rows past the window are not zero")
 
@@ -3947,7 +3968,6 @@ def check_io4d(device):
     on the 16-byte path, is check_probe's.)"""
     import torch
     from vpic_tpu_torch.tools import probe_batched as pb
-    out_shape = lambda ps: (ps.shape[0], 16, *ps.shape[2:])
     for name in IO4D_CASES:
         ps = io4d_input(name, device)
         plan = pb.io4d_plan(ps.shape[0], ps.shape[2] * ps.shape[3],
@@ -3955,16 +3975,69 @@ def check_io4d(device):
         if plan.width != 1:
             raise AssertionError(f"io4d {name}: plan {plan}, expected the "
                                  "one-float path")
-        nan_cache(out_shape(ps), device)
-        k1 = pb.io4d(ps)
-        nan_cache(out_shape(ps), device)
-        k2 = pb.io4d(ps)
-        what = f"io4d {name} {tuple(ps.shape)}"
-        check_bitwise(what, k1, pb.io4d_plain(ps), "the plain version")
-        check_bitwise(what, k1, k2, "a rerun")
+        check_twice(f"io4d {name} {tuple(ps.shape)}", lambda: pb.io4d(ps),
+                    pb.io4d_plain(ps))
     torch.cuda.synchronize()
     log(f"  io4d on {list(IO4D_CASES)}: bitwise the plain version and a "
         "rerun")
+
+
+def _offset(flat, skip, shape):
+    """``flat[skip:]`` viewed as ``shape``: contiguous, ``skip`` elements
+    into its storage."""
+    return flat[skip:].view(shape)
+
+
+def stack8_input(name, device):
+    """stack8's (win, loc) of STACK8_CASES[name], drawn with numpy."""
+    import numpy as np
+    import torch
+    (a, w, s, lane), win_skip, loc_skip, _ = STACK8_CASES[name]
+    rng = np.random.default_rng(13)
+    win = rng.normal(size=win_skip + a * w).astype(np.float32)
+    loc = rng.integers(-(w // 4), w + w // 4 + 1,
+                       size=loc_skip + s * lane).astype(np.int32)
+    return (_offset(torch.as_tensor(win, device=device), win_skip, (a, w)),
+            _offset(torch.as_tensor(loc, device=device), loc_skip, (s, lane)))
+
+
+def onehot3d_input(name, device):
+    """onehot3d's (loc, w) of ONEHOT3D_CASES[name], drawn with numpy."""
+    import numpy as np
+    import torch
+    (r, w, lane), skip, _ = ONEHOT3D_CASES[name]
+    loc = np.random.default_rng(14).integers(
+        -2, w + 2, size=skip + r * lane).astype(np.int32)
+    return _offset(torch.as_tensor(loc, device=device), skip, (r, lane)), w
+
+
+def check_stack8_onehot3d(device):
+    """stack8 on each input of STACK8_CASES and onehot3d on each of
+    ONEHOT3D_CASES, on the plan each expects: bitwise the plain version
+    and a rerun, each output first NaN in the allocator."""
+    import torch
+    from vpic_tpu_torch.tools import probe_batched as pb
+    for name, (_, _, _, want) in STACK8_CASES.items():
+        win, loc = stack8_input(name, device)
+        plan = pb.stack8_plan(*win.shape, *loc.shape, win.data_ptr() % 16 == 0,
+                              loc.data_ptr() % 16 == 0)
+        if (plan.stage, plan.width) != want:
+            raise AssertionError(f"stack8 {name}: plan {plan}, expected "
+                                 f"(stage, width) {want}")
+        check_twice(f"stack8 {name}", lambda: pb.stack8(win, loc),
+                    pb.stack8_plain(win, loc))
+    for name, (_, _, want) in ONEHOT3D_CASES.items():
+        loc, w = onehot3d_input(name, device)
+        plan = pb.onehot3d_plan(loc.shape[0], w, loc.shape[1],
+                                loc.data_ptr() % 16 == 0)
+        if plan.width != want:
+            raise AssertionError(f"onehot3d {name}: plan {plan}, expected "
+                                 f"width {want}")
+        check_twice(f"onehot3d {name}", lambda: pb.onehot3d(loc, w),
+                    pb.onehot3d_plain(loc, w))
+    torch.cuda.synchronize()
+    log(f"  stack8 on {list(STACK8_CASES)} and onehot3d on "
+        f"{list(ONEHOT3D_CASES)}: bitwise the plain version and a rerun")
 
 
 def time_tool_kernel(label, run_k, run_p, kernel_name, bound_ms, bound_by,
@@ -4125,6 +4198,7 @@ def phase_tools(device, card):
             check_contraction(name, device, shapes=shapes)
     check_chains(device)
     check_io4d(device)
+    check_stack8_onehot3d(device)
     times = time_probes(device)
     times["vpu_chain"] = time_chains(device)
     t0 = time.perf_counter()

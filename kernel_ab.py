@@ -39,14 +39,16 @@ its last line.  Needs one card; exits non-zero without one.
 
     python3 kernel_ab.py --probes _archive/parent . . _archive/parent
 
-measures instead, per tree, four probe kernels of the tools: gather3d
+measures instead, per tree, the six probe kernels of the tools: gather3d
 and deposit2d (``vpic_tpu_torch/tools/probe_batched.py``) on the tool's
 inputs beside ``torch.einsum`` on the prepared bf16 operands; the chain
 (``tools/vpu_layout_probe.py``, 1024 reps, drawn uniform on [0, 3)) on
-the dense (8, 16384) block and on rows 1 of its (8, 131072) block; io4d
-on the tool's input.  Each is checked bitwise against that tree's plain
-version, then timed alone (torch.profiler) and through its wrapper (CUDA
-events).  For the chain it also reads the SASS of the tree's built
+the dense (8, 16384) block and on rows 1 of its (8, 131072) block; io4d,
+stack8 and onehot3d on the tool's inputs, stack8 beside one index
+``win_bf16[:, loc]`` of the prepared bf16 window (CUDA events, and alone:
+the sum of its device events per call under the profiler).  Each kernel
+is checked bitwise against that tree's plain version, then timed alone
+(torch.profiler) and through its wrapper (CUDA events).  For the chain it also reads the SASS of the tree's built
 library (``cuobjdump -sass``, beside the toolkit's nvcc): the issued
 instructions per element and rep of the kernel's main loop (the
 instructions from the target of its backward branch to the branch, over
@@ -70,19 +72,24 @@ REPS = 20
 ISSUE_LANES_PER_S = 132 * 128 * 1.98e9
 
 
+def _import_tree(tree):
+    """Put ``tree`` first on sys.path and import its vpic_tpu_torch."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import vpic_tpu_torch
+    pkg = os.path.dirname(os.path.abspath(vpic_tpu_torch.__file__))
+    if pkg != os.path.join(os.path.abspath(tree), "vpic_tpu_torch"):
+        raise RuntimeError(f"imported {pkg}, not the tree {tree}")
+
+
 def measure(tree):
     """The JSON record of one tree (run in a child process)."""
-    sys.path.insert(0, os.path.abspath(tree))
+    _import_tree(tree)
     import torch
-    import vpic_tpu_torch
     from vpic_tpu_torch.decks import bench_deck
     from vpic_tpu_torch.engine.step import walk_segments
     from vpic_tpu_torch.core.types import PackedSpecies
     from vpic_tpu_torch.particles import (aux, deposit_cuda, push, push_cuda,
                                           sort, sort_cuda)
-    pkg = os.path.dirname(os.path.abspath(vpic_tpu_torch.__file__))
-    if pkg != os.path.join(os.path.abspath(tree), "vpic_tpu_torch"):
-        raise RuntimeError(f"imported {pkg}, not the tree {tree}")
     device = torch.device("cuda", 0)
     push_cuda.build()
     sim = bench_deck.build(**cs.SLICE, device=device)
@@ -240,9 +247,9 @@ def chain_record(tree, vp, x, rows):
 
 
 def measure_probes(tree):
-    """The record of one tree's gather3d, deposit2d, chain and io4d (run
-    in a child process)."""
-    sys.path.insert(0, os.path.abspath(tree))
+    """The record of one tree's six probe kernels (run in a child
+    process)."""
+    _import_tree(tree)
     import torch
     from vpic_tpu_torch.particles import push_cuda
     from vpic_tpu_torch.tools import probe_batched as pb
@@ -274,14 +281,20 @@ def measure_probes(tree):
         sass_loops=loops, sass_per_rep=per_rep,
         issue_ceiling_ms=per_rep * vp.REPS * window / ISSUE_LANES_PER_S * 1e3,
         sm_clock_mhz=sm_clock_mhz(lambda: vp.chain(xs[8], 8)))
-    (ps,) = pb.tool_inputs("io4d", device)
-    run = lambda: pb.io4d(ps)
-    cs.check_bitwise(f"{tree}: io4d", run(), pb.io4d_plain(ps),
-                     "the plain version")
-    rec["io4d"] = dict(kernel="io4d_kernel",
-                       kernel_ms=cs.profiled_ms(run, REPS, ("io4d_kernel",),
-                                                1)[0],
-                       ms=cs.cuda_ms(run, REPS))
+    for name in ("io4d", "stack8", "onehot3d"):
+        args = pb.tool_inputs(name, device)
+        run = lambda: pb.PROBES[name](*args)
+        cs.check_bitwise(f"{tree}: {name}", run(), pb.PLAIN[name](*args),
+                         "the plain version")
+        kernel = pb.KERNEL_NAMES[name]
+        rec[name] = dict(kernel=kernel,
+                         kernel_ms=cs.profiled_ms(run, REPS, (kernel,), 1)[0],
+                         ms=cs.cuda_ms(run, REPS))
+    win, loc = pb.tool_inputs("stack8", device)
+    index = lambda w=win.to(torch.bfloat16), i=loc.long(): w[:, i]
+    rec["stack8"].update(index_ms=cs.cuda_ms(index, REPS),
+                         index_alone_ms=cs.call_profile(
+                             index, reps=REPS)["device_ms"])
     return rec
 
 
@@ -294,6 +307,9 @@ def log_probes(tree, rec):
                 f"wrapper {r['ms']:.4f} ms")
         if "einsum_ms" in r:
             line += f", torch.einsum {r['einsum_ms']:.4f} ms"
+        if "index_ms" in r:
+            line += (f", win_bf16[:, loc] {r['index_ms']:.4f} ms (alone "
+                     f"{r['index_alone_ms']:.4f} ms)")
         if "sass_per_rep" in r:
             line += (f", {r['sass_per_rep']:.4f} SASS instructions per "
                      f"element and rep (loops {r['sass_loops']}), issue "

@@ -24,8 +24,10 @@ the tool's and two ragged shapes (bitwise across a rerun, within K *
 2^-24 * sum|terms|) and their launcher's refusal of a plan off its
 constants, the chain at 1024 reps on every shape of
 tools/vpu_layout_probe.py and at chip_smoke's ragged reps and windows,
-io4d at ragged and offset inputs, and the refusal of a chain or io4d
-plan off its block.  Needs an NVIDIA
+io4d, stack8 and onehot3d at ragged and offset inputs, the refusal of a
+chain or io4d plan off its block, and of a stack8 or onehot3d plan that
+takes 16-byte accesses or the staged row on a pointer off 16 bytes.
+Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -399,3 +401,59 @@ def test_chain_and_io4d_launchers_refuse_a_plan_off_the_block(device,
     with pytest.raises(RuntimeError, match="cudaError 1"):
         probes_cuda.launch(fn, counts, key, device, *args)
     assert counts[key] == before
+
+
+def test_stack8_and_onehot3d_on_ragged_and_offset_inputs(device):
+    """stack8 and onehot3d on chip_smoke's cases: lane counts not a
+    multiple of 4, loc and win from 4 bytes into their storage, one-row
+    windows, w not a multiple of 4, a row past the shared-memory budget
+    and positions outside [0, w): bitwise the plain version and a rerun
+    on the plan each case expects, one launch per wrapper call."""
+    from vpic_tpu_torch.tools import probe_batched
+    before = dict(probe_batched.launches)
+    cs.check_stack8_onehot3d(device)
+    assert probe_batched.launches["stack8"] == \
+        before["stack8"] + 2 * len(cs.STACK8_CASES)
+    assert probe_batched.launches["onehot3d"] == \
+        before["onehot3d"] + 2 * len(cs.ONEHOT3D_CASES)
+
+
+@pytest.mark.parametrize("field", ["stack8 width", "stack8 stage",
+                                   "stack8 chunks", "onehot3d width",
+                                   "onehot3d blocks"])
+def test_stack8_and_onehot3d_launchers_refuse_a_misaligned_plan(device,
+                                                                field):
+    """A plan that takes 16-byte accesses of a loc, or the bulk copy of a
+    win row, 4 bytes into its storage, or that does not cover the output
+    once, is refused at launch (cudaErrorInvalidValue): nothing runs and
+    nothing is counted."""
+    from vpic_tpu_torch.tools import probe_batched as pb
+    from vpic_tpu_torch.tools import probes_cuda
+    if field.startswith("stack8"):
+        case = "win 4 bytes in" if field == "stack8 stage" else \
+            "loc 4 bytes in"
+        win, loc = cs.stack8_input(case, device)
+        (a, w), (s, lane) = win.shape, loc.shape
+        plan = pb.stack8_plan(a, w, s, lane, True, True)
+        assert plan.stage == 1 and plan.width == 4
+        if field == "stack8 chunks":
+            plan = plan._replace(chunks=plan.chunks + 1)
+            win, loc = (t.clone() for t in (win, loc))
+        out = torch.empty((a, s, lane), device=device)
+        fn, key, args = ("vpic_probe_stack8", "stack8",
+                         (win, loc, out, a, w, s, lane, *plan))
+    else:
+        loc, w = cs.onehot3d_input("loc 4 bytes in", device)
+        r, lane = loc.shape
+        plan = pb.onehot3d_plan(r, w, lane, True)
+        assert plan.width == 4
+        if field == "onehot3d blocks":
+            plan = plan._replace(blocks=plan.blocks + 1)
+            loc = loc.clone()
+        out = torch.empty((r, w, lane), device=device)
+        fn, key, args = ("vpic_probe_onehot3d", "onehot3d",
+                         (loc, out, r, w, lane, *plan))
+    before = pb.launches[key]
+    with pytest.raises(RuntimeError, match="cudaError 1"):
+        probes_cuda.launch(fn, pb.launches, key, device, *args)
+    assert pb.launches[key] == before

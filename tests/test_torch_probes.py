@@ -28,11 +28,14 @@ the JAX tools they replace, on the CPU.
 - The elementwise chain of ``tools/vpu_layout_probe.py`` at 1 and 16
   reps (``REPS_IN_KERNEL`` set on the tool's module), rows 1, 3 and 8 of
   a (max(rows, 8), 256) block drawn uniform on [0, 3).
-- The launch plans of the chain and io4d kernels
-  (``vpu_layout_probe.chain_plan``, ``probe_batched.io4d_plan``) at the
-  tools' shapes and the card's ragged cases: a model of each kernel's
-  writes from its plan writes every output float once, bitwise the
-  plain version, with 16-byte accesses only on 16-byte boundaries.
+- The launch plans of the chain, io4d, stack8 and onehot3d kernels
+  (``vpu_layout_probe.chain_plan``, ``probe_batched.io4d_plan``,
+  ``stack8_plan``, ``onehot3d_plan``) at the tools' shapes and the card's
+  ragged and offset cases: a model of each kernel's writes from its plan
+  writes every output float once, bitwise the plain version, with
+  16-byte accesses (and stack8's bulk copy of a row) only on 16-byte
+  boundaries; stack8 and onehot3d take the same plan on every device and
+  refuse 2^31 elements on every device.
 """
 
 import functools
@@ -513,3 +516,166 @@ def test_io4d_plan_writes_each_float_once(name):
     got, writes = io4d_model(ps, plan)
     assert (writes == 1).all()
     np.testing.assert_array_equal(bits(got), bits(pb.io4d_plain(ps)))
+
+
+# -- the launch plans of stack8 and onehot3d ---------------------------------
+
+
+def _aligned(nbytes):
+    return nbytes % 16 == 0
+
+
+def stack8_model(win, loc, plan):
+    """stack8_kernel's reads and writes on the CPU from its plan alone (a
+    model of the kernel, not its code): block b copies row b // chunks of
+    win into shared memory or reads win directly; its threads take four
+    outputs each of the block's chunk.
+    Every 16-byte access and the bulk copy are checked for 16-byte
+    boundaries, from the operands' true addresses (out starts on one).
+    Returns the output (NaN where nothing was written) and the write
+    counts."""
+    a, w = win.shape
+    s, lane = loc.shape
+    sl, per, threads = s * lane, pb.STACK8_PER_BLOCK, pb.STACK8_THREADS
+    assert plan.blocks == a * plan.chunks and plan.chunks == -(-sl // per)
+    win_np, loc_np = win.numpy(), loc.reshape(-1).numpy()
+    bf16 = pb._bf16(win).numpy()
+    out = np.full(a * sl, np.nan, np.float32)
+    writes = np.zeros(a * sl, np.int64)
+    t = np.arange(threads)
+    for b in range(plan.blocks):
+        row, c = divmod(b, plan.chunks)
+        if plan.stage:     # one bulk copy of the whole row
+            assert _aligned(win.data_ptr() + 4 * row * w) and _aligned(4 * w)
+            assert plan.smem == pb.STACK8_ROW_OFF + 4 * w
+            assert plan.smem <= pb.STACK8_SMEM_MAX
+        else:
+            assert plan.smem == 0
+        if plan.width == 4:
+            j = (c * per + 4 * t)[:, None] + np.arange(4)
+            heads = j[:, 0][j[:, 0] < sl]
+            assert all(_aligned(loc.data_ptr() + 4 * h) for h in heads)
+            assert all(_aligned(4 * (row * sl + h)) for h in heads)
+            j = j[j[:, 0] < sl].reshape(-1)
+        else:
+            j = (c * per + t[:, None] + threads * np.arange(4)).reshape(-1)
+            j = j[j < sl]
+        pos = loc_np[j]
+        inside = (pos >= 0) & (pos < w)
+        out[row * sl + j] = np.where(inside, bf16[row, np.clip(pos, 0, w - 1)],
+                                     np.float32(0))
+        np.add.at(writes, row * sl + j, 1)
+    return out.reshape(a, s, lane), writes
+
+
+def onehot3d_model(loc, w, plan):
+    """onehot3d_kernel's writes on the CPU from its plan alone: thread g
+    loads the loc of its column and writes rows phase, phase + phases, ...
+    of it.  Its 16-byte accesses are checked for 16-byte boundaries, from
+    loc's true address (out starts on one).  Returns the output (NaN
+    where nothing was written) and the write counts."""
+    r, lane = loc.shape
+    width, phases = plan.width, plan.phases
+    cols = lane // width
+    assert phases == -(-w // pb.ONEHOT3D_ROWS)
+    loc_np = loc.reshape(-1).numpy()
+    out = np.full(r * w * lane, np.nan, np.float32)
+    writes = np.zeros(r * w * lane, np.int64)
+    g = np.arange(plan.blocks * pb.ONEHOT3D_BLOCK)
+    g = g[g < r * cols * phases]
+    c, phase, row = g % cols, g // cols % phases, g // cols // phases
+    first = row * lane + c * width           # the column's first l
+    if width == 4:
+        assert _aligned(loc.data_ptr()) and (first % 4 == 0).all()
+    for k in range(pb.ONEHOT3D_ROWS):
+        wk = phase + k * phases
+        keep = wk < w
+        base = (row * w + wk) * lane + c * width
+        if width == 4:
+            assert (base[keep] % 4 == 0).all()
+        for e in range(width):
+            dst = base[keep] + e
+            out[dst] = (loc_np[first[keep] + e] == wk[keep]).astype(
+                np.float32)
+            np.add.at(writes, dst, 1)
+    return out.reshape(r, w, lane), writes
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.STACK8_CASES))
+def test_stack8_plan_writes_each_float_once(name):
+    """At the tool's shape and chip_smoke's ragged and offset cases the
+    plan takes the path each case expects (the row staged where it is on
+    16 bytes, a multiple of 4 floats and within 48 KB; 16-byte accesses
+    where S*L is a multiple of 4 and loc is on 16 bytes) and writes every
+    output once, bitwise the plain version, positions outside [0, w)
+    giving 0; 128 blocks at the tool's shape."""
+    (a, w, s, lane), _, _, want = chip_smoke.STACK8_CASES[name]
+    win, loc = chip_smoke.stack8_input(name, "cpu")
+    plan = pb.stack8_plan(a, w, s, lane, win.data_ptr() % 16 == 0,
+                          loc.data_ptr() % 16 == 0)
+    assert (plan.stage, plan.width) == want
+    if name == "tool shape":
+        assert plan.blocks == 128
+    assert ((loc < 0) | (loc >= w)).any()
+    got, writes = stack8_model(win, loc, plan)
+    assert (writes == 1).all()
+    want_out = pb.stack8_plain(win, loc)
+    np.testing.assert_array_equal(bits(got), bits(want_out.numpy()))
+    np.testing.assert_array_equal(bits(pb.stack8(win, loc).numpy()),
+                                  bits(want_out.numpy()))
+
+
+@pytest.mark.parametrize("name", list(chip_smoke.ONEHOT3D_CASES))
+def test_onehot3d_plan_writes_each_float_once(name):
+    """16-byte accesses only where lane is a multiple of 4 and loc is on
+    16 bytes; the plan writes every output float once, bitwise the plain
+    version, with no block to spare (128 at the tool's shape)."""
+    (r, w, lane), _, want = chip_smoke.ONEHOT3D_CASES[name]
+    loc, w = chip_smoke.onehot3d_input(name, "cpu")
+    plan = pb.onehot3d_plan(r, w, lane, loc.data_ptr() % 16 == 0)
+    assert plan.width == want
+    assert plan.blocks == -(-r * (lane // want) * plan.phases
+                            // pb.ONEHOT3D_BLOCK)
+    if name == "tool shape":
+        assert plan.blocks == 128
+    got, writes = onehot3d_model(loc, w, plan)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(bits(got),
+                                  bits(pb.onehot3d_plain(loc, w).numpy()))
+
+
+@pytest.mark.parametrize("name", ["stack8", "onehot3d"])
+def test_wrapper_takes_its_plan_on_every_device(name, monkeypatch):
+    """On the CPU the wrapper computes the plan the card would launch, so
+    a lane count that is not a multiple of 4, from 4 bytes into its
+    storage, takes the one-float plan on every device, and the result is
+    the plain version's."""
+    plans = []
+    fn = f"{name}_plan"
+    real = getattr(pb, fn)
+    monkeypatch.setattr(pb, fn, lambda *a: plans.append(real(*a)) or
+                        plans[-1])
+    flat = torch.arange(1 + 3 * 6, dtype=torch.int32) % 11 - 2
+    loc = flat[1:].view(3, 6)
+    if name == "onehot3d":
+        got, want = pb.onehot3d(loc, 7), pb.onehot3d_plain(loc, 7)
+    else:
+        win = torch.linspace(-1, 1, 4 * 8).view(4, 8)
+        got, want = pb.stack8(win, loc), pb.stack8_plain(win, loc)
+    assert len(plans) == 1 and plans[0].width == 1
+    np.testing.assert_array_equal(bits(got.numpy()), bits(want.numpy()))
+
+
+@pytest.mark.parametrize("name", ["stack8", "onehot3d"])
+def test_wrappers_refuse_2_31_elements(name):
+    """Sizes of 2^31 elements or more are refused on every device before
+    anything runs: the kernels index in 32 bits."""
+    if name == "onehot3d":
+        call = lambda: pb.onehot3d(torch.zeros((1, 4), dtype=torch.int32),
+                                   2 ** 29)
+    else:
+        call = lambda: pb.stack8(torch.zeros((2 ** 11, 1)),
+                                 torch.zeros((2 ** 10, 2 ** 10),
+                                             dtype=torch.int32))
+    with pytest.raises(ValueError, match="2\\^31"):
+        call()

@@ -82,13 +82,34 @@
 // vpic_probe_stack8      replaces tools/probe_batched.py:probe_stack8,
 //   out[a,s,l] = bf16(win[a, loc[s,l]]) in float32, 0 where loc lies
 //   outside [0, W).  The TPU builds eight one-hot matrices and multiplies,
-//   because it lacks a gather; here it is a gather, one thread per output.
-//   Bound: bytes (win, loc and out: 0.20 MB at the tool's shape, 0.06 us).
+//   because it lacks a gather; here it is a gather.  Bound: bytes (win, loc
+//   and out: 0.20 MB at the tool's shape, 0.06 us), far under a launch and
+//   one round trip of device memory, so the design counts round trips: a
+//   block of 64 threads takes 256 consecutive (s, l) of one row a (128
+//   blocks at the tool's shape), and its first thread copies the row
+//   win[a, :] into shared memory in one bulk copy on an mbarrier before
+//   the threads load their four loc entries, so that the two reads
+//   overlap; after the wait each thread gathers from shared memory and
+//   makes one 16-byte store.  Where the row is off 16 bytes, W is not a
+//   multiple of 4 or the row passes 48 KB, the threads read win directly
+//   (a second round trip); where S*L is not a multiple of 4 or loc is off
+//   16 bytes, each thread takes four single floats, 64 apart (the plan,
+//   probe_batched.py:stack8_plan, checked by the launcher).  All index
+//   arithmetic in 32 bits: the plan refuses 2^31 elements.
 //
 // vpic_probe_onehot3d    replaces tools/probe_batched.py:probe_onehot3d,
 //   out[r,w,l] = float(loc[r,l] == w).  Bound: bytes, the 2 MB it writes
-//   (0.63 us).  Design: one thread per four consecutive l, a 16-byte load
-//   of loc and a 16-byte store.
+//   (0.63 us).  Design: thread (r, phase, c) loads loc[r, 4c:4c+4] once
+//   into registers and writes rows w = phase, phase + P, ... (P = ceil(W /
+//   4): four rows a thread) of its column with 16-byte stores (plain
+//   stores measured 1 % faster than streaming ones, __stcs);
+//   consecutive threads take consecutive c, then phases, so that a warp
+//   stores a contiguous 512-byte row segment and a block of 256 threads
+//   eight consecutive rows (128 blocks at the tool's shape).  Where L is
+//   not a multiple of 4 or loc or out is off 16 bytes, a column is one l
+//   and the accesses 4 bytes (the plan, probe_batched.py:onehot3d_plan,
+//   checked by the launcher: no input makes a misaligned access).  All
+//   index arithmetic in 32 bits: the plan refuses 2^31 elements.
 //
 // vpic_probe_io4d        replaces tools/probe_batched.py:probe_io4d, per
 //   block i: a = 2*ps[i,0] + ps[i,1]; out[i,0] = a > 0 ? a : ps[i,2];
@@ -436,29 +457,101 @@ int launch_clusters(Kernel kernel, const float* a, const float* oh,
   return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
 }
 
-__global__ void stack8_kernel(const float* __restrict__ win,
-                              const int* __restrict__ loc,
-                              float* __restrict__ out, int W, int SL,
-                              long long total) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const long long row = idx / SL;
-  const int w = loc[idx % SL];
-  out[idx] = (w >= 0 && w < W) ? bf16_round(win[row * W + w]) : 0.0f;
+// stack8: blocks of kStackThreads threads, kStackPerThread outputs each;
+// the row staged in shared memory after a 16-byte slot for the mbarrier.
+constexpr int kStackThreads = 64, kStackPerThread = 4;
+constexpr int kStackPerBlock = kStackThreads * kStackPerThread;
+constexpr int kStackSmemMax = 48 * 1024, kStackRowOff = 16;
+
+__device__ __forceinline__ float stack8_value(const float* row, int W,
+                                              int w) {
+  return (unsigned)w < (unsigned)W ? bf16_round(row[w]) : 0.0f;
 }
 
-__global__ void onehot3d_kernel(const int4* __restrict__ loc,
-                                float4* __restrict__ out, int W, int L4,
-                                long long total) {
-  const long long idx = blockIdx.x * (long long)blockDim.x + threadIdx.x;
-  if (idx >= total) return;
-  const int l4 = (int)(idx % L4);
-  const long long rw = idx / L4;
-  const int w = (int)(rw % W);
-  const long long r = rw / W;
-  const int4 v = loc[r * L4 + l4];
-  out[idx] = make_float4(v.x == w ? 1.0f : 0.0f, v.y == w ? 1.0f : 0.0f,
-                         v.z == w ? 1.0f : 0.0f, v.w == w ? 1.0f : 0.0f);
+// probe_batched.py:stack8_plan: block b takes outputs [c*kStackPerBlock,
+// (c+1)*kStackPerBlock) of row a = b / chunks of out (A, S*L), c = b %
+// chunks; thread t the four at 4t (kWidth 4) or t + 64k (kWidth 1) of
+// them.  kStage: the row comes through shared memory.
+template <bool kStage, int kWidth>
+__global__ void __launch_bounds__(kStackThreads)
+    stack8_kernel(const float* __restrict__ win, const int* __restrict__ loc,
+                  float* __restrict__ out, int W, int SL, int chunks) {
+  extern __shared__ __align__(16) unsigned char stack_smem[];
+  uint64_t* bar = reinterpret_cast<uint64_t*>(stack_smem);
+  float* staged = reinterpret_cast<float*>(stack_smem + kStackRowOff);
+  const int a = blockIdx.x / chunks;
+  const int j0 = (blockIdx.x - a * chunks) * kStackPerBlock;
+  const float* row = win + a * W;
+  if (kStage && threadIdx.x == 0) {
+    bar_init(bar);
+    bar_expect_bytes(bar, (uint32_t)W * 4);
+    bulk_copy(staged, row, W, bar);
+  }
+  // the loc entries are read while the row is in flight
+  int w[kStackPerThread];
+  int j[kStackPerThread];
+#pragma unroll
+  for (int k = 0; k < kStackPerThread; ++k)
+    j[k] = kWidth == 4 ? j0 + 4 * threadIdx.x + k
+                       : j0 + threadIdx.x + k * kStackThreads;
+  if (kWidth == 4) {
+    if (j[0] < SL) {
+      const int4 v = *reinterpret_cast<const int4*>(loc + j[0]);
+      w[0] = v.x, w[1] = v.y, w[2] = v.z, w[3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < kStackPerThread; ++k)
+      if (j[k] < SL) w[k] = loc[j[k]];
+  }
+  if (kStage) {
+    __syncthreads();   // the mbarrier is initialised
+    bar_wait(bar);
+    row = staged;
+  }
+  float* o = out + a * SL;
+  if (kWidth == 4) {
+    if (j[0] < SL)
+      *reinterpret_cast<float4*>(o + j[0]) = make_float4(
+          stack8_value(row, W, w[0]), stack8_value(row, W, w[1]),
+          stack8_value(row, W, w[2]), stack8_value(row, W, w[3]));
+  } else {
+#pragma unroll
+    for (int k = 0; k < kStackPerThread; ++k)
+      if (j[k] < SL) o[j[k]] = stack8_value(row, W, w[k]);
+  }
+}
+
+// onehot3d: blocks of kOnehotBlock threads, kOnehotRows rows a thread.
+constexpr int kOnehotBlock = 256, kOnehotRows = 4;
+
+__device__ __forceinline__ float one_hot(int v, int w) {
+  return v == w ? 1.0f : 0.0f;
+}
+
+__device__ __forceinline__ float4 one_hot(int4 v, int w) {
+  return make_float4(one_hot(v.x, w), one_hot(v.y, w), one_hot(v.z, w),
+                     one_hot(v.w, w));
+}
+
+// probe_batched.py:onehot3d_plan: thread g is column c = g % cols (l in
+// [c*kWidth, (c+1)*kWidth)), phase g / cols % phases of row r = g / cols /
+// phases; it writes out[r, w, column] for w = phase + k*phases < W, k <
+// kOnehotRows.  I and V are int4 and float4 (kWidth 4) or int and float.
+template <typename I, typename V>
+__global__ void __launch_bounds__(kOnehotBlock)
+    onehot3d_kernel(const I* __restrict__ loc, V* __restrict__ out, int W,
+                    int cols, int phases, int total) {
+  const int g = blockIdx.x * kOnehotBlock + threadIdx.x;
+  if (g >= total) return;
+  const int q = g / cols, c = g - q * cols;
+  const int r = q / phases, phase = q - r * phases;
+  const I v = loc[r * cols + c];
+  V* o = out + (r * W + phase) * cols + c;
+  const int step = phases * cols;
+#pragma unroll
+  for (int k = 0, w = phase; k < kOnehotRows; ++k, w += phases, o += step)
+    if (w < W) *o = one_hot(v, w);
 }
 
 constexpr int kIoIn = 7, kIoOut = 16, kIoBlock = 128;
@@ -491,12 +584,6 @@ __global__ void __launch_bounds__(kIoBlock)
     *dst = src[(j - 1) * cols];
   else
     *dst = V{};
-}
-
-constexpr int kBlock = 256;
-
-unsigned blocks_for(long long total) {
-  return (unsigned)((total + kBlock - 1) / kBlock);
 }
 
 }  // namespace
@@ -557,21 +644,74 @@ int vpic_probe_deposit2d(const float* c, const float* oh, float* out, int Kc,
                          stream);
 }
 
-// win (A, W) float32, loc (S, L) int32, out (A, S, L) float32.
+// win (A, W) float32, loc (S, L) int32, out (A, S, L) float32; the plan
+// of tools/probe_batched.py:stack8_plan: stage 1 (the row through shared
+// memory: W a multiple of 4, win on a 16-byte boundary, smem bytes of the
+// row and its mbarrier within 48 KB) or 0 (smem 0), width 4 (16-byte
+// accesses: S*L a multiple of 4, loc and out on 16-byte boundaries) or 1,
+// chunks of kStackPerBlock outputs a row and A * chunks blocks.
 int vpic_probe_stack8(const float* win, const int* loc, float* out, int A,
-                      int W, int S, int L, void* stream) {
-  const long long total = (long long)A * S * L;
-  stack8_kernel<<<blocks_for(total), kBlock, 0, (cudaStream_t)stream>>>(
-      win, loc, out, W, S * L, total);
+                      int W, int S, int L, int stage, int width, int chunks,
+                      int blocks, int smem, void* stream) {
+  const long long SL = (long long)S * L;
+  const bool vec = width == 4;
+  const bool ok =
+      A >= 1 && W >= 1 && SL >= 1 && (long long)A * SL < (1LL << 31) &&
+      (long long)A * W < (1LL << 31) && (vec || width == 1) &&
+      SL % width == 0 &&
+      (!vec || ((reinterpret_cast<uintptr_t>(loc) |
+                 reinterpret_cast<uintptr_t>(out)) & 15) == 0) &&
+      (stage == 0 || stage == 1) &&
+      (stage ? W % 4 == 0 &&
+                   (reinterpret_cast<uintptr_t>(win) & 15) == 0 &&
+                   smem == kStackRowOff + 4 * W && smem <= kStackSmemMax
+             : smem == 0) &&
+      chunks == (SL + kStackPerBlock - 1) / kStackPerBlock &&
+      blocks == (long long)A * chunks;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int sl = (int)SL;
+  if (stage && vec)
+    stack8_kernel<true, 4><<<blocks, kStackThreads, smem, s>>>(
+        win, loc, out, W, sl, chunks);
+  else if (stage)
+    stack8_kernel<true, 1><<<blocks, kStackThreads, smem, s>>>(
+        win, loc, out, W, sl, chunks);
+  else if (vec)
+    stack8_kernel<false, 4><<<blocks, kStackThreads, 0, s>>>(
+        win, loc, out, W, sl, chunks);
+  else
+    stack8_kernel<false, 1><<<blocks, kStackThreads, 0, s>>>(
+        win, loc, out, W, sl, chunks);
   return (int)cudaGetLastError();
 }
 
-// loc (R, L) int32, out (R, W, L) float32; L a multiple of 4.
+// loc (R, L) int32, out (R, W, L) float32; the plan of
+// tools/probe_batched.py:onehot3d_plan: width 4 (16-byte accesses; L a
+// multiple of 4, loc and out on 16-byte boundaries) or 1, ceil(W /
+// kOnehotRows) phases and the blocks that give one thread per (r, phase,
+// column).
 int vpic_probe_onehot3d(const int* loc, float* out, int R, int W, int L,
-                        void* stream) {
-  const long long total = (long long)R * W * (L / 4);
-  onehot3d_kernel<<<blocks_for(total), kBlock, 0, (cudaStream_t)stream>>>(
-      (const int4*)loc, (float4*)out, W, L / 4, total);
+                        int width, int phases, int blocks, void* stream) {
+  const bool vec = width == 4;
+  const long long total =
+      width >= 1 ? (long long)R * (L / width) * phases : 0;
+  const bool ok =
+      R >= 1 && W >= 1 && L >= 1 && (long long)R * W * L < (1LL << 31) &&
+      (vec || width == 1) && L % width == 0 &&
+      (!vec || ((reinterpret_cast<uintptr_t>(loc) |
+                 reinterpret_cast<uintptr_t>(out)) & 15) == 0) &&
+      phases == (W + kOnehotRows - 1) / kOnehotRows &&
+      blocks == (total + kOnehotBlock - 1) / kOnehotBlock;
+  if (!ok) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (vec)
+    onehot3d_kernel<int4, float4><<<blocks, kOnehotBlock, 0, s>>>(
+        reinterpret_cast<const int4*>(loc), reinterpret_cast<float4*>(out),
+        W, L / 4, phases, (int)total);
+  else
+    onehot3d_kernel<int, float><<<blocks, kOnehotBlock, 0, s>>>(
+        loc, out, W, L, phases, (int)total);
   return (int)cudaGetLastError();
 }
 

@@ -19,9 +19,12 @@ Probes (W = 512, R = 8, LANE = 128; every operand float32 unless said):
 
 ``oh`` is the tool's one-hot ``oh[r,w,l] = (w == l + r)``.  Each wrapper
 runs the plain version for CPU tensors and launches its kernel for CUDA
-tensors (a failed launch raises; there is no other fallback); gather3d
-and deposit2d refuse, on every device, the shapes their kernels' plan
-(``mma_plan.py``) does not take;
+tensors (a failed launch raises; there is no other fallback).  Each
+wrapper computes its kernel's launch plan on every device: gather3d and
+deposit2d refuse the shapes their plan (``mma_plan.py``) does not take;
+stack8, onehot3d and io4d take any shape, on 16-byte or 4-byte accesses
+by the alignment of their operands (``stack8_plan``, ``onehot3d_plan``,
+``io4d_plan``), and stack8 and onehot3d refuse 2^31 elements or more.
 ``launches`` counts the kernels' launches.  On the card each probe prints
 the tool's line and its kernel's time through the wrapper (CUDA events)
 beside its bound; a failed probe raises and the command exits non-zero.
@@ -46,8 +49,15 @@ W = 512
 R = 8
 LANE = 128
 
-# threads per block of io4d_kernel (csrc/probes.cu: kIoBlock)
+# the launch constants of csrc/probes.cu: io4d_kernel's threads per block
+# (kIoBlock); stack8_kernel's threads per block, outputs per block, row
+# offset and shared memory limit (kStackThreads, kStackPerBlock,
+# kStackRowOff, kStackSmemMax); onehot3d_kernel's threads per block and
+# rows per thread (kOnehotBlock, kOnehotRows)
 IO4D_BLOCK = 128
+STACK8_THREADS, STACK8_PER_BLOCK = 64, 256
+STACK8_ROW_OFF, STACK8_SMEM_MAX = 16, 48 * 1024
+ONEHOT3D_BLOCK, ONEHOT3D_ROWS = 256, 4
 
 launches = {"gather3d": 0, "deposit2d": 0, "stack8": 0, "onehot3d": 0,
             "io4d": 0}
@@ -151,32 +161,102 @@ def deposit2d(c, oh):
     return out
 
 
+class Stack8Plan(NamedTuple):
+    """The launch of ``stack8_kernel`` on win (a, w), loc (s, lane) -> out
+    (a, s, lane): block b takes ``STACK8_PER_BLOCK`` consecutive outputs
+    of row b // chunks of out (flattened over (s, lane)), chunk b %
+    chunks, in ``blocks`` = a * chunks blocks of ``STACK8_THREADS``; each
+    thread four of them, as one 16-byte access (``width`` 4) or four
+    single floats ``STACK8_THREADS`` apart (1).  ``stage`` 1: the block
+    copies its row of win into ``smem`` bytes of shared memory (after a
+    16-byte slot for the mbarrier) and gathers from there; 0: the threads
+    read win directly."""
+    stage: int
+    width: int
+    chunks: int
+    blocks: int
+    smem: int
+
+
+def _check_elements(name, *shapes):
+    for shape in shapes:
+        if int(np.prod(shape, dtype=np.int64)) >= 2 ** 31:
+            raise ValueError(f"{name}: {shape} holds 2^31 elements or more; "
+                             "the kernel indexes in 32 bits")
+
+
+def stack8_plan(a: int, w: int, s: int, lane: int, win_aligned: bool,
+                loc_aligned: bool) -> Stack8Plan:
+    """The row through shared memory where w is a multiple of 4, win
+    starts on a 16-byte boundary (``win_aligned``) and the row fits
+    ``STACK8_SMEM_MAX``; 16-byte accesses of loc and out where s * lane
+    is a multiple of 4 and loc starts on a 16-byte boundary
+    (``loc_aligned``; out is the wrapper's own).  Refuses (ValueError)
+    2^31 elements or more."""
+    _check_elements("stack8", (a, w), (a, s, lane))
+    smem = STACK8_ROW_OFF + 4 * w
+    stage = win_aligned and w % 4 == 0 and smem <= STACK8_SMEM_MAX
+    width = 4 if loc_aligned and (s * lane) % 4 == 0 else 1
+    chunks = -(-s * lane // STACK8_PER_BLOCK)
+    return Stack8Plan(int(stage), width, chunks, a * chunks,
+                      smem if stage else 0)
+
+
 def stack8(win, loc):
+    """Takes any (a, w) float32 window and (s, lane) int32 positions with
+    fewer than 2^31 elements in win and in out, on every device."""
+    a, w = _dims("win", win, 2)
+    s, lane = _dims("loc", loc, 2)
+    plan = stack8_plan(a, w, s, lane, win.data_ptr() % 16 == 0,
+                       loc.data_ptr() % 16 == 0)
     if win.device.type == "cpu":
         return stack8_plain(win, loc)
     device = cuda_device(win)
-    a, w = _dims("win", win, 2)
-    s, lane = _dims("loc", loc, 2)
     check_tensor("win", win, F32, (a, w), device)
     check_tensor("loc", loc, I32, (s, lane), device)
     out = torch.empty((a, s, lane), dtype=F32, device=device)
     launch("vpic_probe_stack8", launches, "stack8", device,
-           win, loc, out, a, w, s, lane)
+           win, loc, out, a, w, s, lane, *plan)
     return out
 
 
+class Onehot3dPlan(NamedTuple):
+    """The launch of ``onehot3d_kernel`` on loc (r, lane) -> out (r, w,
+    lane): a column is ``width`` consecutive l (4: one 16-byte load of loc
+    and 16-byte stores); thread t is column t % c (c = lane / width) of
+    phase t // c % phases of row r = t // c // phases, and writes rows
+    phase, phase + phases, ... (``ONEHOT3D_ROWS`` at most) of its column,
+    in ``blocks`` blocks of ``ONEHOT3D_BLOCK`` threads."""
+    width: int
+    phases: int
+    blocks: int
+
+
+def onehot3d_plan(r: int, w: int, lane: int, aligned: bool) -> Onehot3dPlan:
+    """16-byte accesses where lane is a multiple of 4 and loc and out
+    start on 16-byte boundaries (``aligned``), else one float a column.
+    Refuses (ValueError) w < 1 and 2^31 elements or more."""
+    if w < 1:
+        raise ValueError(f"onehot3d takes w >= 1, got {w}")
+    _check_elements("onehot3d", (r, w, lane))
+    width = 4 if aligned and lane % 4 == 0 else 1
+    phases = -(-w // ONEHOT3D_ROWS)
+    return Onehot3dPlan(width, phases,
+                        -(-r * (lane // width) * phases // ONEHOT3D_BLOCK))
+
+
 def onehot3d(loc, w=W):
+    """Takes any (r, lane) int32 positions and w >= 1 with fewer than 2^31
+    elements in out, through the same plan on every device."""
+    r, lane = _dims("loc", loc, 2)
+    plan = onehot3d_plan(r, w, lane, loc.data_ptr() % 16 == 0)
     if loc.device.type == "cpu":
         return onehot3d_plain(loc, w)
     device = cuda_device(loc)
-    r, lane = _dims("loc", loc, 2)
     check_tensor("loc", loc, I32, (r, lane), device)
-    if lane % 4 or w < 1:
-        raise ValueError(f"onehot3d takes a lane count that is a multiple "
-                         f"of 4 and w >= 1, got {lane} and {w}")
     out = torch.empty((r, w, lane), dtype=F32, device=device)
     launch("vpic_probe_onehot3d", launches, "onehot3d", device,
-           loc, out, r, w, lane)
+           loc, out, r, w, lane, *plan)
     return out
 
 

@@ -30,8 +30,10 @@ _ARGTYPES = {
     # the shape, then tools/mma_plan.py's MmaPlan.args()
     "vpic_probe_gather3d": [_P, _P, _P] + [_I] * 17 + [_P],
     "vpic_probe_deposit2d": [_P, _P, _P] + [_I] * 17 + [_P],
-    "vpic_probe_stack8": [_P, _P, _P, _I, _I, _I, _I, _P],
-    "vpic_probe_onehot3d": [_P, _P, _I, _I, _I, _P],
+    # the shape, then probe_batched.py's Stack8Plan
+    "vpic_probe_stack8": [_P, _P, _P] + [_I] * 9 + [_P],
+    # the shape, then probe_batched.py's Onehot3dPlan
+    "vpic_probe_onehot3d": [_P, _P] + [_I] * 6 + [_P],
     # the shape, then probe_batched.py's Io4dPlan
     "vpic_probe_io4d": [_P, _P, _I, _I, _I, _I, _P],
 }
