@@ -10,9 +10,10 @@ open particle boundaries (absorbing and custom walls, emitters,
 in-step injection) and the collisions deck, materials (conductive,
 dielectric and magnetic regions through the field solver, dumps and
 checkpoints), several shards in one process on the card (halo
-exchanges, shared-face merges and particle migration), and the tools path
+exchanges, shared-face merges and particle migration), the tools path
 (the probe kernels and the drift comparison against the float64
-reference).
+reference), and the harness tools (evidence, the scaling sweep at its
+seven sizes, the per-op profile).
 
     python3 chip_smoke.py
 
@@ -229,7 +230,23 @@ no result line):
               over 8 (the float64 host reference stepping the same
               deck): |drift_excess| <= 1e-6, every field RMS <= 1e-5 or
               twice the JAX package's own at that size, no dropped
-              mover.
+              mover;
+17. harness  - the harness tools of vpic_tpu_torch/tools through their
+              functions: evidence.main at its defaults (24 steps, 1M
+              particles, 128^2) twice on fresh decks, EVIDENCE OK both
+              times with equal field and species checksums;
+              scaling_bench.sweep over its seven configurations (1M-16M
+              particles, 128^2 to 512^2 and 64^3), each deck with one push
+              launch per species and step, no dropped mover, finite
+              energies and its particle count, two more timed windows and
+              a trace split by step part; on the 64^3 deck (4M per
+              species, the quantum allowance) and the 256^2 deck with 8M
+              per species (8.5M slots; the float bar, the allowance only
+              where it cannot be met) the push kernel against its plain
+              version and twin and timed against its bound;
+              profile_step.main at its defaults (2M, 128^2, 5 steps): sort,
+              push and field each with busy device time and
+              push_walk_kernel among the listed ops.
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
 path, the accumulator's or rows' max abs error against the plain version,
@@ -261,7 +278,11 @@ per step, the fields' and energies' distance from the one-shard run;
 ``shards_walk_*``: the walk_only launches in those windows and the times
 of one round's walk on shard 0; the deposit kernel's ``shards_launches``
 in the unfused steps, its error over the shards' deposits and the
-unfused steps' distance from the one-shard run).  The six probe
+unfused steps' distance from the one-shard run) and on phase 17
+(``sweep_64cube_*``, ``sweep_256sq_8M_*``: error, the species checked
+with the quantum allowance, slots and the times on the electrons;
+``tools_*_launches``: the push launches of the two evidence runs, of the
+sweep's own steps and of the profile).  The six probe
 kernels' records (phase 16) carry their launches in the tools' entry
 points, 0.0 as their error (bitwise), the chain's per-shape wrapper times
 (``shapes_ms``) and, for gather3d and deposit2d, the error on random
@@ -279,6 +300,12 @@ import os
 import subprocess
 import sys
 import time
+
+# the profiler attribution (padded traces retaken where device events are
+# lost, busy time as a union of intervals, ops placed in step parts by
+# their launch calls, the per-step sums) is the per-op profile tool's
+from vpic_tpu_torch.tools.profile_step import (_busy_us, _step_parts,
+                                               breakdown, profiled)
 
 SLICE = dict(nx=128, ny=128, nz=1, npart=2_000_000)
 SMALL_DECK = dict(nx=16, ny=16, nz=1, npart=4096)
@@ -611,67 +638,6 @@ def walk_counts(sp, interp, nb, g, n_walk, warp=32):
                 atomics_after=after, lanes_by_segments=hist)
 
 
-PROFILE_ATTEMPTS = 5
-# small kernels launched at the start and at the end of every trace:
-# where the profiler loses a trace's first or last device records (seen
-# after long traces: the first five of each later trace; after phase 13,
-# the first 25), it is these that it loses, not fn's
-PAD_SCOPE, PAD_OPS = "smoke.profiler_pad", 128
-_RUNTIME = ("LaunchKernel", "Memcpy", "Memset")
-
-
-def _pad():
-    import torch
-    from torch.profiler import record_function
-    with record_function(PAD_SCOPE):
-        pad = torch.zeros(1, device="cuda")
-        for _ in range(PAD_OPS):
-            pad.add_(1.0)
-        torch.cuda.synchronize()
-
-
-def profiled(fn, ok):
-    """Run fn() under torch.profiler, again while ``ok(device events,
-    runtime calls without a device event)`` is false: the profiler can
-    drop device events, and a kernel missing from a trace would read as
-    time not spent.  The device events are those of fn's runtime calls;
-    records of other traces and of this trace's padding are left out.
-    Returns (host-clock us of fn, all events, device events, runtime calls
-    without a device event)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(PROFILE_ATTEMPTS):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            _pad()
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-            _pad()
-        events = prof.events()
-        pads = [(e.time_range.start, e.time_range.end) for e in events
-                if e.device_type == DeviceType.CPU and e.name == PAD_SCOPE]
-        calls = {e.id: e for e in events if e.device_type == DeviceType.CPU
-                 and any(k in e.name for k in _RUNTIME)
-                 and not any(a <= e.time_range.start <= b for a, b in pads)}
-        dev = [e for e in events if e.device_type == DeviceType.CUDA
-               and not e.is_user_annotation and e.id in calls]
-        ids = {e.id for e in dev}
-        order = sorted(calls, key=lambda i: calls[i].time_range.start)
-        lost = [calls[i].name for i in order if i not in ids]
-        if dev and ok(dev, lost):
-            return wall_us, events, dev, len(lost)
-        where = [k for k, i in enumerate(order) if i not in ids]
-        log(f"  (the trace lacks the device events of {len(lost)} of "
-            f"{len(order)} runtime calls, {sorted(set(lost))}, at positions "
-            f"{where[:8]}; traced again)")
-    raise AssertionError(f"the profiler dropped device events in "
-                         f"{PROFILE_ATTEMPTS} traces in a row")
-
-
 def profiled_ms(fn, reps, names, per_run):
     """Under torch.profiler, ``reps`` runs of fn(), each launching
     ``per_run`` kernels whose names contain one of ``names``: their mean
@@ -893,36 +859,6 @@ def phase_slice(sim):
     return launches, n_total / med, med
 
 
-def _busy_us(intervals):
-    """Length of the union of (start, end) intervals."""
-    busy, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    return busy
-
-
-def _step_parts(events, dev):
-    """The step part (a name of PHASES, or None) of each device op in
-    ``dev``: the scope whose host interval holds the op's launch call,
-    the runtime event with the op's correlation id.  (The kernels this
-    package launches through ctypes are not linked to a scope by the
-    profiler's own tree, but their launch calls are in the trace.)  Also
-    returns how many ops had a launch call in the trace."""
-    from torch.autograd import DeviceType
-    from vpic_tpu_torch.engine.step import PHASES
-    scopes = [(e.time_range.start, e.time_range.end, e.name)
-              for e in events if e.device_type == DeviceType.CPU
-              and e.name in PHASES]
-    launch = {e.id: e.time_range.start for e in events
-              if e.device_type == DeviceType.CPU
-              and e.name.startswith(("cuda", "cuLaunch"))}
-    parts = [next((n for s, f, n in scopes if s <= launch[e.id] <= f), None)
-             if e.id in launch else None for e in dev]
-    return parts, sum(e.id in launch for e in dev)
-
-
 def phase_trace(sim, step_s, label="main path", parts=None):
     """A torch.profiler trace of TRACE_STEPS main-path steps (one sort
     super-cycle): per step, the device busy time (union of kernel and copy
@@ -942,42 +878,34 @@ def phase_trace(sim, step_s, label="main path", parts=None):
     wall_us, events, dev, lost = profiled(
         lambda: sim.advance(TRACE_STEPS),
         lambda dev, lost: len(lost) <= TRACE_STEPS)
-    span = lambda e: (e.time_range.start, e.time_range.end)
-    busy = _busy_us([span(e) for e in dev])
     parts, placed = _step_parts(events, dev)
-    part_busy = {k: _busy_us([span(e) for e, p in zip(dev, parts) if p == k])
-                 for k in (*PHASES, None)}
-    by_kernel = collections.Counter()
-    for e in dev:
-        by_kernel[e.name] += e.time_range.elapsed_us()
-    per = lambda us: us / TRACE_STEPS / 1e3
+    b = breakdown(dev, parts, TRACE_STEPS)
+    busy, part_busy, part_ops = b["busy_ms"], b["parts"], b["part_ops"]
     reads = sum("DtoH" in e.name for e in dev) / TRACE_STEPS
     log(f"  trace of the {label}, {TRACE_STEPS} steps under "
         f"torch.profiler: device busy "
-        f"{per(busy):.4f} ms/step, device ops {len(dev) / TRACE_STEPS:.1f}"
+        f"{busy:.4f} ms/step, device ops {b['ops']:.1f}"
         f"/step ({placed} of {len(dev)} with their launch call; {lost} "
         f"runtime calls without a device event), host reads {reads:.1f}"
-        f"/step, wall {per(wall_us):.4f} ms/step, idle share "
-        f"{1 - busy / wall_us:.4f}")
+        f"/step, wall {wall_us / TRACE_STEPS / 1e3:.4f} ms/step, idle share "
+        f"{1 - busy * TRACE_STEPS * 1e3 / wall_us:.4f}")
     if step_s is not None:
         log(f"  derived idle share without the profiler: 1 - busy / step = "
-            f"1 - {per(busy):.4f} / {step_s * 1e3:.4f} = "
-            f"{1 - per(busy) / (step_s * 1e3):.4f}")
-    part_ops = collections.Counter(parts)
+            f"1 - {busy:.4f} / {step_s * 1e3:.4f} = "
+            f"{1 - busy / (step_s * 1e3):.4f}")
     log("  busy device ms/step (device ops/step) by step part: " + ", ".join(
-        f"{k} {per(part_busy[k]):.4f} ({part_ops[k] / TRACE_STEPS:.1f})"
+        f"{k} {part_busy[k]:.4f} ({part_ops[k]:.1f})"
         for k in PHASES if part_ops[k] or k in parts_needed)
-        + f", outside the parts {per(part_busy[None]):.4f} "
-        f"({part_ops[None] / TRACE_STEPS:.1f})")
+        + f", outside the parts {part_busy[None]:.4f} "
+        f"({part_ops[None]:.1f})")
     log("  busiest kernels, device ms/step: " + "; ".join(
-        f"{name[:60]} {per(us):.4f}"
-        for name, us in by_kernel.most_common(6)))
+        f"{name[:60]} {ms / TRACE_STEPS:.4f}" for name, ms in sorted(
+            b["op_ms"].items(), key=lambda kv: -kv[1])[:6]))
     if not all(part_busy[k] > 0 for k in parts_needed):
         raise AssertionError(f"the trace attributes no device time to a "
                              f"step part: {part_busy}")
-    return dict(busy_ms=per(busy), ops=len(dev) / TRACE_STEPS, reads=reads,
-                parts={k: dict(busy_ms=per(part_busy[k]),
-                               ops=part_ops[k] / TRACE_STEPS)
+    return dict(busy_ms=busy, ops=b["ops"], reads=reads,
+                parts={k: dict(busy_ms=part_busy[k], ops=part_ops[k])
                        for k in PHASES})
 
 
@@ -4221,6 +4149,237 @@ def phase_tools(device, card):
     return kernels, drift
 
 
+# -- phase 17: the harness tools at full size ---------------------------------
+
+SWEEP_STEPS = 10          # scaling_bench's default
+SWEEP_EXTRA_WINDOWS = 2   # windows timed here after the sweep's own
+# the sweep's configurations on which the push kernel is checked and
+# timed, with the bar: the 3D deck takes check_push's quantum allowance
+# (the 3D bar of phase 11); the 2D deck the float bar, the allowance only
+# where the float bar cannot be met (check_bar), the species named
+SWEEP_PUSH = {(8_000_000, 64, 64, 64): ("64cube", True),
+              (16_000_000, 256, 256, 1): ("256sq_8M", False)}
+
+
+def harness_evidence():
+    """The evidence tool twice at its defaults, each on a fresh deck, with
+    ``--out`` into a temporary directory: EVIDENCE OK both times, one push
+    launch per species and step, and equal checksums.  Returns (the
+    records, the push launches of each run)."""
+    import shutil
+    import tempfile
+    from vpic_tpu_torch.particles import push_cuda
+    from vpic_tpu_torch.tools import evidence
+    tmp = tempfile.mkdtemp(prefix="evidence_smoke_")
+    out = os.path.join(tmp, "evidence.jsonl")
+    launches = []
+    try:
+        for run in range(2):
+            push_cuda.reset_launch_counts()
+            t0 = time.perf_counter()
+            if evidence.main(["--out", out]) != 0:
+                raise AssertionError(f"evidence run {run + 1}: EVIDENCE "
+                                     "SUSPECT")
+            launches.append(push_cuda.launches["push"])
+            log(f"  evidence run {run + 1}: {time.perf_counter() - t0:.2f} s"
+                f", push launches {launches[-1]}")
+        with open(out) as fh:
+            recs = [json.loads(line) for line in fh.read().splitlines()]
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    if len(recs) != 2:
+        raise AssertionError(f"evidence: {len(recs)} records, not 2")
+    for rec, n in zip(recs, launches):
+        if n != rec["steps"] * len(rec["species_sha1"]):
+            raise AssertionError(f"evidence: {n} push launches in "
+                                 f"{rec['steps']} steps")
+    for k in ("field_sha1", "species_sha1"):
+        if recs[0][k] != recs[1][k]:
+            raise AssertionError(f"evidence: {k} differs between two runs "
+                                 f"from one seed: {recs[0][k]} vs "
+                                 f"{recs[1][k]}")
+    log(f"  two evidence runs from one seed: field_sha1 "
+        f"{recs[0]['field_sha1']}, species_sha1 {recs[0]['species_sha1']} "
+        "equal")
+    return recs, launches
+
+
+def extra_windows(sim, nst):
+    """SWEEP_EXTRA_WINDOWS more timed windows of ``nst`` steps; returns
+    their step seconds."""
+    import torch
+    out = []
+    for _ in range(SWEEP_EXTRA_WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance(nst)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / nst)
+    return out
+
+
+def sweep_push(sim, key, quantum):
+    """The push kernel on both species of a sweep deck, voxel-sorted as
+    the step sorts them, against the plain push and its twin (the bar of
+    SWEEP_PUSH), then on the electrons the walk's counts and the kernel's
+    times against its bound.  Returns the push record's ``sweep_<key>_*``
+    entries."""
+    from vpic_tpu_torch.engine.step import walk_segments
+    from vpic_tpu_torch.particles import aux
+    st, g = sim.state, sim.grid
+    nb, interp = st.grid_arrays.neighbor, st.interpolator
+    n_walk = walk_segments(g, sim.opts)
+    errs, allowance = [], []
+    for sp in st.species:
+        sp = aux.sort_p(sp)
+        label = f"{key} {sp.name} (n_walk {n_walk})"
+        if quantum:
+            errs.append(check_push(label, sp, interp, nb, g, n_walk,
+                                   quantum=True))
+            allowance.append(sp.name)
+        else:
+            err, q = check_bar(check_push, label, sp, interp, nb, g, n_walk)
+            errs.append(err)
+            if q:
+                allowance.append(sp.name)
+        if sp.name == "electron":
+            electrons = sp
+    c = walk_counts(electrons, interp, nb, g, n_walk)
+    log(f"  walk of the sorted {key} electrons (plain, "
+        f"{int(electrons.alive.sum())} live lanes in {electrons.max_np} "
+        f"slots): {c['pairs']} (lane, segment) pairs, live lanes by "
+        f"segments walked {c['lanes_by_segments']}; the quantum allowance "
+        f"taken for {allowance or 'no species'}")
+    t = time_push(f"{key} electrons", electrons, interp, nb, g, n_walk,
+                  c["pairs"])
+    return dict({f"sweep_{key}_{k}": v for k, v in t.items()},
+                **{f"sweep_{key}_max_abs_err": max(errs),
+                   f"sweep_{key}_quantum_species": allowance,
+                   f"sweep_{key}_slots": st.species[0].max_np})
+
+
+def harness_sweep(device, card):
+    """scaling_bench.sweep over its seven configurations: per deck one push
+    launch per species and step, no dropped mover, finite energies, the
+    particle count conserved, two more timed windows and a trace; the push
+    kernel checked and timed on the decks of SWEEP_PUSH.  Returns (rows,
+    the push launches of the sweep's own steps, the push record's
+    entries)."""
+    import math
+    import statistics
+    import torch
+    from vpic_tpu_torch.particles import push_cuda
+    from vpic_tpu_torch.tools import scaling_bench as sb
+    rows, push, launches = [], {}, 0
+    push_cuda.reset_launch_counts()
+    for (npart, nx, ny, nz), (row, sim) in zip(
+            sb.CONFIGS, sb.sweep(sb.CONFIGS, SWEEP_STEPS, device)):
+        n = push_cuda.launches["push"]
+        nsp = len(sim.state.species)
+        if n != (row["period"] + 2 * row["nst"]) * nsp:
+            raise AssertionError(f"sweep {sb.csv_row(row)}: {n} push "
+                                 f"launches in {row['period']} + 2 x "
+                                 f"{row['nst']} steps of {nsp} species")
+        launches += n
+        nm, e = sim.mover_counts(), sim.energies()
+        if any(nm.values()):
+            raise AssertionError(f"sweep {sb.csv_row(row)}: dropped movers "
+                                 f"{nm}")
+        if not all(math.isfinite(v) for v in e.values()):
+            raise AssertionError(f"sweep {sb.csv_row(row)}: energies {e}")
+        if row["npart"] != 2 * (npart // 2):
+            raise AssertionError(f"sweep {sb.csv_row(row)}: {row['npart']} "
+                                 f"live particles of {2 * (npart // 2)}")
+        step_s = [row["ms_per_step"] / 1e3] + extra_windows(sim, row["nst"])
+        med = statistics.median(step_s)
+        log(f"  sweep {nx}x{ny}x{nz}, {row['npart']} particles ({card}): "
+            f"{sb.csv_row(row)}; built in {row['build_s']:.2f} s; step over "
+            f"{1 + SWEEP_EXTRA_WINDOWS} windows of {row['nst']} steps "
+            f"{med * 1e3:.4f} ms (min {min(step_s) * 1e3:.4f}, max "
+            f"{max(step_s) * 1e3:.4f}); dropped movers {nm}")
+        trace = phase_trace(sim, med, label=f"sweep deck {nx}x{ny}x{nz}, "
+                            f"{row['npart']} particles")
+        rows.append(dict(row, step_ms=[s * 1e3 for s in step_s],
+                         median_ms=med * 1e3, busy_ms=trace["busy_ms"],
+                         ops=trace["ops"],
+                         idle=1 - trace["busy_ms"] / (med * 1e3),
+                         parts={k: trace["parts"][k]["busy_ms"]
+                                for k in ("step.sort", "step.push",
+                                          "step.field")}))
+        if (npart, nx, ny, nz) in SWEEP_PUSH:
+            push.update(sweep_push(sim, *SWEEP_PUSH[npart, nx, ny, nz]))
+        del sim
+        torch.cuda.empty_cache()
+        push_cuda.reset_launch_counts()
+    return rows, launches, push
+
+
+def harness_profile():
+    """profile_step.main at its defaults (2M particles, 128^2, 5 steps),
+    its Chrome trace into a temporary directory: sort, push and field each
+    with busy device time, push_walk_kernel among the listed ops.
+    Returns (the report, its push launches)."""
+    import shutil
+    import tempfile
+    from vpic_tpu_torch.engine.step import CORE_PHASES
+    from vpic_tpu_torch.particles import push_cuda
+    from vpic_tpu_torch.tools import profile_step
+    tmp = tempfile.mkdtemp(prefix="profile_smoke_")
+    before = os.environ.get("PROF_DIR")
+    os.environ["PROF_DIR"] = tmp
+    try:
+        push_cuda.reset_launch_counts()
+        rep = profile_step.main([])
+        launches = push_cuda.launches["push"]
+    finally:
+        if before is None:
+            del os.environ["PROF_DIR"]
+        else:
+            os.environ["PROF_DIR"] = before
+        shutil.rmtree(tmp, ignore_errors=True)
+    idle = [k for k in CORE_PHASES if not rep["parts"][k] > 0]
+    if idle:
+        raise AssertionError(f"profile_step: no busy time in {idle}: "
+                             f"{rep['parts']}")
+    if not any("push_walk_kernel" in name for name in rep["top"]):
+        raise AssertionError("profile_step: push_walk_kernel is not among "
+                             f"the listed ops {rep['top'][:10]}")
+    if launches < 1:
+        raise AssertionError("profile_step: no push launch")
+    return rep, launches
+
+
+def phase_harness(device, card):
+    """Phase 17: the harness tools (evidence, the scaling sweep, the
+    per-op profile) through their functions at full size.  Returns the push
+    record's entries."""
+    t0 = time.perf_counter()
+    recs, ev_launches = harness_evidence()
+    t1 = time.perf_counter()
+    rows, sweep_launches, push = harness_sweep(device, card)
+    t2 = time.perf_counter()
+    rep, prof_launches = harness_profile()
+    t3 = time.perf_counter()
+    log(f"evidence ({card}): {recs[0]['deck']}, {recs[0]['steps']} steps, "
+        f"drift {recs[0]['drift']:.6e} / {recs[1]['drift']:.6e}, wall "
+        f"{recs[0]['wall_s']} / {recs[1]['wall_s']} s ({t1 - t0:.1f} s)")
+    log(f"scaling sweep ({card}; {t2 - t1:.1f} s): " + "; ".join(
+        f"{r['nx']}x{r['ny']}x{r['nz']}/{r['npart']} step "
+        f"{r['median_ms']:.4f} ({min(r['step_ms']):.4f}-"
+        f"{max(r['step_ms']):.4f}) ms, busy {r['busy_ms']:.4f} ms, ops "
+        f"{r['ops']:.1f}, idle {r['idle']:.4f}, sort/push/field "
+        + "/".join(f"{v:.4f}" for v in r["parts"].values())
+        + f", built {r['build_s']:.2f} s" for r in rows))
+    log(f"profile_step ({card}; {t3 - t2:.1f} s): {rep['ms_per_step']:.4f} "
+        f"ms/step plain, busy {rep['busy_ms']:.4f} ms/step, "
+        f"{rep['ops']:.1f} ops/step, parts "
+        + ", ".join(f"{k or 'outside the parts'} {v:.4f}"
+                    for k, v in rep["parts"].items() if v))
+    return dict(push, tools_evidence_launches=ev_launches,
+                tools_sweep_launches=sweep_launches,
+                tools_profile_launches=prof_launches)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4235,13 +4394,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/16] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/17] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/16] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/17] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -4249,17 +4408,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/16] kernel vs plain, small 3D grid")
+    log("[3/17] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/16] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/17] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/16] determinism: checked above, per case and species")
+    log("[4/17] determinism: checked above, per case and species")
 
-    log("[5/16] slice")
+    log("[5/17] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -4267,15 +4426,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/16] deposit kernel vs plain")
+    log("[6/17] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/16] merge re-sort kernels vs plain")
+    log("[7/17] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/16] path A: the unfused push")
+    log("[8/17] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/16] path B: the packed cycle with the merge re-sort")
+    log("[9/17] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -4285,22 +4444,25 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/16] determinism: the charge deposit on the card")
+    log("[10/17] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/16] the turbulence deck through the CLI")
+    log("[11/17] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/16] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/17] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/16] open particle boundaries and the collisions deck")
+    log("[13/17] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/16] materials: the material box")
+    log("[14/17] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/16] several shards on the card: the bench deck on 4 shards, "
+    log("[15/17] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
-    log("[16/16] the tools path: the probe kernels of tools/ and the drift "
+    log("[16/17] the tools path: the probe kernels of tools/ and the drift "
         "comparison against the float64 reference")
     tool_kernels, _ = phase_tools(device, card)
+    log("[17/17] the harness tools at full size: evidence, the scaling sweep "
+        "(3D 64^3 and 16M particles included), the per-op profile")
+    harness = phase_harness(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -4310,7 +4472,8 @@ def main():
              replaces="vpic_tpu/particles/push_pallas.py:465",
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
-             **recon, **opened, **materials, **shard_push, **shard_walk),
+             **recon, **opened, **materials, **shard_push, **shard_walk,
+             **harness),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

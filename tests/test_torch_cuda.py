@@ -27,6 +27,9 @@ tools/vpu_layout_probe.py and at chip_smoke's ragged reps and windows,
 io4d, stack8 and onehot3d at ragged and offset inputs, the refusal of a
 chain or io4d plan off its block, and of a stack8 or onehot3d plan that
 takes 16-byte accesses or the staged row on a pointer off 16 bytes.
+The harness tools on the card: the evidence tool twice (EVIDENCE OK, the
+checksums repeated, one push launch per species and step) and the
+scaling sweep on one small configuration.
 Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
@@ -457,3 +460,36 @@ def test_stack8_and_onehot3d_launchers_refuse_a_misaligned_plan(device,
     with pytest.raises(RuntimeError, match="cudaError 1"):
         probes_cuda.launch(fn, pb.launches, key, device, *args)
     assert pb.launches[key] == before
+
+
+def test_evidence_on_the_card_repeats_its_checksums(device, tmp_path,
+                                                    capsys):
+    """The evidence tool twice at 128^2 with 4096 particles over 16 steps
+    (the 16^2 sheet drifts past the tool's 1e-4 bar in both packages):
+    EVIDENCE OK, one push launch per species and step, the checksums of
+    the two runs equal."""
+    import json
+    from vpic_tpu_torch.tools import evidence
+    out = tmp_path / "evidence.jsonl"
+    for _ in range(2):
+        push_cuda.reset_launch_counts()
+        assert evidence.main(["16", "4096", "128", "--out", str(out)]) == 0
+        assert push_cuda.launches["push"] == 16 * 2
+    assert capsys.readouterr().out.count("EVIDENCE OK") == 2
+    one, two = (json.loads(x) for x in out.read_text().splitlines())
+    assert one["backend"] == "cuda" and "card" in one
+    assert one["dropped_movers"] == {"electron": 0, "ion": 0}
+    for k in ("field_sha1", "species_sha1", "energy1"):
+        assert one[k] == two[k], k
+
+
+def test_sweep_on_the_card(device):
+    """scaling_bench.sweep on one 32^2 configuration: the row's count, no
+    dropped mover, one push launch per species and step."""
+    from vpic_tpu_torch.tools import scaling_bench as sb
+    push_cuda.reset_launch_counts()
+    (row, sim), = list(sb.sweep([(65_536, 32, 32, 1)], 8, device))
+    assert row["npart"] == 65_536 and row["ms_per_step"] > 0
+    assert sim.mover_counts() == {"electron": 0, "ion": 0}
+    assert push_cuda.launches["push"] == \
+        2 * (row["period"] + 2 * row["nst"])

@@ -80,11 +80,14 @@ def test_cuda_simulation_raises_without_gpu(monkeypatch):
 @pytest.mark.parametrize("entry", [
     "Simulation", "bench_deck.build", "tools.probe_batched.main",
     "tools.vpu_layout_probe.main", "tools.drift_compare.main",
-    "tools.drift_compare.compare"])
+    "tools.drift_compare.compare", "tools.evidence.main",
+    "tools.scaling_bench.main", "tools.scaling_bench.sweep",
+    "tools.profile_step.main"])
 def test_the_card_is_the_default_device(monkeypatch, entry):
     """Without ``device`` the entry points run on the card, so they raise
     where there is none."""
-    from vpic_tpu_torch.tools import (drift_compare, probe_batched,
+    from vpic_tpu_torch.tools import (drift_compare, evidence, probe_batched,
+                                      profile_step, scaling_bench,
                                       vpu_layout_probe)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     calls = {
@@ -94,7 +97,12 @@ def test_the_card_is_the_default_device(monkeypatch, entry):
         "tools.probe_batched.main": lambda: probe_batched.main([]),
         "tools.vpu_layout_probe.main": lambda: vpu_layout_probe.main([]),
         "tools.drift_compare.main": lambda: drift_compare.main([]),
-        "tools.drift_compare.compare": lambda: drift_compare.compare()}
+        "tools.drift_compare.compare": lambda: drift_compare.compare(),
+        "tools.evidence.main": lambda: evidence.main([]),
+        "tools.scaling_bench.main": lambda: scaling_bench.main([]),
+        "tools.scaling_bench.sweep": lambda: next(scaling_bench.sweep(
+            [(256, 4, 4, 1)])),
+        "tools.profile_step.main": lambda: profile_step.main([])}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 
