@@ -13,7 +13,8 @@ checkpoints), several shards in one process on the card (halo
 exchanges, shared-face merges and particle migration), the tools path
 (the probe kernels and the drift comparison against the float64
 reference), and the harness tools (evidence, the scaling sweep at its
-seven sizes, the per-op profile).
+seven sizes, the per-op profile), and the step as CUDA graphs against
+the step op by op.
 
     python3 chip_smoke.py
 
@@ -246,7 +247,26 @@ no result line):
               version and twin and timed against its bound;
               profile_step.main at its defaults (2M, 128^2, 5 steps): sort,
               push and field each with busy device time and
-              push_walk_kernel among the listed ops.
+              push_walk_kernel among the listed ops;
+18. graphs   - the step as CUDA graphs (engine/graphs.py): the bench deck
+              at 128^2 with 2 x 2M and at 256^2 with 2 x 8M, turbulence
+              and trecon at full size, each built twice from one seed and
+              stepped through advance (graphed) and advance_eager (op by
+              op): after 48 steps (bench), 56 (turbulence, across its
+              clean at step 50) and 32 (trecon, across step 25) the same
+              checksum_fields, species checksums, energies, dropped movers
+              (0) and kernel launches, bit for bit; the bench deck's 48
+              steps six super-cycle replays of one capture and no eager
+              step; per deck and path the wall step over three 16-step
+              windows, busy device ms, ops, host reads and idle share from
+              a trace, the peak memory and each capture's seconds.
+Where a deck runs as CUDA graphs (every one-shard deck on the card without
+boundary rounds, emitters, injection or collision hooks or the packed
+merge re-sort), the timed windows of every phase time its graphed steps;
+phases 5 and 8 and the sweep of 17 also time three windows op by op
+(advance_eager) and print them beside, and a trace's step parts come from
+a second trace of steps taken op by op, since a graph's replay has no
+profiler scopes.
 The line before the last is the kernels' JSON record: per kernel its
 launches on the path that runs it, its launches per step of the default
 path, the accumulator's or rows' max abs error against the plain version,
@@ -855,34 +875,75 @@ def phase_slice(sim):
     med = statistics.median(step_s)
     log(f"  {n_total} particles, {WINDOWS * STEPS} steps: median "
         f"{med * 1e3:.4f} ms/step (min {min(step_s) * 1e3:.4f}, max "
-        f"{max(step_s) * 1e3:.4f}), kernel launches {launches}")
+        f"{max(step_s) * 1e3:.4f}), kernel launches {launches}; "
+        f"{'graphed' if sim.graphed else 'eager'} path, dispatch "
+        f"{dict(sim.dispatch_counts)}")
+    eager_windows(sim, "main path", med)
     return launches, n_total / med, med
 
 
+def eager_windows(sim, label, step_s):
+    """WINDOWS windows of STEPS steps taken op by op
+    (``sim.advance_eager``), each timed on the host clock as the windows
+    of ``sim.advance`` are, logged beside that path's median
+    ``step_s``."""
+    import statistics
+    import torch
+    out = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance_eager(STEPS)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / STEPS)
+    med = statistics.median(out)
+    log(f"  {label} op by op (advance_eager), {WINDOWS} windows of {STEPS} "
+        f"steps: median {med * 1e3:.4f} ms/step (min {min(out) * 1e3:.4f}, "
+        f"max {max(out) * 1e3:.4f}) beside {step_s * 1e3:.4f} ms/step "
+        f"through advance ({'graphed' if sim.graphed else 'eager'})")
+
+
+def _trace(sim, advance):
+    """A torch.profiler trace of TRACE_STEPS steps of ``advance`` (the
+    deck's own ``sim.advance`` or ``sim.advance_eager``): (host-clock us,
+    device events, how many were placed with their launch call, runtime
+    calls without a device event, the per-step breakdown)."""
+    # a trace taken again starts one super-cycle later; one runtime call
+    # per step may lack its device event (it did in some traces)
+    wall_us, events, dev, lost = profiled(
+        lambda: advance(TRACE_STEPS),
+        lambda dev, lost: len(lost) <= TRACE_STEPS)
+    parts, placed = _step_parts(events, dev)
+    return wall_us, dev, placed, lost, breakdown(dev, parts, TRACE_STEPS)
+
+
 def phase_trace(sim, step_s, label="main path", parts=None):
-    """A torch.profiler trace of TRACE_STEPS main-path steps (one sort
+    """torch.profiler traces of TRACE_STEPS steps each (one sort
     super-cycle): per step, the device busy time (union of kernel and copy
     intervals), the device operations, the busy device time of each step
     part and of the busiest kernels; the idle share under the profiler,
     and, given the unprofiled step time ``step_s``, the one derived from
-    the busy time.  Returns per step the busy device ms (``busy_ms``), the
-    device ops (``ops``), the host reads (``reads``: device-to-host
-    copies) and, for each step part, both (``parts``).  Every part of
-    ``parts`` (default: sort, push and field) must have busy time."""
+    the busy time.  Where the deck runs as CUDA graphs (``sim.graphed``)
+    the busy time, ops, host reads and idle share are those of its
+    graphed steps (the graphs' nodes, one cudaGraphLaunch per replay), and
+    the step parts come from a second trace of steps taken op by op
+    (``sim.advance_eager``): the step's scopes do not exist inside a
+    replay.  Returns per step the busy device ms (``busy_ms``), the device
+    ops (``ops``), the host reads (``reads``: device-to-host copies) and,
+    for each step part, both (``parts``).  Every part of ``parts``
+    (default: sort, push and field) must have busy time."""
     from vpic_tpu_torch.engine.step import CORE_PHASES, PHASES
     parts_needed = CORE_PHASES if parts is None else parts
     if sim.step_count % (sim.opts.resort_interval * 4):
         raise AssertionError("traced window must start on a super-cycle")
-    # a trace taken again starts one super-cycle later; one runtime call
-    # per step may lack its device event (it did in some traces)
-    wall_us, events, dev, lost = profiled(
-        lambda: sim.advance(TRACE_STEPS),
-        lambda dev, lost: len(lost) <= TRACE_STEPS)
-    parts, placed = _step_parts(events, dev)
-    b = breakdown(dev, parts, TRACE_STEPS)
-    busy, part_busy, part_ops = b["busy_ms"], b["parts"], b["part_ops"]
+    # a state read since the last advance goes into the graphs' buffers
+    # here, not inside the trace
+    sim.advance(0)
+    wall_us, dev, placed, lost, b = _trace(sim, sim.advance)
+    busy = b["busy_ms"]
     reads = sum("DtoH" in e.name for e in dev) / TRACE_STEPS
-    log(f"  trace of the {label}, {TRACE_STEPS} steps under "
+    what = "graphed steps" if sim.graphed else "steps"
+    log(f"  trace of the {label}, {TRACE_STEPS} {what} under "
         f"torch.profiler: device busy "
         f"{busy:.4f} ms/step, device ops {b['ops']:.1f}"
         f"/step ({placed} of {len(dev)} with their launch call; {lost} "
@@ -893,6 +954,16 @@ def phase_trace(sim, step_s, label="main path", parts=None):
         log(f"  derived idle share without the profiler: 1 - busy / step = "
             f"1 - {busy:.4f} / {step_s * 1e3:.4f} = "
             f"{1 - busy / (step_s * 1e3):.4f}")
+    eb = b
+    if sim.graphed:
+        sim.states      # the copy out of the graphs' buffers, not traced
+        ewall_us, edev, _, elost, eb = _trace(sim, sim.advance_eager)
+        log(f"  the step parts from a trace of {TRACE_STEPS} steps op by op "
+            f"(advance_eager; a graph's replay has no scopes): device busy "
+            f"{eb['busy_ms']:.4f} ms/step, {eb['ops']:.1f} ops/step, wall "
+            f"{ewall_us / TRACE_STEPS / 1e3:.4f} ms/step, {elost} runtime "
+            "calls without a device event")
+    part_busy, part_ops = eb["parts"], eb["part_ops"]
     log("  busy device ms/step (device ops/step) by step part: " + ", ".join(
         f"{k} {part_busy[k]:.4f} ({part_ops[k]:.1f})"
         for k in PHASES if part_ops[k] or k in parts_needed)
@@ -1447,7 +1518,10 @@ def phase_path_a(device, e_refs):
     if push_cuda.launches["push"]:
         raise AssertionError("path A launched the fused push")
     log(f"  path A launches: deposit {dep}, walk_only {walk} "
-        f"(= {steps} steps x {nsp} species)")
+        f"(= {steps} steps x {nsp} species); "
+        f"{'graphed' if sim.graphed else 'eager'} path, dispatch "
+        f"{dict(sim.dispatch_counts)}")
+    eager_windows(sim, "path A", med)
     phase_trace(sim, med, "path A")
     return dep, med
 
@@ -1862,15 +1936,20 @@ def timed_call(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
-def push_only_windows(sim, label):
+def push_only_windows(sim, label, graphed=True):
     """WINDOWS timed windows of STEPS steps (no diagnostics) with the
     kernels' launch counts set to 0 just before and read just after: one
     push launch per species per step and no other kernel, finite
-    energies.  Returns (launches, median step s)."""
+    energies; the deck runs as CUDA graphs where ``graphed`` (the windows
+    then replay them), else op by op.  Returns (launches, median step
+    s)."""
     import math
     import statistics
     import torch
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    if sim.graphed is not graphed:
+        raise AssertionError(f"{label}: graphed is {sim.graphed}, expected "
+                             f"{graphed}")
     nsp = len(sim.state.species)
     n_total = sum(int(sp.np) for sp in sim.state.species)
     for mod in (push_cuda, deposit_cuda, sort_cuda):
@@ -1903,7 +1982,9 @@ def push_only_windows(sim, label):
     log(f"  {label}, {n_total} particles in {nsp} species: median "
         f"{med * 1e3:.4f} ms/step (min {min(step_s) * 1e3:.4f}, max "
         f"{max(step_s) * 1e3:.4f}), kernel launches {launches}, movers "
-        f"{sim.mover_counts()}")
+        f"{sim.mover_counts()}; "
+        + (f"graphed, dispatch {dict(sim.dispatch_counts)}" if graphed
+           else "op by op"))
     return launches, med
 
 
@@ -2818,7 +2899,8 @@ def phase_collisions(device, card):
                                  f"sum |u|^2 by {(k1 - k0) / k0:.3e}")
         a0 = mod.anisotropy(sim)
         sim.advance(WARM_STEPS)
-        launches, step_s = push_only_windows(sim, f"collisions {name}")
+        launches, step_s = push_only_windows(sim, f"collisions {name}",
+                                             graphed=False)
         trace = phase_trace(sim, step_s, f"collisions {name} path",
                             ("step.sort", "step.push", "step.field",
                              "step.collide"))
@@ -4296,9 +4378,12 @@ def harness_sweep(device, card):
             f"{sb.csv_row(row)}; built in {row['build_s']:.2f} s; step over "
             f"{1 + SWEEP_EXTRA_WINDOWS} windows of {row['nst']} steps "
             f"{med * 1e3:.4f} ms (min {min(step_s) * 1e3:.4f}, max "
-            f"{max(step_s) * 1e3:.4f}); dropped movers {nm}")
+            f"{max(step_s) * 1e3:.4f}), op by op (one window) "
+            f"{row['eager_ms_per_step']:.4f} ms; dropped movers {nm}")
         trace = phase_trace(sim, med, label=f"sweep deck {nx}x{ny}x{nz}, "
                             f"{row['npart']} particles")
+        if not row["graphed"]:
+            raise AssertionError(f"sweep {sb.csv_row(row)}: not graphed")
         rows.append(dict(row, step_ms=[s * 1e3 for s in step_s],
                          median_ms=med * 1e3, busy_ms=trace["busy_ms"],
                          ops=trace["ops"],
@@ -4366,7 +4451,8 @@ def phase_harness(device, card):
     log(f"scaling sweep ({card}; {t2 - t1:.1f} s): " + "; ".join(
         f"{r['nx']}x{r['ny']}x{r['nz']}/{r['npart']} step "
         f"{r['median_ms']:.4f} ({min(r['step_ms']):.4f}-"
-        f"{max(r['step_ms']):.4f}) ms, busy {r['busy_ms']:.4f} ms, ops "
+        f"{max(r['step_ms']):.4f}) ms (op by op "
+        f"{r['eager_ms_per_step']:.4f}), busy {r['busy_ms']:.4f} ms, ops "
         f"{r['ops']:.1f}, idle {r['idle']:.4f}, sort/push/field "
         + "/".join(f"{v:.4f}" for v in r["parts"].values())
         + f", built {r['build_s']:.2f} s" for r in rows))
@@ -4378,6 +4464,148 @@ def phase_harness(device, card):
     return dict(push, tools_evidence_launches=ev_launches,
                 tools_sweep_launches=sweep_launches,
                 tools_profile_launches=prof_launches)
+
+
+# -- phase 18: the step as CUDA graphs ---------------------------------------
+
+# each deck: its build and the steps of the bitwise window, which crosses
+# a clean step on turbulence (every 50) and trecon (every 25); the bench
+# deck's 48 steps are six super-cycles of k = 2, M = 4
+GRAPH_DECKS = {
+    "bench 128^2, 4M": (lambda device: _bench(device, **SLICE), 48),
+    "bench 256^2, 16M": (lambda device: _bench(
+        device, nx=256, ny=256, nz=1, npart=8_000_000), 48),
+    "turbulence": (lambda device: port_deck("turbulence", device,
+                                            TURB_FULL), 56),
+    "trecon": (lambda device: port_deck("trecon", device,
+                                        RECON["trecon"]["full"]), 32),
+}
+
+
+def _bench(device, **deck):
+    from vpic_tpu_torch.decks import bench_deck
+    return bench_deck.build(**deck, device=device)
+
+
+def _launch_counts():
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    return dict(push_cuda.launches, **deposit_cuda.launches,
+                **sort_cuda.launches)
+
+
+def _reset_launch_counts():
+    from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    for mod in (push_cuda, deposit_cuda, sort_cuda):
+        mod.reset_launch_counts()
+
+
+def graph_run(label, build, device, steps, graphed):
+    """One deck of GRAPH_DECKS, built alone on the card: ``steps`` steps
+    through ``advance`` (``graphed``) or ``advance_eager``, then three
+    timed windows of STEPS steps and a trace of TRACE_STEPS steps of the
+    same stepping, with the card's peak memory over it all.  Returns what
+    phase 18 compares and records."""
+    import statistics
+    import torch
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    sim = build(device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    if not sim.graphed:
+        raise AssertionError(f"{label}: _graph_ok() refuses the deck")
+    advance = sim.advance if graphed else sim.advance_eager
+    _reset_launch_counts()
+    sim.dispatch_counts.clear()
+    advance(steps)
+    torch.cuda.synchronize()
+    out = dict(launches=_launch_counts(), dispatch=dict(sim.dispatch_counts),
+               fields=sim.checksum_fields(),
+               species=[sim.checksum_species(h["name"])
+                        for h in sim._species],
+               energies=sim.energies(), movers=sim.mover_counts(),
+               build_s=build_s)
+    step_s = []
+    for _ in range(WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        advance(STEPS)
+        torch.cuda.synchronize()
+        step_s.append((time.perf_counter() - t0) / STEPS)
+    advance(-sim.step_count % (sim.opts.resort_interval * 4))
+    wall_us, dev, _, lost, b = _trace(sim, advance)
+    torch.cuda.synchronize()
+    out.update(step_ms=statistics.median(step_s) * 1e3,
+               step_min_ms=min(step_s) * 1e3, step_max_ms=max(step_s) * 1e3,
+               busy_ms=b["busy_ms"], ops=b["ops"],
+               reads=sum("DtoH" in e.name for e in dev) / TRACE_STEPS,
+               traced_wall_ms=wall_us / TRACE_STEPS / 1e3,
+               peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               reserved_gb=torch.cuda.memory_reserved() / 1e9,
+               captures=list(sim.capture_times))
+    out["idle_share"] = 1 - out["busy_ms"] / out["step_ms"]
+    del sim
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_graphs(device, card):
+    """Phase 18: each deck of GRAPH_DECKS graphed and eager, each built
+    alone from the same seed: after the bitwise window the same
+    checksum_fields, species checksums, energies and dropped movers (0),
+    and the same kernel launches (a replay adds its graph's); on the bench
+    deck 48 steps as six super-cycle replays, one capture and no eager
+    step; the wall step (three 16-step windows), busy ms, ops, host reads
+    and idle share from a trace, the peak memory and each graph's capture
+    time of both.  Returns the record of each deck."""
+    recs = {}
+    for label, (build, steps) in GRAPH_DECKS.items():
+        g = graph_run(label, build, device, steps, True)
+        e = graph_run(label, build, device, steps, False)
+        for key in ("fields", "species", "energies", "movers", "launches"):
+            if g[key] != e[key]:
+                raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
+                                     f"eager {e[key]}")
+        if any(g["movers"].values()):
+            raise AssertionError(f"{label}: dropped movers {g['movers']}")
+        if g["dispatch"].get("eager_steps") or \
+                g["dispatch"]["graphed_steps"] != steps or \
+                e["dispatch"] != {"eager_steps": steps}:
+            raise AssertionError(f"{label}: dispatch {g['dispatch']}, "
+                                 f"eager {e['dispatch']}")
+        if label.startswith("bench") and g["dispatch"] != {
+                "captures": 1, "replays.supercycle": steps // 8,
+                "graphed_steps": steps}:
+            raise AssertionError(f"{label}: {steps} steps dispatched as "
+                                 f"{g['dispatch']}, not {steps // 8} "
+                                 "super-cycle replays of one capture")
+        log(f"  {label} ({card}): after {steps} steps graphed = eager "
+            f"bitwise (fields {g['fields'][:16]}..., species checksums, "
+            f"energies, dropped movers {g['movers']}, launches "
+            f"{ {k: v for k, v in g['launches'].items() if v} }); graphed "
+            f"dispatch {g['dispatch']}")
+        for name, r in (("graphed", g), ("eager", e)):
+            log(f"  {label}, {name}: step {r['step_ms']:.4f} ms "
+                f"({r['step_min_ms']:.4f}-{r['step_max_ms']:.4f}), busy "
+                f"{r['busy_ms']:.4f} ms/step, {r['ops']:.1f} ops/step, host "
+                f"reads {r['reads']:.1f}/step, idle share "
+                f"{r['idle_share']:.4f}, traced wall "
+                f"{r['traced_wall_ms']:.4f} ms/step, peak allocated "
+                f"{r['peak_gb']:.3f} GB (reserved {r['reserved_gb']:.3f}), "
+                f"built in {r['build_s']:.2f} s"
+                + (", captures " + "; ".join(
+                    f"{c['kind']} of {c['steps']} steps: warm-up "
+                    f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s"
+                    for c in r["captures"]) if r["captures"] else ""))
+        recs[label] = {name: {k: r[k] for k in (
+            "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
+            "idle_share", "peak_gb", "captures")}
+            for name, r in (("graphed", g), ("eager", e))}
+    return recs
 
 
 def main():
@@ -4394,13 +4622,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/17] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/18] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/17] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/18] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -4408,17 +4636,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/17] kernel vs plain, small 3D grid")
+    log("[3/18] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/17] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/18] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/17] determinism: checked above, per case and species")
+    log("[4/18] determinism: checked above, per case and species")
 
-    log("[5/17] slice")
+    log("[5/18] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -4426,15 +4654,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/17] deposit kernel vs plain")
+    log("[6/18] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/17] merge re-sort kernels vs plain")
+    log("[7/18] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/17] path A: the unfused push")
+    log("[8/18] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/17] path B: the packed cycle with the merge re-sort")
+    log("[9/18] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -4444,25 +4672,28 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/17] determinism: the charge deposit on the card")
+    log("[10/18] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/17] the turbulence deck through the CLI")
+    log("[11/18] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/17] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/18] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/17] open particle boundaries and the collisions deck")
+    log("[13/18] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/17] materials: the material box")
+    log("[14/18] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/17] several shards on the card: the bench deck on 4 shards, "
+    log("[15/18] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
-    log("[16/17] the tools path: the probe kernels of tools/ and the drift "
+    log("[16/18] the tools path: the probe kernels of tools/ and the drift "
         "comparison against the float64 reference")
     tool_kernels, _ = phase_tools(device, card)
-    log("[17/17] the harness tools at full size: evidence, the scaling sweep "
+    log("[17/18] the harness tools at full size: evidence, the scaling sweep "
         "(3D 64^3 and 16M particles included), the per-op profile")
     harness = phase_harness(device, card)
+    log("[18/18] the step as CUDA graphs: graphed against eager, bitwise, "
+        "timed")
+    graph_recs = phase_graphs(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -4473,7 +4704,7 @@ def main():
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
              **recon, **opened, **materials, **shard_push, **shard_walk,
-             **harness),
+             **harness, graphs=graph_recs),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",

@@ -493,3 +493,66 @@ def test_sweep_on_the_card(device):
     assert sim.mover_counts() == {"electron": 0, "ion": 0}
     assert push_cuda.launches["push"] == \
         2 * (row["period"] + 2 * row["nst"])
+
+
+def _bench32(device):
+    from vpic_tpu_torch.decks import bench_deck
+    return bench_deck.build(nx=32, ny=32, nz=1, npart=65_536, device=device)
+
+
+def test_graphed_step_is_bitwise_the_eager_step(device):
+    """The 32^2 bench deck through its CUDA graphs (engine/graphs.py) and
+    op by op from one seed: 19 steps (two super-cycles, then an A cycle
+    and a step) give the same fields, species, energies and movers, bit
+    for bit, and no graphed step ran eagerly."""
+    g, e = _bench32(device), _bench32(device)
+    assert g.graphed
+    g.advance(19)
+    e.advance_eager(19)
+    assert g.checksum_fields() == e.checksum_fields()
+    for h in g._species:
+        assert g.checksum_species(h["name"]) == e.checksum_species(h["name"])
+    assert g.energies() == e.energies()
+    assert g.mover_counts() == e.mover_counts() == {"electron": 0, "ion": 0}
+    assert g.dispatch_counts == {"captures": 3, "replays.supercycle": 2,
+                                 "replays.cycle": 1, "replays.step": 1,
+                                 "graphed_steps": 19}
+
+
+def test_a_replay_adds_its_graphs_launch_counts(device):
+    """A graph keeps the kernel launches its capture made and adds them at
+    each replay: one push launch per species and step; the capture's own
+    and its warm-up's launches are not counted."""
+    g = _bench32(device)
+    push_cuda.reset_launch_counts()
+    g.advance(8)
+    assert push_cuda.launches["push"] == 8 * 2
+    push_cuda.reset_launch_counts()
+    g.advance(16)
+    assert push_cuda.launches == {"push": 16 * 2, "walk_only": 0}
+    assert g.dispatch_counts["captures"] == 1
+    assert g.dispatch_counts["replays.supercycle"] == 3
+
+
+def test_a_failed_capture_raises(device):
+    """A deck that _graph_ok() admits, whose field-injection hook reads the
+    card from the host: the capture fails and advance raises; no step runs
+    eagerly in its place."""
+    from vpic_tpu_torch.deck.api import Simulation
+
+    def hook(state):
+        float(state.field.ex.sum())
+        return state
+
+    sim = Simulation(device=device)
+    sim.define_units(1.0, 1.0)
+    sim.define_timestep(0.05)
+    sim.define_periodic_grid(0, 0, 0, 1, 1, 1, 16, 16, 1)
+    sim.define_species("electron", -1.0, 1024)
+    sim.finalize(user_field_injection=hook)
+    assert sim.graphed
+    with pytest.raises(RuntimeError):
+        sim.advance(2)
+    assert sim.dispatch_counts["eager_steps"] == 0
+    assert sim.step_count == 0
+    torch.cuda.synchronize()

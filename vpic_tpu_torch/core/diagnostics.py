@@ -85,7 +85,10 @@ def time_phases(sim, n_steps: int = 3) -> dict:
     """Seconds per call of each part of the step, each run ``n_steps``
     times on its own after one warm-up call, with the card synchronized
     before and after (a debugging aid: the step itself runs the parts
-    back to back).  On a sharded deck each call runs the part on every
+    back to back).  The parts run op by op, outside any CUDA graph, on
+    purpose: a graph's replay of the step has no parts to time, so the
+    step's wall time is ``Simulation.advance``'s and these times are the
+    eager parts'.  On a sharded deck each call runs the part on every
     shard, in the shards' threads."""
     from ..engine import distributed as dist
     from ..engine.step import walk_segments

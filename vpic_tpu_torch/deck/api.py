@@ -58,6 +58,7 @@ and the checkpoints copy the state to the host only where a file needs it.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import math
 import os
@@ -90,8 +91,10 @@ from ..core.types import (
 from ..diag import energy_dist as ed
 from ..emit import models as emodels
 from ..engine import distributed as dist
-from ..engine.step import (StepOptions, make_advance, needs_boundary,
-                           resolve_paths, step_sort_flags)
+from ..engine import graphs
+from ..engine.step import (StepOptions, cycle_mult, make_advance,
+                           needs_boundary, resolve_paths, step_decisions,
+                           step_sort_flags)
 from ..field import stencil
 from ..field.slabs import own_slice
 from ..grid.partition import make_grid_arrays, shard_origin
@@ -205,6 +208,14 @@ class Simulation:
         self._boundary_handlers: list = []
         self._emitters: list = []
         self._advance_packed = None
+        # the step as CUDA graphs (engine/graphs.py), where _graph_ok()
+        # admits the deck; the cycle multiple M of its dispatch plan
+        self._graphs = None
+        self._cycle_mult = 1
+        # steps taken eagerly and through graphs, graphs captured and
+        # replayed (per unit kind); the seconds of each capture
+        self.dispatch_counts = collections.Counter()
+        self.capture_times: list = []
         self._traj = None
         self.states: List[SimState] = []
         self.step_count = 0
@@ -599,6 +610,15 @@ class Simulation:
         self._advance_packed = (
             make_advance(g, self.comms[0], self.opts, packed=True, **kw)
             if self._packed_ok() else None)
+        # the JAX package's B cycles exist only on the fused path
+        # (vpic_tpu/deck/api.py:713)
+        self._cycle_mult = (cycle_mult(self.opts, self._sort_intervals())
+                            if resolve_paths(g, self.opts).fused else 1)
+        if self._graphs is not None:
+            self._graphs.close()
+        self._graphs = (graphs.GraphRunner(
+            self.mesh[0], self.dispatch_counts, self.capture_times)
+            if self._graph_ok() else None)
 
     def _packed_ok(self) -> bool:
         """The packed cycle (``vpic_tpu/deck/api.py:651-711``) runs only
@@ -617,11 +637,53 @@ class Simulation:
         return (paths.merge_sort and paths.fused and closed
                 and not any(self._tagged))
 
+    def _graph_ok(self) -> bool:
+        """The step runs as CUDA graphs (``engine/graphs.py``) on one shard
+        on the card, decided once per build from the configuration as the
+        JAX package decides ``packed_ok``.  Refused: several shards (their
+        threads meet at a rendezvous, ``engine/distributed.py``); boundary
+        rounds, emitters, the injection hook and the collision hook, whose
+        random keys are drawn on the host every step (``core/random.py``);
+        the packed merge re-sort, which reads its mover count on the host
+        once per sort (``particles/sort.py``).  Those decks step eagerly,
+        as every deck does on the CPU."""
+        if self.grid.is_multishard or self.mesh[0].type != "cuda":
+            return False
+        draws = (needs_boundary(
+            self.grid, None, self._emitters, self._boundary_handlers,
+            self._hooks.get("user_particle_injection"))
+            or self._hooks.get("user_particle_collisions") is not None)
+        return not draws and not self._packed_ok()
+
+    def _sort_intervals(self):
+        return [h["sort_interval"] for h in self._species]
+
+    def _graph_key(self, start: int, n: int) -> tuple:
+        """The key of the graph of steps ``start`` to ``start + n - 1``:
+        the host's decisions of each step."""
+        return tuple(step_decisions(t, self.grid, self.opts,
+                                    self._sort_intervals())
+                     for t in range(start, start + n))
+
+    def _unit_body(self, state, start: int, n: int):
+        """Steps ``start`` to ``start + n - 1`` of one shard's state, op by
+        op: the body that a graph captures."""
+        for t in range(start, start + n):
+            state = self._advance([state], step_sort_flags(
+                t, self.grid, self.opts, self._sort_intervals()), t)[0]
+        return state
+
+    @property
+    def graphed(self) -> bool:
+        """Whether :meth:`advance` runs the step as CUDA graphs."""
+        return self._graphs is not None
+
     def modify_runparams(self, **kw):
         """Runtime overrides of ``num_step`` and of :class:`StepOptions`
         fields on a built deck (modify_runparams, dump.cxx:824-890): the
         advance is rebuilt from the new options with the deck's handlers,
-        emitters and hooks, and a packed state is unpacked first."""
+        emitters and hooks (its CUDA graphs dropped, new ones captured as
+        the steps need them), and a packed state is unpacked first."""
         names = {f.name for f in dataclasses.fields(StepOptions)}
         unknown = sorted(set(kw) - names - {"num_step"})
         if unknown:
@@ -636,17 +698,25 @@ class Simulation:
         if self.comms:
             self._build_advance()
 
-    # -- state: one per shard, in rank order; under the packed cycle the
-    # species live in a packed mirror between steps and the unpacked view
-    # is made when it is read ---------------------------------------------
+    # -- state: one per shard, in rank order.  Under the packed cycle the
+    # species live in a packed mirror between steps, and under the graphs
+    # the state lives in the graphs' static buffers; the caller's view is
+    # made from the mirror when it is read ---------------------------------
     @property
     def states(self) -> List[SimState]:
-        """The per-shard states in rank order (empty before finalize)."""
+        """The per-shard states in rank order (empty before finalize).
+        After a graphed advance the first read copies the state out of the
+        graphs' static buffers, so a state the caller holds is a value: a
+        later advance neither changes it nor loses an edit made to it (the
+        next advance copies the view back in)."""
         if self._state_stale:
-            self._states = [dataclasses.replace(
-                self._pstate, species=tuple(
+            if self._graphs is not None:
+                st = graphs.clone_state(self._pstate)
+            else:
+                st = dataclasses.replace(self._pstate, species=tuple(
                     ppush.unpack_species(sp, self.grid)
-                    for sp in self._pstate.species))]
+                    for sp in self._pstate.species))
+            self._states = [st]
             self._state_stale = False
         return self._states
 
@@ -680,14 +750,55 @@ class Simulation:
     def _shard_states(self):
         """(shard, rank, state) of every shard, in rank order."""
         return zip(dist.shard_coords(self.grid), range(self.grid.n_shards),
-                   self.states)
+                   self._read_states())
+
+    def _read_states(self) -> List[SimState]:
+        """The states for a read that keeps no tensor of them (the
+        diagnostics): the graphs' static buffers themselves where they hold
+        the newest state, else :attr:`states`."""
+        if self._state_stale and self._graphs is not None:
+            return [self._pstate]
+        return self.states
 
     # -- stepping ----------------------------------------------------------
     def advance(self, n=1):
+        """Advance ``n`` steps; read the new state from :attr:`states`.
+        Where :attr:`graphed`, ``n`` steps are the units of the JAX
+        package's dispatch loop (``engine/graphs.plan``: super-cycles,
+        cycles, steps), each a replay of its CUDA graph on the static
+        buffers, captured the first time its key comes up; otherwise the
+        steps run op by op (:meth:`advance_eager`)."""
+        r = self._graphs
+        if r is None:
+            self.advance_eager(n)
+            return
+        if not self._state_stale:
+            # the caller's view is the newest state: copy it in, and drop
+            # it (a read makes a new view from the buffers)
+            r.load(self._states[0])
+            self._pstate = r.static
+            self._state_stale = True
+            self._states = None
+        k, M = self.opts.resort_interval, self._cycle_mult
+        for kind, count in graphs.plan(self.step_count, n, k, M,
+                                       cycles=k > 1):
+            steps = graphs.unit_steps(kind, k, M)
+            for _ in range(count):
+                r.run(kind, self._graph_key(self.step_count, steps),
+                      self.step_count, steps, self._unit_body)
+                self.step_count += steps
+
+    def advance_eager(self, n=1):
+        """Advance ``n`` steps op by op through the step function, on any
+        deck.  The profiler's step-part scopes (``engine/step.PHASES``)
+        exist only here, not inside a graph's replay, so the part
+        attribution of ``tools/profile_step.py`` and of ``chip_smoke.py``'s
+        traces steps this way on purpose; wall times come from
+        :meth:`advance`."""
         g = self.grid
-        intervals = [h["sort_interval"] for h in self._species]
         for _ in range(n):
-            flags = step_sort_flags(self.step_count, g, self.opts, intervals)
+            flags = step_sort_flags(self.step_count, g, self.opts,
+                                    self._sort_intervals())
             if self._advance_packed is None:
                 self.states = self._advance(self.states, flags,
                                             self.step_count)
@@ -701,7 +812,7 @@ class Simulation:
                                                     self.step_count)
                 self._state_stale = True
             self.step_count += 1
-        return self.states
+            self.dispatch_counts["eager_steps"] += 1
 
     # -- diagnostics -------------------------------------------------------
     def energies(self):
@@ -710,7 +821,7 @@ class Simulation:
         g = self.grid
         ef, ep = 0.0, [0.0] * len(self._species)
         # summed over the shards in rank order, in float64
-        for st in self.states:
+        for st in self._read_states():
             ef = ef + stencil.local_energy_f(st.field, g, st.materials,
                                              st.material_grid).cpu()
             ep = [e + float(ppush.energy_p(sp, st.interpolator, g))
@@ -725,7 +836,7 @@ class Simulation:
         """Per-species cumulative dropped-mover counts (the reference's
         "Ignoring %i unprocessed movers", advance.cxx:98-103)."""
         counts = {h["name"]: 0 for h in self._species}
-        for st in self.states:
+        for st in self._read_states():
             for sp in st.species:
                 counts[sp.name] += int(sp.nm)
         return counts
@@ -759,7 +870,7 @@ class Simulation:
         shard's ring)."""
         idx = (handler if isinstance(handler, int)
                else self._boundary_handlers.index(handler))
-        per = [st.boundary_state[idx] for st in self.states]
+        per = [st.boundary_state[idx] for st in self._read_states()]
         if isinstance(per[0], dict):
             return {k: sum(p[k].cpu().numpy() for p in per) for k in per[0]}
         return sum(p.cpu().numpy() for p in per)
@@ -767,11 +878,11 @@ class Simulation:
     def checksum_fields(self):
         """SHA-1 of the full field state of every shard
         (output_checksum_fields, misc.cxx:109-139)."""
-        return diagnostics.checksum_fields(self.states)
+        return diagnostics.checksum_fields(self._read_states())
 
     def checksum_species(self, sp_name):
         return diagnostics.checksum_species(
-            self.states, self._species_by_name(sp_name)["sid"])
+            self._read_states(), self._species_by_name(sp_name)["sid"])
 
     def time_phases(self, n_steps=3):
         """Seconds per call of each part of the step (the p/s/g/f/u_time
@@ -813,7 +924,7 @@ class Simulation:
         device."""
         return dist.make_distributed_hydro(
             self.grid, self.comms,
-            self._species_by_name(sp_name)["sid"])(self.states)
+            self._species_by_name(sp_name)["sid"])(self._read_states())
 
     def dump_hydro(self, sp_name, fbase, ftag=True):
         g, h = self.grid, self._species_by_name(sp_name)
@@ -992,9 +1103,11 @@ class Simulation:
                     self.dump_particles(name,
                                         f"{out}/particle/{name}particle")
             if restart_interval and s and s % restart_interval == 0:
-                rot.save(self.states, self.grid, self._checkpoint_meta())
+                rot.save(self._read_states(), self.grid,
+                         self._checkpoint_meta())
             if rot.over_quota():
-                rot.save(self.states, self.grid, self._checkpoint_meta())
+                rot.save(self._read_states(), self.grid,
+                         self._checkpoint_meta())
                 return False
             return True
 
@@ -1012,7 +1125,7 @@ class Simulation:
         dump_restart, dump.cxx:333-556), and the accumulated tracer
         trajectories beside it in ``<path>.traj.npz``, so that they survive
         a quota kill (dump_tracer_restart, tracer.cxx:199-253)."""
-        out = ckpt.save_checkpoint(path, self.states, self.grid,
+        out = ckpt.save_checkpoint(path, self._read_states(), self.grid,
                                    self._checkpoint_meta(extra))
         if self._traj is not None:
             self._traj.save_npz(str(path) + ".traj.npz")
@@ -1023,7 +1136,8 @@ class Simulation:
         identically configured simulation, on its device, with its tracer
         trajectories where it has them."""
         meta = ckpt.load_meta(path)
-        self.states = ckpt.load_checkpoint(path, self.states, self.mesh)
+        self.states = ckpt.load_checkpoint(path, self._read_states(),
+                                           self.mesh)
         self.step_count = int(meta["extra"].get(
             "step_count", int(self.states[0].step)))
         tr = str(path) + ".traj.npz"

@@ -127,12 +127,19 @@ def sort_flags(step: int, opts: StepOptions, sort_intervals) -> tuple:
         return (True,) * len(sort_intervals)
     if step % k:
         return (False,) * len(sort_intervals)
-    mults = [-(-si // k) if si > k else 1 for si in sort_intervals]
-    slow = [m for m in mults if m > 1]
-    M = min(slow) if slow else 1
-    if (step // k) % M == 0:
+    if (step // k) % cycle_mult(opts, sort_intervals) == 0:
         return (True,) * len(sort_intervals)
-    return tuple(m == 1 for m in mults)
+    return tuple(si <= k for si in sort_intervals)
+
+
+def cycle_mult(opts: StepOptions, sort_intervals) -> int:
+    """M of :func:`sort_flags`: the smallest multiple ceil(sort_interval/k)
+    among the species whose sort_interval exceeds k = resort_interval, 1
+    where there is none or k <= 1 (the JAX package's ``_cycle_mult``,
+    ``vpic_tpu/deck/api.py:642-648``)."""
+    k = opts.resort_interval
+    slow = [-(-si // k) for si in sort_intervals if si > k]
+    return min(slow) if slow and k > 1 else 1
 
 
 def step_sort_flags(step: int, g: Grid, opts: StepOptions,
@@ -161,6 +168,20 @@ def walk_segments(g: Grid, opts: StepOptions) -> int:
 
 def _interval_hit(step: int, interval: int) -> bool:
     return interval > 0 and step % interval == 0
+
+
+def step_decisions(step: int, g: Grid, opts: StepOptions,
+                   sort_intervals) -> tuple:
+    """What the host decides for ``step``: the species' sort flags
+    (:func:`step_sort_flags`) and whether it cleans div E, cleans div B and
+    synchronizes the shared faces.  The JAX step reads ``state.step`` on
+    the device and branches with ``lax.cond``
+    (``vpic_tpu/engine/step.py:253, 411, 415``); the port's graph of a run
+    of steps is keyed by these (``engine/graphs.py``)."""
+    return (step_sort_flags(step, g, opts, sort_intervals),
+            _interval_hit(step, opts.clean_div_e_interval),
+            _interval_hit(step, opts.clean_div_b_interval),
+            _interval_hit(step, opts.sync_shared_interval))
 
 
 def _where(cond, a: FieldState, b: FieldState) -> FieldState:

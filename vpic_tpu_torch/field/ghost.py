@@ -203,7 +203,9 @@ def ghost_div_b(f: FieldState, g: Grid, comm) -> FieldState:
         elif bc in (SYMMETRIC_FIELDS, PMC_FIELDS):
             dbe[gix] = -mirror
         else:
-            dbe[gix] = 0.0
+            # a fill on the device, not a number copied from the host (a
+            # CUDA graph's capture refuses that)
+            dbe[gix].fill_(0.0)
     return f.replace(div_b_err=dbe)
 
 

@@ -177,8 +177,10 @@ def compute_div_e_err(f: FieldState, g: Grid, mat: MaterialTable, matg,
 
 def _node_weights(n: int, device):
     w = torch.ones((n + 1,), dtype=torch.float64, device=device)
-    w[0] = 0.5
-    w[-1] = 0.5
+    # fills on the device: a Python number set by index is copied from the
+    # host, which a CUDA graph's capture refuses (engine/graphs.py)
+    w[0].fill_(0.5)
+    w[-1].fill_(0.5)
     return w
 
 
@@ -192,8 +194,11 @@ def local_rms_div_e_err(f: FieldState, g: Grid):
           * _node_weights(g.nx, dev)[None, None, :])
     err = torch.sum(wt * e * e)
     vol = g.nx * g.ny * g.nz * g.dx * g.dy * g.dz
-    return err * g.dx * g.dy * g.dz, torch.tensor(vol, dtype=torch.float64,
-                                                    device=dev)
+    # a fill on the device, not a copy from the host: the clean steps run
+    # inside CUDA graphs (engine/graphs.py), whose capture refuses copies
+    # from pageable host memory
+    return err * g.dx * g.dy * g.dz, torch.full((), vol, dtype=torch.float64,
+                                                  device=dev)
 
 
 def finish_rms(g: Grid, global_err, global_vol):
@@ -235,7 +240,7 @@ def local_rms_div_b_err(f: FieldState, g: Grid):
     e = f.div_b_err[_ix(g, "cell")].to(torch.float64)
     vol = g.nx * g.ny * g.nz * g.dx * g.dy * g.dz
     return (torch.sum(e * e) * g.dx * g.dy * g.dz,
-            torch.tensor(vol, dtype=torch.float64, device=e.device))
+            torch.full((), vol, dtype=torch.float64, device=e.device))
 
 
 def clean_div_b(f: FieldState, g: Grid, comm) -> FieldState:

@@ -78,9 +78,11 @@ def deposit_nodes(base, vox, contrib_fn, bound, g: Grid,
     of |contribution|), summed in int64 and converted back once."""
     n = vox.shape[0]
     scale = deposit_scale(bound, n)
-    offs = torch.tensor([ox + g.nxg * (oy + g.nyg * oz)
-                         for ox, oy, oz in _NODE_OFFS],
-                        dtype=torch.int64, device=vox.device)
+    # node k of _NODE_OFFS is offset (k & 1, k >> 1 & 1, k >> 2 & 1), made
+    # on the device: the clean steps' rho deposit runs inside CUDA graphs
+    # (engine/graphs.py), whose capture refuses copies from the host
+    k = torch.arange(8, dtype=torch.int64, device=vox.device)
+    offs = (k & 1) + g.nxg * ((k >> 1 & 1) + g.nyg * (k >> 2 & 1))
     fix = torch.zeros(base.shape, dtype=torch.int64, device=vox.device)
     for start in range(0, n, chunk):
         lanes = slice(start, start + chunk)

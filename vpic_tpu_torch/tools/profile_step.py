@@ -11,6 +11,9 @@ the Chrome trace ``step_trace.json`` goes; default ``vpic_prof`` in the
 temporary directory) and ``PROF_TAIL`` (set: also list the 40 busiest
 tail ops one by one).
 
+The plain ms/step is ``Simulation.advance``'s: the deck's CUDA graphs on
+the card.  The trace steps op by op (``Simulation.advance_eager``) on
+purpose, since a graph's replay has no step-part scopes, and says so.
 On the card the trace holds CPU and CUDA activity and the tables count
 device ops: kernels, copies and sets.  A step part is a scope of
 ``engine/step.PHASES`` (``step.sort``, ``step.push``, ``step.field``,
@@ -38,7 +41,7 @@ import torch
 
 from ..decks import bench_deck
 from ..engine.step import PHASES
-from .drift_compare import _sync
+from .drift_compare import _sync, sort_period
 from .evidence import live_count
 from .probes_cuda import card_line, resolve_device
 
@@ -48,7 +51,9 @@ PROFILE_ATTEMPTS = 5
 # after long traces: the first five of each later trace; after a run of
 # long traces, the first 25), it is these that it loses, not fn's
 PAD_SCOPE, PAD_OPS = "profiler_pad", 128
-_RUNTIME = ("LaunchKernel", "Memcpy", "Memset")
+# the runtime calls whose device work a trace keeps; a graph's replay is
+# one cudaGraphLaunch with the device events of all its nodes
+_RUNTIME = ("LaunchKernel", "Memcpy", "Memset", "GraphLaunch")
 TOP_OPS, TAIL_FAMILIES, TAIL_OPS = 50, 25, 40
 
 
@@ -259,26 +264,37 @@ def main(argv=None) -> dict:
           flush=True)
     sim = bench_deck.build(nx=nx, ny=ny, nz=nz, npart=args.npart // 2,
                            device=device)
-    sim.advance(1)
+    # warm-up: one sort period, then the window's units from a sort period
+    # boundary (their graphs captured where the deck runs graphed), back
+    # to a boundary; the timed window replays those units
+    period = sort_period(sim)
+    sim.advance(period)
+    sim.advance(steps)
+    sim.advance(-sim.step_count % period)
     _sync(device)
     t0 = time.perf_counter()
     sim.advance(steps)
     _sync(device)
     dt = time.perf_counter() - t0
     total = live_count(sim)
-    print(f"== plain: {dt / steps * 1e3:.4f} ms/step, "
+    path = "graphed" if sim.graphed else "op by op"
+    print(f"== plain ({path}): {dt / steps * 1e3:.4f} ms/step, "
           f"{total * steps / dt / 1e6:.4f} M pushes/s ==", flush=True)
 
+    # the trace steps op by op (advance_eager) on purpose: the step's
+    # part scopes do not exist inside a graph's replay
+    print("== traced op by op (advance_eager), for the step parts ==",
+          flush=True)
     if on_card:
         wall_us, events, ops, lost = profiled(
-            lambda: sim.advance(steps), lambda dev, lost: len(lost) <= steps,
-            trace_path)
+            lambda: sim.advance_eager(steps),
+            lambda dev, lost: len(lost) <= steps, trace_path)
         parts, _ = _step_parts(events, ops)
     else:
         from torch.profiler import ProfilerActivity, profile
         with profile(activities=[ProfilerActivity.CPU]) as prof:
             t0 = time.perf_counter()
-            sim.advance(steps)
+            sim.advance_eager(steps)
             wall_us = (time.perf_counter() - t0) * 1e6
         prof.export_chrome_trace(trace_path)
         ops, parts = _cpu_ops(prof.events())
@@ -293,7 +309,7 @@ def main(argv=None) -> dict:
     print_tables(b, steps, what, bool(os.environ.get("PROF_TAIL")))
     top = [n for n, _ in sorted(b["op_ms"].items(),
                                 key=lambda kv: -kv[1])[:TOP_OPS]]
-    return dict(b, device=str(device), steps=steps,
+    return dict(b, device=str(device), steps=steps, graphed=sim.graphed,
                 ms_per_step=dt / steps * 1e3,
                 pushes_per_s=total * steps / dt,
                 wall_ms=wall_us / steps / 1e3, top=top, trace=trace_path)

@@ -8,10 +8,13 @@ pushes/s, and the speedup over the reference's 7.8M/s CPU headline).
 ``SCALE_ONLY`` selects the configurations whose ``nx`` or ``nx x ny x
 nz`` it names (``SCALE_ONLY=512``, ``SCALE_ONLY=64x64x64``).  Each deck
 runs one sort period of warm-up (``drift_compare.sort_period``: 8 steps
-at the bench cadence), then ``nst`` untimed and ``nst`` timed steps,
-``nst`` the steps rounded down to whole sort periods (at least one); the
-timed window ends in ``torch.cuda.synchronize`` on the card.  One deck is
-held at a time.  Standard output is the CSV table; on the card the card's
+at the bench cadence; where the deck runs as CUDA graphs this captures
+the graph), then ``nst`` steps op by op (``Simulation.advance_eager``)
+and ``nst`` steps through ``Simulation.advance``, each window timed,
+``nst`` the steps rounded down to whole sort periods (at least one); a
+timed window ends in ``torch.cuda.synchronize`` on the card.  The CSV's
+step is the second window's; the row also keeps the first's
+(``eager_ms_per_step``).  One deck is held at a time.  Standard output is the CSV table; on the card the card's
 name and power limit go to standard error first.
 """
 
@@ -57,8 +60,8 @@ def csv_row(row) -> str:
 def sweep(configs, steps=10, device="cuda"):
     """For each (npart_total, nx, ny, nz) of ``configs`` build the bench
     deck, warm it up and time it; yields (row, sim): the row's CSV columns
-    and ``build_s``, ``period`` and ``nst``, and the deck after its timed
-    window.  The deck is dropped before the next is built; a caller that
+    and ``eager_ms_per_step``, ``graphed``, ``build_s``, ``period`` and
+    ``nst``, and the deck after its timed windows.  The deck is dropped before the next is built; a caller that
     keeps ``sim`` past its turn holds two decks."""
     device = resolve_device(device)
     for npart, nx, ny, nz in configs:
@@ -71,7 +74,13 @@ def sweep(configs, steps=10, device="cuda"):
         sim.advance(period)
         _sync(device)
         nst = max(period, (steps // period) * period)
-        sim.advance(nst)
+        t0 = time.perf_counter()
+        sim.advance_eager(nst)
+        _sync(device)
+        eager_dt = time.perf_counter() - t0
+        # copies the eager steps' state into the graphs' buffers before
+        # the timed window (nothing where the deck steps eagerly)
+        sim.advance(0)
         _sync(device)
         t0 = time.perf_counter()
         sim.advance(nst)
@@ -81,8 +90,10 @@ def sweep(configs, steps=10, device="cuda"):
         pps = total * nst / dt
         row = dict(npart=total, nx=nx, ny=ny, nz=nz,
                    ms_per_step=dt / nst * 1e3, pushes_per_s=pps,
-                   vs_ref_cpu=pps / REF_CPU_PUSHES_PER_S, build_s=build_s,
-                   period=period, nst=nst)
+                   vs_ref_cpu=pps / REF_CPU_PUSHES_PER_S,
+                   eager_ms_per_step=eager_dt / nst * 1e3,
+                   graphed=sim.graphed, build_s=build_s, period=period,
+                   nst=nst)
         yield row, sim
         del sim
 
