@@ -13,8 +13,9 @@ checkpoints), several shards in one process on the card (halo
 exchanges, shared-face merges and particle migration), the tools path
 (the probe kernels and the drift comparison against the float64
 reference), and the harness tools (evidence, the scaling sweep at its
-seven sizes, the per-op profile), and the step as CUDA graphs against
-the step op by op.
+seven sizes, the per-op profile), the step as CUDA graphs against
+the step op by op, and the open decks (random draws by the threefry
+kernel on the card) as CUDA graphs.
 
     python3 chip_smoke.py
 
@@ -138,8 +139,9 @@ no result line):
               at 256^2, 64 per cell (4 194 304 electrons in 5 242 880
               slots, ut 0.3, drift 0.5 along x, absorbing x faces, y and z
               periodic): first each variant's 16^2 box on the card and on
-              the CPU (energies to 1e-6 and equal counts where nothing
-              random is drawn); then at full size the variants absorb,
+              the CPU (energies to 1e-6 and equal counts: both draw the
+              JAX package's threefry stream); then at full size the
+              variants absorb,
               tally (AbsorbTally), reflux (MaxwellianReflux), link
               (LinkBoundary), emitter (ex = -0.1 and a ChildLangmuir
               emitter on the low x face) and injector (a
@@ -147,8 +149,8 @@ no result line):
               through make_injector with rhob updated), each 25 steps from
               finalize, then three timed 16-step windows with the launch
               counts (one push and num_comm_round walk_only launches per
-              step), finite energies and no dropped movers, and a trace
-              split by step part with its host reads; absorbed = tally =
+              step), finite energies and no dropped movers (phase 19
+              traces each variant, graphed and op by op); absorbed = tally =
               n0 - alive, the reflux walls lose nothing, the link ring
               counts every hit; the push entry with count_pending=False on
               lanes stopped with NEIGHBOR_ABSORB (absorb) and handler codes
@@ -156,13 +158,15 @@ no result line):
               round's buffer, against their plain versions and twins
               (the quantum allowance where a float word cannot meet the
               bar), both timed against their bounds; absorb again on
-              fused_push=False (energies equal the fused run's to 1e-6);
+              fused_push=False (energies equal the fused run's to 1e-6,
+              and a trace split by step part with its host reads);
               the reflux and emitter boxes 10 steps, a checkpoint and 10
               more, against a second build (equal checksum_fields)
               restored and run 10 steps: every array bitwise equal; the
               collisions deck at its defaults and at 256^2 (the hook alone
-              keeps sum |u|^2 to 1e-6, the anisotropy falls, three timed
-              windows and a trace) and through the CLI for 50 steps;
+              keeps sum |u|^2 to 1e-6, the anisotropy falls over 56
+              graphed steps; phase 19 times it) and through the CLI for
+              50 steps;
 14. materials - the material box (the bench deck's plasma, 2D 256^2, 32
               per cell, 2 097 152 electrons and as many ions, with
               tests/test_materials_diag.py:wave_box's fields, copper on
@@ -259,10 +263,27 @@ no result line):
               steps six super-cycle replays of one capture and no eager
               step; per deck and path the wall step over three 16-step
               windows, busy device ms, ops, host reads and idle share from
-              a trace, the peak memory and each capture's seconds.
+              a trace, the peak memory and each capture's seconds;
+19. open graphs - the threefry kernel (csrc/threefry.cu) at the 256^2
+              collisions deck's 5 242 880 lanes: split and uniform bitwise
+              its plain twin on the card and on the CPU, normal within
+              NORMAL_ULPS of both, two runs bitwise equal, each output
+              timed alone against its bound (bytes written over 3.35 TB/s,
+              the hash's int32 operations over INT32_OPS_PER_S); then the
+              six open variants at 256^2 and the collisions deck at 32^2
+              and 256^2, each built twice from one seed and stepped through
+              advance (graphed) and advance_eager: after 32 steps the same
+              checksums, energies, random state, books and kernel launches
+              (threefry's included) bit for bit, and the same checksums,
+              random state and books after the timed windows and the
+              trace (about 88 steps), no dropped mover, the
+              books balanced (tally = gone, ring = gone, reflux loses
+              nothing), no host read in the 8-step trace of the graphed
+              step; per deck and path the step, busy ms, ops, idle share,
+              peak memory and each capture's seconds.
 Where a deck runs as CUDA graphs (every one-shard deck on the card without
-boundary rounds, emitters, injection or collision hooks or the packed
-merge re-sort), the timed windows of every phase time its graphed steps;
+the packed merge re-sort), the timed windows of every phase time its
+graphed steps;
 phases 5 and 8 and the sweep of 17 also time three windows op by op
 (advance_eager) and print them beside, and a trace's step parts come from
 a second trace of steps taken op by op, since a graph's replay has no
@@ -356,7 +377,14 @@ DEPOSIT_CASES = ((1, 5000, 2000, True), (1, 1024, 130 * 130, True),
                  (2, 4096, 3000, False))
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg):
+    """Print a line; a phase's heading ("[k/19] ...") gets the seconds
+    since the script started."""
+    if msg.startswith("["):
+        msg += f" (at {time.perf_counter() - _T0:.1f} s)"
     print(msg, flush=True)
 
 
@@ -811,8 +839,8 @@ def phase_small_deck(device, **opts):
     if opts:
         gpu.modify_runparams(**opts)
         cpu.modify_runparams(**opts)
-    gpu.advance(8)
-    cpu.advance(8)
+    gpu.advance_steps(8)
+    cpu.advance_steps(8)
     eg, ec = gpu.energies(), cpu.energies()
     for k in ec:
         if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
@@ -832,7 +860,7 @@ def phase_slice(sim):
     import statistics
     import torch
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     torch.cuda.synchronize()
     nsp = len(sim.state.species)
     n_total = sum(int(sp.np) for sp in sim.state.species)
@@ -846,7 +874,7 @@ def phase_slice(sim):
         e0, nm0 = sim.energies(), sim.mover_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(STEPS)
+        sim.advance_steps(STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         e1, nm1 = sim.energies(), sim.mover_counts()
@@ -938,8 +966,8 @@ def phase_trace(sim, step_s, label="main path", parts=None):
         raise AssertionError("traced window must start on a super-cycle")
     # a state read since the last advance goes into the graphs' buffers
     # here, not inside the trace
-    sim.advance(0)
-    wall_us, dev, placed, lost, b = _trace(sim, sim.advance)
+    sim.advance_steps(0)
+    wall_us, dev, placed, lost, b = _trace(sim, sim.advance_steps)
     busy = b["busy_ms"]
     reads = sum("DtoH" in e.name for e in dev) / TRACE_STEPS
     what = "graphed steps" if sim.graphed else "steps"
@@ -1448,7 +1476,7 @@ def timed_windows(sim, label, e_refs):
         e0, nm0 = sim.energies(), sim.mover_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(STEPS)
+        sim.advance_steps(STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         e1, nm1 = sim.energies(), sim.mover_counts()
@@ -1488,10 +1516,10 @@ def reference_energies(device):
     DRIFT_LIMIT on every path alike."""
     from vpic_tpu_torch.decks import bench_deck
     ref = bench_deck.build(**SLICE, device=device)
-    ref.advance(WARM_STEPS)
+    ref.advance_steps(WARM_STEPS)
     out = []
     for _ in range(WINDOWS):
-        ref.advance(STEPS)
+        ref.advance_steps(STEPS)
         out.append(ref.energies())
     return out
 
@@ -1504,7 +1532,7 @@ def phase_path_a(device, e_refs):
     phase_small_deck(device, fused_push=False)
     sim = bench_deck.build(**SLICE, device=device)
     sim.modify_runparams(fused_push=False)
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     nsp = len(sim.state.species)
     push_cuda.reset_launch_counts()
     deposit_cuda.reset_launch_counts()
@@ -1576,10 +1604,10 @@ def phase_path_b(device, e_refs):
     cpu = bench_deck.build(**SMALL_DECK, device="cpu")
     cpu.modify_runparams(merge_sort=True)
     sort_cuda.reset_launch_counts()
-    small.advance(STEPS)
+    small.advance_steps(STEPS)
     counts = {k: dict(v) for k, v in sort_cuda.sort_counts.items()}
     small_launches = dict(sort_cuda.launches)
-    cpu.advance(STEPS)
+    cpu.advance_steps(STEPS)
     want = {"electron": {"fast": 7, "slow": 1}, "ion": {"fast": 1, "slow": 1}}
     if counts != want:
         raise AssertionError(f"16^2 path B: sorts {counts}, expected {want}")
@@ -1600,7 +1628,7 @@ def phase_path_b(device, e_refs):
 
     sim = bench_deck.build(**SLICE, device=device)
     sim.modify_runparams(merge_sort=True)
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     cadence_launches, counts, med = packed_windows(
         sim, "128^2 path B (merge_sort=True)", e_refs)
     log("  (slow expected at the deck's own cadence: more lanes change "
@@ -1611,7 +1639,7 @@ def phase_path_b(device, e_refs):
     sim = bench_deck.build(**SLICE, resort_interval=1, ion_sort_mult=1,
                            device=device)
     sim.modify_runparams(merge_sort=True)
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     launches, counts, med_1 = packed_windows(
         sim, "128^2 path B, every species sorted every step", e_refs)
     if launches["merge_assemble"] < 1:
@@ -1763,7 +1791,7 @@ def phase_determinism(device):
                 f"({bad} of {a.numel()} nodes differ, max abs diff "
                 f"{float((a - b).abs().max()):.3g})")
         d0 = sim.checksum_fields()
-        sim.advance(4)
+        sim.advance_steps(4)
         digests.append((d0, sim.checksum_fields()))
         log(f"  bench deck build {k + 1}: checksum_fields at finalize {d0}, "
             f"after 4 steps {digests[-1][1]}")
@@ -1915,8 +1943,8 @@ def phase_turb_small(device):
     """The deck at the tests' size (8^3 cells, 2 per cell) on the card and
     on the CPU, 8 steps: energies equal to 1e-6 relative."""
     gpu, cpu = turb_deck(device, TURB_SMALL), turb_deck("cpu", TURB_SMALL)
-    gpu.advance(8)
-    cpu.advance(8)
+    gpu.advance_steps(8)
+    cpu.advance_steps(8)
     eg, ec = gpu.energies(), cpu.energies()
     for k in ec:
         if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
@@ -1959,7 +1987,7 @@ def push_only_windows(sim, label, graphed=True):
         e0 = sum(sim.energies().values())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(STEPS)
+        sim.advance_steps(STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         e1 = sim.energies()
@@ -1997,7 +2025,7 @@ def phase_turb_timing(device, tmp):
     one.  Returns (launches, median step s, trace, diagnostic ms)."""
     from vpic_tpu_torch.io import banded
     sim = turb_deck(device, TURB_FULL)
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     launches, med = push_only_windows(sim, "turbulence")
     trace = phase_trace(sim, med, "turbulence path")
 
@@ -2174,7 +2202,7 @@ def recon_drift(name, sim):
     if tracers:
         sim.collect_trajectories()
     for _ in range(RECON_DRIFT_STEPS):
-        sim.advance(1)
+        sim.advance_steps(1)
         if tracers:
             sim.collect_trajectories()
     e1 = sim.energies()
@@ -2389,7 +2417,7 @@ def phase_recon(device, card):
             err, quantum, t = recon_kernel(name, sim)
             drift, nm = recon_drift(name, sim)
             # the timed windows start on a sort super-cycle, as phase 5's
-            sim.advance(-sim.step_count % (sim.opts.resort_interval * 4))
+            sim.advance_steps(-sim.step_count % (sim.opts.resort_interval * 4))
             launches, step_s = push_only_windows(sim, name)
             trace = phase_trace(sim, step_s, f"{name} path")
             read_ms = recon_readers(name, sim, tmp)
@@ -2439,8 +2467,6 @@ def phase_recon(device, card):
 OPEN_FULL = dict(nx=256, ppc=64)
 OPEN_SMALL = dict(nx=16, ppc=16)
 OPEN_VARIANTS = ("absorb", "tally", "reflux", "link", "emitter", "injector")
-# the variants that draw no random number: card and CPU agree to 1e-6
-OPEN_NO_DRAWS = ("absorb", "tally", "link")
 OPEN_WARM, OPEN_SMALL_STEPS, OPEN_RESTART = 25, 12, 10
 # the collisions deck at its defaults (32^2, 64 per cell) and at 256^2;
 # the CLI runs it at its defaults
@@ -2497,16 +2523,14 @@ def open_box(device, variant, nx, ppc):
         K, dx = 8 * nx, sim.grid.dx
 
         def refill(state, acc, f):
-            rng, key = rnd.split(state.rng)
+            rng, sub = rnd.split(state.rng)
             state = dataclasses.replace(state, rng=rng)
-            dev = state.interpolator.device
-            u = lambda k, hi: rnd.uniform(rnd.fold(key, k), K, 0.0, hi,
-                                          dev).double()
-            m = lambda k: 0.3 * rnd.normal(rnd.fold(key, k), K, dev)
+            ks = rnd.split(sub, 7)
+            u = lambda k, hi: rnd.uniform(ks[k], K, 0.0, hi).double()
+            m = lambda k: 0.3 * rnd.normal(ks[k], K)
             return inj(state, acc, f, x=u(0, dx), y=u(1, L), z=u(2, L),
                        ux=m(3) + 0.5, uy=m(4), uz=m(5), q=-1.0 / n,
-                       age=rnd.uniform(rnd.fold(key, 6), K, device=dev),
-                       update_rhob=True)
+                       age=rnd.uniform(ks[6], K), update_rhob=True)
 
         hooks["user_particle_injection"] = refill
     sim.finalize(**hooks)
@@ -2547,7 +2571,7 @@ def open_windows(sim, label, unfused=False, e_refs=None):
         nm0 = sim.mover_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(STEPS)
+        sim.advance_steps(STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         e1, nm1 = sim.energies(), sim.mover_counts()
@@ -2719,8 +2743,9 @@ def open_kernel_walk(sim):
 
 def open_small(device):
     """Each variant's 16^2 box for OPEN_SMALL_STEPS steps on the card and
-    on the CPU: energies to 1e-6 where nothing random is drawn, finite,
-    and no dropped mover, but in the injector box.  That box refills
+    on the CPU: energies to 1e-6 and equal counts (the card's threefry
+    kernel draws the CPU's numbers: uniforms bitwise, normals within a few
+    ulps), finite, and no dropped mover, but in the injector box.  That box refills
     8 nx lanes a step into 1.25 n slots and fills them by step 11 or so:
     the lanes that do not fit are dropped and counted, and a step may
     drop lanes only where it leaves the species full."""
@@ -2732,7 +2757,7 @@ def open_small(device):
             n0 = alive_count(sim)
             for step in range(OPEN_SMALL_STEPS):
                 nm0 = sim.mover_counts()["electron"]
-                sim.advance(1)
+                sim.advance_steps(1)
                 sp = sim.state.species[0]
                 if (sim.mover_counts()["electron"] > nm0
                         and (variant != "injector"
@@ -2746,24 +2771,23 @@ def open_small(device):
         if not all(math.isfinite(v) for v in (*eg.values(), *ec.values())):
             raise AssertionError(f"open {variant} 16^2: energies {eg} {ec}")
         worst = max(abs(eg[k] - ec[k]) / abs(ec[k]) for k in ec if ec[k])
-        if variant in OPEN_NO_DRAWS:
-            for k in ec:
-                if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
-                    raise AssertionError(f"open {variant} 16^2: energy {k} "
-                                         f"{eg[k]!r} vs CPU {ec[k]!r}")
-            if cg != cc:
-                raise AssertionError(f"open {variant} 16^2: counts {cg} vs "
-                                     f"CPU {cc}")
+        for k in ec:
+            if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
+                raise AssertionError(f"open {variant} 16^2: energy {k} "
+                                     f"{eg[k]!r} vs CPU {ec[k]!r}")
+        if cg != cc:
+            raise AssertionError(f"open {variant} 16^2: counts {cg} vs "
+                                 f"CPU {cc}")
         log(f"  open {variant} 16^2, {OPEN_SMALL_STEPS} steps: card {cg}, "
-            f"CPU {cc}, largest relative energy difference {worst:.3e}"
-            + (" (no random draws: within 1e-6)" if variant in OPEN_NO_DRAWS
-               else " (random draws)"))
+            f"CPU {cc}, largest relative energy difference {worst:.3e} "
+            "(within 1e-6)")
 
 
 def open_variant(device, variant, card, unfused=False, e_refs=None):
     """A variant at full size: OPEN_WARM steps from finalize, then to a
-    step that is a multiple of 4, WINDOWS timed windows of STEPS steps and
-    a trace.  Returns (sim, record, window energies)."""
+    step that is a multiple of 4 and WINDOWS timed windows of STEPS steps;
+    a trace on the unfused path only (phase 19 traces the fused variants,
+    graphed and op by op).  Returns (sim, record, window energies)."""
     import math
     label = f"open {variant}" + (" fused_push=False" if unfused else "")
     t0 = time.perf_counter()
@@ -2774,51 +2798,42 @@ def open_variant(device, variant, card, unfused=False, e_refs=None):
     log(f"  {label}: {sim.grid.nx}x{sim.grid.ny} cells, {n0} electrons in "
         f"{sim.state.species[0].max_np} slots, particle faces "
         f"{sim.grid.pbc}, built in {time.perf_counter() - t0:.2f} s")
-    sim.advance(OPEN_WARM)
+    sim.advance_steps(OPEN_WARM)
     e = sim.energies()
     if not all(math.isfinite(v) for v in e.values()):
         raise AssertionError(f"{label}: energies {e} after {OPEN_WARM} steps")
     c = open_counts(sim, variant, n0)
     log(f"  {label} after {OPEN_WARM} steps: {c}, total energy "
         f"{sum(e.values()):.6e}")
-    sim.advance(-sim.step_count % 4)
+    sim.advance_steps(-sim.step_count % 4)
     launches, step_s, energies = open_windows(sim, label, unfused, e_refs)
     # the counts at the end of the windows: a trace that the profiler
     # takes again runs more steps
     c, at = open_counts(sim, variant, n0), sim.step_count
-    # the unfused push sorts at 256^2 only on the species' own interval
-    # (sorted_deposit is off above nv = 120 000), which this deck leaves 0
-    parts = ("step.push", "step.field", "step.boundary") + (
-        () if unfused else ("step.sort",)) + (
-        ("step.emit",) if variant in ("emitter", "injector") else ())
-    trace = phase_trace(sim, step_s, f"{label} path", parts)
-    if c["dropped"]:
-        raise AssertionError(f"{label}: dropped movers {c}")
-    if variant == "reflux" and c["gone"]:
-        raise AssertionError(f"{label}: the reflux walls lost {c['gone']}")
-    if variant == "tally" and c["tally"] != c["gone"]:
-        raise AssertionError(f"{label}: tally {c['tally']} != lanes gone "
-                             f"{c['gone']}")
-    if variant == "link" and c["ring"] != c["gone"]:
-        raise AssertionError(f"{label}: ring count {c['ring']} != lanes "
-                             f"gone {c['gone']}")
-    p = trace["parts"]
-    rec = dict(step_ms=step_s * 1e3, busy_ms=trace["busy_ms"],
-               ops_per_step=trace["ops"],
-               idle_share=1 - trace["busy_ms"] / (step_s * 1e3),
-               host_reads_per_step=trace["reads"],
-               push_launches=launches["push_walk"],
-               boundary_busy_ms=p["step.boundary"]["busy_ms"],
-               emit_busy_ms=p["step.emit"]["busy_ms"],
+    check_books(label, variant, c)
+    rec = dict(step_ms=step_s * 1e3, push_launches=launches["push_walk"],
                push_launches_per_step=launches["push_walk"]
                / (WINDOWS * STEPS),
                walk_only_launches_per_step=launches["walk_only"]
                / (WINDOWS * STEPS), **c)
-    log(f"{label} path ({card}): step {step_s * 1e3:.4f} ms, device busy "
-        f"{trace['busy_ms']:.4f} ms/step, {trace['ops']:.1f} ops/step, idle "
-        f"share {rec['idle_share']:.4f}, host reads {trace['reads']:.1f}/"
-        f"step; busy ms " + ", ".join(f"{k} {v['busy_ms']:.4f}"
-                                      for k, v in p.items())
+    trace = ""
+    if unfused:
+        # the unfused push sorts at 256^2 only on the species' own
+        # interval (sorted_deposit is off above nv = 120 000), which this
+        # deck leaves 0
+        t = phase_trace(sim, step_s, f"{label} path",
+                        ("step.push", "step.field", "step.boundary"))
+        p = t["parts"]
+        rec.update(busy_ms=t["busy_ms"], ops_per_step=t["ops"],
+                   idle_share=1 - t["busy_ms"] / (step_s * 1e3),
+                   host_reads_per_step=t["reads"],
+                   boundary_busy_ms=p["step.boundary"]["busy_ms"])
+        trace = (f", device busy {t['busy_ms']:.4f} ms/step, "
+                 f"{t['ops']:.1f} ops/step, idle share "
+                 f"{rec['idle_share']:.4f}, host reads {t['reads']:.1f}/"
+                 "step; busy ms " + ", ".join(
+                     f"{k} {v['busy_ms']:.4f}" for k, v in p.items()))
+    log(f"{label} path ({card}): step {step_s * 1e3:.4f} ms" + trace
         + f"; launches per step: push {rec['push_launches_per_step']}, "
         f"walk_only {rec['walk_only_launches_per_step']}; counts at step "
         f"{at} {c}")
@@ -2839,19 +2854,19 @@ def open_restart(device, variant, tmp):
     if a.checksum_fields() != b.checksum_fields():
         raise AssertionError(f"open {variant}: two builds from one seed "
                              "differ")
-    a.advance(OPEN_RESTART)
+    a.advance_steps(OPEN_RESTART)
     path = os.path.join(tmp, f"open_{variant}")
     t0 = time.perf_counter()
     a.checkpoint(path)
     save_s = time.perf_counter() - t0
-    a.advance(OPEN_RESTART)
+    a.advance_steps(OPEN_RESTART)
     first = state_to_numpy(a.state)
     del a
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     b.restore(path)
     load_s = time.perf_counter() - t0
-    b.advance(OPEN_RESTART)
+    b.advance_steps(OPEN_RESTART)
     second = state_to_numpy(b.state)
     same = lambda x, y: (x.dtype == y.dtype and x.shape == y.shape
                          and x.tobytes() == y.tobytes())
@@ -2869,26 +2884,21 @@ def open_restart(device, variant, tmp):
 
 def phase_collisions(device, card):
     """The collisions deck on the card at its defaults and at 256^2: the
-    hook alone keeps sum |u|^2 to float roundoff, the anisotropy falls over
-    the run, WINDOWS timed windows (one push launch per step and no other
-    kernel) and a trace; then the deck at its defaults through the CLI in
-    a process of its own for COLL_CLI_STEPS steps.  Returns the record's
-    fields."""
+    hook alone keeps sum |u|^2 to float roundoff, and over WARM_STEPS +
+    WINDOWS * STEPS graphed steps the anisotropy falls with no dropped
+    mover and finite energies (phase 19 times both sizes, graphed and op
+    by op, and traces them); then the deck at its defaults through the
+    CLI in a process of its own for COLL_CLI_STEPS steps.  Returns the
+    record's fields."""
     import importlib
+    import math
     import torch
     fields = {}
     mod = importlib.import_module("vpic_tpu_torch.decks.collisions")
     for name, size in COLL_SIZES.items():
-        saved = {k: os.environ.get(k) for k in size}
-        os.environ.update(size)
-        try:
-            sim = mod.deck(device=device)
-        finally:
-            for k, v in saved.items():
-                if v is None:
-                    os.environ.pop(k)
-                else:
-                    os.environ[k] = v
+        sim = _coll_graph_deck(size)(device)
+        if not sim.graphed:
+            raise AssertionError(f"collisions {name}: not graphed")
         sp = sim.state.species[0]
         u2 = lambda s: float((s.ux.double() ** 2 + s.uy.double() ** 2
                               + s.uz.double() ** 2)[s.alive].sum())
@@ -2898,29 +2908,21 @@ def phase_collisions(device, card):
             raise AssertionError(f"collisions {name}: the hook changed "
                                  f"sum |u|^2 by {(k1 - k0) / k0:.3e}")
         a0 = mod.anisotropy(sim)
-        sim.advance(WARM_STEPS)
-        launches, step_s = push_only_windows(sim, f"collisions {name}",
-                                             graphed=False)
-        trace = phase_trace(sim, step_s, f"collisions {name} path",
-                            ("step.sort", "step.push", "step.field",
-                             "step.collide"))
-        a1 = mod.anisotropy(sim)
+        sim.advance_steps(WARM_STEPS + WINDOWS * STEPS)
+        a1, e1 = mod.anisotropy(sim), sim.energies()
         if not a1 < a0:
             raise AssertionError(f"collisions {name}: anisotropy {a0} -> "
                                  f"{a1}")
-        log(f"collisions {name} path ({card}): {int(sp.np)} electrons; the "
+        if sim.mover_counts()["electron"] or not all(
+                math.isfinite(v) for v in e1.values()):
+            raise AssertionError(f"collisions {name}: movers "
+                                 f"{sim.mover_counts()}, energies {e1}")
+        log(f"collisions {name} ({card}): {int(sp.np)} electrons; the "
             f"hook alone changes sum |u|^2 by {(k1 - k0) / k0:.3e}; "
-            f"anisotropy {a0:.4f} -> {a1:.4f} over {sim.step_count} steps; "
-            f"step {step_s * 1e3:.4f} ms, device busy {trace['busy_ms']:.4f} "
-            f"ms/step, {trace['ops']:.1f} ops/step, idle share "
-            f"{1 - trace['busy_ms'] / (step_s * 1e3):.4f}, collide busy "
-            f"{trace['parts']['step.collide']['busy_ms']:.4f} ms/step")
+            f"anisotropy {a0:.4f} -> {a1:.4f} over {sim.step_count} graphed "
+            "steps, no dropped mover (timed in phase 19)")
         key = f"collisions_{name.replace('^2', 'sq')}"
-        fields.update({f"{key}_launches": launches["push_walk"],
-                       f"{key}_step_ms": step_s * 1e3,
-                       f"{key}_busy_ms": trace["busy_ms"],
-                       f"{key}_collide_busy_ms":
-                       trace["parts"]["step.collide"]["busy_ms"]})
+        fields[f"{key}_hook_u2_change"] = (k1 - k0) / k0
         del sim
         torch.cuda.empty_cache()
     cli_s = deck_cli(COLL_DECK, {}, COLL_CLI_STEPS)
@@ -3073,7 +3075,7 @@ def material_small(device):
     for dev in (device, "cpu"):
         sim = material_box(dev, **MAT_SMALL)
         arrays = material_arrays(sim)
-        sim.advance(MAT_SMALL_STEPS)
+        sim.advance_steps(MAT_SMALL_STEPS)
         runs.append((arrays, sim.energies(), sim.mover_counts()))
     (ag, eg, ng), (ac, ec, nc) = runs
     if set(ag) != set(ac) or not all(
@@ -3165,10 +3167,10 @@ def material_run(device, tmp):
         f"{torch.bincount(mg.cmat[1:-1, 1:-1, 1:-1].reshape(-1)).tolist()}, "
         f"built in {time.perf_counter() - t0:.2f} s")
     e0 = sum(a.energies().values())
-    a.advance(MAT_CKPT)
+    a.advance_steps(MAT_CKPT)
     path = os.path.join(tmp, "materials")
     a.checkpoint(path)
-    a.advance(MAT_STEPS - MAT_CKPT)
+    a.advance_steps(MAT_STEPS - MAT_CKPT)
     e1, nm = a.energies(), a.mover_counts()
     if not all(math.isfinite(v) for v in e1.values()):
         raise AssertionError(f"material box: energies {e1}")
@@ -3192,7 +3194,7 @@ def material_run(device, tmp):
                                  "the state's")
     b = material_box(device, **MAT_FULL)
     b.restore(path)
-    b.advance(MAT_STEPS - MAT_CKPT)
+    b.advance_steps(MAT_STEPS - MAT_CKPT)
     second = state_to_numpy(b.state)
     del b
     torch.cuda.empty_cache()
@@ -3224,7 +3226,7 @@ def material_damping(device):
     ee = {}
     for conductor in (False, True):
         sim = wave_box(device, conductor, WAVE_NX)
-        sim.advance(WAVE_STEPS)
+        sim.advance_steps(WAVE_STEPS)
         e = sim.energies()
         ee[conductor] = e["ex"] + e["ey"] + e["ez"]
         del sim
@@ -3248,7 +3250,7 @@ def material_timing(device, vacuum):
     import torch
     label = "material box" + (", one vacuum material" if vacuum else "")
     sim = material_box(device, vacuum=vacuum, **MAT_FULL)
-    sim.advance(WARM_STEPS)
+    sim.advance_steps(WARM_STEPS)
     e0 = sum(sim.energies().values())
     launches, step_s = push_only_windows(sim, label)
     growth = sum(sim.energies().values()) / e0
@@ -3369,7 +3371,7 @@ def shard_round_walks(sims):
     push_cuda.streak_walk = recording
     try:
         for sim in sims:
-            sim.advance(1)
+            sim.advance_steps(1)
     finally:
         push_cuda.streak_walk = orig
     return rec
@@ -3493,7 +3495,7 @@ def shard_windows(sim, label):
         e0, nm0 = sim.energies(), sim.mover_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(STEPS)
+        sim.advance_steps(STEPS)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         e1, nm1 = sim.energies(), sim.mover_counts()
@@ -3564,14 +3566,14 @@ def shard_unfused(device, twin):
     import torch
     g, nsp = twin.grid, len(twin._species)
     one = shard_bench(device)
-    one.advance(twin.step_count)
+    one.advance_steps(twin.step_count)
     for sim in (one, twin):
         sim.modify_runparams(fused_push=False)
     rec, undo = record_deposits(g.n_shards * nsp)
     reset_launch_counts()
     e0 = sum(twin.energies().values())
     try:
-        twin.advance(SHARD_UNFUSED_STEPS)
+        twin.advance_steps(SHARD_UNFUSED_STEPS)
     finally:
         undo()
     unfused = shard_launch_counts()
@@ -3596,7 +3598,7 @@ def shard_unfused(device, twin):
         if q:
             quantum.append(label)
     del rec
-    one.advance(SHARD_UNFUSED_STEPS)
+    one.advance_steps(SHARD_UNFUSED_STEPS)
     cmp = shard_compare(one, twin)
     del one
     torch.cuda.empty_cache()
@@ -3618,12 +3620,12 @@ def shard_bench_phase(device, card):
             ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
                       for sp in st.species) for st in four.states))
     err, quantum, walk_t = shard_kernels(one, four)
-    twin.advance(1)
+    twin.advance_steps(1)
     for sim in (one, twin):
-        sim.advance(SHARD_STEPS - 1)
+        sim.advance_steps(SHARD_STEPS - 1)
     migrants, undo = count_migrants()
     try:
-        four.advance(SHARD_STEPS - 1)
+        four.advance_steps(SHARD_STEPS - 1)
     finally:
         undo()
     mig = sum(int(v) for v in migrants.values()) / (SHARD_STEPS - 1)
@@ -3633,7 +3635,7 @@ def shard_bench_phase(device, card):
     # the timed windows and traces start on a sort super-cycle
     pad = -four.step_count % (four.opts.resort_interval * 4)
     for sim in (one, four, twin):
-        sim.advance(pad)
+        sim.advance_steps(pad)
     sums = [(s.checksum_fields(), s.checksum_species("electron"),
              s.checksum_species("ion")) for s in (four, twin)]
     if sums[0] != sums[1]:
@@ -4294,7 +4296,7 @@ def extra_windows(sim, nst):
     for _ in range(SWEEP_EXTRA_WINDOWS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        sim.advance(nst)
+        sim.advance_steps(nst)
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) / nst)
     return out
@@ -4488,23 +4490,28 @@ def _bench(device, **deck):
 
 
 def _launch_counts():
+    from vpic_tpu_torch.core import random_cuda
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
     return dict(push_cuda.launches, **deposit_cuda.launches,
-                **sort_cuda.launches)
+                **sort_cuda.launches, **random_cuda.launches)
 
 
 def _reset_launch_counts():
+    from vpic_tpu_torch.core import random_cuda
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
-    for mod in (push_cuda, deposit_cuda, sort_cuda):
+    for mod in (push_cuda, deposit_cuda, sort_cuda, random_cuda):
         mod.reset_launch_counts()
 
 
-def graph_run(label, build, device, steps, graphed):
-    """One deck of GRAPH_DECKS, built alone on the card: ``steps`` steps
-    through ``advance`` (``graphed``) or ``advance_eager``, then three
-    timed windows of STEPS steps and a trace of TRACE_STEPS steps of the
-    same stepping, with the card's peak memory over it all.  Returns what
-    phase 18 compares and records."""
+def graph_run(label, build, device, steps, graphed, books=None):
+    """One deck of GRAPH_DECKS (or of OPEN_GRAPH_DECKS), built alone on
+    the card: ``steps`` steps through ``advance`` (``graphed``) or
+    ``advance_eager``, then three timed windows of STEPS steps and a trace
+    of TRACE_STEPS steps of the same stepping, with the card's peak memory
+    over it all.  ``books(sim, n0)``: the deck's particle books after the
+    ``steps`` steps (n0 the live lanes at build).  Returns what phases 18
+    and 19 compare and record (``end``: the checksums, the random state
+    and the books again after the trace)."""
     import statistics
     import torch
     torch.cuda.synchronize()
@@ -4517,7 +4524,8 @@ def graph_run(label, build, device, steps, graphed):
     build_s = time.perf_counter() - t0
     if not sim.graphed:
         raise AssertionError(f"{label}: _graph_ok() refuses the deck")
-    advance = sim.advance if graphed else sim.advance_eager
+    n0 = alive_count(sim) if books else None
+    advance = sim.advance_steps if graphed else sim.advance_eager
     _reset_launch_counts()
     sim.dispatch_counts.clear()
     advance(steps)
@@ -4527,7 +4535,12 @@ def graph_run(label, build, device, steps, graphed):
                species=[sim.checksum_species(h["name"])
                         for h in sim._species],
                energies=sim.energies(), movers=sim.mover_counts(),
-               build_s=build_s)
+               rng=sim.state.rng.tolist(),
+               books=books(sim, n0) if books else None, build_s=build_s)
+    if graphed:
+        # the reads above copied the state out of the graphs' buffers: it
+        # goes back in here, not inside the first timed window
+        sim.advance_steps(0)
     step_s = []
     for _ in range(WINDOWS):
         torch.cuda.synchronize()
@@ -4538,9 +4551,14 @@ def graph_run(label, build, device, steps, graphed):
     advance(-sim.step_count % (sim.opts.resort_interval * 4))
     wall_us, dev, _, lost, b = _trace(sim, advance)
     torch.cuda.synchronize()
+    out["end"] = dict(step=sim.step_count, fields=sim.checksum_fields(),
+                      species=[sim.checksum_species(h["name"])
+                               for h in sim._species],
+                      rng=sim.state.rng.tolist(),
+                      books=books(sim, n0) if books else None)
     out.update(step_ms=statistics.median(step_s) * 1e3,
                step_min_ms=min(step_s) * 1e3, step_max_ms=max(step_s) * 1e3,
-               busy_ms=b["busy_ms"], ops=b["ops"],
+               busy_ms=b["busy_ms"], ops=b["ops"], parts=b["parts"],
                reads=sum("DtoH" in e.name for e in dev) / TRACE_STEPS,
                traced_wall_ms=wall_us / TRACE_STEPS / 1e3,
                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
@@ -4608,6 +4626,294 @@ def phase_graphs(device, card):
     return recs
 
 
+# -- phase 19: the open decks as CUDA graphs ---------------------------------
+
+THREEFRY_SOURCE = "vpic_tpu_torch/csrc/threefry.cu"
+# what it replaces: XLA's threefry2x32 under jax.random, drawn at the
+# reflux handler first (no Pallas kernel draws in the JAX package)
+THREEFRY_REPLACES = ("vpic_tpu/boundary/models.py:71 (jax.random: XLA's "
+                     "threefry2x32, no pl.pallas_call)")
+# H100 SXM int32: NVIDIA publishes no rate.  An SM issues 4 warp
+# instructions a clock (128 lanes), and integer adds issue on the FMA
+# pipe (IMAD) as well as on the 64 int32 lanes, so no integer code beats
+# 128 lanes x 132 SMs x the 1.98 GHz boost clock of the 67 TFLOP/s
+# float32 rate
+INT32_OPS_PER_S = 132 * 128 * 1.98e9
+# the hash's int32 operations per counter at the least: 20 rounds of an
+# add, a rotate (one funnel shift) and a xor, 6 key injections of two
+# adds (the key's words and the injections' sums are loop-invariant); the
+# uniform's xor of the words, shift and or; its float32 operations
+# (subtract, fma, max) and the normal's (its uniform's, log1p, a square,
+# sqrt or subtract, 8 fmas, 2 multiplies)
+THREEFRY_INT_OPS = {"split": 72, "uniform": 75, "normal": 75}
+THREEFRY_FLOAT_OPS = {"split": 0, "uniform": 3, "normal": 3 + 20 + 4 + 8 + 2}
+THREEFRY_BYTES = {"split": 16, "uniform": 4, "normal": 4}
+# the 256^2 collisions deck's slots: each step draws a normal and a
+# uniform over them
+THREEFRY_LANES = 5_242_880
+NORMAL_ULPS = 8
+OPEN_GRAPH_STEPS = 32
+
+
+def threefry_bound(what, n):
+    """(ms, "bytes" or "operations") of n counters of ``what``: the words
+    written over 3.35 TB/s, or the int32 operations over INT32_OPS_PER_S
+    or the float32 ones over 67 TFLOP/s, whichever is larger (the key's
+    16 bytes are read once)."""
+    t_bytes = (n * THREEFRY_BYTES[what] + 16) / HBM_BYTES_PER_S
+    t_ops = max(n * THREEFRY_INT_OPS[what] / INT32_OPS_PER_S,
+                n * THREEFRY_FLOAT_OPS[what] / FP32_OPS_PER_S)
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def ulps(a, b):
+    """The largest distance in float32 ulps between two float32 tensors."""
+    import torch
+    ia = a.view(torch.int32).long()
+    ib = b.view(torch.int32).long()
+    # ordered integers: negative floats count down from 0
+    fix = lambda i: torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+    return int((fix(ia) - fix(ib)).abs().max()) if a.numel() else 0
+
+
+def check_threefry(device, seed=20240):
+    """The threefry kernel's three outputs at n counters under one key on
+    the card: split and uniform (over (0, 1), (1e-38, 1), (-1, 1) and
+    (0, 2 pi)) bitwise the plain twin's on the card and on the CPU (the
+    key copied there), normal within NORMAL_ULPS of both, and a rerun
+    bitwise equal.  Returns {output: max abs error against the twin on the
+    card}."""
+    import math
+    import torch
+    from vpic_tpu_torch.core import random as rnd
+    n = THREEFRY_LANES
+    key = rnd.split(rnd.make_key(seed, device), 3)[2]
+    ckey = key.cpu()
+    cases = [("split", lambda k: rnd.split(k, n),
+              lambda k: rnd.plain_split(k, n))]
+    for lo, hi in ((0.0, 1.0), (1e-38, 1.0), (-1.0, 1.0),
+                   (0.0, 2.0 * math.pi)):
+        cases.append(("uniform", lambda k, lo=lo, hi=hi: rnd.uniform(
+            k, n, lo, hi), lambda k, lo=lo, hi=hi: rnd.plain_uniform(
+                k, n, lo, hi)))
+    cases.append(("normal", lambda k: rnd.normal(k, n),
+                  lambda k: rnd.plain_normal(k, n)))
+    errs = {}
+    for what, run_k, run_p in cases:
+        out, again = run_k(key), run_k(key)
+        torch.cuda.synchronize()
+        card, cpu = run_p(key), run_p(ckey)
+        if out.device != key.device or not torch.equal(out, again):
+            raise AssertionError(f"threefry {what}: two runs differ")
+        if what == "normal":
+            u_card, u_cpu = ulps(out, card), ulps(out.cpu(), cpu)
+            if max(u_card, u_cpu) > NORMAL_ULPS or not bool(
+                    torch.isfinite(out).all()):
+                raise AssertionError(f"threefry normal: {u_card} ulps from "
+                                     f"the twin on the card, {u_cpu} from "
+                                     f"the CPU's (bar {NORMAL_ULPS})")
+            err = float((out - card).abs().max())
+            log(f"  threefry normal, {n} counters: within {u_card} ulps of "
+                f"the twin on the card (max abs {err:.3e}) and {u_cpu} of "
+                "the twin on the CPU; rerun bitwise")
+        else:
+            if not torch.equal(out, card) or not torch.equal(out.cpu(), cpu):
+                raise AssertionError(f"threefry {what}: not bitwise the "
+                                     "twin's on the card and the CPU's")
+            err = 0.0
+            log(f"  threefry {what}, {n} counters: bitwise the twin on the "
+                "card and on the CPU; rerun bitwise")
+        errs[what] = max(errs.get(what, 0.0), err)
+    return errs
+
+
+def time_threefry(device):
+    """Each output at n counters: the wrapper (CUDA events), the kernel
+    alone (profiler) and the plain twin on the card, against the bound;
+    fails where a time beats it.  Returns {output: timing dict}."""
+    from vpic_tpu_torch.core import random as rnd
+    n = THREEFRY_LANES
+    key = rnd.make_key(7, device)
+    runs = {"split": (lambda: rnd.split(key, n),
+                      lambda: rnd.plain_split(key, n)),
+            "uniform": (lambda: rnd.uniform(key, n, 0.0, 1.0),
+                        lambda: rnd.plain_uniform(key, n, 0.0, 1.0)),
+            "normal": (lambda: rnd.normal(key, n),
+                       lambda: rnd.plain_normal(key, n))}
+    out = {}
+    for what, (run_k, run_p) in runs.items():
+        p1, k1, k2, p2 = (cuda_ms(run_p, 5), cuda_ms(run_k, 20),
+                          cuda_ms(run_k, 20), cuda_ms(run_p, 5))
+        kernel_ms, ops = profiled_ms(run_k, 20, ("threefry_kernel",), 1)
+        bound_ms, bound_by = threefry_bound(what, n)
+        held_to_bound(f"threefry {what}: the kernel alone", kernel_ms,
+                      bound_ms)
+        held_to_bound(f"threefry {what}: the wrapper", min(k1, k2), bound_ms)
+        log(f"  timing, threefry {what} at {n} counters: wrapper "
+            f"{k1:.4f} / {k2:.4f} ms ({ops:.1f} device ops per call), "
+            f"kernel alone {kernel_ms:.4f} ms, plain twin {p1:.4f} / "
+            f"{p2:.4f} ms; bound {bound_ms:.4f} ms ({bound_by}), the kernel "
+            f"at {bound_ms / kernel_ms:.4f} of it")
+        out[what] = dict(ms=min(k1, k2), kernel_ms=kernel_ms,
+                         plain_ms=min(p1, p2), bound_ms=bound_ms,
+                         bound_by=bound_by, library_ms=None)
+    return out
+
+
+def _open_graph_deck(variant):
+    return lambda device: open_box(device, variant, **OPEN_FULL)
+
+
+def _coll_graph_deck(size):
+    def build(device):
+        import importlib
+        saved = {k: os.environ.get(k) for k in size}
+        os.environ.update(size)
+        try:
+            return importlib.import_module(
+                "vpic_tpu_torch.decks.collisions").deck(device=device)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+    return build
+
+
+OPEN_GRAPH_DECKS = dict(
+    {f"open {v}": (_open_graph_deck(v), v) for v in OPEN_VARIANTS},
+    **{f"collisions {k}": (_coll_graph_deck(v), None)
+       for k, v in COLL_SIZES.items()})
+
+
+def open_books(variant):
+    """The books of phase 13's checks after a run: (sim, n0) -> counts."""
+    def books(sim, n0):
+        return open_counts(sim, variant, n0) if variant else dict(
+            alive=alive_count(sim), dropped=sim.mover_counts()["electron"])
+    return books
+
+
+def check_books(label, variant, c):
+    if c["dropped"]:
+        raise AssertionError(f"{label}: dropped movers {c}")
+    if variant == "reflux" and c["gone"]:
+        raise AssertionError(f"{label}: the reflux walls lost {c['gone']}")
+    if variant == "tally" and c["tally"] != c["gone"]:
+        raise AssertionError(f"{label}: tally {c['tally']} != gone "
+                             f"{c['gone']}")
+    if variant == "link" and c["ring"] != c["gone"]:
+        raise AssertionError(f"{label}: ring {c['ring']} != gone "
+                             f"{c['gone']}")
+
+
+def phase_open_graphs(device, card):
+    """Phase 19: the threefry kernel against its twin and timed, then each
+    deck of OPEN_GRAPH_DECKS graphed and eager, each built alone from one
+    seed: after OPEN_GRAPH_STEPS steps the same checksums, energies,
+    random state, books and kernel launches, bit for bit, and the same
+    checksums, random state and books after the windows and the trace
+    (88 steps or so, when the walls have taken lanes); no dropped
+    mover, the books balanced, the whole run graphed and no host read in
+    the graphed trace.  Returns (the threefry errors, its timings, the
+    record of each deck, the threefry launches of each graphed run)."""
+    import torch
+    errs = check_threefry(device)
+    timing = time_threefry(device)
+    torch.cuda.empty_cache()
+    recs, launches = {}, {}
+    steps = OPEN_GRAPH_STEPS
+    for label, (build, variant) in OPEN_GRAPH_DECKS.items():
+        books = open_books(variant)
+        g = graph_run(label, build, device, steps, True, books)
+        e = graph_run(label, build, device, steps, False, books)
+        for key in ("fields", "species", "energies", "movers", "launches",
+                    "rng", "books", "end"):
+            if g[key] != e[key]:
+                raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
+                                     f"eager {e[key]}")
+        check_books(label, variant, g["books"])
+        check_books(label, variant, g["end"]["books"])
+        if g["dispatch"].get("eager_steps") or \
+                g["dispatch"]["graphed_steps"] != steps or \
+                e["dispatch"] != {"eager_steps": steps}:
+            raise AssertionError(f"{label}: dispatch {g['dispatch']}, "
+                                 f"eager {e['dispatch']}")
+        if g["reads"]:
+            raise AssertionError(f"{label}: {g['reads']} host reads per "
+                                 "graphed step")
+        drawn = {k: v for k, v in g["launches"].items()
+                 if k.startswith("threefry") and v}
+        if not drawn.get("threefry_split"):
+            raise AssertionError(f"{label}: no threefry launch in "
+                                 f"{g['launches']}")
+        launches[label] = drawn
+        log(f"  {label} ({card}): after {steps} steps graphed = eager "
+            f"bitwise (fields {g['fields'][:16]}..., species checksums, "
+            f"energies, rng {g['rng']}, books {g['books']}, launches "
+            f"{ {k: v for k, v in g['launches'].items() if v} }), and again "
+            f"after the windows and the trace at step {g['end']['step']} "
+            f"(books {g['end']['books']}); graphed dispatch "
+            f"{g['dispatch']}, host reads per graphed step "
+            f"{g['reads']:.1f}")
+        for name, r in (("graphed", g), ("eager", e)):
+            log(f"  {label}, {name}: step {r['step_ms']:.4f} ms "
+                f"({r['step_min_ms']:.4f}-{r['step_max_ms']:.4f}), busy "
+                f"{r['busy_ms']:.4f} ms/step, {r['ops']:.1f} ops/step, host "
+                f"reads {r['reads']:.1f}/step, idle share "
+                f"{r['idle_share']:.4f}, peak allocated {r['peak_gb']:.3f} "
+                f"GB, built in {r['build_s']:.2f} s"
+                + ("; busy ms by step part " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in r["parts"].items() if k and v)
+                   if name == "eager" else "")
+                + (", captures " + "; ".join(
+                    f"{c['kind']} of {c['steps']} steps: warm-up "
+                    f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s"
+                    for c in r["captures"]) if r["captures"] else ""))
+        recs[label] = {name: {k: r[k] for k in (
+            "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
+            "idle_share", "peak_gb", "captures")}
+            for name, r in (("graphed", g), ("eager", e))}
+        recs[label]["eager"]["parts_busy_ms"] = {
+            k: v for k, v in e["parts"].items() if k}
+        recs[label]["push_launches"] = g["launches"]["push"]
+        recs[label]["graphed_reads"] = g["reads"]
+    return errs, timing, recs, launches
+
+
+def open_fields(recs):
+    """The push record's open_* and collisions_* fields that phase 19
+    measures: per open variant its graphed busy ms, ops, idle share and
+    host reads, its op-by-op step and its rounds' and emitters' busy ms;
+    per collisions size its push launches, graphed and op-by-op step,
+    busy ms and the hook's busy ms."""
+    fields = {}
+    for variant in OPEN_VARIANTS:
+        rec = recs[f"open {variant}"]
+        parts = rec["eager"]["parts_busy_ms"]
+        fields.update({f"open_{variant}_{k}": v for k, v in dict(
+            busy_ms=rec["graphed"]["busy_ms"],
+            ops_per_step=rec["graphed"]["ops"],
+            idle_share=rec["graphed"]["idle_share"],
+            host_reads_per_step=rec["graphed_reads"],
+            eager_step_ms=rec["eager"]["step_ms"],
+            boundary_busy_ms=parts["step.boundary"],
+            emit_busy_ms=parts["step.emit"]).items()})
+    for name in COLL_SIZES:
+        rec = recs[f"collisions {name}"]
+        key = f"collisions_{name.replace('^2', 'sq')}"
+        fields.update({
+            f"{key}_launches": rec["push_launches"],
+            f"{key}_step_ms": rec["graphed"]["step_ms"],
+            f"{key}_busy_ms": rec["graphed"]["busy_ms"],
+            f"{key}_eager_step_ms": rec["eager"]["step_ms"],
+            f"{key}_collide_busy_ms":
+            rec["eager"]["parts_busy_ms"]["step.collide"]})
+    return fields
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4622,13 +4928,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/18] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/19] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/18] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/19] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -4636,17 +4942,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/18] kernel vs plain, small 3D grid")
+    log("[3/19] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/18] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/19] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/18] determinism: checked above, per case and species")
+    log("[4/19] determinism: checked above, per case and species")
 
-    log("[5/18] slice")
+    log("[5/19] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -4654,15 +4960,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/18] deposit kernel vs plain")
+    log("[6/19] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/18] merge re-sort kernels vs plain")
+    log("[7/19] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/18] path A: the unfused push")
+    log("[8/19] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/18] path B: the packed cycle with the merge re-sort")
+    log("[9/19] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -4672,28 +4978,34 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/18] determinism: the charge deposit on the card")
+    log("[10/19] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/18] the turbulence deck through the CLI")
+    log("[11/19] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/18] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/19] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/18] open particle boundaries and the collisions deck")
+    log("[13/19] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/18] materials: the material box")
+    log("[14/19] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/18] several shards on the card: the bench deck on 4 shards, "
+    log("[15/19] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
-    log("[16/18] the tools path: the probe kernels of tools/ and the drift "
+    log("[16/19] the tools path: the probe kernels of tools/ and the drift "
         "comparison against the float64 reference")
     tool_kernels, _ = phase_tools(device, card)
-    log("[17/18] the harness tools at full size: evidence, the scaling sweep "
+    log("[17/19] the harness tools at full size: evidence, the scaling sweep "
         "(3D 64^3 and 16M particles included), the per-op profile")
     harness = phase_harness(device, card)
-    log("[18/18] the step as CUDA graphs: graphed against eager, bitwise, "
+    log("[18/19] the step as CUDA graphs: graphed against eager, bitwise, "
         "timed")
     graph_recs = phase_graphs(device, card)
+    log("[19/19] the open decks as CUDA graphs: the threefry kernel against "
+        "its twin, the open variants and the collisions deck graphed "
+        "against eager, bitwise, timed")
+    rnd_errs, rnd_t, open_graph_recs, rnd_launches = phase_open_graphs(
+        device, card)
+    opened.update(open_fields(open_graph_recs))
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -4704,7 +5016,7 @@ def main():
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
              **recon, **opened, **materials, **shard_push, **shard_walk,
-             **harness, graphs=graph_recs),
+             **harness, graphs=graph_recs, open_graphs=open_graph_recs),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",
@@ -4730,6 +5042,19 @@ def main():
     for k in kernels:
         k["route"] = "cuda"
         k["launches_per_step"] = main_launches[k["name"]] / steps
+    # the threefry kernel's main path is phase 19's graphed runs: its
+    # launches there, summed over the decks, and per deck
+    for what in ("split", "uniform", "normal"):
+        name = "threefry_" + what
+        per_deck = {d: c.get(name, 0) for d, c in rnd_launches.items()}
+        if not sum(per_deck.values()):
+            raise AssertionError(f"{name}: no launch in phase 19's graphed "
+                                 "runs")
+        kernels.append(dict(
+            name=name, route="cuda", source=THREEFRY_SOURCE,
+            replaces=THREEFRY_REPLACES, launches=sum(per_deck.values()),
+            launches_by_deck=per_deck, max_abs_err=rnd_errs[what],
+            **rnd_t[what]))
     print(json.dumps({"kernels": kernels + tool_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

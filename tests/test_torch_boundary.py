@@ -11,7 +11,10 @@ codes, counts and rings exact; particle floats rtol 4e-6, atol 1e-6; the
 accumulator rtol 1e-5, atol 1e-6; rhob within 1e-6 of the summed |weight|
 per node (the port sums in fixed point, the JAX package in float32);
 energies 1e-6 relative.  The reflux handler's arithmetic is fed the JAX
-package's draws; its own draws are held by statistics.
+package's draws; its own draws are held by statistics and, since the
+port draws the JAX package's threefry stream, value for value: one round
+and the drifting box with reflux walls for 12 steps from the JAX
+package's state and key.
 """
 
 import numpy as np
@@ -144,6 +147,27 @@ def test_drifting_box_particles_match_jax(box_runs):
                                atol=1e-6 * float(np.abs(jr).max()))
 
 
+def test_reflux_box_matches_jax_value_for_value():
+    """The drifting box with reflux walls on the low x face (the box of
+    box_runs, whose tally counts lanes on that face), 12 steps in both
+    packages from the JAX package's finalized state and key: the port
+    draws the JAX package's reflux momenta, so the counts are exact, the
+    energies within 1e-6 and the live lanes equal as sets to 1e-5."""
+    kw = dict(ut_para=(0.2,), ut_perp=(0.2,))
+    jsim = drifting_box(JSimulation, jmodels.MaxwellianReflux(**kw))
+    jsim.finalize()
+    tsim = drifting_box(Simulation, models.MaxwellianReflux(**kw),
+                        device="cpu")
+    tsim.finalize()
+    n0 = alive(jsim.state.species[0])
+    runs = torch_decks.open_runs(jsim, tsim, STEPS)
+    torch_decks.check_energies_and_movers(runs)
+    torch_decks.check_live_lanes(runs)
+    assert alive(tsim.state.species[0]) == alive(jsim.state.species[0]) \
+        < n0
+    assert runs["tnm"] == {"electron": 0}
+
+
 def test_compact_indices_matches_jax():
     rng = np.random.default_rng(3)
     mask = rng.uniform(size=200) < 0.15
@@ -246,18 +270,19 @@ class FedReflux(models.MaxwellianReflux):
         super().__init__(**kw)
         object.__setattr__(self, "fed", fed)
 
-    def draws(self, key, n, device):
+    def draws(self, key, n):
         return self.fed
 
 
-ROUND_HANDLERS = ("absorb", "tally", "link", "reflux")
+ROUND_HANDLERS = ("absorb", "tally", "link", "reflux", "reflux drawn")
 
 
 @pytest.mark.parametrize("variant", ROUND_HANDLERS)
 def test_boundary_round_matches_jax(variant):
     """One round: the low x face absorbing or custom, the high x face
-    absorbing.  Both packages get one pending species; the reflux handler
-    the JAX package's draws."""
+    absorbing.  Both packages get one pending species and the same key;
+    the reflux handler is fed the JAX package's draws, or ("reflux
+    drawn") draws its own from the key."""
     code = NEIGHBOR_ABSORB if variant == "absorb" else \
         models.handler_code(0, 0)
     jg, g = _grids((code, PERIODIC_FIELDS, PERIODIC_FIELDS, NEIGHBOR_ABSORB,
@@ -273,7 +298,9 @@ def test_boundary_round_matches_jax(variant):
                   (models.AbsorbTally(n_species=1),)),
         "link": ((jmodels.LinkBoundary(capacity=256),),
                  (models.LinkBoundary(capacity=256),)),
-        "reflux": ((jmodels.MaxwellianReflux(**kw),), None)}[variant]
+        "reflux": ((jmodels.MaxwellianReflux(**kw),), None),
+        "reflux drawn": ((jmodels.MaxwellianReflux(**kw),),
+                         (models.MaxwellianReflux(**kw),))}[variant]
     if variant == "reflux":
         k1, k2, k3 = jax.random.split(jax.random.split(key, 1)[0], 3)
         fed = (jax.random.uniform(k1, (max_inj,), jnp.float32,
@@ -299,8 +326,8 @@ def test_boundary_round_matches_jax(variant):
         jsp, jnp.asarray(acc))
     tout = boundary.process_boundary(
         tsp, FieldState.zeros(g), torch.as_tensor(acc), nb, g, None,
-        max_inj, n_walk, handlers=th, bstate=tb, key=rnd.fold(
-            rnd.split(rnd.make_key(1))[1], 0),
+        max_inj, n_walk, handlers=th, bstate=tb,
+        key=torch.as_tensor(np.asarray(jax.random.key_data(key), np.int64)),
         step=torch.tensor(step, dtype=torch.int32))
     (jsp1, jf, jacc, jbs), (tsp1, tf, tacc, tbs) = jout, tout
 
@@ -315,7 +342,7 @@ def test_boundary_round_matches_jax(variant):
     np.testing.assert_allclose(tacc.numpy(), np.asarray(jacc), **ACC)
     # the lanes deposited into rhob: absorbed, or killed by a handler
     dead = (cols["pc"] == NEIGHBOR_ABSORB) | (
-        (cols["pc"] == code) & (variant != "reflux"))
+        (cols["pc"] == code) & (not variant.startswith("reflux")))
     t = lambda a: torch.as_tensor(a[dead])
     bar = _rhob_bar(g, t(cols["i"]), t(cols["q"]), t(cols["dx"]),
                     t(cols["dy"]), t(cols["dz"]),
@@ -477,17 +504,30 @@ def test_checkpoint_restores_rng_and_boundary_state(tmp_path):
     for k, v in first.items():
         np.testing.assert_array_equal(np.asarray(second[k]), np.asarray(v),
                                       err_msg=k)
-    assert int(first["rng"][1]) == 6
+    # one split of the key per step, by the boundary rounds
+    key = rnd.make_key(2 * 65537)
+    for _ in range(6):
+        key = rnd.split(key)[0]
+    np.testing.assert_array_equal(first["rng"], key.numpy())
 
 
 def test_state_from_jax_takes_rng(box_runs):
-    """A state of the JAX package carries no port random state: it takes
-    the one given to ``state_from_numpy``, and without one the step
-    raises, naming the cause, at its first draw."""
+    """A state of the JAX package loads with its own key where the caller
+    adds its data (``jax.random.key_data``; the dict of
+    ``state_to_numpy`` cannot hold the typed key), takes the ``rng``
+    given as an override, and without either the step raises, naming the
+    cause, at its first draw."""
     d0 = box_runs["d0"]
     assert "rng" not in d0
+    jkey = jax.random.key(2 * 65537)
+    loaded = state_from_numpy(dict(d0, rng=jax.random.key_data(jkey)))
+    assert loaded.rng.dtype == torch.int64
+    np.testing.assert_array_equal(loaded.rng.numpy(),
+                                  np.asarray(jax.random.key_data(jkey)))
     key = rnd.make_key(5)
     assert torch.equal(state_from_numpy(d0, rng=key).rng, key)
+    assert torch.equal(state_from_numpy(dict(d0, rng=[0, 9]), rng=key).rng,
+                       key)
     sim = drifting_box(Simulation, models.AbsorbTally(n_species=1),
                        device="cpu")
     sim.finalize()

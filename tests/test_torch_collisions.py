@@ -1,7 +1,8 @@
 """The collisions deck of the port (``vpic_tpu_torch/decks/collisions.py``)
 against the JAX package's (``decks/collisions.py``): the pitch-angle
-rotation fed the JAX hook's own draws (to float32 roundoff: rtol 4e-6,
-atol 1e-6), |u| kept per lane, isotropization by statistics
+rotation fed the JAX hook's own draws, and the hook on one state and key
+in both packages (to float32 roundoff: rtol 4e-6, atol 1e-6), |u| kept
+per lane, isotropization by statistics
 (tests/test_tracers_collisions.py:77), the deck's numpy load, and the
 deck through the port's CLI.
 """
@@ -20,6 +21,8 @@ from vpic_tpu.core.types import SimState as JState, SpeciesState as JSpecies
 
 from vpic_tpu_torch import Simulation
 from vpic_tpu_torch.cli import run as cli
+from vpic_tpu_torch.core import random as rnd
+from vpic_tpu_torch.core.types import SimState, SpeciesState
 from vpic_tpu_torch.decks import collisions
 
 from tests import torch_decks  # noqa: F401  (one torch thread)
@@ -59,6 +62,39 @@ def test_rotation_matches_jax_with_its_draws():
         mine = np.where(keep, rot[k].numpy(), u[k])
         np.testing.assert_allclose(mine, np.asarray(getattr(out, c)),
                                    err_msg=c, **FLOATS)
+
+
+def test_hook_matches_jax_value_for_value():
+    """Both hooks on one state of two species and one key: the port splits
+    and draws as the JAX hook does, so every momentum agrees to float32
+    roundoff and the new keys are equal."""
+    jdeck = importlib.import_module("decks.collisions")
+    n = 3000
+    rng = np.random.default_rng(3)
+    u = rng.normal(0, 0.3, (2, 3, n)).astype(np.float32)
+    key = jax.random.key(123457)
+    jspecies = tuple(JSpecies.create(f"s{k}", k, -1.0, n).replace(
+        np=jnp.int32(n - 50 * k), ux=jnp.asarray(u[k, 0]),
+        uy=jnp.asarray(u[k, 1]), uz=jnp.asarray(u[k, 2])) for k in (0, 1))
+    jout = jdeck.make_pitch_angle_collisions(NU_DT)(JState(
+        field=None, interpolator=None, species=jspecies, grid_arrays=None,
+        materials=None, material_grid=None, rng=key, step=jnp.int32(0)))
+    tspecies = tuple(SpeciesState.create(f"s{k}", k, -1.0, n).replace(
+        np=torch.tensor(n - 50 * k, dtype=torch.int32),
+        ux=torch.as_tensor(u[k, 0]), uy=torch.as_tensor(u[k, 1]),
+        uz=torch.as_tensor(u[k, 2])) for k in (0, 1))
+    tstate = SimState(field=None, interpolator=None, species=tspecies,
+                      grid_arrays=None, materials=None,
+                      step=torch.tensor(0), rng=rnd.make_key(123457))
+    tout = collisions.make_pitch_angle_collisions(NU_DT)(tstate)
+    for k in (0, 1):
+        for c in ("ux", "uy", "uz"):
+            np.testing.assert_allclose(
+                getattr(tout.species[k], c).numpy(),
+                np.asarray(getattr(jout.species[k], c)), err_msg=c,
+                **FLOATS)
+    np.testing.assert_array_equal(tout.rng.numpy(),
+                                  np.asarray(jax.random.key_data(jout.rng)))
 
 
 def small_deck(monkeypatch, nx=8, ppc=4):
@@ -109,7 +145,8 @@ def test_hook_keeps_each_speed_and_isotropizes():
                 + sp.uz.double() ** 2)[sp.alive].numpy()
 
     once = hook(sim.state)
-    assert int(once.rng[1]) == int(sim.state.rng[1]) + 1
+    # the hook takes one split of the state's key, as the JAX hook does
+    assert torch.equal(once.rng, rnd.split(sim.state.rng)[0])
     np.testing.assert_allclose(np.sqrt(speed2(once)),
                                np.sqrt(speed2(sim.state)), rtol=2e-6)
     a0, k0 = collisions.anisotropy(sim), speed2(sim.state).sum()

@@ -29,7 +29,9 @@ chain or io4d plan off its block, and of a stack8 or onehot3d plan that
 takes 16-byte accesses or the staged row on a pointer off 16 bytes.
 The harness tools on the card: the evidence tool twice (EVIDENCE OK, the
 checksums repeated, one push launch per species and step) and the
-scaling sweep on one small configuration.
+scaling sweep on one small configuration.  The threefry kernel
+(csrc/threefry.cu) bitwise its twin (normal within a few ulps), its
+launcher's refusals, and the reflux box graphed bitwise its eager steps.
 Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
@@ -556,3 +558,57 @@ def test_a_failed_capture_raises(device):
     assert sim.dispatch_counts["eager_steps"] == 0
     assert sim.step_count == 0
     torch.cuda.synchronize()
+
+
+def test_threefry_kernel_matches_its_twin(device):
+    """chip_smoke's check at the 256^2 collisions deck's lane count: split
+    and uniform bitwise the plain twin on the card and on the CPU, normal
+    within NORMAL_ULPS, two runs bitwise equal."""
+    errs = cs.check_threefry(device)
+    assert errs["split"] == errs["uniform"] == 0.0
+
+
+def test_threefry_launcher_refuses_what_it_cannot_do(device):
+    """A split into a misaligned output (its 16-byte stores), a draw of
+    2^32 counters and a key on the CPU are refused; n = 0 launches
+    nothing."""
+    import ctypes
+    from vpic_tpu_torch.core import random as rnd, random_cuda
+    key = rnd.make_key(3, device)
+    buf = torch.empty(2 * 8 + 2, dtype=torch.int64, device=device)
+    with pytest.raises(ValueError, match="16-byte"):
+        random_cuda._launch("split", key, buf[1:17].view(8, 2), 8)
+    err = random_cuda._lib().vpic_threefry(
+        key.data_ptr(), ctypes.c_void_p(buf.data_ptr() + 8), 8, 0, 0.0, 1.0,
+        torch.cuda.current_stream(device).cuda_stream)
+    assert err == 1     # cudaErrorInvalidValue
+    with pytest.raises(ValueError, match="2\\^32"):
+        rnd.uniform(key, 2 ** 32)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        random_cuda.split(key.cpu(), 4)
+    random_cuda.reset_launch_counts()
+    assert rnd.normal(key, 0).shape == (0,)
+    assert random_cuda.launches["threefry_normal"] == 0
+
+
+def test_an_open_deck_graphed_is_bitwise_eager(device):
+    """The reflux box at 32^2 (the draws on the card every step) through
+    its CUDA graphs and op by op from one seed: 12 steps give the same
+    fields, species, energies, random state and movers, bit for bit, and
+    each replay adds its threefry launches."""
+    from vpic_tpu_torch.core import random_cuda
+    g, e = (cs.open_box(device, "reflux", nx=32, ppc=16) for _ in range(2))
+    assert g.graphed
+    random_cuda.reset_launch_counts()
+    g.advance(12)
+    graphed = dict(random_cuda.launches)
+    random_cuda.reset_launch_counts()
+    e.advance_eager(12)
+    assert graphed == random_cuda.launches
+    assert graphed["threefry_normal"] == 12 * 2 * g.opts.num_comm_round
+    assert g.checksum_fields() == e.checksum_fields()
+    assert g.checksum_species("electron") == e.checksum_species("electron")
+    assert g.energies() == e.energies()
+    assert torch.equal(g.state.rng, e.state.rng)
+    assert g.mover_counts() == e.mover_counts() == {"electron": 0}
+    assert g.dispatch_counts["graphed_steps"] == 12

@@ -2,8 +2,9 @@
 CPU (tests/test_boundary_emit.py): the component scans, the charge law of
 each model and its threshold gate (exact: they do not depend on the random
 draws), the emitted lanes' positions, momenta and ages (by statistics:
-the port draws from its own random state), the emitters through the
-port's step, and a restart.
+and value for value: the port draws the JAX package's threefry stream),
+the emitters through the port's step, the emitter box for 12 steps in
+both packages, and a restart.
 
 The emitter box is tests/test_boundary_emit.py:_emitter_sim: 8x8 cells,
 absorbing faces, a uniform ex = -0.1 that pulls electrons off the low x
@@ -157,6 +158,43 @@ def test_threshold_gate_matches_jax(boxes):
         jsp, tsp, _ = emit_once(boxes, name, thresh)
         np.testing.assert_array_equal(tsp.i.numpy(), np.asarray(jsp.i))
         assert int(tsp.np) == int(jsp.np) == (8 * M if emits else 0), name
+
+
+def test_emitted_lanes_match_jax(boxes):
+    """One call in each package on one state and key: every emitted
+    lane's voxel, code and charge exact, positions, momenta and aging
+    displacements to float32 roundoff."""
+    jsp, tsp, _ = emit_once(boxes, "ChildLangmuir", m=16)
+    assert int(tsp.np) == int(jsp.np) == 8 * 16
+    for c in ("i", "pc", "q"):
+        np.testing.assert_array_equal(getattr(tsp, c).numpy(),
+                                      np.asarray(getattr(jsp, c)),
+                                      err_msg=c)
+    for c in ("dx", "dy", "dz", "ux", "uy", "uz", "mdx", "mdy", "mdz"):
+        np.testing.assert_allclose(getattr(tsp, c).numpy(),
+                                   np.asarray(getattr(jsp, c)), rtol=4e-6,
+                                   atol=1e-6, err_msg=c)
+
+
+def test_emitter_box_matches_jax_value_for_value():
+    """The emitter box with a ChildLangmuir emitter on the low x face, 12
+    steps in both packages from the JAX package's finalized state and
+    key: energies within 1e-6, no dropped mover, the live lanes equal as
+    sets to 1e-5 and the key equal."""
+    def build(cls, mod, **kw):
+        sim = emitter_box(cls, **kw)
+        sim.define_surface_emitter(mod.ChildLangmuir(
+            sid=0, q_m=-1.0, components=((), ()), n_emit_per_face=M,
+            ut_para=0.05, ut_perp=0.05), face=0)
+        sim.finalize()
+        return sim
+
+    runs = torch_decks.open_runs(build(JSimulation, jemit),
+                                 build(Simulation, emit, device="cpu"), 12)
+    torch_decks.check_energies_and_movers(runs)
+    torch_decks.check_live_lanes(runs)
+    assert int(runs["t1"]["species/0/np"]) > 8 * M
+    assert runs["tnm"] == {"electron": 0}
 
 
 def test_emitted_lanes_statistics(boxes):

@@ -177,6 +177,62 @@ def test_advance_n_is_advance_1_n_times_across_a_clean(monkeypatch):
     assert whole.dispatch_counts["replays.step"] == 4
 
 
+def _reflux_box(device):
+    from tests.test_torch_boundary import drifting_box
+    from vpic_tpu_torch.boundary.models import MaxwellianReflux
+    sim = drifting_box(Simulation, MaxwellianReflux(ut_para=(0.2,),
+                                                    ut_perp=(0.2,)),
+                       device=device)
+    sim.finalize()
+    return sim
+
+
+def _collisions_box(device):
+    from vpic_tpu_torch.decks import collisions
+    return collisions.deck(device=device)
+
+
+@pytest.mark.parametrize("deck", ["reflux", "collisions"])
+def test_a_drawing_deck_graphed_is_eager(static_runner, monkeypatch, deck):
+    """A deck that draws every step (reflux walls; the collisions deck at
+    8^2, 4 per cell), through the static runner and op by op: equal bit
+    for bit after 12 steps, the random state included, which moved."""
+    monkeypatch.setenv("COLL_NX", "8")
+    monkeypatch.setenv("COLL_PPC", "4")
+    build = dict(reflux=_reflux_box, collisions=_collisions_box)[deck]
+    eager = build("cpu")
+    static_runner()
+    sim = build("cpu")
+    assert sim.graphed and not eager.graphed
+    key0 = sim.state.rng.clone()
+    sim.advance(12)
+    eager.advance(12)
+    assert_same(sim, eager)
+    assert not torch.equal(sim.state.rng, key0)
+    assert sim.dispatch_counts["graphed_steps"] == 12
+
+
+@pytest.mark.parametrize("graphed", [False, True])
+def test_advance_returns_the_state(static_runner, graphed):
+    """``advance(n)`` returns the new state as the JAX package's does:
+    ``sim.state`` on one shard, ``sim.states`` on several (which step
+    eagerly)."""
+    sharded = bench_deck.build(**SMALL, px=2, py=2, device="cpu")
+    if graphed:
+        static_runner()
+    sim = bench_deck.build(**SMALL, device="cpu")
+    assert sim.graphed is graphed
+    out = sim.advance(3)
+    assert sim.step_count == 3
+    for key, v in state_to_numpy(sim.state).items():
+        np.testing.assert_array_equal(state_to_numpy(out)[key], v,
+                                      err_msg=key)
+    outs = sharded.advance(2)
+    assert isinstance(outs, list) and len(outs) == 4
+    for a, b in zip(outs, sharded.states):
+        assert a is b
+
+
 def test_a_held_state_is_a_value(static_runner):
     static_runner()
     sim = bench_deck.build(**SMALL, device="cpu")
@@ -258,20 +314,21 @@ DECKS = {
                             dict(merge_sort=True), False),
     "four shards": (lambda: bench_deck.build(**SMALL, px=2, py=2,
                                              device="cpu"), {}, False),
-    "absorbing face": (_absorbing, {}, False),
-    "boundary handler": (_tally, {}, False),
+    "absorbing face": (_absorbing, {}, True),
+    "boundary handler": (_tally, {}, True),
     "collision hook": (mini, dict(user_particle_collisions=lambda st: st),
-                       False),
+                       True),
     "injection hook": (mini, dict(user_particle_injection=lambda st: st),
-                       False),
+                       True),
 }
 
 
 @pytest.mark.parametrize("name", list(DECKS))
 def test_graph_ok_is_a_static_rule(name):
-    """On the card a deck runs graphed unless it draws random keys on the
-    host (rounds, emitters, injection, collisions), runs the packed merge
-    re-sort or has several shards; the CPU always steps eagerly."""
+    """On the card a deck runs graphed unless it runs the packed merge
+    re-sort or has several shards: the decks that draw (rounds, emitters,
+    injection, collisions) draw on the device and run graphed too; the
+    CPU always steps eagerly."""
     build, opts, ok = DECKS[name]
     sim = build()
     hooks = {k: v for k, v in opts.items() if k.startswith("user_")}

@@ -366,6 +366,15 @@ def test_checkpoint_rejects_mismatches(tmp_path):
     with pytest.raises(ValueError, match="format"):
         small_deck().restore(tmp_path / "other")
 
+    # format 1 held the port's random state before the JAX package's key
+    sim.checkpoint(tmp_path / "v1")
+    meta = json.loads((tmp_path / "v1.json").read_text())
+    assert meta["version"] == 2
+    meta["version"] = 1
+    (tmp_path / "v1.json").write_text(json.dumps(meta))
+    with pytest.raises(ValueError, match="format 1, not .* format 2"):
+        small_deck().restore(tmp_path / "v1")
+
 
 def test_rotating_checkpointer(tmp_path):
     sim = small_deck()

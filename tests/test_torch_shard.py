@@ -359,9 +359,10 @@ def two_shard():
     (every step to 20; the deck's seed only keys the random state, which
     this deck never draws from, so the JAX test's seeds 3 and 31 build the
     same deck)."""
+    import jax
     jsim, tsim, t1 = deck(JSim, px=2), deck(port, px=2), deck(port)
     out = dict(j0=shard_dicts(jsim), t0=shard_dicts(tsim), tsim=tsim,
-               drift=[])
+               drift=[], jkeys=np.asarray(jax.random.key_data(jsim.state.rng)))
     for step in range(1, 21):
         for sim in (jsim, tsim, t1):
             sim.advance(1)
@@ -439,9 +440,11 @@ def skewed_runs():
 
 
 def test_two_shard_initial_state_matches_jax(two_shard):
-    """Both packages place the same lanes on the same shards; the JAX
-    package's stacked initial state loads into the port's per-shard list
-    (interop) with the port's own fields and lanes."""
+    """Both packages place the same lanes on the same shards and key each
+    shard's random state alike (seed * 65537 + rank); the JAX package's
+    stacked initial state, with its keys' data, loads into the port's
+    per-shard list (interop) with the port's own fields, lanes and keys,
+    and an ``rngs`` override replaces the keys."""
     j0, t0 = two_shard["j0"], two_shard["t0"]
     for r, (a, b) in enumerate(zip(t0, j0)):
         for c in ("dx", "dy", "dz", "i", "q", "np"):
@@ -451,12 +454,21 @@ def test_two_shard_initial_state_matches_jax(two_shard):
     same_fields(t0, j0)
     g = two_shard["tsim"].grid
     stacked = stack_numpy(j0, (g.gpz, g.gpy, g.gpx))
-    states = states_from_numpy(stacked, 2, ["cpu"],
-                               rngs=[rnd.make_key(r) for r in range(2)])
-    for st, d in zip(states, j0):
+    jkeys = two_shard["jkeys"]
+    assert jkeys.shape == (g.gpz, g.gpy, g.gpx, 2)
+    states = states_from_numpy(dict(stacked, rng=jkeys), 2, ["cpu"])
+    for r, (st, d) in enumerate(zip(states, j0)):
         np.testing.assert_array_equal(st.species[0].i.numpy(),
                                       d["species/0/i"])
         np.testing.assert_array_equal(st.field.ex.numpy(), d["field/ex"])
+        np.testing.assert_array_equal(st.rng.numpy(), jkeys[0, 0, r])
+        np.testing.assert_array_equal(t0[r]["rng"], jkeys[0, 0, r])
+        np.testing.assert_array_equal(
+            st.rng.numpy(), rnd.make_key(3 * 65537 + r).numpy())
+    override = states_from_numpy(dict(stacked, rng=jkeys), 2, ["cpu"],
+                                 rngs=[rnd.make_key(r) for r in range(2)])
+    for r, st in enumerate(override):
+        assert torch.equal(st.rng, rnd.make_key(r))
 
 
 def test_two_shard_equivalence(two_shard):

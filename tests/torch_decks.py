@@ -10,6 +10,10 @@ size, built once in each package.
   by (voxel, tag, position), voxels and tags exact and floats to 1e-5
   absolute; fields and interpolator to 1e-5 absolute; equal dropped-mover
   counts.
+- The open decks (drifting boxes with reflux walls or an emitter,
+  :func:`open_runs`): both packages from the JAX package's finalized
+  state and its key, which the port draws from as the JAX package does;
+  energies as above and the live lanes as sets (:func:`check_live_lanes`).
 - The port's CLI (``--device cpu``, in process) runs 4 steps with a
   checkpoint at step 2; a second call restarted from it reaches step 4
   with the same bytes in every dump of step 4.  Without ``--device`` it
@@ -30,7 +34,7 @@ import torch
 
 from vpic_tpu_torch.cli import run as cli
 from vpic_tpu_torch.core.types import FIELD_COMPONENTS
-from vpic_tpu_torch.interop import state_to_numpy
+from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
 
 STEPS = 8
 DRIFT_STEPS = 25
@@ -119,6 +123,62 @@ def check_particles(runs, k):
     np.testing.assert_array_equal(t["tag"], j["tag"])
     for c in ("dx", "dy", "dz", "ux", "uy", "uz", "q"):
         np.testing.assert_allclose(t[c], j[c], rtol=0, atol=BAR, err_msg=c)
+
+
+def open_runs(jsim, tsim, steps):
+    """Two finalized decks, one of each package: the JAX package's lanes
+    put in voxel order (a stable sort) and the port loaded with that state
+    and its key (``jax.random.key_data``), then ``steps`` steps of each.
+    A draw goes to a lane by its place in the species, so both keep one
+    lane order: the JAX package sorts these decks on their species'
+    sort_interval, 0 (never); the port's sort, on its resort_interval
+    (made 4 * steps here), is the identity at step 0 on lanes in voxel
+    order.  Returns what :func:`check_energies_and_movers` and
+    :func:`check_live_lanes` read."""
+    import dataclasses
+    import jax
+    import jax.numpy as jnp
+    from vpic_tpu_torch.core.types import SPECIES_COLUMNS
+    species = []
+    for sp in jsim.state.species:
+        i = np.asarray(sp.i)
+        order = np.argsort(np.where(np.asarray(sp.alive), i, 2 ** 30),
+                           kind="stable")
+        species.append(sp.replace(**{
+            c: jnp.asarray(np.asarray(getattr(sp, c))[order])
+            for c in SPECIES_COLUMNS if np.shape(getattr(sp, c)) == i.shape}))
+    jsim.state = dataclasses.replace(jsim.state, species=tuple(species))
+    tsim.modify_runparams(resort_interval=4 * steps)
+    d0 = state_to_numpy(jsim.state)
+    tsim.state = state_from_numpy(dict(
+        d0, rng=np.asarray(jax.random.key_data(jsim.state.rng))))
+    jsim.advance(steps)
+    tsim.advance(steps)
+    return dict(je=jsim.energies(), te=tsim.energies(),
+                jnm=jsim.mover_counts(), tnm=tsim.mover_counts(),
+                j1=state_to_numpy(jsim.state), t1=state_to_numpy(tsim.state),
+                jrng=np.asarray(jax.random.key_data(jsim.state.rng)))
+
+
+def _live_lanes(d, k):
+    pre = f"species/{k}/"
+    live = (np.arange(len(d[pre + "i"])) < int(d[pre + "np"])) & (
+        d[pre + "i"] >= 0) & (d[pre + "q"] != 0)
+    cols = {c: d[pre + c][live] for c in ("i", "dx", "dy", "dz", "ux", "uy",
+                                          "uz", "q")}
+    order = np.lexsort((cols["dz"], cols["dy"], cols["dx"], cols["i"]))
+    return {c: v[order] for c, v in cols.items()}
+
+
+def check_live_lanes(runs, k=0):
+    """The live lanes of species ``k`` in both runs as sets ordered by
+    (voxel, position): as many, voxels exact, floats to 1e-5 absolute,
+    and the random state's key equal."""
+    t, j = _live_lanes(runs["t1"], k), _live_lanes(runs["j1"], k)
+    np.testing.assert_array_equal(t["i"], j["i"])
+    for c in ("dx", "dy", "dz", "ux", "uy", "uz", "q"):
+        np.testing.assert_allclose(t[c], j[c], rtol=0, atol=BAR, err_msg=c)
+    np.testing.assert_array_equal(runs["t1"]["rng"], runs["jrng"])
 
 
 def check_fields(runs):

@@ -107,18 +107,19 @@ class MaxwellianReflux(BoundaryHandler):
     ut_para: Tuple[float, ...]
     ut_perp: Tuple[float, ...]
 
-    def draws(self, key: int, n: int, device):
-        """(mu, n1, n2) of n lanes from ``key``."""
-        mu = rnd.uniform(rnd.fold(key, 0), n, TINY, 1.0, device)
-        return (mu, rnd.normal(rnd.fold(key, 1), n, device),
-                rnd.normal(rnd.fold(key, 2), n, device))
+    def draws(self, key, n: int):
+        """(mu, n1, n2) of n lanes from ``key``, split as the JAX package
+        splits it (``vpic_tpu/boundary/models.py:71-77``)."""
+        k1, k2, k3 = rnd.split(key, 3)
+        return (rnd.uniform(k1, n, TINY, 1.0), rnd.normal(k2, n),
+                rnd.normal(k3, n))
 
     def apply(self, key, b, mask, face, f, g: Grid, sid: int, hstate,
               step=None):
         q = b["q"]
         b = reflux_momenta(b, mask, face, g, self.ut_para[sid],
                            self.ut_perp[sid],
-                           *self.draws(key, q.shape[0], q.device))
+                           *self.draws(key, q.shape[0]))
         return b, f, hstate, torch.zeros_like(mask)   # no kills
 
 

@@ -81,7 +81,7 @@ def main(argv=None):
     t0 = time.time()
     steps_done = 0
     while sim.num_step <= 0 or sim.step_count < sim.num_step:
-        sim.advance(1)
+        sim.advance_steps(1)
         steps_done += 1
         if diagnostics is not None:
             diagnostics(sim)

@@ -374,9 +374,10 @@ class SimState:
     """Everything that evolves across a step.  ``material_grid`` holds
     the per-voxel material ids where a deck assigns regions
     (``set_region_material``), else None: every voxel is row 0 of
-    ``materials``.  ``rng`` is the counter-based random state of
-    ``core/random.py`` (the JAX package's ``jax.random`` key), drawn
-    from by the boundary rounds,
+    ``materials``.  ``rng`` is the JAX package's ``jax.random`` key: its
+    two uint32 words (``jax.random.key_data``) as a (2,) int64 tensor on
+    the state's device (``core/random.py``), split and drawn from on the
+    device by the boundary rounds,
     the reflux handler, the emitters and the deck hooks;
     ``boundary_state`` holds one state per custom boundary handler
     (``boundary/models.py``: tally counters, link rings)."""
@@ -387,7 +388,7 @@ class SimState:
     grid_arrays: GridArrays
     materials: MaterialTable
     step: torch.Tensor              # 0-d int32
-    rng: Optional[torch.Tensor] = None   # (2,) int64, on the host
+    rng: Optional[torch.Tensor] = None   # (2,) int64 key words
     boundary_state: tuple = ()
     material_grid: Optional[MaterialGrid] = None
 

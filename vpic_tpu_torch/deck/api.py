@@ -533,7 +533,7 @@ class Simulation:
             materials=build_material_table(self.materials, g, dev),
             step=torch.tensor(0, dtype=torch.int32, device=dev),
             rng=rnd.make_key(self.seed * 65537
-                             + sx + g.gpx * (sy + g.gpy * sz)),
+                             + sx + g.gpx * (sy + g.gpy * sz), dev),
             boundary_state=tuple(h.init_state(len(self._species), dev)
                                  for h in self._boundary_handlers),
             material_grid=matg)
@@ -640,20 +640,17 @@ class Simulation:
     def _graph_ok(self) -> bool:
         """The step runs as CUDA graphs (``engine/graphs.py``) on one shard
         on the card, decided once per build from the configuration as the
-        JAX package decides ``packed_ok``.  Refused: several shards (their
-        threads meet at a rendezvous, ``engine/distributed.py``); boundary
-        rounds, emitters, the injection hook and the collision hook, whose
-        random keys are drawn on the host every step (``core/random.py``);
-        the packed merge re-sort, which reads its mover count on the host
-        once per sort (``particles/sort.py``).  Those decks step eagerly,
-        as every deck does on the CPU."""
+        JAX package decides ``packed_ok``.  Admitted: every such deck,
+        boundary rounds, emitters, the injection hook and the collision
+        hook included, whose keys and draws are device operations on the
+        state's key (``core/random.py``).  Refused: several shards (their
+        threads meet at a rendezvous, ``engine/distributed.py``) and the
+        packed merge re-sort, which reads its mover count on the host once
+        per sort (``particles/sort.py``).  Those decks step eagerly, as
+        every deck does on the CPU."""
         if self.grid.is_multishard or self.mesh[0].type != "cuda":
             return False
-        draws = (needs_boundary(
-            self.grid, None, self._emitters, self._boundary_handlers,
-            self._hooks.get("user_particle_injection"))
-            or self._hooks.get("user_particle_collisions") is not None)
-        return not draws and not self._packed_ok()
+        return not self._packed_ok()
 
     def _sort_intervals(self):
         return [h["sort_interval"] for h in self._species]
@@ -762,12 +759,22 @@ class Simulation:
 
     # -- stepping ----------------------------------------------------------
     def advance(self, n=1):
-        """Advance ``n`` steps; read the new state from :attr:`states`.
-        Where :attr:`graphed`, ``n`` steps are the units of the JAX
+        """Advance ``n`` steps and return the new state, as the JAX
+        package's ``advance`` does (``vpic_tpu/deck/api.py:878``):
+        :attr:`state` on an unsharded deck, :attr:`states` on a sharded
+        one.  Where :attr:`graphed`, ``n`` steps are the units of the JAX
         package's dispatch loop (``engine/graphs.plan``: super-cycles,
         cycles, steps), each a replay of its CUDA graph on the static
-        buffers, captured the first time its key comes up; otherwise the
-        steps run op by op (:meth:`advance_eager`)."""
+        buffers, captured the first time its key comes up, and the state
+        returned is a copy out of those buffers (:attr:`states`);
+        otherwise the steps run op by op (:meth:`advance_eager`)."""
+        self.advance_steps(n)
+        return self.states if self.grid.is_multishard else self.state
+
+    def advance_steps(self, n=1) -> None:
+        """:meth:`advance` without its read of the state: the form a timed
+        loop calls, since the read copies the graphs' static buffers (or
+        unpacks a packed state)."""
         r = self._graphs
         if r is None:
             self.advance_eager(n)

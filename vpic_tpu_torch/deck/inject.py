@@ -78,6 +78,10 @@ class Injector:
         K = x.shape[0]
 
         def arr(v, dt=torch.float64):
+            # a number is filled on the device: no host copy, so that a
+            # CUDA graph can capture the hook
+            if isinstance(v, (bool, int, float)):
+                return torch.full((K,), v, dtype=dt, device=dev)
             return torch.as_tensor(v, dtype=dt, device=dev).expand(K)
 
         y, z = arr(y), arr(z)

@@ -8,7 +8,8 @@ The port's copy of ``decks/collisions.py``: the same knobs and the same
 numpy load (both packages load identical particles); ``deck(device)``
 builds it on the card unless ``device="cpu"`` is asked for.  The hook is
 written in torch and draws from the state's random state
-(``core/random.py``), so its angles differ from the JAX package's.
+(``core/random.py``), split as the JAX hook splits it, so its angles are
+the JAX package's.
 
 Model: per-step pitch-angle (Lorentz) scattering with collision frequency
 ``nu``: each particle's momentum is rotated by a Gaussian angle of
@@ -75,9 +76,9 @@ def make_pitch_angle_collisions(nu_dt: float, species_ids=None):
     scale = float(np.float32(math.sqrt(float(np.float32(2.0 * nu_dt)))))
 
     def rotate(sp, key):
-        n, dev = sp.max_np, sp.ux.device
-        theta = scale * rnd.normal(rnd.fold(key, 0), n, dev)
-        phi = rnd.uniform(rnd.fold(key, 1), n, 0.0, 2.0 * math.pi, dev)
+        k1, k2 = rnd.split(key)
+        theta = scale * rnd.normal(k1, sp.max_np)
+        phi = rnd.uniform(k2, sp.max_np, 0.0, 2.0 * math.pi)
         nux, nuy, nuz = rotate_momenta(sp.ux, sp.uy, sp.uz, theta, phi)
         keep = sp.alive & ((sp.ux * sp.ux + sp.uy * sp.uy
                             + sp.uz * sp.uz) > 0)
@@ -86,9 +87,10 @@ def make_pitch_angle_collisions(nu_dt: float, species_ids=None):
                           uz=torch.where(keep, nuz, sp.uz))
 
     def hook(state):
-        rng, key = rnd.split(state.rng)
+        rng, sub = rnd.split(state.rng)
+        keys = rnd.split(sub, len(state.species))
         species = tuple(
-            rotate(sp, rnd.fold(key, k))
+            rotate(sp, keys[k])
             if species_ids is None or sp.sid in species_ids else sp
             for k, sp in enumerate(state.species))
         return dataclasses.replace(state, species=species, rng=rng)

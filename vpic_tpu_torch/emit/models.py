@@ -20,7 +20,8 @@ their current) in the same step.
 The component scans (:func:`region_surface_components`,
 :func:`region_volume_components`, :func:`domain_face_components`) are the
 port's own numpy copies of the JAX package's.  The draws come from the
-state's random state (``core/random.py``); the emitted charge leaves rhob
+state's random state (``core/random.py``), split as the JAX emitter
+splits it; the emitted charge leaves rhob
 through the fixed-point ``aux.accumulate_rhob``.
 """
 
@@ -167,10 +168,9 @@ class ChildLangmuir:
         vox, face = self._components(state.interpolator.device)
         m = self.n_emit_per_face
         K = vox.shape[0] * m
-        rng, key = rnd.split(state.rng)
+        rng, sub = rnd.split(state.rng)
         state = dataclasses.replace(state, rng=rng)
         sp = state.species[self.sid]
-        dev = sp.dx.device
 
         ip = state.interpolator[vox]
         axis = face % 3
@@ -186,13 +186,13 @@ class ChildLangmuir:
         emits_p, qp_p = rep(emits), rep(qp)
         sign_p = torch.where(face_p < 3, 1.0, -1.0)
 
-        t1 = rnd.uniform(rnd.fold(key, 0), K, -1.0, 1.0, dev)
-        t2 = rnd.uniform(rnd.fold(key, 1), K, -1.0, 1.0, dev)
-        upar = sign_p * torch.abs(self.ut_para
-                                  * rnd.normal(rnd.fold(key, 2), K, dev))
-        up1 = self.ut_perp * rnd.normal(rnd.fold(key, 3), K, dev)
-        up2 = self.ut_perp * rnd.normal(rnd.fold(key, 4), K, dev)
-        age = rnd.uniform(rnd.fold(key, 5), K, device=dev)
+        ks = rnd.split(sub, 6)
+        t1 = rnd.uniform(ks[0], K, -1.0, 1.0)
+        t2 = rnd.uniform(ks[1], K, -1.0, 1.0)
+        upar = sign_p * torch.abs(self.ut_para * rnd.normal(ks[2], K))
+        up1 = self.ut_perp * rnd.normal(ks[3], K)
+        up2 = self.ut_perp * rnd.normal(ks[4], K)
+        age = rnd.uniform(ks[5], K)
 
         # (normal, t1, t2) onto (x, y, z) by the face's cyclic frame
         def pick(a, b, c):

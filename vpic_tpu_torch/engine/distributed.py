@@ -173,7 +173,7 @@ def dryrun_multichip(n_devices: int, device="cuda", log=print) -> dict:
                                                dict(px=1, py=1, pz=1))))
                 for shards in (False, True)]
         for sim in sims:
-            sim.advance(8)
+            sim.advance_steps(8)
         one, many = sims
         for comp in ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx"):
             np.testing.assert_allclose(global_field(many, comp),
@@ -221,7 +221,7 @@ def compare_layouts(devices=None, steps: int = 16, windows: int = 3,
     sims = {"spread": bench_deck.build(**deck, devices=devices),
             "one device": bench_deck.build(**deck, devices=devices[:1])}
     for sim in sims.values():
-        sim.advance(steps)
+        sim.advance_steps(steps)
     out = {name: dict(sums=(sim.checksum_fields(),
                             sim.checksum_species("electron"),
                             sim.checksum_species("ion")),
@@ -235,7 +235,7 @@ def compare_layouts(devices=None, steps: int = 16, windows: int = 3,
         for _ in range(windows):
             sync()
             t0 = time.perf_counter()
-            sim.advance(steps)
+            sim.advance_steps(steps)
             sync()
             step_s.append((time.perf_counter() - t0) / steps)
         out[name]["step_s"] = step_s

@@ -33,6 +33,14 @@ counts move only while Python runs, so each graph keeps the counts its
 capture added and adds them again at every replay; the warm-up's and the
 capture's own counts are taken back.  A capture or replay that fails
 raises: nothing falls back to eager steps.
+
+Which decks run so is ``Simulation._graph_ok()``'s decision: every deck
+of one shard on the card, the open ones included (boundary rounds,
+emitters, the injection and collision hooks), since the random state is a
+device tensor that the threefry kernel reads at each replay
+(``core/random.py``) and the graph writes back like any other buffer.
+Several shards (their threads meet at a rendezvous) and the packed merge
+re-sort (a host read of its mover count per sort) step eagerly.
 """
 
 from __future__ import annotations
@@ -42,10 +50,12 @@ import time
 
 import torch
 
+from ..core import random_cuda
 from ..particles import deposit_cuda, push_cuda, sort_cuda
 
 # the kernels' launch counts that a replay adds to
-COUNTERS = (push_cuda.launches, deposit_cuda.launches, sort_cuda.launches)
+COUNTERS = (push_cuda.launches, deposit_cuda.launches, sort_cuda.launches,
+            random_cuda.launches)
 
 def plan(step: int, n: int, k: int, M: int, cycles: bool = True) -> list:
     """The units of ``advance(n)`` from ``step``: the JAX package's
@@ -145,8 +155,8 @@ def write_back(static, out, capturing: bool = False) -> None:
         if s.device != d.device or (capturing and d.device.type == "cpu"):
             raise RuntimeError(
                 f"the unit changed a {tuple(d.shape)} {d.device} tensor of "
-                "the state that a graph cannot write: host state (the "
-                "random state, a boundary's) needs the eager step")
+                "the state that a graph cannot write: host state needs the "
+                "eager step")
         if s.untyped_storage().data_ptr() in inputs:
             s = s.clone()
         pairs.append((d, s))

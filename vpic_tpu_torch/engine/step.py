@@ -308,17 +308,18 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         """num_comm_round boundary rounds over every species, then the
         leftovers counted (``vpic_tpu/engine/step.py:358-383``).  Each
         (round, species) draws from its own key of one split of the
-        state's random state.  The rounds scatter into the species'
-        columns in place (the step owns them)."""
+        state's random state, split as the JAX package splits it.  The
+        rounds scatter into the species' columns in place (the step owns
+        them)."""
         rng, key = rnd.split(state.rng)
         bstate = state.boundary_state
         species = list(state.species)
-        for r in range(opts.num_comm_round if species else 0):
+        for _ in range(opts.num_comm_round if species else 0):
             for k, sp in enumerate(species):
+                key, k2 = rnd.split(key)
                 species[k], f, acc, bstate = pboundary.process_boundary(
                     sp, f, acc, nb, g, pcomm, opts.max_inj, n_walk,
-                    handlers=boundary_handlers, bstate=bstate,
-                    key=rnd.fold(key, r * len(species) + k),
+                    handlers=boundary_handlers, bstate=bstate, key=k2,
                     step=state.step, mig_cap=opts.mig_cap)
         species = tuple(pboundary.finish_boundary(sp) for sp in species)
         return dataclasses.replace(state, species=species, rng=rng,

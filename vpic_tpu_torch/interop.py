@@ -11,9 +11,10 @@ state with a material grid), ``step``, per species k ``species/<k>/<column>``
 for the particle columns, ``np``, ``nm`` and the static ``name``, ``sid``,
 ``max_np``, ``sort_interval`` and ``q_m``; per boundary handler h its
 state, ``boundary_state/<h>`` (an array) or ``boundary_state/<h>/<key>``
-(a dict of arrays); and ``rng``, the port's random state (the JAX
-package's ``jax.random`` key has no counterpart and is not carried: a
-state loaded from it takes the ``rng`` given to :func:`state_from_numpy`).
+(a dict of arrays); and ``rng``, the two uint32 words of the state's
+``jax.random`` key (``jax.random.key_data``; the port holds them as int64).
+A JAX state's typed key is not read here, since reading it needs JAX: the
+caller adds ``d["rng"] = jax.random.key_data(state.rng)``.
 
 Several shards: the JAX package stacks them into one state whose every
 leaf has leading ``(gpz, gpy, gpx)`` axes (``distributed.stack_shards``);
@@ -96,10 +97,14 @@ def _boundary_state(d: dict, t) -> tuple:
 
 def state_from_numpy(d: dict, device="cpu", rng=None) -> SimState:
     """The port's state from :func:`state_to_numpy`'s dict, on ``device``.
-    Its random state (on the host) is ``d``'s, or, where ``d`` holds none
-    (a state of the JAX package), ``rng`` (``core.random.make_key(seed)``);
-    without either it is None, and a step that draws raises."""
+    Its random state is ``rng`` where given (an override:
+    ``core.random.make_key(seed)``), else ``d["rng"]`` (the key's two
+    words); without either it is None, and a step that draws raises."""
     t = lambda a: torch.as_tensor(np.array(a), device=device)
+    if rng is None and "rng" in d:
+        rng = np.asarray(d["rng"]).astype(np.int64)
+    if rng is not None:
+        rng = torch.as_tensor(rng, dtype=torch.int64, device=device)
     species = []
     k = 0
     while f"species/{k}/name" in d:
@@ -117,7 +122,7 @@ def state_from_numpy(d: dict, device="cpu", rng=None) -> SimState:
         materials=MaterialTable(**{c: t(d[f"materials/{c}"])
                                    for c in MATERIAL_COLUMNS}),
         step=t(d["step"]),
-        rng=torch.as_tensor(np.array(d["rng"])) if "rng" in d else rng,
+        rng=rng,
         boundary_state=_boundary_state(d, t),
         material_grid=(MaterialGrid(**{k: t(d[f"material_grid/{k}"])
                                        for k in MATERIAL_ID_FIELDS})
@@ -161,7 +166,7 @@ def states_to_numpy(states, shards: tuple) -> dict:
 def states_from_numpy(d: dict, n: int, devices, rngs=None) -> list:
     """The port's per-shard states (rank order) from a stacked dict, shard
     r on ``devices[r % len(devices)]``; ``rngs``: each shard's random
-    state where ``d`` holds none (a state of the JAX package)."""
+    state in place of ``d``'s (an override)."""
     return [state_from_numpy(one, devices[r % len(devices)],
                              None if rngs is None else rngs[r])
             for r, one in enumerate(unstack_numpy(d, n))]

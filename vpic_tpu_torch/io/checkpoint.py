@@ -28,7 +28,9 @@ from ..core.types import SPECIES_COLUMNS, Grid, SimState
 from ..interop import (state_from_numpy, state_to_numpy, states_to_numpy,
                        unstack_numpy)
 
-FORMAT_VERSION = 1
+# 2: ``rng`` holds the two words of the JAX package's threefry key
+# (``core/random.py``), which format 1's random state cannot give
+FORMAT_VERSION = 2
 PACKAGE = "vpic_tpu_torch"
 # the species' host metadata: the loaded state takes the template's
 _STATIC = ("name", "sid", "max_np", "sort_interval", "q_m")

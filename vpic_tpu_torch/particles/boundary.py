@@ -125,10 +125,11 @@ def resolve_buffer(b, valid, f: FieldState, g: Grid, sid: int, handlers=(),
         from ..core import random as rnd
         hid, hface = decode_handler(b["pc"])
         bstate = list(bstate)
+        keys = rnd.split(key, len(handlers))
         for hi, handler in enumerate(handlers):
             hmask = live & (b["pc"] <= -9) & (hid == hi)
             b, f, bstate[hi], killed = handler.apply(
-                rnd.fold(key, hi), b, hmask, hface, f, g, sid, bstate[hi],
+                keys[hi], b, hmask, hface, f, g, sid, bstate[hi],
                 step=step)
             live = live & ~killed
         bstate = tuple(bstate)

@@ -196,7 +196,7 @@ def compare(steps=24, npart=16_000, nx=16, device="cuda", resort=2,
     tot0 = float(sum(sim.energies().values()))
     _sync(device)
     t0 = time.perf_counter()
-    sim.advance(steps)
+    sim.advance_steps(steps)
     _sync(device)
     wall_fw = time.perf_counter() - t0
     drift_fw = (float(sum(sim.energies().values())) - tot0) / tot0

@@ -74,7 +74,7 @@ def evidence(steps=24, npart=1_000_000, nx=128, device="cuda") -> dict:
     np0 = live_count(sim)
     _sync(device)
     t0 = time.perf_counter()
-    sim.advance(steps)
+    sim.advance_steps(steps)
     _sync(device)
     wall = time.perf_counter() - t0
     tot1 = float(sum(sim.energies().values()))

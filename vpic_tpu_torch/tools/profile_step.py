@@ -268,12 +268,12 @@ def main(argv=None) -> dict:
     # boundary (their graphs captured where the deck runs graphed), back
     # to a boundary; the timed window replays those units
     period = sort_period(sim)
-    sim.advance(period)
-    sim.advance(steps)
-    sim.advance(-sim.step_count % period)
+    sim.advance_steps(period)
+    sim.advance_steps(steps)
+    sim.advance_steps(-sim.step_count % period)
     _sync(device)
     t0 = time.perf_counter()
-    sim.advance(steps)
+    sim.advance_steps(steps)
     _sync(device)
     dt = time.perf_counter() - t0
     total = live_count(sim)

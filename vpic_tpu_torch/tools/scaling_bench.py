@@ -71,7 +71,7 @@ def sweep(configs, steps=10, device="cuda"):
         _sync(device)
         build_s = time.perf_counter() - t0
         period = sort_period(sim)
-        sim.advance(period)
+        sim.advance_steps(period)
         _sync(device)
         nst = max(period, (steps // period) * period)
         t0 = time.perf_counter()
@@ -80,10 +80,10 @@ def sweep(configs, steps=10, device="cuda"):
         eager_dt = time.perf_counter() - t0
         # copies the eager steps' state into the graphs' buffers before
         # the timed window (nothing where the deck steps eagerly)
-        sim.advance(0)
+        sim.advance_steps(0)
         _sync(device)
         t0 = time.perf_counter()
-        sim.advance(nst)
+        sim.advance_steps(nst)
         _sync(device)
         dt = time.perf_counter() - t0
         total = live_count(sim)
