@@ -345,8 +345,9 @@ import time
 # the profiler attribution (padded traces retaken where device events are
 # lost, busy time as a union of intervals, ops placed in step parts by
 # their launch calls, the per-step sums) is the per-op profile tool's
-from vpic_tpu_torch.tools.profile_step import (_busy_us, _step_parts,
-                                               breakdown, profiled)
+from vpic_tpu_torch.tools.profile_step import (PROFILE_ATTEMPTS, _busy_us,
+                                               _step_parts, breakdown,
+                                               profiled)
 
 SLICE = dict(nx=128, ny=128, nz=1, npart=2_000_000)
 SMALL_DECK = dict(nx=16, ny=16, nz=1, npart=4096)
@@ -381,7 +382,7 @@ _T0 = time.perf_counter()
 
 
 def log(msg):
-    """Print a line; a phase's heading ("[k/19] ...") gets the seconds
+    """Print a line; a phase's heading ("[k/20] ...") gets the seconds
     since the script started."""
     if msg.startswith("["):
         msg += f" (at {time.perf_counter() - _T0:.1f} s)"
@@ -955,10 +956,11 @@ def phase_trace(sim, step_s, label="main path", parts=None):
     the busy time, ops, host reads and idle share are those of its
     graphed steps (the graphs' nodes, one cudaGraphLaunch per replay), and
     the step parts come from a second trace of steps taken op by op
-    (``sim.advance_eager``): the step's scopes do not exist inside a
-    replay.  Returns per step the busy device ms (``busy_ms``), the device
-    ops (``ops``), the host reads (``reads``: device-to-host copies) and,
-    for each step part, both (``parts``).  Every part of ``parts``
+    (``sim.advance_eager``; not taken where ``parts`` is empty): the
+    step's scopes do not exist inside a replay.  Returns per step the
+    busy device ms (``busy_ms``), the device ops (``ops``), the host
+    reads (``reads``: device-to-host copies) and, for each step part,
+    both (``parts``).  Every part of ``parts``
     (default: sort, push and field) must have busy time."""
     from vpic_tpu_torch.engine.step import CORE_PHASES, PHASES
     parts_needed = CORE_PHASES if parts is None else parts
@@ -983,7 +985,7 @@ def phase_trace(sim, step_s, label="main path", parts=None):
             f"1 - {busy:.4f} / {step_s * 1e3:.4f} = "
             f"{1 - busy / (step_s * 1e3):.4f}")
     eb = b
-    if sim.graphed:
+    if sim.graphed and parts_needed:
         sim.states      # the copy out of the graphs' buffers, not traced
         ewall_us, edev, _, elost, eb = _trace(sim, sim.advance_eager)
         log(f"  the step parts from a trace of {TRACE_STEPS} steps op by op "
@@ -3352,10 +3354,11 @@ def reset_launch_counts():
 
 
 def shard_round_walks(sims):
-    """One step of each of ``sims`` with push_cuda.streak_walk recording
-    its input: per rank of the sharded deck ``sims[-1]``, the walk states
-    of its rounds (round, species order).  The recording is taken off
-    before returning."""
+    """One step of each of ``sims``, taken op by op (``advance_eager``: a
+    graph's capture would record tensors that hold no values yet), with
+    push_cuda.streak_walk recording its input: per rank of the sharded
+    deck ``sims[-1]``, the walk states of its rounds (round, species
+    order).  The recording is taken off before returning."""
     from vpic_tpu_torch.particles import push_cuda
     rec, orig = collections.defaultdict(list), push_cuda.streak_walk
     # each shard walks through its own neighbor table
@@ -3371,7 +3374,7 @@ def shard_round_walks(sims):
     push_cuda.streak_walk = recording
     try:
         for sim in sims:
-            sim.advance_steps(1)
+            sim.advance_eager(1)
     finally:
         push_cuda.streak_walk = orig
     return rec
@@ -3383,9 +3386,10 @@ def shard_kernels(one, four):
     rounds as the step leaves them, and its walk_only entry on each
     shard's first round of the electrons (the buffer and the lanes
     received from the neighbor shards), against the plain version and the
-    fixed-point twin; the walk on shard 0's round timed.  Steps ``one``
-    and ``four`` once.  Returns (max abs err, species that needed the
-    quantum allowance, the walk's timing)."""
+    fixed-point twin; the push on shard 0's sorted electrons and the walk
+    on shard 0's round timed.  Steps ``one`` and ``four`` once.  Returns
+    (max abs err, species that needed the quantum allowance, the push's
+    timing, the walk's timing)."""
     from vpic_tpu_torch.engine.step import walk_segments
     from vpic_tpu_torch.particles import aux
     g = four.grid
@@ -3400,6 +3404,13 @@ def shard_kernels(one, four):
             errs.append(err)
             if q:
                 quantum.append(f"shard {r} {sp.name}")
+    st = four.states[0]
+    sp = aux.sort_p(st.species[0])
+    c = walk_counts(sp, st.interpolator, st.grid_arrays.neighbor, g, n_walk)
+    push_t = time_push(f"shard 0 of {g.n_shards} sorted electrons", sp,
+                       st.interpolator, st.grid_arrays.neighbor, g, n_walk,
+                       c["pairs"])
+    del st, sp
     rec = shard_round_walks([one, four])
     buf = min(four.opts.max_inj, four.states[0].species[0].max_np)
     timing = None
@@ -3417,13 +3428,14 @@ def shard_kernels(one, four):
             quantum.append(f"shard {r} walk")
         if r == 0:
             timing = time_walk(label, walk, nb, g, n_iter)
-    return max(errs), quantum, timing
+    return max(errs), quantum, push_t, timing
 
 
 def count_migrants():
     """A patch of particles.boundary.received_lanes that adds each round's
     received lanes into a device counter per device (no host read in the
-    step); returns (counters, undo)."""
+    step); returns (counters, undo).  It counts steps taken op by op
+    (``advance_eager``): a graph's replay runs no Python."""
     import torch
     from vpic_tpu_torch.particles import boundary
     orig, total = boundary.received_lanes, {}
@@ -3477,18 +3489,17 @@ def shard_compare(one, four):
 
 
 def shard_windows(sim, label):
-    """WINDOWS timed windows of STEPS steps, the launch counts set to 0
-    just before and read just after: per shard and step one push launch
-    per species and num_comm_round walk_only launches per species, no
-    other kernel; finite energies, bounded drift, no dropped mover.
-    Returns (launches, median step s, min, max, barrier s per step)."""
+    """WINDOWS timed windows of STEPS steps through ``advance`` (graphed
+    where the deck is), the launch counts set to 0 just before and read
+    just after: per shard and step one push launch per species and
+    num_comm_round walk_only launches per species, no other kernel (a
+    replay adds its graph's launches); finite energies, bounded drift, no
+    dropped mover.  Returns (launches, median step s, min, max)."""
     import math
     import statistics
     import torch
     n = sim.grid.n_shards
     nsp = len(sim._species)
-    rv = sim.comms[0].rv if sim.comms else None
-    wait0 = list(rv.wait_s) if rv else [0.0]
     reset_launch_counts()
     step_s = []
     for w in range(WINDOWS):
@@ -3520,13 +3531,12 @@ def shard_windows(sim, label):
             sum(launches.values()) != sum(want.values()):
         raise AssertionError(f"{label}: launches {launches}, expected "
                              f"{want} and no other kernel")
-    barrier = (sum(rv.wait_s) - sum(wait0)) / n / steps if rv else 0.0
     med = statistics.median(step_s)
     log(f"  {label}: median {med * 1e3:.4f} ms/step (min "
-        f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f}), launches "
-        f"{launches}, host wait for the other shards' turns "
-        f"{barrier * 1e3:.4f} ms/step per shard")
-    return launches, med, min(step_s), max(step_s), barrier
+        f"{min(step_s) * 1e3:.4f}, max {max(step_s) * 1e3:.4f}; "
+        f"{'graphed' if sim.graphed else 'op by op'}), launches "
+        f"{launches}")
+    return launches, med, min(step_s), max(step_s)
 
 
 def record_deposits(n_calls):
@@ -3553,16 +3563,18 @@ def record_deposits(n_calls):
 
 
 def shard_unfused(device, twin):
-    """SHARD_UNFUSED_STEPS steps of the four-shard deck ``twin`` on the
-    unfused push, the launch counts set to 0 just before and read just
-    after: one deposit launch per shard, species and step and no push
-    launch.  The deposit kernel against its plain version on each shard's
-    inputs of the window's first step (each species, voxel-sorted, as the
-    step handed them to the kernel); then the same steps of a one-shard
-    deck brought to the same step on the fused path, and ``twin`` held to
-    it (shard_compare: fields, energies, exact alive counts, no dropped
-    mover).  Returns (launches, the deposit's max abs error, the
-    comparison)."""
+    """The four-shard deck ``twin`` on the unfused push: one step taken op
+    by op (``advance_eager``) whose deposit inputs are recorded (a graph's
+    capture would record tensors that hold no values yet), then
+    SHARD_UNFUSED_STEPS steps through ``advance`` (graphed), the launch
+    counts set to 0 just before and read just after: one deposit launch
+    per shard, species and step and no push launch.  The deposit kernel
+    against its plain version on each shard's recorded inputs (each
+    species, voxel-sorted, as the step handed them to the kernel); then
+    the same steps of a one-shard deck brought to the same step on the
+    fused path, and ``twin`` held to it (shard_compare: fields, energies,
+    exact alive counts, no dropped mover).  Returns (launches, the
+    deposit's max abs error, the comparison)."""
     import torch
     g, nsp = twin.grid, len(twin._species)
     one = shard_bench(device)
@@ -3570,21 +3582,23 @@ def shard_unfused(device, twin):
     for sim in (one, twin):
         sim.modify_runparams(fused_push=False)
     rec, undo = record_deposits(g.n_shards * nsp)
-    reset_launch_counts()
-    e0 = sum(twin.energies().values())
     try:
-        twin.advance_steps(SHARD_UNFUSED_STEPS)
+        twin.advance_eager(1)
     finally:
         undo()
+    reset_launch_counts()
+    e0 = sum(twin.energies().values())
+    twin.advance_steps(SHARD_UNFUSED_STEPS)
     unfused = shard_launch_counts()
     want = SHARD_UNFUSED_STEPS * nsp * g.n_shards
     if unfused["deposit_sorted"] != want or unfused["push_walk"] != 0:
         raise AssertionError(f"unfused window launches {unfused}, expected "
                              f"{want} deposit launches and no push launch")
     e1 = sum(twin.energies().values())
-    log(f"  unfused push on {g.n_shards} shards, {SHARD_UNFUSED_STEPS} "
-        f"steps from step {twin.step_count - SHARD_UNFUSED_STEPS}: launches "
-        f"{unfused}, energy change {(e1 - e0) / e0:.3e}")
+    log(f"  unfused push on {g.n_shards} shards: deposit inputs recorded on "
+        f"step {twin.step_count - SHARD_UNFUSED_STEPS - 1} (op by op), then "
+        f"{SHARD_UNFUSED_STEPS} steps {'graphed' if twin.graphed else ''}: "
+        f"launches {unfused}, energy change {(e1 - e0) / e0:.3e}")
     threads = sorted({r[0] for r in rec})
     if len(rec) != g.n_shards * nsp or len(threads) != g.n_shards:
         raise AssertionError(f"the unfused step's first deposits came from "
@@ -3598,7 +3612,7 @@ def shard_unfused(device, twin):
         if q:
             quantum.append(label)
     del rec
-    one.advance_steps(SHARD_UNFUSED_STEPS)
+    one.advance_steps(1 + SHARD_UNFUSED_STEPS)
     cmp = shard_compare(one, twin)
     del one
     torch.cuda.empty_cache()
@@ -3619,35 +3633,42 @@ def shard_bench_phase(device, card):
         "shard " + "; ".join(
             ", ".join(f"{sp.name} {int(sp.np)}/{sp.max_np}"
                       for sp in st.species) for st in four.states))
-    err, quantum, walk_t = shard_kernels(one, four)
+    err, quantum, push_t, walk_t = shard_kernels(one, four)
     twin.advance_steps(1)
     for sim in (one, twin):
         sim.advance_steps(SHARD_STEPS - 1)
+    rv = four.comms[0].rv
     migrants, undo = count_migrants()
+    wait0 = sum(rv.wait_s)
     try:
-        four.advance_steps(SHARD_STEPS - 1)
+        four.advance_eager(SHARD_STEPS - 1)
     finally:
         undo()
     mig = sum(int(v) for v in migrants.values()) / (SHARD_STEPS - 1)
-    log(f"  migrated lanes: {mig:.1f} per step over {g.n_shards} shards "
-        f"(steps 1-{SHARD_STEPS}, both species)")
+    barrier = (sum(rv.wait_s) - wait0) / g.n_shards / (SHARD_STEPS - 1)
+    log(f"  migrated lanes: {mig:.1f} per step over {g.n_shards} shards; "
+        f"host wait for the other shards' turns {barrier * 1e3:.4f} "
+        f"ms/step per shard (steps 1-{SHARD_STEPS} taken op by op, "
+        "advance_eager: a replay meets no rendezvous; both species)")
     cmp = shard_compare(one, four)
-    # the timed windows and traces start on a sort super-cycle
+    # the timed windows and traces start on a sort super-cycle, after one
+    # untimed super-cycle that captures its graph
     pad = -four.step_count % (four.opts.resort_interval * 4)
     for sim in (one, four, twin):
-        sim.advance_steps(pad)
+        sim.advance_steps(pad + four.opts.resort_interval * 4)
     sums = [(s.checksum_fields(), s.checksum_species("electron"),
              s.checksum_species("ion")) for s in (four, twin)]
     if sums[0] != sums[1]:
         raise AssertionError(f"two four-shard runs from one seed differ: "
                              f"{sums}")
-    log(f"  two four-shard runs from one seed, step {four.step_count}: "
+    log(f"  two four-shard runs from one seed, step {four.step_count} "
+        f"(steps 1-{SHARD_STEPS} op by op on one, graphed on the other): "
         f"checksums equal (fields {sums[0][0][:12]}..., electrons "
         f"{sums[0][1][:12]}..., ions {sums[0][2][:12]}...)")
 
     # the main path of this phase: the four-shard deck's timed windows
-    launches, med4, lo4, hi4, barrier = shard_windows(four, "4 shards")
-    _, med1, lo1, hi1, _ = shard_windows(one, "1 shard")
+    launches, med4, lo4, hi4 = shard_windows(four, "4 shards")
+    _, med1, lo1, hi1 = shard_windows(one, "1 shard")
     trace4 = phase_trace(four, med4, "4-shard path", parts=())
     trace1 = phase_trace(one, med1, "1-shard path")
     del one, four
@@ -3667,10 +3688,10 @@ def shard_bench_phase(device, card):
         f"{trace4['ops']:.1f} ops/step, idle share "
         f"{1 - trace4['busy_ms'] / (med4 * 1e3):.4f} (1 shard: "
         f"{trace1['busy_ms']:.4f} ms, {trace1['ops']:.1f} ops, "
-        f"{1 - trace1['busy_ms'] / (med1 * 1e3):.4f}); host wait for the "
-        f"other shards' turns "
+        f"{1 - trace1['busy_ms'] / (med1 * 1e3):.4f}); op by op, host "
+        f"wait for the other shards' turns "
         f"{barrier * 1e3:.4f} ms/step per shard; {mig:.1f} migrated lanes "
-        "per step")
+        "per step (op by op)")
     steps = WINDOWS * STEPS
     push = dict(shards_launches=launches["push_walk"],
                 shards_launches_per_step=launches["push_walk"] / steps,
@@ -3679,7 +3700,8 @@ def shard_bench_phase(device, card):
                 shards_busy_ms=trace4["busy_ms"], shards_ops=trace4["ops"],
                 shards_barrier_ms=barrier * 1e3,
                 shards_migrated_per_step=mig, **{
-                    f"shards_{k}": v for k, v in cmp.items()})
+                    f"shards_{k}": v for k, v in cmp.items()}, **{
+                    f"shards_push_{k}": v for k, v in push_t.items()})
     walk = dict(shards_walk_only_launches=launches["walk_only"],
                 **{f"shards_walk_{k}": v for k, v in walk_t.items()})
     deposit = dict(shards_launches=unf["deposit_sorted"],
@@ -4509,9 +4531,12 @@ def graph_run(label, build, device, steps, graphed, books=None):
     ``advance_eager``, then three timed windows of STEPS steps and a trace
     of TRACE_STEPS steps of the same stepping, with the card's peak memory
     over it all.  ``books(sim, n0)``: the deck's particle books after the
-    ``steps`` steps (n0 the live lanes at build).  Returns what phases 18
-    and 19 compare and record (``end``: the checksums, the random state
-    and the books again after the trace)."""
+    ``steps`` steps (n0 the live lanes at build).  Returns what phases
+    18-20 compare and record (``end``: the checksums, every shard's random
+    state and the books again after the windows and the trace, at the
+    step that the most retried trace would reach, where every run of the
+    deck goes on to; ``wait_ms``: on several shards the host wait at the
+    rendezvous per step and shard in the timed windows, 0 on replays)."""
     import statistics
     import torch
     torch.cuda.synchronize()
@@ -4522,6 +4547,7 @@ def graph_run(label, build, device, steps, graphed, books=None):
     sim = build(device)
     torch.cuda.synchronize()
     build_s = time.perf_counter() - t0
+    t_run = time.perf_counter()
     if not sim.graphed:
         raise AssertionError(f"{label}: _graph_ok() refuses the deck")
     n0 = alive_count(sim) if books else None
@@ -4535,12 +4561,14 @@ def graph_run(label, build, device, steps, graphed, books=None):
                species=[sim.checksum_species(h["name"])
                         for h in sim._species],
                energies=sim.energies(), movers=sim.mover_counts(),
-               rng=sim.state.rng.tolist(),
+               rng=[st.rng.tolist() for st in sim.states],
                books=books(sim, n0) if books else None, build_s=build_s)
     if graphed:
         # the reads above copied the state out of the graphs' buffers: it
         # goes back in here, not inside the first timed window
         sim.advance_steps(0)
+    rv = sim.comms[0].rv
+    wait0 = sum(rv.wait_s)
     step_s = []
     for _ in range(WINDOWS):
         torch.cuda.synchronize()
@@ -4548,14 +4576,24 @@ def graph_run(label, build, device, steps, graphed, books=None):
         advance(STEPS)
         torch.cuda.synchronize()
         step_s.append((time.perf_counter() - t0) / STEPS)
+    out["wait_ms"] = ((sum(rv.wait_s) - wait0) / sim.grid.n_shards
+                      / (WINDOWS * STEPS) * 1e3)
     advance(-sim.step_count % (sim.opts.resort_interval * 4))
+    t_trace = time.perf_counter()
+    end = sim.step_count + TRACE_STEPS * PROFILE_ATTEMPTS
     wall_us, dev, _, lost, b = _trace(sim, advance)
+    torch.cuda.synchronize()
+    out["trace_s"] = time.perf_counter() - t_trace
+    # the trace steps again where the profiler drops device events, so two
+    # runs of one deck can leave it at different steps
+    advance(end - sim.step_count)
     torch.cuda.synchronize()
     out["end"] = dict(step=sim.step_count, fields=sim.checksum_fields(),
                       species=[sim.checksum_species(h["name"])
                                for h in sim._species],
-                      rng=sim.state.rng.tolist(),
+                      rng=[st.rng.tolist() for st in sim.states],
                       books=books(sim, n0) if books else None)
+    out["run_s"] = t_trace - t_run
     out.update(step_ms=statistics.median(step_s) * 1e3,
                step_min_ms=min(step_s) * 1e3, step_max_ms=max(step_s) * 1e3,
                busy_ms=b["busy_ms"], ops=b["ops"], parts=b["parts"],
@@ -4571,11 +4609,25 @@ def graph_run(label, build, device, steps, graphed, books=None):
     return out
 
 
+def captures_text(captures) -> str:
+    """The log's text of a run's capture records (``sim.capture_times``):
+    per capture the unit, the warm-up and capture seconds, its nodes and
+    instantiation seconds."""
+    if not captures:
+        return ""
+    return ", captures " + "; ".join(
+        f"{c['kind']} of {c['steps']} steps: warm-up {c['warmup_s']:.3f} s, "
+        f"capture {c['capture_s']:.3f} s, {c['nodes']} nodes, instantiated "
+        f"in {c['instantiate_s']:.3f} s" for c in captures)
+
+
 def phase_graphs(device, card):
     """Phase 18: each deck of GRAPH_DECKS graphed and eager, each built
     alone from the same seed: after the bitwise window the same
     checksum_fields, species checksums, energies and dropped movers (0),
-    and the same kernel launches (a replay adds its graph's); on the bench
+    and the same kernel launches (a replay adds its graph's), and the same
+    checksums and random state after the windows and the trace; on the
+    bench
     deck 48 steps as six super-cycle replays, one capture and no eager
     step; the wall step (three 16-step windows), busy ms, ops, host reads
     and idle share from a trace, the peak memory and each graph's capture
@@ -4584,7 +4636,8 @@ def phase_graphs(device, card):
     for label, (build, steps) in GRAPH_DECKS.items():
         g = graph_run(label, build, device, steps, True)
         e = graph_run(label, build, device, steps, False)
-        for key in ("fields", "species", "energies", "movers", "launches"):
+        for key in ("fields", "species", "energies", "movers", "launches",
+                    "end"):
             if g[key] != e[key]:
                 raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
                                      f"eager {e[key]}")
@@ -4604,7 +4657,9 @@ def phase_graphs(device, card):
         log(f"  {label} ({card}): after {steps} steps graphed = eager "
             f"bitwise (fields {g['fields'][:16]}..., species checksums, "
             f"energies, dropped movers {g['movers']}, launches "
-            f"{ {k: v for k, v in g['launches'].items() if v} }); graphed "
+            f"{ {k: v for k, v in g['launches'].items() if v} }), and again "
+            f"after the windows and the trace at step {g['end']['step']}; "
+            "graphed "
             f"dispatch {g['dispatch']}")
         for name, r in (("graphed", g), ("eager", e)):
             log(f"  {label}, {name}: step {r['step_ms']:.4f} ms "
@@ -4615,10 +4670,7 @@ def phase_graphs(device, card):
                 f"{r['traced_wall_ms']:.4f} ms/step, peak allocated "
                 f"{r['peak_gb']:.3f} GB (reserved {r['reserved_gb']:.3f}), "
                 f"built in {r['build_s']:.2f} s"
-                + (", captures " + "; ".join(
-                    f"{c['kind']} of {c['steps']} steps: warm-up "
-                    f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s"
-                    for c in r["captures"]) if r["captures"] else ""))
+                + captures_text(r["captures"]))
         recs[label] = {name: {k: r[k] for k in (
             "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
             "idle_share", "peak_gb", "captures")}
@@ -4814,8 +4866,8 @@ def phase_open_graphs(device, card):
     deck of OPEN_GRAPH_DECKS graphed and eager, each built alone from one
     seed: after OPEN_GRAPH_STEPS steps the same checksums, energies,
     random state, books and kernel launches, bit for bit, and the same
-    checksums, random state and books after the windows and the trace
-    (88 steps or so, when the walls have taken lanes); no dropped
+    checksums, random state and books after the windows (80 steps, when
+    the walls have taken lanes) and the trace; no dropped
     mover, the books balanced, the whole run graphed and no host read in
     the graphed trace.  Returns (the threefry errors, its timings, the
     record of each deck, the threefry launches of each graphed run)."""
@@ -4868,10 +4920,7 @@ def phase_open_graphs(device, card):
                 + ("; busy ms by step part " + ", ".join(
                     f"{k} {v:.4f}" for k, v in r["parts"].items() if k and v)
                    if name == "eager" else "")
-                + (", captures " + "; ".join(
-                    f"{c['kind']} of {c['steps']} steps: warm-up "
-                    f"{c['warmup_s']:.3f} s, capture {c['capture_s']:.3f} s"
-                    for c in r["captures"]) if r["captures"] else ""))
+                + captures_text(r["captures"]))
         recs[label] = {name: {k: r[k] for k in (
             "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
             "idle_share", "peak_gb", "captures")}
@@ -4914,6 +4963,87 @@ def open_fields(recs):
     return fields
 
 
+# -- phase 20: the sharded decks as CUDA graphs -------------------------------
+
+# each sharded deck of phase 15 and the steps of its bitwise window: the
+# bench deck's 48 steps are six super-cycles (k = 2, M = 4); turbulence's
+# 56 cross its clean at step 50, an allsum of both shards inside a graph
+SHARD_GRAPH_DECKS = {
+    "bench 128^2 on 2x2 shards": (
+        lambda device: shard_bench(device, **SHARD_MESH), 48),
+    "turbulence on 2 z shards": (
+        lambda device: port_deck("turbulence", device, TURB_SHARDED), 56),
+}
+
+
+def phase_shard_graphs(device, card):
+    """Phase 20: each deck of SHARD_GRAPH_DECKS graphed and op by op, each
+    built alone from one seed: after the bitwise window, and again after
+    the windows and the trace, the same checksums over every shard,
+    energies, dropped movers (0), every shard's random state and kernel
+    launches; the whole window graphed (the bench deck's 48 steps six
+    super-cycle replays of one capture), no host read per graphed step;
+    the wall step of three 16-step windows, busy ms, ops, idle share,
+    peak memory, the captures (seconds, nodes) and the host wait at the
+    rendezvous of both.  Then ``dryrun_multichip(4)`` on the card, with
+    its dispatch assertion.  Returns the record of each deck."""
+    from vpic_tpu_torch.engine.distributed import dryrun_multichip
+    recs = {}
+    for label, (build, steps) in SHARD_GRAPH_DECKS.items():
+        g = graph_run(label, build, device, steps, True)
+        e = graph_run(label, build, device, steps, False)
+        for key in ("fields", "species", "energies", "movers", "launches",
+                    "rng", "end"):
+            if g[key] != e[key]:
+                raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
+                                     f"eager {e[key]}")
+        if any(g["movers"].values()):
+            raise AssertionError(f"{label}: dropped movers {g['movers']}")
+        if g["dispatch"].get("eager_steps") or \
+                g["dispatch"]["graphed_steps"] != steps or \
+                e["dispatch"] != {"eager_steps": steps}:
+            raise AssertionError(f"{label}: dispatch {g['dispatch']}, "
+                                 f"eager {e['dispatch']}")
+        if label.startswith("bench") and g["dispatch"] != {
+                "captures": 1, "replays.supercycle": steps // 8,
+                "graphed_steps": steps}:
+            raise AssertionError(f"{label}: {steps} steps dispatched as "
+                                 f"{g['dispatch']}, not {steps // 8} "
+                                 "super-cycle replays of one capture")
+        if g["reads"] or g["wait_ms"]:
+            raise AssertionError(f"{label}: {g['reads']} host reads and "
+                                 f"{g['wait_ms']} ms of rendezvous wait per "
+                                 "graphed step")
+        log(f"  {label} ({card}): after {steps} steps graphed = op by op "
+            f"bitwise on every shard (fields {g['fields'][:16]}..., species "
+            f"checksums, energies, rng of {len(g['rng'])} shards, dropped "
+            f"movers {g['movers']}, launches "
+            f"{ {k: v for k, v in g['launches'].items() if v} }), and again "
+            f"after the windows and the trace at step {g['end']['step']}; "
+            f"graphed dispatch "
+            f"{g['dispatch']}")
+        for name, r in (("graphed", g), ("op by op", e)):
+            log(f"  {label}, {name}: step {r['step_ms']:.4f} ms "
+                f"({r['step_min_ms']:.4f}-{r['step_max_ms']:.4f}), busy "
+                f"{r['busy_ms']:.4f} ms/step, {r['ops']:.1f} ops/step, host "
+                f"reads {r['reads']:.1f}/step, idle share "
+                f"{r['idle_share']:.4f}, rendezvous wait "
+                f"{r['wait_ms']:.4f} ms/step per shard, peak allocated "
+                f"{r['peak_gb']:.3f} GB, built in {r['build_s']:.2f} s, "
+                f"stepped in {r['run_s']:.2f} s, traced in "
+                f"{r['trace_s']:.2f} s" + captures_text(r["captures"]))
+        recs[label] = {name: {k: r[k] for k in (
+            "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
+            "idle_share", "wait_ms", "peak_gb", "captures")}
+            for name, r in (("graphed", g), ("eager", e))}
+        recs[label]["push_launches"] = g["launches"]["push"]
+        recs[label]["walk_only_launches"] = g["launches"]["walk_only"]
+    t0 = time.perf_counter()
+    dryrun_multichip(4, device=device, log=lambda m: log("  " + m))
+    recs["dryrun_multichip_4_s"] = time.perf_counter() - t0
+    return recs
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4928,13 +5058,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/19] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/20] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/19] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/20] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -4942,17 +5072,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/19] kernel vs plain, small 3D grid")
+    log("[3/20] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/19] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/20] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/19] determinism: checked above, per case and species")
+    log("[4/20] determinism: checked above, per case and species")
 
-    log("[5/19] slice")
+    log("[5/20] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -4960,15 +5090,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/19] deposit kernel vs plain")
+    log("[6/20] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/19] merge re-sort kernels vs plain")
+    log("[7/20] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/19] path A: the unfused push")
+    log("[8/20] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/19] path B: the packed cycle with the merge re-sort")
+    log("[9/20] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -4978,34 +5108,38 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/19] determinism: the charge deposit on the card")
+    log("[10/20] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/19] the turbulence deck through the CLI")
+    log("[11/20] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/19] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/20] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/19] open particle boundaries and the collisions deck")
+    log("[13/20] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/19] materials: the material box")
+    log("[14/20] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/19] several shards on the card: the bench deck on 4 shards, "
+    log("[15/20] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
-    log("[16/19] the tools path: the probe kernels of tools/ and the drift "
+    log("[16/20] the tools path: the probe kernels of tools/ and the drift "
         "comparison against the float64 reference")
     tool_kernels, _ = phase_tools(device, card)
-    log("[17/19] the harness tools at full size: evidence, the scaling sweep "
+    log("[17/20] the harness tools at full size: evidence, the scaling sweep "
         "(3D 64^3 and 16M particles included), the per-op profile")
     harness = phase_harness(device, card)
-    log("[18/19] the step as CUDA graphs: graphed against eager, bitwise, "
+    log("[18/20] the step as CUDA graphs: graphed against eager, bitwise, "
         "timed")
     graph_recs = phase_graphs(device, card)
-    log("[19/19] the open decks as CUDA graphs: the threefry kernel against "
+    log("[19/20] the open decks as CUDA graphs: the threefry kernel against "
         "its twin, the open variants and the collisions deck graphed "
         "against eager, bitwise, timed")
     rnd_errs, rnd_t, open_graph_recs, rnd_launches = phase_open_graphs(
         device, card)
     opened.update(open_fields(open_graph_recs))
+    log("[20/20] the sharded decks as CUDA graphs: the bench deck on 4 "
+        "shards and turbulence on 2 graphed against op by op, bitwise, "
+        "timed; dryrun_multichip(4)")
+    shard_graph_recs = phase_shard_graphs(device, card)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -5016,7 +5150,8 @@ def main():
              launches=main_launches["push_walk"],
              max_abs_err=max(small_err, push_err), **push_t, **turb,
              **recon, **opened, **materials, **shard_push, **shard_walk,
-             **harness, graphs=graph_recs, open_graphs=open_graph_recs),
+             **harness, graphs=graph_recs, open_graphs=open_graph_recs,
+             shard_graphs=shard_graph_recs),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",
@@ -5055,6 +5190,7 @@ def main():
             replaces=THREEFRY_REPLACES, launches=sum(per_deck.values()),
             launches_by_deck=per_deck, max_abs_err=rnd_errs[what],
             **rnd_t[what]))
+    log(f"chip_smoke: 20 phases in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": kernels + tool_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

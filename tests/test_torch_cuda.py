@@ -32,6 +32,11 @@ checksums repeated, one push launch per species and step) and the
 scaling sweep on one small configuration.  The threefry kernel
 (csrc/threefry.cu) bitwise its twin (normal within a few ulps), its
 launcher's refusals, and the reflux box graphed bitwise its eager steps.
+The sharded step on the card: a 2 x 2-shard bench deck graphed bitwise
+its eager steps, the shard threads on the caller's stream, a shard that
+raises inside a capture failing the call with its own exception (the
+next advance runs), and eager sharded steps (a migration round, a clean)
+without a host read under ``torch.cuda.set_sync_debug_mode("error")``.
 Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
@@ -612,3 +617,158 @@ def test_an_open_deck_graphed_is_bitwise_eager(device):
     assert torch.equal(g.state.rng, e.state.rng)
     assert g.mover_counts() == e.mover_counts() == {"electron": 0}
     assert g.dispatch_counts["graphed_steps"] == 12
+
+
+def _shards32(device):
+    from vpic_tpu_torch.decks import bench_deck
+    return bench_deck.build(nx=32, ny=32, nz=1, npart=65_536, px=2, py=2,
+                            device=device)
+
+
+def _same_shards(a, b):
+    assert a.checksum_fields() == b.checksum_fields()
+    for h in a._species:
+        assert a.checksum_species(h["name"]) == b.checksum_species(h["name"])
+    assert a.energies() == b.energies()
+    for x, y in zip(a.states, b.states):
+        assert torch.equal(x.rng, y.rng)
+
+
+def test_sharded_graphed_step_is_bitwise_the_eager_step(device):
+    """The 32^2 bench deck on 2 x 2 shards of the card through its CUDA
+    graphs and op by op from one seed: 19 steps (two super-cycles, an A
+    cycle and a step) give the same fields, species, energies and movers
+    on every shard, bit for bit, with equal kernel launches, and no
+    graphed step ran eagerly."""
+    g, e = _shards32(device), _shards32(device)
+    assert g.graphed and g.grid.n_shards == 4
+    push_cuda.reset_launch_counts()
+    g.advance(19)
+    graphed = dict(push_cuda.launches)
+    push_cuda.reset_launch_counts()
+    e.advance_eager(19)
+    assert graphed == push_cuda.launches
+    assert graphed["walk_only"] == 19 * 2 * 4 * g.opts.num_comm_round
+    _same_shards(g, e)
+    assert g.mover_counts() == e.mover_counts() == {"electron": 0, "ion": 0}
+    assert g.dispatch_counts == {"captures": 3, "replays.supercycle": 2,
+                                 "replays.cycle": 1, "replays.step": 1,
+                                 "graphed_steps": 19}
+    assert all(c["nodes"] > 0 for c in g.capture_times)
+    assert g.comms[0].rv.slots == [None] * 4
+
+
+def _pool_bytes():
+    out = {}
+    for seg in torch.cuda.memory_snapshot():
+        key = tuple(seg["segment_pool_id"])
+        out[key] = out.get(key, 0) + seg["total_size"]
+    return out
+
+
+def test_shard_threads_capture_into_the_runners_pool(device, monkeypatch):
+    """The shard threads' launches are captured, the graph bitwise the
+    eager steps, and their allocations land in the runner's pool: no other
+    pool grows during the capture."""
+    from vpic_tpu_torch.engine import graphs
+    growth, orig = [], graphs.GraphRunner._record
+
+    def record(self, body, start, n):
+        torch.cuda.synchronize()
+        before = _pool_bytes()
+        out = orig(self, body, start, n)
+        torch.cuda.synchronize()
+        after = _pool_bytes()
+        growth.append((tuple(self.pool), {
+            k: v - before.get(k, 0) for k, v in after.items()
+            if v > before.get(k, 0)}))
+        return out
+
+    monkeypatch.setattr(graphs.GraphRunner, "_record", record)
+    g, e = _shards32(device), _shards32(device)
+    g.advance(8)
+    e.advance_eager(8)
+    _same_shards(g, e)
+    (pool, grown), = growth
+    assert set(grown) == {pool}, grown
+
+
+def test_run_shards_runs_on_the_callers_stream(device):
+    """Each shard thread takes the caller's current stream, not its own
+    thread's default stream."""
+    from vpic_tpu_torch.core.types import Grid
+    from vpic_tpu_torch.engine import distributed as dist
+    g = Grid(nx=4, ny=4, nz=4, gpx=2, gpy=2)
+    comms = dist.make_comms(g, dist.make_mesh(g, [device]), timeout=30)
+    side = torch.cuda.Stream(device)
+    with torch.cuda.stream(side):
+        got = dist.run_shards(comms, lambda c: torch.cuda.current_stream())
+    assert got == [side] * 4
+    assert dist.run_shards(comms, lambda c: torch.cuda.current_stream()) \
+        == [torch.cuda.current_stream(device)] * 4
+
+
+@pytest.mark.parametrize("how", ["raise", "host read"])
+def test_a_shard_that_fails_inside_a_capture(device, how):
+    """Shard 1's field-injection hook fails inside the first two captures
+    (a Python exception, or a read of the card from the host, which
+    invalidates the capture): each advance raises that shard's own
+    exception in bounded time, keeps no graph and leaves the state as it
+    was; the next advance captures (into a new pool where the capture was
+    invalidated) and runs, bitwise an eager twin."""
+    import threading
+    import time
+    from tests.torch_decks import hooked_shards
+    armed = [2]
+
+    def hook(state):
+        if (armed[0] and torch.cuda.is_current_stream_capturing()
+                and threading.current_thread().name == "shard-1"):
+            armed[0] -= 1
+            if how == "raise":
+                raise KeyError("shard one")
+            float(state.field.ex.sum())
+        return state
+
+    sim = hooked_shards(device, hook)
+    twin = hooked_shards(device, lambda st: st)
+    assert sim.graphed
+    before = sim.checksum_fields()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        with pytest.raises(KeyError if how == "raise" else RuntimeError) \
+                as err:
+            sim.advance(2)
+        assert time.perf_counter() - t0 < 60
+        assert "ShardError" not in type(err.value).__name__
+        assert not sim._graphs.graphs
+        assert sim.step_count == 0
+        assert sim.dispatch_counts["eager_steps"] == 0
+        assert sim.checksum_fields() == before
+    sim.advance(2)
+    twin.advance_eager(2)
+    _same_shards(sim, twin)
+    assert sim.dispatch_counts["graphed_steps"] == 2
+
+
+def test_eager_sharded_steps_read_nothing_back(device):
+    """After a first step (which builds the kernels and the face tables),
+    eager steps of the 2 x 2-shard bench deck (migration rounds) and of a
+    two-z-shard box that cleans div E every other step (an allsum) run
+    under torch.cuda.set_sync_debug_mode("error"): no host read and no
+    copy from the host."""
+    from tests.torch_decks import hooked_shards
+    box = hooked_shards(device, px=1, py=1, pz=2, nz=4)
+    box.modify_runparams(clean_div_e_interval=2, clean_div_b_interval=2)
+    sims = [_shards32(device), box]
+    for sim in sims:
+        sim.advance_eager(1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sim in sims:
+            sim.advance_eager(3)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [sim.step_count for sim in sims] == [4, 4]

@@ -35,7 +35,7 @@ from vpic_tpu_torch.boundary.models import AbsorbTally
 from vpic_tpu_torch.core.types import FIELD_COMPONENTS
 from vpic_tpu_torch.deck.api import Simulation
 from vpic_tpu_torch.decks import bench_deck
-from vpic_tpu_torch.engine import graphs
+from vpic_tpu_torch.engine import distributed as tdist, graphs
 from vpic_tpu_torch.engine.step import _interval_hit, step_sort_flags
 from vpic_tpu_torch.interop import state_to_numpy
 
@@ -215,8 +215,9 @@ def test_a_drawing_deck_graphed_is_eager(static_runner, monkeypatch, deck):
 @pytest.mark.parametrize("graphed", [False, True])
 def test_advance_returns_the_state(static_runner, graphed):
     """``advance(n)`` returns the new state as the JAX package's does:
-    ``sim.state`` on one shard, ``sim.states`` on several (which step
-    eagerly)."""
+    ``sim.state`` on one shard, ``sim.states`` on several (built here
+    without the runner; tests/test_torch_shard_graphs.py runs them
+    through it)."""
     sharded = bench_deck.build(**SMALL, px=2, py=2, device="cpu")
     if graphed:
         static_runner()
@@ -313,7 +314,11 @@ DECKS = {
     "merge sort (packed)": (lambda: bench_deck.build(**SMALL, device="cpu"),
                             dict(merge_sort=True), False),
     "four shards": (lambda: bench_deck.build(**SMALL, px=2, py=2,
-                                             device="cpu"), {}, False),
+                                             device="cpu"), {}, True),
+    "four shards, cuda and cuda:0": (lambda: bench_deck.build(
+        **SMALL, px=2, py=2, device="cpu"), {}, True),
+    "four shards on two devices": (lambda: bench_deck.build(
+        **SMALL, px=2, py=2, device="cpu"), {}, False),
     "absorbing face": (_absorbing, {}, True),
     "boundary handler": (_tally, {}, True),
     "collision hook": (mini, dict(user_particle_collisions=lambda st: st),
@@ -323,12 +328,21 @@ DECKS = {
 }
 
 
+# the devices each case's mesh is made from in place of the CPU
+# (default: cuda:0)
+MESHES = {
+    "four shards, cuda and cuda:0": ["cuda", "cuda:0"],
+    "four shards on two devices": ["cuda:0", "cuda:1"],
+}
+
+
 @pytest.mark.parametrize("name", list(DECKS))
 def test_graph_ok_is_a_static_rule(name):
     """On the card a deck runs graphed unless it runs the packed merge
-    re-sort or has several shards: the decks that draw (rounds, emitters,
-    injection, collisions) draw on the device and run graphed too; the
-    CPU always steps eagerly."""
+    re-sort or its shards lie on several devices: the decks that draw
+    (rounds, emitters, injection, collisions) draw on the device and run
+    graphed too, and so do several shards on one card (``cuda`` and
+    ``cuda:0`` name one card); the CPU always steps eagerly."""
     build, opts, ok = DECKS[name]
     sim = build()
     hooks = {k: v for k, v in opts.items() if k.startswith("user_")}
@@ -338,7 +352,7 @@ def test_graph_ok_is_a_static_rule(name):
     if runparams:
         sim.modify_runparams(**runparams)
     assert not sim.graphed
-    sim.mesh = [torch.device("cuda", 0)] * len(sim.mesh)
+    sim.mesh = tdist.make_mesh(sim.grid, MESHES.get(name, ["cuda:0"]))
     assert sim._graph_ok() is ok
 
 

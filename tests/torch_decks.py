@@ -223,3 +223,23 @@ def check_asks_for_the_card(mp, name, env):
         mp.setenv(k, str(v))
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main([str(DECKS / f"{name}.py"), "--num-step", "1"])
+
+
+def hooked_shards(device, hook=None, px=2, py=2, pz=1, nz=1, seed=1,
+                  n=1024):
+    """A 16x16x``nz`` periodic box of ``px`` x ``py`` x ``pz`` shards with
+    ``n`` warm electrons and ``hook`` as its ``user_field_injection`` hook
+    (a deck that the CUDA graphs admit, with a place for a shard to
+    fail)."""
+    from vpic_tpu_torch.deck.api import Simulation
+    sim = Simulation(seed=seed, device=device)
+    sim.define_units(1.0, 1.0)
+    sim.define_timestep(0.05)
+    sim.define_periodic_grid(0, 0, 0, 1, 1, 1, 16, 16, nz, px, py, pz)
+    e = sim.define_species("electron", -1.0, 2 * n)
+    sim.inject_particle(e, sim.uniform(n, 0, 1), sim.uniform(n, 0, 1),
+                        sim.uniform(n, 0, 1), sim.maxwellian(n, 0.1),
+                        sim.maxwellian(n, 0.1), sim.maxwellian(n, 0.1),
+                        q=-1.0 / n)
+    sim.finalize(user_field_injection=hook)
+    return sim

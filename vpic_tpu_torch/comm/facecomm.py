@@ -45,7 +45,8 @@ class Rendezvous:
     contend for the interpreter lock (each PyTorch call releases and takes
     it again) and the payloads need no lock.
 
-    ``slots``: one posting slot per shard.  ``wait_s``: each shard's host
+    ``slots``: one posting slot per shard, emptied at the end of every
+    run.  ``wait_s``: each shard's host
     seconds from reaching a barrier to passing it (the other shards'
     turns).  A shard that raises calls :meth:`abort`; every shard waiting
     then raises :class:`ShardError`, as does a wait longer than
@@ -65,6 +66,12 @@ class Rendezvous:
         self.arrived = [0] * self.n
         self.done = [False] * self.n
         self.broken = None
+        self.clear()
+
+    def clear(self) -> None:
+        """Drop the payloads the slots still hold (``run_shards`` at the
+        end of a run): under a capture they are tensors of the graphs'
+        pool, which no reference may keep alive after the capture."""
         self.slots = [None] * self.n
 
     def _pass(self, rank: int) -> None:

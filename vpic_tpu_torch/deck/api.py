@@ -638,17 +638,18 @@ class Simulation:
                 and not any(self._tagged))
 
     def _graph_ok(self) -> bool:
-        """The step runs as CUDA graphs (``engine/graphs.py``) on one shard
-        on the card, decided once per build from the configuration as the
-        JAX package decides ``packed_ok``.  Admitted: every such deck,
+        """The step runs as CUDA graphs (``engine/graphs.py``) where every
+        shard lives on the one card (``dist.make_mesh`` names each card by
+        its index), decided once per build from the configuration as the
+        JAX package decides ``packed_ok``.  Admitted: every such deck, several shards,
         boundary rounds, emitters, the injection hook and the collision
         hook included, whose keys and draws are device operations on the
-        state's key (``core/random.py``).  Refused: several shards (their
-        threads meet at a rendezvous, ``engine/distributed.py``) and the
-        packed merge re-sort, which reads its mover count on the host once
-        per sort (``particles/sort.py``).  Those decks step eagerly, as
-        every deck does on the CPU."""
-        if self.grid.is_multishard or self.mesh[0].type != "cuda":
+        state's key (``core/random.py``).  Refused: a mesh over several
+        devices (a graph belongs to one) and the packed merge re-sort,
+        which reads its mover count on the host once per sort
+        (``particles/sort.py``).  Those decks step eagerly, as every deck
+        does on the CPU."""
+        if len(set(self.mesh)) != 1 or self.mesh[0].type != "cuda":
             return False
         return not self._packed_ok()
 
@@ -662,13 +663,13 @@ class Simulation:
                                     self._sort_intervals())
                      for t in range(start, start + n))
 
-    def _unit_body(self, state, start: int, n: int):
-        """Steps ``start`` to ``start + n - 1`` of one shard's state, op by
-        op: the body that a graph captures."""
+    def _unit_body(self, states, start: int, n: int):
+        """Steps ``start`` to ``start + n - 1`` of the per-shard states, op
+        by op: the body that a graph captures."""
         for t in range(start, start + n):
-            state = self._advance([state], step_sort_flags(
-                t, self.grid, self.opts, self._sort_intervals()), t)[0]
-        return state
+            states = self._advance(states, step_sort_flags(
+                t, self.grid, self.opts, self._sort_intervals()), t)
+        return states
 
     @property
     def graphed(self) -> bool:
@@ -696,9 +697,10 @@ class Simulation:
             self._build_advance()
 
     # -- state: one per shard, in rank order.  Under the packed cycle the
-    # species live in a packed mirror between steps, and under the graphs
-    # the state lives in the graphs' static buffers; the caller's view is
-    # made from the mirror when it is read ---------------------------------
+    # species live in a packed mirror between steps (``_pstate``), and
+    # under the graphs the states live in the graphs' static buffers
+    # (``_graphs.static``, every shard's); the caller's view is made from
+    # the mirror when it is read -------------------------------------------
     @property
     def states(self) -> List[SimState]:
         """The per-shard states in rank order (empty before finalize).
@@ -708,12 +710,12 @@ class Simulation:
         next advance copies the view back in)."""
         if self._state_stale:
             if self._graphs is not None:
-                st = graphs.clone_state(self._pstate)
+                self._states = graphs.clone_state(self._graphs.static)
             else:
-                st = dataclasses.replace(self._pstate, species=tuple(
-                    ppush.unpack_species(sp, self.grid)
-                    for sp in self._pstate.species))
-            self._states = [st]
+                self._states = [dataclasses.replace(
+                    self._pstate, species=tuple(
+                        ppush.unpack_species(sp, self.grid)
+                        for sp in self._pstate.species))]
             self._state_stale = False
         return self._states
 
@@ -754,7 +756,7 @@ class Simulation:
         diagnostics): the graphs' static buffers themselves where they hold
         the newest state, else :attr:`states`."""
         if self._state_stale and self._graphs is not None:
-            return [self._pstate]
+            return self._graphs.static
         return self.states
 
     # -- stepping ----------------------------------------------------------
@@ -782,8 +784,7 @@ class Simulation:
         if not self._state_stale:
             # the caller's view is the newest state: copy it in, and drop
             # it (a read makes a new view from the buffers)
-            r.load(self._states[0])
-            self._pstate = r.static
+            r.load(self._states)
             self._state_stale = True
             self._states = None
         k, M = self.opts.resort_interval, self._cycle_mult

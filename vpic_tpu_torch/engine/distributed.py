@@ -17,7 +17,10 @@ as it would a single shard's.
 ``make_mesh`` places shard r on ``devices[r % len(devices)]``: every shard
 on one card, or one per card where there are as many.  A neighbor's
 payload on another device is copied with ``.to``.  Every shard launches
-on its device's current stream (``particles/push_cuda.py``).
+on the caller's current stream of its device (``particles/push_cuda.py``),
+so that where every shard lives on the one card a unit of steps is
+captured, every shard's work in the eager order, into one CUDA graph
+(``engine/graphs.py``), which replays with no thread and no rendezvous.
 
 A shard that raises breaks the rendezvous; the call then raises that
 shard's exception.  A wait longer than the rendezvous' timeout, or a
@@ -45,9 +48,19 @@ def shard_coords(g: Grid) -> list:
 
 def make_mesh(g: Grid, devices=None) -> List[torch.device]:
     """The device of each shard, in rank order: shard r on
-    ``devices[r % len(devices)]`` (default: the card)."""
-    devices = [torch.device(d) for d in (devices or ["cuda"])]
+    ``devices[r % len(devices)]`` (default: the card), each card by its
+    index, so that ``cuda`` and ``cuda:0`` name one card."""
+    devices = [_indexed(torch.device(d)) for d in (devices or ["cuda"])]
     return [devices[r % len(devices)] for r in range(g.n_shards)]
+
+
+def _indexed(d: torch.device) -> torch.device:
+    """``d`` with a card named by its index: ``cuda`` is the current card
+    (0 where no card is visible, for a mesh that is only named)."""
+    if d.type != "cuda" or d.index is not None:
+        return d
+    return torch.device("cuda", torch.cuda.current_device()
+                        if torch.cuda.is_available() else 0)
 
 
 def make_comms(g: Grid, mesh, timeout: float = 300.0) -> List[ShardComm]:
@@ -61,22 +74,29 @@ def make_comms(g: Grid, mesh, timeout: float = 300.0) -> List[ShardComm]:
 def run_shards(comms, fn, *per_shard):
     """``[fn(comm, *args) for each shard]``, each shard in its own thread
     (one shard: in the caller's) with its device as the current CUDA
-    device; the rendezvous runs the threads one at a time, in turns
-    between barriers.  ``per_shard``: lists of per-shard arguments.  A
-    shard that raises aborts the rendezvous; the call raises the first
-    shard's exception that is not a ``ShardError``, or else a
-    ``ShardError``."""
+    device and the caller's current stream on that device as the
+    thread's: PyTorch keeps the current stream per thread, so a worker
+    would otherwise start on the default stream, off a capture stream
+    (``engine/graphs.py``).  The rendezvous runs the threads one at a
+    time, in turns between barriers, and drops its payloads at the end.
+    ``per_shard``: lists of per-shard arguments.  A shard that raises
+    aborts the rendezvous; the call raises the first shard's exception
+    that is not a ``ShardError``, or else a ``ShardError``."""
     n = len(comms)
     out, errors = [None] * n, [None] * n
     rv = comms[0].rv
     rv.start()
+    streams = [torch.cuda.current_stream(c.device)
+               if c.device is not None and c.device.type == "cuda" else None
+               for c in comms]
 
     def body(r):
         comm = comms[r]
         try:
             rv.enter(r)
-            if comm.device is not None and comm.device.type == "cuda":
-                with torch.cuda.device(comm.device):
+            if streams[r] is not None:
+                with torch.cuda.device(comm.device), \
+                        torch.cuda.stream(streams[r]):
                     out[r] = fn(comm, *(a[r] for a in per_shard))
             else:
                 out[r] = fn(comm, *(a[r] for a in per_shard))
@@ -85,15 +105,18 @@ def run_shards(comms, fn, *per_shard):
             errors[r] = e
             rv.abort(r, e)
 
-    if n == 1:
-        body(0)
-    else:
-        threads = [threading.Thread(target=body, args=(r,),
-                                    name=f"shard-{r}") for r in range(n)]
-        for t in threads:
-            t.start()
-        for t in threads:
-            t.join()
+    try:
+        if n == 1:
+            body(0)
+        else:
+            threads = [threading.Thread(target=body, args=(r,),
+                                        name=f"shard-{r}") for r in range(n)]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+    finally:
+        rv.clear()
     failed = [e for e in errors if e is not None]
     if failed:
         root = [e for e in failed if not isinstance(e, ShardError)]
@@ -148,8 +171,11 @@ def dryrun_multichip(n_devices: int, device="cuda", log=print) -> dict:
     super-cycles (8 steps: resort every 2, ions every 4), then the
     z-sharded 3D case for 8 steps, each held to the one-shard run of the
     same deck (fields rtol 2e-4 / atol 2e-5, energies rtol 1e-4, alive
-    count exact), every shard on ``device``.  Returns each case's
-    energies."""
+    count exact), every shard on ``device``.  Where a deck runs as CUDA
+    graphs (``sim.graphed``), its 8 steps are also the JAX hook's one
+    dispatch (``__graft_entry__.dryrun_multichip``): one unit of the
+    dispatch plan, two replays of one super-cycle (k = 2, M = 2) captured
+    once, and no eager step.  Returns each case's energies."""
     import numpy as np
 
     from ..decks import bench_deck
@@ -175,6 +201,11 @@ def dryrun_multichip(n_devices: int, device="cuda", log=print) -> dict:
         for sim in sims:
             sim.advance_steps(8)
         one, many = sims
+        for name, sim in zip(("1 shard", "shards"), sims):
+            if sim.graphed:
+                check_one_dispatch(sim, 8, f"{label} {name}")
+                log(f"dryrun_multichip({n}) {label} {name}: dispatch "
+                    f"{dict(sim.dispatch_counts)}")
         for comp in ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx"):
             np.testing.assert_allclose(global_field(many, comp),
                                        global_field(one, comp), rtol=2e-4,
@@ -193,6 +224,24 @@ def dryrun_multichip(n_devices: int, device="cuda", log=print) -> dict:
         f"{kcap} lanes/face, {len(many.states[0].species)} species, "
         f"{g.n_shards} shards")
     return out
+
+
+def check_one_dispatch(sim, steps: int, label: str) -> None:
+    """``steps`` steps from step 0 of a graphed ``sim`` were one unit of
+    the dispatch plan (the JAX package's one jitted dispatch), replayed
+    from one capture with no eager step."""
+    from .graphs import plan
+
+    k = sim.opts.resort_interval
+    units = plan(0, steps, k, sim._cycle_mult, cycles=k > 1)
+    if len(units) != 1:
+        raise AssertionError(f"{label}: {steps} steps are the units "
+                             f"{units}, not one dispatch")
+    kind, count = units[0]
+    want = {"captures": 1, f"replays.{kind}": count, "graphed_steps": steps}
+    if dict(sim.dispatch_counts) != want:
+        raise AssertionError(f"{label}: dispatch {dict(sim.dispatch_counts)}"
+                             f", expected {want}")
 
 
 def compare_layouts(devices=None, steps: int = 16, windows: int = 3,

@@ -35,16 +35,33 @@ capture's own counts are taken back.  A capture or replay that fails
 raises: nothing falls back to eager steps.
 
 Which decks run so is ``Simulation._graph_ok()``'s decision: every deck
-of one shard on the card, the open ones included (boundary rounds,
-emitters, the injection and collision hooks), since the random state is a
-device tensor that the threefry kernel reads at each replay
+whose shards all live on the one card, the open ones included (boundary
+rounds, emitters, the injection and collision hooks), since the random
+state is a device tensor that the threefry kernel reads at each replay
 (``core/random.py``) and the graph writes back like any other buffer.
-Several shards (their threads meet at a rendezvous) and the packed merge
-re-sort (a host read of its mover count per sort) step eagerly.
+The packed merge re-sort (a host read of its mover count per sort) and a
+mesh over several devices (a graph belongs to one) step eagerly.
+
+Several shards on one card (the counterpart of the JAX package's
+``shard_map``-ped step, cycle and super-cycle, ``vpic_tpu/deck/api.py:
+565-611``): the static state is the list of per-shard states in rank
+order, and the unit's body runs ``engine/distributed.run_shards``.  Its
+shard threads take the caller's current stream, the capture stream, and
+the rendezvous runs them one at a time, so one graph holds every shard's
+work in the order the eager step issues it, the halo exchanges, the
+``allsum`` of a clean and the migration rounds included; a replay needs
+no thread and no rendezvous.  The capture is begun by the calling thread
+and launched into by the shard threads under CUDA's default capture mode,
+``"global"``: a capture follows its stream, not its thread, so the shard
+threads' launches and allocations land in the graph and the runner's
+pool, and a host read in a shard thread still invalidates the capture
+and raises.
 """
 
 from __future__ import annotations
 
+import contextlib
+import ctypes
 import dataclasses
 import time
 
@@ -181,13 +198,18 @@ class GraphRunner:
     ``graphed_steps`` and, per unit kind, ``replays.<kind>``;
     ``capture_s`` gets one record per capture on the card: the unit's
     kind and steps, the seconds of the warm-up on the clone and of the
-    capture.
+    capture, the captured graph's node count and the seconds of its
+    instantiation.  The static state is one state, or on a sharded deck
+    the list of the per-shard states, which :meth:`load` and the copy-out
+    treat as one.
 
     The graphs share one pool: each copies its results into the static
     state and keeps no tensor of the pool alive after its capture, and
     the graphs replay one at a time on one stream, so one pool serves all
-    of them.  :meth:`close` frees the graphs and the pool (the owner calls
-    it before it builds new ones); the runner holds the only references."""
+    of them (after a failed capture the graphs to come take a new one,
+    since PyTorch records into an invalidated capture's pool no more).
+    :meth:`close` frees the graphs and the pool (the owner calls it before
+    it builds new ones); the runner holds the only references."""
 
     def __init__(self, device, counts, capture_s):
         self.device = torch.device(device)
@@ -238,7 +260,10 @@ class GraphRunner:
 
     def _capture(self, kind: str, start: int, n: int, body):
         """(graph, launch counts per replay) of the unit; (None, ()) on
-        the CPU."""
+        the CPU.  A warm-up or capture that fails raises the body's own
+        exception (a shard's, through ``run_shards``), after the capture
+        is ended, and keeps nothing: the static state is unchanged, since
+        a capture runs no work."""
         self.counts["captures"] += 1
         if not self.capture:
             return None, ()
@@ -253,12 +278,11 @@ class GraphRunner:
             torch.cuda.synchronize(self.device)
             t1 = time.perf_counter()
             warm = _counts()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool, stream=self.stream):
-                write_back(self.static, body(self.static, start, n),
-                           capturing=True)
-            torch.cuda.synchronize(self.device)
+            graph, nodes = self._record(body, start, n)
             t2 = time.perf_counter()
+            graph.instantiate()
+            torch.cuda.synchronize(self.device)
+            t3 = time.perf_counter()
             delta = [{name: v - w.get(name, 0) for name, v in c.items()
                       if v != w.get(name, 0)}
                      for c, w in zip(_counts(), warm)]
@@ -268,6 +292,49 @@ class GraphRunner:
                     c.clear()
                     c.update(b)
         self.capture_s.append(dict(kind=kind, steps=n, warmup_s=t1 - t0,
-                                   capture_s=t2 - t1))
+                                   capture_s=t2 - t1, nodes=nodes,
+                                   instantiate_s=t3 - t2))
         return graph, delta
 
+    def _record(self, body, start: int, n: int):
+        """Capture the unit on the capture stream: (graph, its node
+        count).  The graph is kept uninstantiated, so that its nodes can
+        be counted; the caller instantiates it."""
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        # as torch.cuda.graph does: the cached blocks go back first
+        torch.cuda.synchronize(self.device)
+        torch.cuda.empty_cache()
+        with torch.cuda.stream(self.stream):
+            graph.capture_begin(pool=self.pool)
+            try:
+                write_back(self.static, body(self.static, start, n),
+                           capturing=True)
+            except BaseException:
+                # an invalidated capture's own error would hide the body's.
+                # Its capture_end raises before it takes the allocator off
+                # the pool, and PyTorch then refuses every later capture
+                # into that pool: end the allocation here and give the
+                # graphs to come a new pool
+                with contextlib.suppress(Exception):
+                    graph.capture_end()
+                with contextlib.suppress(RuntimeError):
+                    torch._C._cuda_endAllocateToPool(self.device.index,
+                                                     self.pool)
+                self.pool = torch.cuda.graph_pool_handle()
+                raise
+            graph.capture_end()
+        return graph, graph_nodes(graph.raw_cuda_graph())
+
+
+def graph_nodes(raw: int) -> int:
+    """The node count of a captured ``cudaGraph_t`` (``cuGraphGetNodes``
+    of ``libcuda``)."""
+    get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
+    get_nodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
+                          ctypes.POINTER(ctypes.c_size_t))
+    get_nodes.restype = ctypes.c_int
+    count = ctypes.c_size_t(0)
+    err = get_nodes(raw, None, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    return count.value
