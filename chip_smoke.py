@@ -61,14 +61,19 @@ no result line):
 7. merge    - the merge re-sort's kernels against the plain passes of
               particles/sort.py: the seven kernel cases of
               tests/test_sort_pallas.py and the bench shape (2 125 824
-              lanes, 5% movers, 50 700 keys), the mark kernel's outputs,
-              the tables and every output row bitwise equal, key0/ctot
-              equal, no anomaly, the fast path where expected, two runs
-              bitwise equal; the wrappers and the kernels alone timed
-              against the plain passes and the bounds, the assembly
-              against one index_copy_ of the same permutation, the whole
-              re-sort (device ops and host reads per call, and those of
-              a re-sort that falls back) against a full sort_p_packed;
+              lanes, 5% movers, 50 700 keys), the mark kernel's outputs
+              (the sentinels past the movers included), the tables and
+              every output row bitwise equal on fast and slow blocks (the
+              tables and assembly kernels read the mover count and the
+              decision from the mark pass's words on the card; slow, the
+              assembly writes the full sort's gather), key0/ctot equal, no
+              anomaly, the fast path where expected, two runs bitwise
+              equal; the wrappers and the kernels alone timed against the
+              plain passes and the bounds, the assembly against one
+              index_copy_ of the same permutation, the whole re-sort
+              (device ops, and no host read, per call, and those of a
+              re-sort that falls back) against a full sort_p_packed, and
+              the full sort's order that every re-sort computes;
 8. path A   - the unfused push (fused_push=False): a 16^2 deck against
               the CPU plain path, then a fresh 128^2 deck for 8 warm-up
               and three timed windows of 16 steps: finite energies,
@@ -76,9 +81,10 @@ no result line):
               default path's at the same step to 1e-6, one deposit and one
               walk_only launch per species per step; a profiler trace of 8
               more steps;
-9. path B   - the packed cycle with the merge re-sort (merge_sort=True):
-              a 16^2 deck for 16 steps (every sort after a species' first
-              merges; energies match the CPU plain path); then two fresh
+9. path B   - the packed cycle with the merge re-sort (merge_sort=True),
+              graphed: a 16^2 deck for 16 steps (every sort after a
+              species' first merges, one launch of each merge kernel per
+              sort; energies match the CPU plain path); then two fresh
               128^2 decks timed as in phase 8, each with one push launch
               per species per step and its fast and slow sort counts per
               species: the deck's own cadence (electrons sort every 2
@@ -87,7 +93,8 @@ no result line):
               step (bench_deck's resort_interval=1, ion_sort_mult=1), where
               the ions' movers fit their buffer and the merge kernels run
               at full size; a trace of each, with the every-step deck's
-              step.sort busy ms and device ops per step;
+              step.sort busy ms and device ops per step (the traces'
+              steps op by op);
 10. determinism - the charge deposit as a float32 index_add_ run twice on
               the 128^2 electrons (the finding: the sums differ), then two
               bench decks built from one seed: checksum_fields equal at
@@ -256,14 +263,20 @@ no result line):
               at 128^2 with 2 x 2M and at 256^2 with 2 x 8M, turbulence
               and trecon at full size, each built twice from one seed and
               stepped through advance (graphed) and advance_eager (op by
-              op): after 48 steps (bench), 56 (turbulence, across its
-              clean at step 50) and 32 (trecon, across step 25) the same
-              checksum_fields, species checksums, energies, dropped movers
-              (0) and kernel launches, bit for bit; the bench deck's 48
-              steps six super-cycle replays of one capture and no eager
-              step; per deck and path the wall step over three 16-step
-              windows, busy device ms, ops, host reads and idle share from
-              a trace, the peak memory and each capture's seconds;
+              op), and path B at 128^2 at the deck's cadence and with
+              every species sorted every step: after 48 steps (bench, path
+              B), 56 (turbulence, across its clean at step 50) and 32
+              (trecon, across step 25) the same checksum_fields, species
+              checksums, energies, dropped movers (0), kernel launches and
+              fast and slow sorts, bit for bit; the bench deck's and path
+              B's 48 steps six super-cycle replays of one capture (48
+              replays of one step graph when path B sorts every step) and
+              no eager step; path B's last 8 steps of the window under
+              torch.cuda.set_sync_debug_mode("error") graphed and op by
+              op, and no host read in its graphed trace; per deck and
+              path the wall step over three 16-step windows, busy device
+              ms, ops, host reads and idle share from a trace, the peak
+              memory and each capture's seconds and nodes;
 19. open graphs - the threefry kernel (csrc/threefry.cu) at the 256^2
               collisions deck's 5 242 880 lanes: split and uniform bitwise
               its plain twin on the card and on the CPU, normal within
@@ -281,8 +294,8 @@ no result line):
               nothing), no host read in the 8-step trace of the graphed
               step; per deck and path the step, busy ms, ops, idle share,
               peak memory and each capture's seconds.
-Where a deck runs as CUDA graphs (every one-shard deck on the card without
-the packed merge re-sort), the timed windows of every phase time its
+Where a deck runs as CUDA graphs (every deck whose shards all live on the
+one card, path B included), the timed windows of every phase time its
 graphed steps;
 phases 5 and 8 and the sweep of 17 also time three windows op by op
 (advance_eager) and print them beside, and a trace's step parts come from
@@ -1187,43 +1200,43 @@ def _bitwise_equal(a, b):
 
 def check_merge_kernels(label, pk, np_, key0, ctot, nvk, m_cap):
     """Each merge kernel against its plain version on one block: the mark
-    pass (tile prefixes, counts, the first min(n_m, m_cap) mover slots)
-    and, where the merge runs, the tables (bitwise) and the assembly on the
-    plain passes' marks and plan (every row, key0, no anomaly).  Returns
-    the plain (fast, n_m) and the mark kernel's max abs difference from
-    the plain pass."""
+    pass (tile prefixes, counts, every mover slot, the sentinels past the
+    movers included), then the tables and the assembly on the plain
+    passes' marks, plan and full order, which read the mover count and
+    the decision from the marks' ``info`` on the device: fast, the merge;
+    slow, the full sort's gather (every row, key0, the tables, no
+    anomaly).  Returns the plain decision, n_m (read here, by the check)
+    and the mark kernel's max abs difference from the plain pass."""
     import torch
     from vpic_tpu_torch.particles import sort, sort_cuda
     km = sort_cuda.mark(pk, np_, key0, ctot, nvk, m_cap)
     pm = sort.mark(pk, np_, key0, ctot, nvk, m_cap)
-    fast, n_m = sort.fast_path(pm.info, m_cap)
-    k = min(n_m, m_cap)
+    fast = bool(sort.fast_path(pm.info, m_cap))
+    n_m = int(pm.info[0])
     mark_err = 0
     for name in pm._fields:
         a, b = getattr(km, name), getattr(pm, name)
-        if name.startswith("mov_"):
-            a, b = a[:k], b[:k]
         if a.numel():
             mark_err = max(mark_err, int((a.long() - b.long()).abs().max()))
         if not torch.equal(a, b):
             raise AssertionError(f"{label}: mark kernel's {name} differs "
                                  f"from the plain pass in "
                                  f"{int((a != b).sum())} entries")
-    if fast:
-        plan = sort.merge_plan(pm, n_m)
-        ko = sort_cuda.assemble(pk, np_, key0, ctot, pm, plan, nvk)
-        po = sort.assemble(pk, np_, key0, ctot, pm, plan, nvk)
-        if not _bitwise_equal(ko.pk, po.pk):
-            bad = int((ko.pk.view(torch.int32) != po.pk.view(torch.int32))
-                      .any(0).sum())
-            raise AssertionError(f"{label}: {bad} lanes of the assembly "
-                                 "kernel differ from the plain assembly")
-        for name in ("key0", "cum_res", "cum_mov", "cum_tot"):
-            if not torch.equal(getattr(ko, name), getattr(po, name)):
-                raise AssertionError(f"{label}: the kernels' {name} differs")
-        if int(ko.anomaly) or int(po.anomaly):
-            raise AssertionError(f"{label}: assembly anomaly "
-                                 f"{int(ko.anomaly)}/{int(po.anomaly)}")
+    plan, full = sort.merge_plan(pm), sort.full_order(pk, np_, nvk)
+    ko = sort_cuda.assemble(pk, np_, key0, ctot, pm, plan, full, nvk, m_cap)
+    po = sort.assemble(pk, np_, key0, ctot, pm, plan, full, nvk, m_cap)
+    if not _bitwise_equal(ko.pk, po.pk):
+        bad = int((ko.pk.view(torch.int32) != po.pk.view(torch.int32))
+                  .any(0).sum())
+        raise AssertionError(f"{label}: {bad} lanes of the assembly kernel "
+                             f"differ from the plain assembly (fast {fast})")
+    for name in ("key0", "cum_res", "cum_mov", "cum_tot"):
+        if not torch.equal(getattr(ko, name), getattr(po, name)):
+            raise AssertionError(f"{label}: the kernels' {name} differs "
+                                 f"(fast {fast})")
+    if int(ko.anomaly) or int(po.anomaly):
+        raise AssertionError(f"{label}: assembly anomaly "
+                             f"{int(ko.anomaly)}/{int(po.anomaly)}")
     return fast, n_m, mark_err
 
 
@@ -1242,9 +1255,9 @@ def check_merge(label, pk, np_, key0, ctot, nvk, m_cap, expect_fast):
     k = sort_cuda.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
     k2 = sort_cuda.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
     p = sort.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap)
-    if not k.fast == p.fast == fast == expect_fast:
-        raise AssertionError(f"{label}: fast path {k.fast}/{p.fast}, "
-                             f"expected {expect_fast}")
+    if not bool(k.fast) == bool(p.fast) == fast == expect_fast:
+        raise AssertionError(f"{label}: fast path {bool(k.fast)}/"
+                             f"{bool(p.fast)}, expected {expect_fast}")
     if not (_bitwise_equal(k[0], k2[0]) and all(
             torch.equal(k[i], k2[i]) for i in (1, 2, 3))):
         raise AssertionError(f"{label}: two merge re-sorts differ")
@@ -1360,31 +1373,34 @@ def phase_merge(g, device):
     args = (pk, npt, key0, ctot, nvk, m_cap)
     errs.append(check_merge("bench shape", *args, True)[3:])
     marks = sort_cuda.mark(*args)
-    fast, n_m = sort.fast_path(marks.info, m_cap)
-    plan = sort.merge_plan(marks, n_m)
+    n_m = int(marks.info[0])
+    plan, full = sort.merge_plan(marks), sort.full_order(pk, npt, nvk)
     log(f"  bench shape: merge kernels ok (n={n}, np={int(npt)}, nvk={nvk}, "
         f"movers {n_m}, m_cap {m_cap}; each kernel bitwise its plain "
         "pass's, two runs bitwise equal)")
 
     # the yardstick: the same permutation by one index_copy_, its
     # destinations per source lane prepared beforehand
-    cum_res, cum_mov, _ = sort.tables(plan.key_ms, marks.mov_old[:n_m], ctot)
+    cum_res, cum_mov, _ = sort.tables(plan.key_ms, marks.mov_old, ctot)
     d = sort.destinations(pk, npt, key0, marks, plan, cum_res, cum_mov, nvk)
     dest_lane = d.dest[:n].clone()
-    dest_lane[d.src[n:]] = d.dest[n:]
+    moved = d.dest[n:] < n
+    dest_lane[d.src[n:][moved]] = d.dest[n:][moved]
     lib_out = torch.empty_like(pk)
     run_l = lambda: lib_out.index_copy_(1, dest_lane, pk)
-    run_a = lambda: sort_cuda.assemble(pk, npt, key0, ctot, marks, plan, nvk)
+    run_a = lambda: sort_cuda.assemble(pk, npt, key0, ctot, marks, plan,
+                                       full, nvk, m_cap)
     run_l()
     if not _bitwise_equal(lib_out, run_a().pk):
         raise AssertionError("bench shape: index_copy_ by the destinations "
                              "differs from the assembly")
-    run_pa = lambda: sort.assemble(pk, npt, key0, ctot, marks, plan, nvk)
+    run_pa = lambda: sort.assemble(pk, npt, key0, ctot, marks, plan, full,
+                                   nvk, m_cap)
     run_m = lambda: sort_cuda.mark(*args)
     run_pm = lambda: sort.mark(*args)
     mp1, mk1, mk2, mp2 = (cuda_ms(run_pm, 20), cuda_ms(run_m, 20),
                           cuda_ms(run_m, 20), cuda_ms(run_pm, 20))
-    run_pt = lambda: sort.tables(plan.key_ms, marks.mov_old[:n_m], ctot)
+    run_pt = lambda: sort.tables(plan.key_ms, marks.mov_old, ctot)
     tab_err = max(int((a.long() - b.long()).abs().max())
                   for a, b in zip(run_a()[2:5], run_pt()))
     tp1, tp2 = cuda_ms(run_pt, 20), cuda_ms(run_pt, 20)
@@ -1405,10 +1421,19 @@ def phase_merge(g, device):
     # a fallback: more movers than a 1024-slot buffer holds
     run_slow = lambda: sort_cuda.merge_sort_packed(pk, npt, key0, ctot, nvk,
                                                    1024)
-    if run_slow().fast:
+    if bool(run_slow().fast):
         raise AssertionError("bench shape: 1024 mover slots did not overflow")
-    slow_p = call_profile(run_slow, 1)
+    slow_p = call_profile(run_slow, 3)
     full_p = call_profile(run_full)
+    if fast_p["reads"] or slow_p["reads"]:
+        raise AssertionError(f"bench shape: the merge re-sort read the card "
+                             f"{fast_p['reads']} / {slow_p['reads']} times "
+                             "per call")
+    # what the predicated decision adds to a merge: the full sort's order
+    # (the lane keys and a torch.sort of all of them), on every sort
+    run_order = lambda: sort.full_order(pk, npt, nvk)
+    o1, o2 = cuda_ms(run_order, 20), cuda_ms(run_order, 20)
+    order_p = call_profile(run_order)
     tiles = -(-n // sort.TILE)
     mb_ms, mb_by = mark_bound(n, n_m, m_cap, tiles)
     tb_ms, tb_by = tables_bound(n_m, nvk)
@@ -1440,14 +1465,23 @@ def phase_merge(g, device):
         f"device ops per call); the re-sort's device ops: {fast_p['names']}")
     log(f"  a re-sort that falls back (1024 mover slots): device busy "
         f"{slow_p['busy_ms']:.4f} ms, {slow_p['ops']:.1f} device ops and "
-        f"{slow_p['reads']:.1f} host reads per call")
+        f"{slow_p['reads']:.1f} host reads per call, its three kernels "
+        f"{slow_p['kernel_ms']:.4f} ms alone")
+    log(f"  the full sort's order that every re-sort computes (the lane "
+        f"keys and one torch.sort of all {n}): {o1:.4f} / {o2:.4f} ms "
+        f"(device busy {order_p['busy_ms']:.4f} ms, {order_p['ops']:.1f} "
+        "device ops): the predicated decision's cost on a merge that is "
+        "kept")
     whole = dict(whole_merge_ms=min(w1, w2), full_sort_ms=min(f1, f2),
                  whole_merge_busy_ms=fast_p["busy_ms"],
                  full_sort_busy_ms=full_p["busy_ms"],
                  merge_ops_per_call=fast_p["ops"],
                  host_reads_per_sort=fast_p["reads"],
                  fallback_ops_per_call=slow_p["ops"],
-                 fallback_host_reads_per_sort=slow_p["reads"])
+                 fallback_busy_ms=slow_p["busy_ms"],
+                 fallback_host_reads_per_sort=slow_p["reads"],
+                 full_order_ms=min(o1, o2),
+                 full_order_busy_ms=order_p["busy_ms"])
     err, mark_err = (max(e) for e in zip(*errs))
     return (
         dict(ms=min(mk1, mk2), max_abs_err=mark_err, kernel_ms=mark_alone,
@@ -1559,11 +1593,10 @@ def phase_path_a(device, e_refs):
 def packed_windows(sim, label, e_refs):
     """timed_windows on a deck that runs the packed cycle, with the push
     and merge launch counts set to 0 just before and read just after:
-    one push launch per species per step, none of walk_only, one mark
-    launch per sort and one tables and one assembly launch per fast
-    sort.  Returns the
-    merge kernels' launches, the fast and slow sorts per species and the
-    median step time."""
+    one push launch per species per step, none of walk_only, one mark,
+    one tables and one assembly launch per sort, fast or slow.  Returns
+    the merge kernels' launches, the fast and slow sorts per species and
+    the median step time."""
     from vpic_tpu_torch.particles import push_cuda, sort, sort_cuda
     nsp = len(sim.state.species)
     push_cuda.reset_launch_counts()
@@ -1575,11 +1608,9 @@ def packed_windows(sim, label, e_refs):
         raise AssertionError(f"{label}: push launches {push}, walk_only "
                              f"{walk}, expected {steps * nsp} and 0")
     merges = dict(sort_cuda.launches)
-    counts = {k: dict(v) for k, v in sort_cuda.sort_counts.items()}
-    fast = sum(c["fast"] for c in counts.values())
-    if (merges["merge_mark"] != fast + sum(c["slow"] for c in counts.values())
-            or merges["merge_tables"] != fast
-            or merges["merge_assemble"] != fast):
+    counts = sort_cuda.sort_counts()
+    sorts = sum(c["fast"] + c["slow"] for c in counts.values())
+    if set(merges.values()) != {sorts}:
         raise AssertionError(f"{label}: merge launches {merges} for sorts "
                              f"{counts}")
     caps = {sp.name: round(sort.mover_capacity(
@@ -1607,17 +1638,17 @@ def phase_path_b(device, e_refs):
     cpu.modify_runparams(merge_sort=True)
     sort_cuda.reset_launch_counts()
     small.advance_steps(STEPS)
-    counts = {k: dict(v) for k, v in sort_cuda.sort_counts.items()}
+    counts = sort_cuda.sort_counts()
     small_launches = dict(sort_cuda.launches)
     cpu.advance_steps(STEPS)
     want = {"electron": {"fast": 7, "slow": 1}, "ion": {"fast": 1, "slow": 1}}
     if counts != want:
         raise AssertionError(f"16^2 path B: sorts {counts}, expected {want}")
-    if small_launches != {"merge_mark": 10, "merge_tables": 8,
-                          "merge_assemble": 8}:
+    if small_launches != {"merge_mark": 10, "merge_tables": 10,
+                          "merge_assemble": 10}:
         raise AssertionError(f"16^2 path B: merge launches {small_launches}, "
-                             "expected 10 mark (one per sort), 8 tables and "
-                             "8 assembly (one per fast sort)")
+                             "expected 10 of each kernel (one per sort, fast "
+                             "or slow)")
     eg, ec = small.energies(), cpu.energies()
     for k in ec:
         if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
@@ -4494,9 +4525,15 @@ def phase_harness(device, card):
 
 # each deck: its build and the steps of the bitwise window, which crosses
 # a clean step on turbulence (every 50) and trecon (every 25); the bench
-# deck's 48 steps are six super-cycles of k = 2, M = 4
+# deck's 48 steps are six super-cycles of k = 2, M = 4.  Path B (the
+# packed cycle with the merge re-sort) at the deck's cadence (six
+# super-cycles) and with every species sorted every step (48 replays of
+# one step graph)
 GRAPH_DECKS = {
     "bench 128^2, 4M": (lambda device: _bench(device, **SLICE), 48),
+    "path B 128^2, 4M": (lambda device: _path_b(device), 48),
+    "path B 128^2, 4M, every step": (lambda device: _path_b(
+        device, resort_interval=1, ion_sort_mult=1), 48),
     "bench 256^2, 16M": (lambda device: _bench(
         device, nx=256, ny=256, nz=1, npart=8_000_000), 48),
     "turbulence": (lambda device: port_deck("turbulence", device,
@@ -4509,6 +4546,18 @@ GRAPH_DECKS = {
 def _bench(device, **deck):
     from vpic_tpu_torch.decks import bench_deck
     return bench_deck.build(**deck, device=device)
+
+
+def _path_b(device, **deck):
+    """The 128^2 bench deck on path B (``merge_sort=True``)."""
+    sim = _bench(device, **SLICE, **deck)
+    sim.modify_runparams(merge_sort=True)
+    return sim
+
+
+# the steps at the end of a path B deck's bitwise window that run under
+# torch.cuda.set_sync_debug_mode("error"): one super-cycle at the cadence
+SYNC_STEPS = 8
 
 
 def _launch_counts():
@@ -4525,18 +4574,23 @@ def _reset_launch_counts():
         mod.reset_launch_counts()
 
 
-def graph_run(label, build, device, steps, graphed, books=None):
+def graph_run(label, build, device, steps, graphed, books=None,
+              sync_free=False):
     """One deck of GRAPH_DECKS (or of OPEN_GRAPH_DECKS), built alone on
     the card: ``steps`` steps through ``advance`` (``graphed``) or
     ``advance_eager``, then three timed windows of STEPS steps and a trace
     of TRACE_STEPS steps of the same stepping, with the card's peak memory
     over it all.  ``books(sim, n0)``: the deck's particle books after the
-    ``steps`` steps (n0 the live lanes at build).  Returns what phases
-    18-20 compare and record (``end``: the checksums, every shard's random
-    state and the books again after the windows and the trace, at the
-    step that the most retried trace would reach, where every run of the
-    deck goes on to; ``wait_ms``: on several shards the host wait at the
-    rendezvous per step and shard in the timed windows, 0 on replays)."""
+    ``steps`` steps (n0 the live lanes at build).  ``sync_free``: the last
+    SYNC_STEPS of the ``steps`` run under
+    ``torch.cuda.set_sync_debug_mode("error")``, so a host read or a copy
+    from the host there raises.  Returns what phases 18-20 compare and
+    record (``sorts``: the merge re-sort's fast and slow sorts in the
+    ``steps``; ``end``: the checksums, every shard's random state and the
+    books again after the windows and the trace, at the step that the
+    most retried trace would reach, where every run of the deck goes on
+    to; ``wait_ms``: on several shards the host wait at the rendezvous
+    per step and shard in the timed windows, 0 on replays)."""
     import statistics
     import torch
     torch.cuda.synchronize()
@@ -4554,9 +4608,20 @@ def graph_run(label, build, device, steps, graphed, books=None):
     advance = sim.advance_steps if graphed else sim.advance_eager
     _reset_launch_counts()
     sim.dispatch_counts.clear()
-    advance(steps)
+    if sync_free:
+        advance(steps - SYNC_STEPS)
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            advance(SYNC_STEPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    else:
+        advance(steps)
     torch.cuda.synchronize()
-    out = dict(launches=_launch_counts(), dispatch=dict(sim.dispatch_counts),
+    from vpic_tpu_torch.particles import sort_cuda
+    out = dict(launches=_launch_counts(), sorts=sort_cuda.sort_counts(),
+               dispatch=dict(sim.dispatch_counts),
                fields=sim.checksum_fields(),
                species=[sim.checksum_species(h["name"])
                         for h in sim._species],
@@ -4625,19 +4690,23 @@ def phase_graphs(device, card):
     """Phase 18: each deck of GRAPH_DECKS graphed and eager, each built
     alone from the same seed: after the bitwise window the same
     checksum_fields, species checksums, energies and dropped movers (0),
-    and the same kernel launches (a replay adds its graph's), and the same
-    checksums and random state after the windows and the trace; on the
-    bench
-    deck 48 steps as six super-cycle replays, one capture and no eager
-    step; the wall step (three 16-step windows), busy ms, ops, host reads
-    and idle share from a trace, the peak memory and each graph's capture
-    time of both.  Returns the record of each deck."""
+    the same kernel launches (a replay adds its graph's) and fast and
+    slow sorts, and the same checksums and random state after the windows
+    and the trace; on the bench deck and path B at its cadence 48 steps
+    as six super-cycle replays, path B sorting every step 48 replays of
+    one step graph, one capture and no eager step; on path B the last
+    SYNC_STEPS of the window with no host read (graphed and eager), and
+    none in the graphed trace; the wall step (three 16-step windows),
+    busy ms, ops, host reads and idle share from a trace, the peak memory
+    and each graph's capture time of both.  Returns the record of each
+    deck."""
     recs = {}
     for label, (build, steps) in GRAPH_DECKS.items():
-        g = graph_run(label, build, device, steps, True)
-        e = graph_run(label, build, device, steps, False)
+        path_b = label.startswith("path B")
+        g = graph_run(label, build, device, steps, True, sync_free=path_b)
+        e = graph_run(label, build, device, steps, False, sync_free=path_b)
         for key in ("fields", "species", "energies", "movers", "launches",
-                    "end"):
+                    "sorts", "end"):
             if g[key] != e[key]:
                 raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
                                      f"eager {e[key]}")
@@ -4648,19 +4717,29 @@ def phase_graphs(device, card):
                 e["dispatch"] != {"eager_steps": steps}:
             raise AssertionError(f"{label}: dispatch {g['dispatch']}, "
                                  f"eager {e['dispatch']}")
-        if label.startswith("bench") and g["dispatch"] != {
-                "captures": 1, "replays.supercycle": steps // 8,
-                "graphed_steps": steps}:
+        units = ({"replays.step": steps} if label.endswith("every step")
+                 else {"replays.supercycle": steps // 8})
+        if (label.startswith("bench") or path_b) and g["dispatch"] != dict(
+                captures=1, graphed_steps=steps, **units):
             raise AssertionError(f"{label}: {steps} steps dispatched as "
-                                 f"{g['dispatch']}, not {steps // 8} "
-                                 "super-cycle replays of one capture")
+                                 f"{g['dispatch']}, not {units} of one "
+                                 "capture")
+        if path_b and (g["reads"] or not g["sorts"]
+                       or not all(v == sum(sum(c.values()) for c in
+                                           g["sorts"].values())
+                                  for k, v in g["launches"].items()
+                                  if k.startswith("merge_"))):
+            raise AssertionError(f"{label}: {g['reads']} host reads per "
+                                 f"graphed step, sorts {g['sorts']}, merge "
+                                 f"launches {g['launches']}")
         log(f"  {label} ({card}): after {steps} steps graphed = eager "
             f"bitwise (fields {g['fields'][:16]}..., species checksums, "
             f"energies, dropped movers {g['movers']}, launches "
-            f"{ {k: v for k, v in g['launches'].items() if v} }), and again "
-            f"after the windows and the trace at step {g['end']['step']}; "
-            "graphed "
-            f"dispatch {g['dispatch']}")
+            f"{ {k: v for k, v in g['launches'].items() if v} }"
+            + (f", sorts {g['sorts']}, no host read in the last "
+               f"{SYNC_STEPS} steps of either" if path_b else "")
+            + f"), and again after the windows and the trace at step "
+            f"{g['end']['step']}; graphed dispatch {g['dispatch']}")
         for name, r in (("graphed", g), ("eager", e)):
             log(f"  {label}, {name}: step {r['step_ms']:.4f} ms "
                 f"({r['step_min_ms']:.4f}-{r['step_max_ms']:.4f}), busy "

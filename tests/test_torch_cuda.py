@@ -8,10 +8,13 @@ runs of the kernel bitwise equal; the wrapper's scratch left zero and its
 scale that of deposit.fixed_scale; the unfused push (deposit kernel +
 walk_only) as the plain one.  Deposit: the accumulator
 within 1e-6 * sum|contributions| per word, two runs bitwise equal.  Merge
-re-sort: the mark kernel's outputs and the assembly kernel's rows, key0
-and anomaly bitwise equal to the plain passes', the plain fast/slow
-decision, the whole re-sort bitwise the plain one's, two runs bitwise
-equal.  The turbulence deck: the fixed-point rho and hydro deposits
+re-sort: the mark kernel's outputs and the tables and assembly kernels'
+rows, key0, tables and anomaly bitwise equal to the plain passes', on
+fast and slow blocks, the assembly following the decision in device
+memory, the plain fast/slow decision, the whole re-sort bitwise the
+plain one's, two runs bitwise equal; path B (the packed cycle with the
+merge re-sort) graphed bitwise its eager steps, across a restore too, and
+its eager steps without a host read.  The turbulence deck: the fixed-point rho and hydro deposits
 repeat bitwise and match float64 within 1e-6 * sum|contributions|; the
 push kernel on its q = 0 tracers (zero accumulator, finite scale) and on
 its bulk species at full shape (3D, reflecting walls).  An open deck's
@@ -152,11 +155,8 @@ def test_merge_kernel_matches_plain(device, name):
     cs.run_merge_case(name, device)
     # each round: the kernels alone, then two merge re-sorts
     rounds = len(cs.MERGE_EXPECT_FAST[name])
-    assert sort_cuda.launches["merge_mark"] - before["merge_mark"] \
-        == 3 * rounds
-    for k in ("merge_tables", "merge_assemble"):
-        assert (sort_cuda.launches[k] - before[k]
-                == 3 * sum(cs.MERGE_EXPECT_FAST[name]))
+    for k in ("merge_mark", "merge_tables", "merge_assemble"):
+        assert sort_cuda.launches[k] - before[k] == 3 * rounds
 
 
 def _block(device, seed, n, np_, nvk, frac, sentinel=False,
@@ -193,11 +193,11 @@ def test_merge_mark_and_assembly_kernels_match_plain(device, name):
     args = _block(device, seed, 3 * sort.TILE + 100, np_, 700, frac,
                   sentinel, mover_tile)
     before = dict(sort_cuda.launches)
-    # the kernels alone, then two merge re-sorts
+    # the kernels alone, then two merge re-sorts: one launch of each kernel
+    # per call, fast or slow
     cs.check_merge(name, *args, m_cap, fast)
-    assert sort_cuda.launches["merge_mark"] - before["merge_mark"] == 3
-    for k in ("merge_tables", "merge_assemble"):
-        assert sort_cuda.launches[k] - before[k] == 3 * fast
+    for k in ("merge_mark", "merge_tables", "merge_assemble"):
+        assert sort_cuda.launches[k] - before[k] == 3
 
 
 def test_merge_kernels_are_deterministic(device):
@@ -208,16 +208,43 @@ def test_merge_kernels_are_deterministic(device):
     m_cap = 50 * sort.TILE
     runs = [sort_cuda.mark(pk, npt, key0, ctot, nvk, m_cap)
             for _ in range(2)]
-    fast, n_m = sort.fast_path(runs[0].info, m_cap)
-    assert fast and torch.equal(runs[0].info, runs[1].info)
+    assert bool(sort.fast_path(runs[0].info, m_cap))
     for a, b in zip(*runs):
-        assert torch.equal(a[:n_m], b[:n_m])
-    plan = sort.merge_plan(runs[0], n_m)
-    one, two = (sort_cuda.assemble(pk, npt, key0, ctot, runs[0], plan, nvk)
+        assert torch.equal(a, b)
+    plan, full = sort.merge_plan(runs[0]), sort.full_order(pk, npt, nvk)
+    one, two = (sort_cuda.assemble(pk, npt, key0, ctot, runs[0], plan, full,
+                                   nvk, m_cap)
                 for _ in range(2))
     assert cs._bitwise_equal(one.pk, two.pk)
     assert all(torch.equal(a, b) for a, b in zip(one[1:], two[1:]))
     assert int(one.anomaly) == 0
+
+
+def test_assembly_follows_the_decision_in_device_memory(device):
+    """The tables and assembly kernels take the mover count and the
+    decision from the marks' info words on the card: on a fast block,
+    info edited on the card to say "no snapshot" makes the assembly write
+    the full sort's block, bitwise the plain assembly's on the same
+    words, and the mark kernel's epoch moves on across launches (three
+    marks in a row give equal outputs)."""
+    pk, npt, key0, ctot, nvk = _block(device, 3, 3 * sort.TILE + 100,
+                                      12000, 700, 0.05)
+    m_cap = 12388
+    marks = [sort_cuda.mark(pk, npt, key0, ctot, nvk, m_cap)
+             for _ in range(3)]
+    assert all(torch.equal(a, b) for m in marks[1:]
+               for a, b in zip(marks[0], m))
+    plan, full = sort.merge_plan(marks[0]), sort.full_order(pk, npt, nvk)
+    slow = marks[0]._replace(info=marks[0].info.clone())
+    slow.info[2] = 0
+    for m, fast in ((marks[0], True), (slow, False)):
+        assert bool(sort.fast_path(m.info, m_cap)) is fast
+        k = sort_cuda.assemble(pk, npt, key0, ctot, m, plan, full, nvk,
+                               m_cap)
+        p = sort.assemble(pk, npt, key0, ctot, m, plan, full, nvk, m_cap)
+        assert cs._bitwise_equal(k.pk, p.pk) and torch.equal(k.key0, p.key0)
+        assert int(k.anomaly) == int(p.anomaly) == 0
+    assert cs._bitwise_equal(k.pk, sort.full_gather(pk, npt, full, nvk)[0])
 
 
 @pytest.fixture(scope="module")
@@ -772,3 +799,76 @@ def test_eager_sharded_steps_read_nothing_back(device):
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     assert [sim.step_count for sim in sims] == [4, 4]
+
+
+def _path_b32(device, **deck):
+    from vpic_tpu_torch.decks import bench_deck
+    sim = bench_deck.build(nx=32, ny=32, nz=1, npart=65_536, device=device,
+                           **deck)
+    sim.modify_runparams(merge_sort=True)
+    return sim
+
+
+@pytest.mark.parametrize("every_step", [False, True],
+                         ids=["cadence", "every-step"])
+def test_path_b_graphed_is_bitwise_eager(device, every_step):
+    """Path B on the 32^2 bench deck through its CUDA graphs and op by op
+    from one seed, at the deck's cadence and sorting every step: after 16
+    steps the same fields, species, energies, movers, merge launches and
+    fast and slow sorts; then a checkpoint, 8 steps more and a restore,
+    whose state carries no merge carry (key0 = -1, a full sort first), and
+    8 steps again, bitwise equal in both."""
+    kw = dict(resort_interval=1, ion_sort_mult=1) if every_step else {}
+    runs, counts = [], []
+    for graphed in (True, False):
+        sim = _path_b32(device, **kw)
+        assert sim.graphed
+        advance = sim.advance_steps if graphed else sim.advance_eager
+        sort_cuda.reset_launch_counts()
+        advance(16)
+        torch.cuda.synchronize()
+        runs.append(sim)
+        counts.append((sort_cuda.sort_counts(), dict(sort_cuda.launches)))
+    g, e = runs
+    assert counts[0] == counts[1]
+    # at the cadence more lanes move between two sorts than the mover
+    # buffer holds, and every sort falls back
+    assert (counts[0][0]["electron"]["fast"] > 0) is every_step
+    assert g.dispatch_counts["eager_steps"] == 0
+    assert g.checksum_fields() == e.checksum_fields()
+    for h in g._species:
+        assert g.checksum_species(h["name"]) == e.checksum_species(h["name"])
+    assert g.energies() == e.energies()
+    assert g.mover_counts() == e.mover_counts() == {"electron": 0, "ion": 0}
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        for sim, advance in ((g, g.advance_steps), (e, e.advance_eager)):
+            sim.checkpoint(f"{tmp}/{id(sim)}")
+            advance(8)
+            sim.restore(f"{tmp}/{id(sim)}")
+            advance(8)
+    assert g.checksum_fields() == e.checksum_fields()
+    for h in g._species:
+        assert g.checksum_species(h["name"]) == e.checksum_species(h["name"])
+
+
+def test_eager_path_b_steps_read_nothing_back(device):
+    """After a first step, eager steps of path B at the deck's cadence (a
+    super-cycle: every species' sort, then the electrons') and sorting
+    every step run under torch.cuda.set_sync_debug_mode("error"): the
+    merge re-sort decides on the card."""
+    sims = [_path_b32(device), _path_b32(device, resort_interval=1,
+                                         ion_sort_mult=1)]
+    for sim in sims:
+        sim.advance_eager(8)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for sim in sims:
+            sim.advance_eager(8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert [sim.step_count for sim in sims] == [16, 16]
+    assert all(sim.mover_counts() == {"electron": 0, "ion": 0}
+               for sim in sims)

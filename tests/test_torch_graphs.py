@@ -13,6 +13,12 @@
   its clean step; a state the caller holds is not changed by later
   advances; an in-place edit between advances is kept; ``restore`` and
   ``modify_runparams`` invalidate the static buffers.
+- The packed cycle with the merge re-sort (path B) through the static
+  runner, bitwise its eager steps at the deck's cadence and sorting every
+  step, with a read between advances, across eager steps, a checkpoint
+  and restore and ``modify_runparams(merge_sort=True)`` mid-run, with the
+  same sort counts; its energies against the JAX package's packed cycle
+  with the merge re-sort (Pallas in interpret mode) to 1e-6 relative.
 - The static rule ``_graph_ok()``: the decks it admits and refuses.
 - The slice: the bench deck at 16^2 with 4096 particles per species,
   ``advance(16)`` in one call through the static runner, against
@@ -38,6 +44,7 @@ from vpic_tpu_torch.decks import bench_deck
 from vpic_tpu_torch.engine import distributed as tdist, graphs
 from vpic_tpu_torch.engine.step import _interval_hit, step_sort_flags
 from vpic_tpu_torch.interop import state_to_numpy
+from vpic_tpu_torch.particles import sort_cuda
 
 from tests import torch_decks
 
@@ -312,7 +319,7 @@ DECKS = {
     "field injection": (mini, dict(user_field_injection=lambda st: st),
                         True),
     "merge sort (packed)": (lambda: bench_deck.build(**SMALL, device="cpu"),
-                            dict(merge_sort=True), False),
+                            dict(merge_sort=True), True),
     "four shards": (lambda: bench_deck.build(**SMALL, px=2, py=2,
                                              device="cpu"), {}, True),
     "four shards, cuda and cuda:0": (lambda: bench_deck.build(
@@ -338,11 +345,12 @@ MESHES = {
 
 @pytest.mark.parametrize("name", list(DECKS))
 def test_graph_ok_is_a_static_rule(name):
-    """On the card a deck runs graphed unless it runs the packed merge
-    re-sort or its shards lie on several devices: the decks that draw
-    (rounds, emitters, injection, collisions) draw on the device and run
-    graphed too, and so do several shards on one card (``cuda`` and
-    ``cuda:0`` name one card); the CPU always steps eagerly."""
+    """On the card a deck runs graphed unless its shards lie on several
+    devices: the decks that draw (rounds, emitters, injection, collisions)
+    draw on the device and run graphed too, and so do the packed merge
+    re-sort, which decides on the device, and several shards on one card
+    (``cuda`` and ``cuda:0`` name one card); the CPU always steps
+    eagerly."""
     build, opts, ok = DECKS[name]
     sim = build()
     hooks = {k: v for k, v in opts.items() if k.startswith("user_")}
@@ -354,6 +362,124 @@ def test_graph_ok_is_a_static_rule(name):
     assert not sim.graphed
     sim.mesh = tdist.make_mesh(sim.grid, MESHES.get(name, ["cuda:0"]))
     assert sim._graph_ok() is ok
+
+
+# path B at the deck's cadence (k = 2, M = 4: super-cycles) and with
+# every species sorted every step (k = 1: one step graph)
+PATH_B = {"cadence": {}, "every step": dict(resort_interval=1,
+                                            ion_sort_mult=1)}
+
+
+def _path_b(form, merge_sort=True):
+    sim = bench_deck.build(**SMALL, **PATH_B[form], device="cpu")
+    if merge_sort:
+        sim.modify_runparams(merge_sort=True)
+    return sim
+
+
+@pytest.mark.parametrize("form", list(PATH_B))
+def test_path_b_graphed_is_eager(static_runner, form):
+    """Path B through the static runner: 16 steps in one call, in two
+    calls with a read of the state between them, and across three eager
+    steps, bitwise its 16 eager steps; the same sorts fast and slow, the
+    JAX package's dispatch units (two super-cycles at the cadence, one
+    step graph replayed when every step sorts)."""
+    eager = _path_b(form)
+    static_runner()
+    whole, split, mixed = (_path_b(form) for _ in range(3))
+    assert whole.graphed and not eager.graphed
+    counts = {}
+    for name, sim in (("eager", eager), ("whole", whole)):
+        sort_cuda.reset_launch_counts()
+        sim.advance(16)
+        counts[name] = sort_cuda.sort_counts()
+    split.advance(3)
+    split.state
+    split.advance(13)
+    mixed.advance(5)
+    mixed.advance_eager(3)
+    mixed.advance(8)
+    for sim in (split, mixed, eager):
+        assert_same(whole, sim)
+    assert counts["whole"] == counts["eager"]
+    assert sum(c["fast"] for c in counts["whole"].values()) > 0
+    units = ({"replays.supercycle": 2} if form == "cadence"
+             else {"replays.step": 16})
+    assert whole.dispatch_counts == dict(captures=1, graphed_steps=16,
+                                         **units)
+    assert eager.dispatch_counts == {"eager_steps": 16}
+    assert mixed.dispatch_counts["eager_steps"] == 3
+    assert whole.mover_counts() == {"electron": 0, "ion": 0}
+
+
+def test_path_b_restore_and_switch_mid_run(static_runner, tmp_path):
+    """Path B through the static runner against its eager steps, bitwise:
+    across a checkpoint and restore, whose state carries no merge carry
+    (the checkpoint holds the unpacked state, as the JAX package's does),
+    so the packed mirror is packed again with ``key0 = -1`` and each
+    species' first sort after it is a full sort; and across
+    ``modify_runparams(merge_sort=True)`` after four default steps."""
+    eager = _path_b("cadence")
+    switched_e = _path_b("cadence", merge_sort=False)
+    static_runner()
+    sim = _path_b("cadence")
+    switched = _path_b("cadence", merge_sort=False)
+    sorts = []
+    for s, ck in ((sim, tmp_path / "g"), (eager, tmp_path / "e")):
+        s.advance(4)
+        s.checkpoint(ck)
+        s.advance(4)
+        s.restore(ck)
+        assert s.step_count == 4
+        assert s._pstate is None and not s._static_packed
+        sort_cuda.reset_launch_counts()
+        s.advance(4)
+        sorts.append(sort_cuda.sort_counts())
+    assert_same(sim, eager)
+    # steps 4 and 6 sort the electrons only: the first in full
+    assert sorts[0] == sorts[1] == {"electron": {"fast": 1, "slow": 1}}
+
+    for s in (switched, switched_e):
+        s.advance(4)
+        s.modify_runparams(merge_sort=True)
+        s.advance(12)
+    assert switched.graphed and switched._static_packed
+    assert_same(switched, switched_e)
+
+
+def test_path_b_energies_match_jax_packed_cycle(static_runner, monkeypatch):
+    """The 8^2 bench deck of the JAX package's packed-cycle tests
+    (tests/test_sort_pallas.py, 1500 particles a species) with every
+    species sorted every other step, for 8 steps: the JAX package's packed
+    cycle with its merge re-sort (four scanned A cycles, its fused push and
+    merge kernels in interpret mode; a super-cycle of A and B cycles
+    doubles the interpreted kernels to compile) against the port's path B
+    through the static runner: energies to 1e-6 relative (BASELINE.md's
+    bar), no dropped mover in either, the port's merge run."""
+    from jax.experimental.pallas import tpu as pltpu
+
+    monkeypatch.setenv("VPIC_TPU_FORCE_FUSED", "1")
+    monkeypatch.setenv("VPIC_TPU_FORCE_MERGE_SORT", "1")
+    monkeypatch.delenv("VPIC_TPU_DISABLE_PALLAS", raising=False)
+    deck = dict(nx=8, ny=8, nz=1, npart=1500, ion_sort_mult=1)
+    with pltpu.force_tpu_interpret_mode():
+        jsim = ge._build(**deck)
+        assert jsim._cycle_body_packed is not None
+        jsim.advance(8)
+        je = {k: float(v) for k, v in jsim.energies().items()}
+        jnm = {sp.name: int(np.asarray(sp.nm)) for sp in jsim.state.species}
+    static_runner()
+    tsim = bench_deck.build(**deck, device="cpu")
+    tsim.modify_runparams(merge_sort=True)
+    sort_cuda.reset_launch_counts()
+    tsim.advance(8)
+    assert tsim.graphed and tsim.dispatch_counts["graphed_steps"] == 8
+    assert all(c["fast"] > 0 for c in sort_cuda.sort_counts().values())
+    te = tsim.energies()
+    for k, v in je.items():
+        np.testing.assert_allclose(te[k], v, rtol=1e-6, atol=1e-12,
+                                   err_msg=k)
+    assert jnm == tsim.mover_counts() == {"electron": 0, "ion": 0}
 
 
 @pytest.fixture(scope="module")

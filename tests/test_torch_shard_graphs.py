@@ -10,9 +10,10 @@ tests/test_torch_graphs.py does).
   their ``advance_eager`` runs on every shard, dispatched as
   ``graphs.plan`` says.
 - The cycled two-shard deck of tests/test_torch_shard.py through the
-  runner, held to the JAX package's multi-shard engine on the conftest's
-  8-device CPU mesh at that module's bars (16 float32 ulps of each
-  array's scale, energies 1e-6 relative, voxels exact).
+  runner for one super-cycle, held to the JAX package's multi-shard
+  engine on the conftest's 8-device CPU mesh at that module's bars (16
+  float32 ulps of each array's scale, energies 1e-6 relative, voxels
+  exact).
 - ``dryrun_multichip(2)`` asserting the JAX hook's one dispatch per case.
 - A shard that fails inside a unit: the call raises its own exception,
   the static states keep the last whole unit's values and the next
@@ -35,6 +36,7 @@ from vpic_tpu_torch.decks import bench_deck
 from vpic_tpu_torch.engine import distributed as tdist
 from vpic_tpu_torch.engine import graphs
 from vpic_tpu_torch.interop import state_to_numpy
+from vpic_tpu_torch.particles import boundary as tboundary
 
 from tests.test_torch_shard import check_against_jax, cycled, deck, port, snap
 from tests.torch_decks import hooked_shards
@@ -100,18 +102,33 @@ def test_two_z_shards_bitwise_across_a_clean(static_runner):
                                      "graphed_steps": 8}
 
 
-def test_cycled_two_shards_through_the_runner_match_jax(static_runner):
+def test_cycled_two_shards_through_the_runner_match_jax(static_runner,
+                                                        monkeypatch):
     """tests/test_torch_shard.py's cycled deck (resort every 2 steps, ions
-    every 4) on two shards, 8 steps as one dispatch of two super-cycle
-    replays, held to the JAX package's multi-shard engine."""
+    every 4) on two shards, one super-cycle through the runner (4 steps:
+    a sort of both species, one of the electrons, lanes received from the
+    other shard, counted), held to the JAX package's multi-shard engine.
+    Fewer steps cost the JAX package as much (it compiles its sorting and
+    its plain step either way) and leave tca too small for the module's
+    bar, which is relative to each array's scale."""
     jsim = cycled(JSim, px=2)
-    for _ in range(8):
+    for _ in range(4):
         jsim.advance(1)
+    received = []
+    orig = tboundary.received_lanes
+
+    def counting(recv):
+        cols, valid = orig(recv)
+        received.append(int(valid.sum()))
+        return cols, valid
+
+    monkeypatch.setattr(tboundary, "received_lanes", counting)
     static_runner()
     sim = cycled(port, px=2)
-    sim.advance(8)
-    assert sim.dispatch_counts == {"captures": 1, "replays.supercycle": 2,
-                                   "graphed_steps": 8}
+    sim.advance(4)
+    assert sim.dispatch_counts == {"captures": 1, "replays.supercycle": 1,
+                                   "graphed_steps": 4}
+    assert sum(received) > 0
     check_against_jax(snap(sim), snap(jsim), species=2)
 
 

@@ -63,13 +63,11 @@ def path_runs():
         sort_cuda.reset_launch_counts()
         sim.advance(STEPS)
         out[name] = dict(e=sim.energies(), nm=sim.mover_counts(),
-                         sorts={k: dict(v) for k, v in
-                                sort_cuda.sort_counts.items()})
+                         sorts=sort_cuda.sort_counts())
         if name == "merge":
             sim.advance(STEPS)
             out["merge16"] = dict(nm=sim.mover_counts(),
-                                  sorts={k: dict(v) for k, v in
-                                         sort_cuda.sort_counts.items()})
+                                  sorts=sort_cuda.sort_counts())
     return out
 
 

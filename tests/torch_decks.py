@@ -22,7 +22,8 @@ size, built once in each package.
 Importing this module sets PyTorch to one CPU thread (the port's test
 files all import it): the tests' tensors are small, and pytest-xdist runs
 one test process per worker, so PyTorch's default of a thread per core
-would oversubscribe the cores many times over.
+would oversubscribe the cores many times over.  It also sets the shard
+threads' rendezvous timeout to 30 s, so a deadlock fails fast.
 """
 
 import importlib
@@ -34,6 +35,7 @@ import torch
 
 from vpic_tpu_torch.cli import run as cli
 from vpic_tpu_torch.core.types import FIELD_COMPONENTS
+from vpic_tpu_torch.engine import distributed as tdist
 from vpic_tpu_torch.interop import state_from_numpy, state_to_numpy
 
 STEPS = 8
@@ -42,6 +44,9 @@ BAR = 1e-5
 DECKS = Path(__file__).resolve().parents[1] / "vpic_tpu_torch" / "decks"
 
 torch.set_num_threads(1)
+# a shard thread that deadlocks fails its test in 30 s, not in the
+# rendezvous' default 300 s (the tests' steps take well under a second)
+tdist.RENDEZVOUS_TIMEOUT = 30.0
 
 
 def modules(mp, name, env):

@@ -17,23 +17,37 @@
 // scan of a 64-bit word that packs the thread's four per-chunk counts in
 // 16-bit fields.
 //
+// Nothing is read back to the host and no size depends on the data, so a
+// sort records into a CUDA graph: the mover count and the fast-or-full
+// decision (the JAX package's lax.cond, sort_pallas.py:347) stay in the
+// mark pass's `info` words on the device, which the tables and assembly
+// kernels read; every launch has the same grid whatever they hold.
+//
 // merge_mark_kernel reads row 7 and key0 once (8 B per lane).  It counts
 // the tile's movers (key != key0) and turns the counts into tile prefixes
 // in one pass by decoupled look-back: a tile takes a ticket (so that every
 // tile it waits for is running), publishes its count, and warp 0 reads 32
 // predecessors' words at a time until one holds an inclusive prefix.  The
-// words carry the launch's epoch, so they need no clearing between calls.
-// It writes each tile's residual prefix and the key of its first residual
+// words carry the launch's epoch, so they need no clearing between calls;
+// the epoch is a word of the scratch that the last block to finish moves
+// on, so a replayed graph takes a new one at every launch.  The kernel
+// writes each tile's residual prefix and the key of its first residual
 // lane, the first m_cap movers' lanes and old and new keys in lane order
-// (overflow is counted, not written), and, from the last tile, [n_m, keys
-// out of [0, nvk], key0[0] >= 0, ctot[nvk + 2] == n] for the host's one
-// read.  Bound at the bench shape (2 125 824 lanes, 5 % movers): 8 B per
-// lane read and 12 B per mover written, about 18 MB, 5.5 us at 3.35 TB/s.
+// (overflow is counted, not written; the wrapper fills the slots with
+// the sentinel first, so the slots past the movers hold it), and, from the
+// last tile, info = [n_m, keys out of [0, nvk], key0[0] >= 0,
+// ctot[nvk + 2] == n].  Bound at the bench shape (2 125 824 lanes, 5 %
+// movers): 8 B per lane read and 12 B per mover written, about 18 MB,
+// 5.5 us at 3.35 TB/s.
 //
 // merge_tables_kernel: one thread per key, two binary searches over the
-// movers' sorted new and old keys (in L2); latency, not bytes, bounds it.
+// m_cap mover slots' sorted new and old keys (in L2; the sentinels past
+// the movers lie above every key, so the counts are the movers'); latency,
+// not bytes, bounds it.  It runs on every sort: its tables are used only
+// where the merge is kept.
 //
-// merge_assemble_kernel: block b re-derives its tile's keys, mover flags
+// merge_assemble_kernel, where info says fast: block b re-derives its
+// tile's keys, mover flags
 // and residual ranks (block scan plus the tile prefix), so it reads no
 // per-lane array of the glue.  A residual lane of rank r and key v goes to
 // r + cum_mov[v], the mover of sorted rank m and key v to
@@ -53,7 +67,11 @@
 // writes the anomaly (count + 1 if any) and clears the counters.  Bound:
 // 36 B per lane read (8 rows and key0) and 36 B written, 16 B per mover of
 // plan, the two (nvk + 3) tables: about 155 MB, 46 us at 3.35 TB/s; bytes,
-// not operations, bound it.
+// not operations, bound it.  Where info says slow, the block writes its
+// tile of the full sort's block instead (sort.py:full_gather): lane i of
+// the output is lane full_order[i] of the input, row 7 and key0 from the
+// sorted key full_key[i], and the anomaly is 0.  So the sort has one
+// output buffer whichever way it goes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,11 +89,13 @@ struct MarkArgs {
   int* mov_old;                 // (m_cap,)
   int* info;                    // (4,)
   unsigned long long* status;   // (>= tiles,) look-back words
-  unsigned int* work;           // [ticket, keys out of range], left zero
+  // [ticket, keys out of range, epoch, done blocks]: the ticket, the count
+  // and the done blocks are left zero; the epoch is that of the last
+  // launch (0 .. 2^30 - 2), so this one's is one more
+  unsigned int* work;
   int n;
   int nvk;
   int m_cap;
-  int epoch;                    // 1 .. 2^30, new for every launch
   int vec;                      // rows and key0 16-byte aligned, n % 4 == 0
 };
 
@@ -88,28 +108,31 @@ struct AssembleArgs {
   const int* res_key;           // (tiles,)
   const int* cum_res;           // (nvk + 3,)
   const int* cum_mov;           // (nvk + 3,)
-  const int* key_ms;            // (n_m,) sorted mover keys
-  const long long* order;       // (n_m,) their mark slots
-  const int* mov_lane;          // (>= n_m,)
+  const int* key_ms;            // (m_cap,) sorted mover slot keys
+  const long long* order;       // (m_cap,) their mark slots
+  const int* mov_lane;          // (m_cap,)
+  const int* info;              // (4,) the mark pass's
+  const long long* full_order;  // (n,) the full sort's lane order
+  const int* full_key;          // (n,) its sorted keys
   float* out;                   // (8, n)
   int* key0_out;                // (n,)
   int* anomaly;                 // device scalar
   unsigned int* work;           // [done blocks, bad lanes], left zero
   int n;
   int nvk;
-  int n_m;
+  int m_cap;
   int vec;
 };
 
 // Mirrored field for field by particles/sort_cuda.py:_TablesArgs.
 struct TablesArgs {
-  const int* key_ms;            // (n_m,) sorted
-  const int* mov_old;           // (n_m,) sorted
+  const int* key_ms;            // (slots,) sorted
+  const int* mov_old;           // (slots,) sorted
   const int* ctot;              // (keys,)
   int* cum_res;                 // (keys,)
   int* cum_mov;                 // (keys,)
   int* cum_tot;                 // (keys,)
-  int n_m;
+  int slots;                    // m_cap
   int keys;                     // nvk + 3
 };
 
@@ -178,14 +201,24 @@ __device__ __forceinline__ unsigned long long block_scan(
 }
 
 constexpr unsigned long long kInclusive = 1ull << 32;
+constexpr unsigned kEpochs = 1u << 30;  // the epoch field of a status word
+
+// sort.py:fast_path: a snapshot, consistent tables, every key in range and
+// at most m_cap movers
+__device__ __forceinline__ bool fast_path(const int* info, int m_cap) {
+  return info[2] != 0 && info[3] != 0 && info[1] == 0 && info[0] <= m_cap;
+}
 
 __global__ void __launch_bounds__(kThreads) merge_mark_kernel(MarkArgs a) {
   __shared__ unsigned long long sh[kWarps];
   __shared__ int s_tile, s_prefix;
-  __shared__ unsigned s_first;
+  __shared__ unsigned s_first, s_epoch;
   const int tiles = (a.n + kTile - 1) / kTile;
   if (threadIdx.x == 0) {
     s_first = kTile;
+    // read before this block counts itself done, so before the last block
+    // to finish moves the epoch on
+    s_epoch = *(volatile unsigned*)&a.work[2] + 1;
     const int t = (int)atomicAdd(&a.work[0], 1u);
     if (t == tiles - 1) a.work[0] = 0;  // the last ticket of this launch
     s_tile = t;
@@ -239,7 +272,7 @@ __global__ void __launch_bounds__(kThreads) merge_mark_kernel(MarkArgs a) {
 
   if (threadIdx.x < 32) {
     volatile unsigned long long* st = a.status;
-    const unsigned long long epoch = (unsigned long long)a.epoch;
+    const unsigned long long epoch = (unsigned long long)s_epoch;
     const int lane = threadIdx.x;
     if (lane == 0 && tile > 0) {
       __threadfence();
@@ -297,6 +330,12 @@ __global__ void __launch_bounds__(kThreads) merge_mark_kernel(MarkArgs a) {
   if (threadIdx.x == 0) a.res_base[tile] = (int)(base - prefix);
   if (s_first == kTile ? threadIdx.x == 0 : first == s_first)
     a.res_key[tile] = first_key;
+  __syncthreads();
+  if (threadIdx.x == 0) __threadfence();
+  if (threadIdx.x == 0 && atomicAdd(&a.work[3], 1u) == (unsigned)tiles - 1) {
+    a.work[3] = 0;
+    a.work[2] = s_epoch == kEpochs - 1 ? 0u : s_epoch;
+  }
 }
 
 // sort.py:tables: per key v, the movers' new and old keys below v: two
@@ -305,7 +344,7 @@ __global__ void __launch_bounds__(kThreads) merge_mark_kernel(MarkArgs a) {
 __global__ void __launch_bounds__(kThreads) merge_tables_kernel(TablesArgs a) {
   const int v = blockIdx.x * kThreads + threadIdx.x;
   if (v >= a.keys) return;
-  int lo_new = 0, hi_new = a.n_m, lo_old = 0, hi_old = a.n_m;
+  int lo_new = 0, hi_new = a.slots, lo_old = 0, hi_old = a.slots;
   while (lo_new < hi_new || lo_old < hi_old) {
     const int mid_new = (lo_new + hi_new) >> 1;
     const int mid_old = (lo_old + hi_old) >> 1;
@@ -328,24 +367,44 @@ constexpr int kWindow = 6144;  // output slots staged per pass of a block
 // before the first residual lane at or after tile t (0 for tile 0, n_m
 // past the last tile).  Nondecreasing in t, so the ranges partition the
 // movers.
-__device__ int mover_start(const AssembleArgs& a, int t, int tiles) {
+__device__ int mover_start(const AssembleArgs& a, int t, int tiles,
+                           int n_m) {
   if (t == 0) return 0;
   for (; t < tiles; ++t) {
     const int v = a.res_key[t];
-    if (v >= 0) return v <= a.nvk ? min(max(a.cum_mov[v], 0), a.n_m) : a.n_m;
+    if (v >= 0) return v <= a.nvk ? min(max(a.cum_mov[v], 0), n_m) : n_m;
   }
-  return a.n_m;
+  return n_m;
 }
 
 // Sorted mover m: its destination (-1 if its key or lane is out of range)
 // and its lane.
-__device__ __forceinline__ void mover(const AssembleArgs& a, int m, int& d,
-                                      int& lane, int& v) {
+__device__ __forceinline__ void mover(const AssembleArgs& a, int m, int n_m,
+                                      int& d, int& lane, int& v) {
   v = a.key_ms[m];
   const long long o = a.order[m];
-  lane = o >= 0 && o < a.n_m ? a.mov_lane[o] : -1;
+  lane = o >= 0 && o < n_m ? a.mov_lane[o] : -1;
   d = v >= 0 && v <= a.nvk && lane >= 0 && lane < a.n ? m + a.cum_res[v + 1]
                                                       : -1;
+}
+
+// sort.py:full_gather, the tile's lanes: lane i of the output is lane
+// full_order[i] of the input; row 7 the sorted key for live lanes below
+// nvk, else 0; key0 that row rounded for live lanes, else nvk.
+__device__ void full_gather(const AssembleArgs& a, int base, int np) {
+  const int end = min(base + kTile, a.n);
+  for (int i = base + threadIdx.x; i < end; i += kThreads) {
+    const long long o = a.full_order[i];
+    if (o >= 0 && o < a.n) {
+#pragma unroll
+      for (int r = 0; r < 7; ++r)
+        a.out[(size_t)r * a.n + i] = __ldg(a.pk + (size_t)r * a.n + o);
+    }
+    const int k = a.full_key[i];
+    const float r7 = i < np && k < a.nvk ? (float)k : 0.f;
+    a.out[(size_t)7 * a.n + i] = r7;
+    a.key0_out[i] = i < np ? __float2int_rz(r7 + 0.5f) : a.nvk;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads, 4)
@@ -357,9 +416,16 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int tile = blockIdx.x;
   const int base = tile * kTile;
   const int np = *a.np;
+  if (!fast_path(a.info, a.m_cap)) {
+    full_gather(a, base, np);
+    if (tile == 0 && threadIdx.x == 0) *a.anomaly = 0;
+    return;
+  }
+  // the fast path holds: n_m <= m_cap
+  const int n_m = a.info[0];
   if (threadIdx.x == 0) {
-    s_m0 = mover_start(a, tile, tiles);
-    s_m1 = max(s_m0, mover_start(a, tile + 1, tiles));
+    s_m0 = mover_start(a, tile, tiles, n_m);
+    s_m1 = max(s_m0, mover_start(a, tile + 1, tiles, n_m));
   }
 
   // the tile's residual lanes: ranks, then destinations (their keys wait
@@ -391,7 +457,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   const unsigned long long excl = block_scan(counts, sh, tot);
   const int m0 = s_m0, m1 = s_m1;
   const int r0 = a.res_base[tile];
-  const int r1 = tile + 1 < tiles ? a.res_base[tile + 1] : a.n - a.n_m;
+  const int r1 = tile + 1 < tiles ? a.res_base[tile + 1] : a.n - n_m;
   // the block writes the output slots [o0, o1): its residual lanes and the
   // movers [m0, m1) that sort between them and the next tile's
   const int o0 = max(r0 + m0, 0);
@@ -421,7 +487,7 @@ __global__ void __launch_bounds__(kThreads, 4)
   int md = -1, ml = 0, mv = 0;
   for (int j = threadIdx.x; j < m1 - m0; j += kThreads) {
     int d, lane, v;
-    mover(a, m0 + j, d, lane, v);
+    mover(a, m0 + j, n_m, d, lane, v);
     const bool ok = d >= o0 && d < o1;
     bad += !ok;
     if (j == threadIdx.x && ok) {
@@ -463,7 +529,7 @@ __global__ void __launch_bounds__(kThreads, 4)
       if (in_window(md)) s_val[md - w0] = r == 7 ? __int_as_float(mv) : mx;
       for (int j = threadIdx.x + kThreads; j < m1 - m0; j += kThreads) {
         int d, lane, v;
-        mover(a, m0 + j, d, lane, v);
+        mover(a, m0 + j, n_m, d, lane, v);
         if (in_window(d))
           s_val[d - w0] = r == 7 ? __int_as_float(v)
                                  : __ldg(a.pk + (size_t)r * a.n + lane);

@@ -48,8 +48,10 @@ of :func:`vpic_tpu_torch.engine.step.step_sort_flags`; the host's step
 count sets the interval cleans.  ``modify_runparams(fused_push=False)`` or
 ``(merge_sort=True)`` switches the push path of a built deck.  Under
 ``merge_sort=True`` (with the fused push) the species ride the packed
-cycle: packed on the first step, kept packed between ``advance`` calls,
-unpacked when ``state`` is read.
+cycle: packed on the first step, kept packed between ``advance`` calls
+with the merge re-sort's carry, unpacked into a copy when ``state`` is
+read (an edit to that copy is not taken back: assign ``state`` to change
+the state, which packs it again without the carry).
 
 The diagnostics (energies, V0 and banded dumps, hydro, particles, the
 energy-band spectra, checksums, tracer trajectories), ``standard_diagnostics``
@@ -85,6 +87,7 @@ from ..core.types import (
     NEIGHBOR_ABSORB,
     NEIGHBOR_REFLECT,
     PERIODIC_FIELDS,
+    PackedSpecies,
     SimState,
     SpeciesState,
 )
@@ -208,6 +211,11 @@ class Simulation:
         self._boundary_handlers: list = []
         self._emitters: list = []
         self._advance_packed = None
+        # under the packed cycle the newest state is the eager packed
+        # mirror (_pstate), the graphs' static buffers (_static_packed) or,
+        # before the first step, the caller's unpacked states
+        self._pstate = None
+        self._static_packed = False
         # the step as CUDA graphs (engine/graphs.py), where _graph_ok()
         # admits the deck; the cycle multiple M of its dispatch plan
         self._graphs = None
@@ -641,17 +649,15 @@ class Simulation:
         """The step runs as CUDA graphs (``engine/graphs.py``) where every
         shard lives on the one card (``dist.make_mesh`` names each card by
         its index), decided once per build from the configuration as the
-        JAX package decides ``packed_ok``.  Admitted: every such deck, several shards,
-        boundary rounds, emitters, the injection hook and the collision
-        hook included, whose keys and draws are device operations on the
-        state's key (``core/random.py``).  Refused: a mesh over several
-        devices (a graph belongs to one) and the packed merge re-sort,
-        which reads its mover count on the host once per sort
-        (``particles/sort.py``).  Those decks step eagerly, as every deck
-        does on the CPU."""
-        if len(set(self.mesh)) != 1 or self.mesh[0].type != "cuda":
-            return False
-        return not self._packed_ok()
+        JAX package decides ``packed_ok``.  Admitted: every such deck,
+        several shards, boundary rounds, emitters, the injection hook and
+        the collision hook included, whose keys and draws are device
+        operations on the state's key (``core/random.py``), and the packed
+        cycle with the merge re-sort, which decides fast or full on the
+        device (``particles/sort.py``).  Refused: a mesh over several
+        devices (a graph belongs to one), which steps eagerly, as every
+        deck does on the CPU."""
+        return len(set(self.mesh)) == 1 and self.mesh[0].type == "cuda"
 
     def _sort_intervals(self):
         return [h["sort_interval"] for h in self._species]
@@ -665,10 +671,17 @@ class Simulation:
 
     def _unit_body(self, states, start: int, n: int):
         """Steps ``start`` to ``start + n - 1`` of the per-shard states, op
-        by op: the body that a graph captures."""
+        by op: the body that a graph captures.  Under the packed cycle the
+        states are the one packed state, stepped by the packed advance (as
+        :meth:`advance_eager` steps it; the JAX package's packed cycle
+        bodies, ``vpic_tpu/deck/api.py:680-740``)."""
         for t in range(start, start + n):
-            states = self._advance(states, step_sort_flags(
-                t, self.grid, self.opts, self._sort_intervals()), t)
+            flags = step_sort_flags(t, self.grid, self.opts,
+                                    self._sort_intervals())
+            if self._advance_packed is None:
+                states = self._advance(states, flags, t)
+            else:
+                states = [self._advance_packed(states[0], flags, t)]
         return states
 
     @property
@@ -697,25 +710,22 @@ class Simulation:
             self._build_advance()
 
     # -- state: one per shard, in rank order.  Under the packed cycle the
-    # species live in a packed mirror between steps (``_pstate``), and
-    # under the graphs the states live in the graphs' static buffers
-    # (``_graphs.static``, every shard's); the caller's view is made from
-    # the mirror when it is read -------------------------------------------
+    # species live in a packed mirror between steps: the eager one
+    # (``_pstate``) or the graphs' static buffers (``_static_packed``).
+    # Under the graphs the states live in the graphs' static buffers
+    # (``_graphs.static``, every shard's).  The caller's view is a copy made
+    # from the newest of them when it is read ------------------------------
     @property
     def states(self) -> List[SimState]:
         """The per-shard states in rank order (empty before finalize).
-        After a graphed advance the first read copies the state out of the
-        graphs' static buffers, so a state the caller holds is a value: a
-        later advance neither changes it nor loses an edit made to it (the
-        next advance copies the view back in)."""
+        After an advance on the graphs or on the packed cycle the first
+        read copies the state out of the buffers that hold it, so a state
+        the caller holds is a value: a later advance does not change it.
+        On the graphs an edit made to it is kept (the next advance copies
+        the view back in); on the packed cycle it is not, as in the JAX
+        package, whose packed mirror goes on from its carry."""
         if self._state_stale:
-            if self._graphs is not None:
-                self._states = graphs.clone_state(self._graphs.static)
-            else:
-                self._states = [dataclasses.replace(
-                    self._pstate, species=tuple(
-                        ppush.unpack_species(sp, self.grid)
-                        for sp in self._pstate.species))]
+            self._states = graphs.clone_state(self._newest())
             self._state_stale = False
         return self._states
 
@@ -723,7 +733,26 @@ class Simulation:
     def states(self, value):
         self._states = list(value)
         self._pstate = None
+        self._static_packed = False
         self._state_stale = False
+
+    def _newest(self) -> List[SimState]:
+        """The newest per-shard states after an advance, unpacked where
+        packed, sharing tensors with the buffers that hold them."""
+        src = ([self._pstate] if self._pstate is not None
+               else self._graphs.static)
+        return [dataclasses.replace(st, species=tuple(
+            ppush.unpack_species(sp, self.grid)
+            if isinstance(sp, PackedSpecies) else sp for sp in st.species))
+            for st in src]
+
+    def _packed(self, st: SimState) -> SimState:
+        """The first pack of a state for the packed cycle: each species
+        sorted (``aux.sort_p``, which compacts) and packed, with no merge
+        carry (``key0 = -1``, so its first merge re-sort sorts in full)."""
+        return dataclasses.replace(st, species=tuple(
+            ppush.pack_species(paux.sort_p(sp), self.grid)
+            for sp in st.species))
 
     def _one(self, items, what):
         if len(items) > 1:
@@ -753,10 +782,10 @@ class Simulation:
 
     def _read_states(self) -> List[SimState]:
         """The states for a read that keeps no tensor of them (the
-        diagnostics): the graphs' static buffers themselves where they hold
-        the newest state, else :attr:`states`."""
-        if self._state_stale and self._graphs is not None:
-            return self._graphs.static
+        diagnostics): the buffers that hold the newest state themselves
+        (unpacked under the packed cycle), else :attr:`states`."""
+        if self._state_stale:
+            return self._newest()
         return self.states
 
     # -- stepping ----------------------------------------------------------
@@ -781,12 +810,21 @@ class Simulation:
         if r is None:
             self.advance_eager(n)
             return
-        if not self._state_stale:
-            # the caller's view is the newest state: copy it in, and drop
-            # it (a read makes a new view from the buffers)
+        if self._advance_packed is not None:
+            # the packed mirror goes on from its carry: the eager one is
+            # copied in, or the state is packed first (on the host's
+            # orders, before any capture)
+            if not self._static_packed:
+                r.load([self._pstate if self._pstate is not None
+                        else self._packed(self.states[0])])
+                self._pstate = None
+                self._static_packed = True
+        elif not self._state_stale:
+            # the caller's view is the newest state: copy it in
             r.load(self._states)
-            self._state_stale = True
-            self._states = None
+        # a read makes a new view from the buffers
+        self._state_stale = True
+        self._states = None
         k, M = self.opts.resort_interval, self._cycle_mult
         for kind, count in graphs.plan(self.step_count, n, k, M,
                                        cycles=k > 1):
@@ -811,11 +849,13 @@ class Simulation:
                 self.states = self._advance(self.states, flags,
                                             self.step_count)
             else:
-                if self._pstate is None:
-                    st = self._states[0]
-                    self._pstate = dataclasses.replace(st, species=tuple(
-                        ppush.pack_species(paux.sort_p(sp), g)
-                        for sp in st.species))
+                if self._static_packed:
+                    # the graphs' packed mirror, carry and all
+                    self._pstate = graphs.clone_state(
+                        self._graphs.static)[0]
+                    self._static_packed = False
+                elif self._pstate is None:
+                    self._pstate = self._packed(self.states[0])
                 self._pstate = self._advance_packed(self._pstate, flags,
                                                     self.step_count)
                 self._state_stale = True

@@ -31,7 +31,7 @@ barrier that a finished shard never reached, raises
 from __future__ import annotations
 
 import threading
-from typing import List
+from typing import List, Optional
 
 import torch
 
@@ -63,11 +63,18 @@ def _indexed(d: torch.device) -> torch.device:
                         if torch.cuda.is_available() else 0)
 
 
-def make_comms(g: Grid, mesh, timeout: float = 300.0) -> List[ShardComm]:
+# the default of make_comms' timeout, in seconds: long enough for a first
+# step that builds the kernels
+RENDEZVOUS_TIMEOUT = 300.0
+
+
+def make_comms(g: Grid, mesh, timeout: Optional[float] = None
+               ) -> List[ShardComm]:
     """One ``ShardComm`` per shard, meeting at one rendezvous whose waits
-    last at most ``timeout`` seconds (long enough for a first step that
-    builds the kernels)."""
-    rv = Rendezvous(len(mesh), timeout)
+    last at most ``timeout`` seconds (default :data:`RENDEZVOUS_TIMEOUT`,
+    read at the call)."""
+    rv = Rendezvous(len(mesh), RENDEZVOUS_TIMEOUT if timeout is None
+                    else timeout)
     return [ShardComm(g, s, rv, d) for s, d in zip(shard_coords(g), mesh)]
 
 

@@ -31,16 +31,21 @@ wrappers (``push_cuda._scratch_for``) and the package's caches outside
 the capture, without advancing the real state.  The wrappers' launch
 counts move only while Python runs, so each graph keeps the counts its
 capture added and adds them again at every replay; the warm-up's and the
-capture's own counts are taken back.  A capture or replay that fails
-raises: nothing falls back to eager steps.
+capture's own counts are taken back, and so are the warm-up's additions
+to the merge re-sort's device counters of fast and slow sorts
+(``sort_cuda.sort_counters``), which a replay adds to on the card.  A
+capture or replay that fails raises: nothing falls back to eager steps.
 
 Which decks run so is ``Simulation._graph_ok()``'s decision: every deck
 whose shards all live on the one card, the open ones included (boundary
 rounds, emitters, the injection and collision hooks), since the random
 state is a device tensor that the threefry kernel reads at each replay
-(``core/random.py``) and the graph writes back like any other buffer.
-The packed merge re-sort (a host read of its mover count per sort) and a
-mesh over several devices (a graph belongs to one) step eagerly.
+(``core/random.py``) and the graph writes back like any other buffer,
+and the packed merge re-sort, whose mover count and fast-or-full
+decision stay on the card (``particles/sort.py``): there the static state
+is the packed mirror, its ``key0``/``ctot`` carry included, which the
+graphs carry from replay to replay as the JAX package donates it.  A
+mesh over several devices (a graph belongs to one) steps eagerly.
 
 Several shards on one card (the counterpart of the JAX package's
 ``shard_map``-ped step, cycle and super-cycle, ``vpic_tpu/deck/api.py:
@@ -268,6 +273,7 @@ class GraphRunner:
         if not self.capture:
             return None, ()
         before = _counts()
+        sorts = {k: c.clone() for k, c in sort_cuda.sort_counters().items()}
         try:
             t0 = time.perf_counter()
             cur = torch.cuda.current_stream(self.device)
@@ -291,6 +297,11 @@ class GraphRunner:
                 for c, b in zip(COUNTERS, before):
                     c.clear()
                     c.update(b)
+            for k, c in sort_cuda.sort_counters().items():
+                if k in sorts:
+                    c.copy_(sorts[k])
+                else:
+                    c.zero_()
         self.capture_s.append(dict(kind=kind, steps=n, warmup_s=t1 - t0,
                                    capture_s=t2 - t1, nodes=nodes,
                                    instantiate_s=t3 - t2))

@@ -253,9 +253,10 @@ def sort_p_packed_merge(psp: PackedSpecies, g: Grid,
     """The merge re-sort of a PackedSpecies (``aux.py:215-257`` of the JAX
     package), with the mover buffer provisioned for ``steps_since_sort``
     steps of drift (:func:`sort.mover_capacity`).  Falls back to a full
-    sort when the carry is missing or the movers overflow; the anomaly
-    count (0 in any valid run) adds to ``nm``.  Counts the fast and slow
-    sorts under the species' name (``sort_cuda.sort_counts``)."""
+    sort when the carry is missing or the movers overflow, decided on the
+    device (no host read); the anomaly count (0 in any valid run) adds to
+    ``nm`` on the device.  Counts the fast and slow sorts under the
+    species' name (``sort_cuda.sort_counts``)."""
     m_cap = sort.mover_capacity(psp.max_np, steps_since_sort)
     res = sort_cuda.merge_sort_packed(psp.pk, psp.np, psp.key0, psp.ctot,
                                       g.nv, m_cap, species=psp.name)

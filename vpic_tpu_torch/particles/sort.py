@@ -16,13 +16,17 @@ into the passes that the CUDA kernels of ``sort_cuda.py`` run, and each
 function here is the plain version that a kernel equals bit for bit:
 
 1. :func:`mark` reads row 7 and ``key0`` once: per tile of :data:`TILE`
-   lanes the residual lanes before it, the movers' lanes and old and new
-   keys in lane order (the first ``m_cap``), and the counts that decide
-   the path (:func:`fast_path`, the sort's one host read);
-2. :func:`merge_plan` sorts the movers' keys;
-3. :func:`assemble` builds the per-key tables (:func:`tables`) and writes
-   every lane to its destination, with row 7 and the next ``key0`` (the
-   key for live slots, 0 and ``nvk`` for the dead tail).
+   lanes the residual lanes before it, the first ``m_cap`` movers' lanes
+   and old and new keys in lane order (the slots past the movers hold
+   :data:`SENTINEL`), and the counts that decide the path
+   (:func:`fast_path`);
+2. :func:`merge_plan` sorts the ``m_cap`` slots by key, the sentinels
+   last; :func:`full_order` sorts all the lanes by key, for the full sort;
+3. :func:`assemble` builds the per-key tables (:func:`tables`) and, where
+   the decision is fast, writes every lane to its merge destination, with
+   row 7 and the next ``key0`` (the key for live slots, 0 and ``nvk`` for
+   the dead tail); otherwise it gathers the block in the full sort's
+   order (:func:`full_gather`).
 
 The fast path needs a snapshot (``key0[0] >= 0``), at most ``m_cap``
 movers (the JAX package's provisioning, :func:`mover_capacity`) and
@@ -32,6 +36,15 @@ below ``nvk + 2`` are all of them, so ``cum_tot[nvk + 2] == ctot[nvk +
 2]``.  The test here is that equality plus the range, which :func:`mark`
 counts: a key out of range, where the JAX package would assemble and flag
 an anomaly, takes the full sort.  Otherwise the block is sorted in full.
+
+The decision is a 0-d device tensor, never read by the host: the JAX
+package takes it inside ``lax.cond`` (``sort_pallas.py:347, 355``), and
+the port issues both branches and keeps the one it names, so a sort has
+a fixed sequence of device operations and records into a CUDA graph.
+Every size is fixed by ``(n, nvk, m_cap)``: the movers' slots are
+``m_cap`` wide whatever their count, as the JAX package gathers them
+(``sort_pallas.py:233``).  The full sort's ``torch.sort`` of all the keys
+therefore runs on every sort, also where the merge is kept.
 
 The JAX package's per-block merge-path partition and its window tests
 (``span_ok`` on the block key span W, ``fit_ok`` on the residual window)
@@ -54,6 +67,9 @@ import torch
 # lanes per tile of the mark and assembly passes (csrc/merge_assemble.cu
 # kTile: 256 threads x 4 chunks x 4 lanes)
 TILE = 4096
+# the lane, key and old key of a mover slot past the movers: above every
+# key, so such slots sort last and no table counts them
+SENTINEL = 2 ** 31 - 1
 
 
 class Marks(NamedTuple):
@@ -68,9 +84,16 @@ class Marks(NamedTuple):
 
 
 class MergePlan(NamedTuple):
-    """The movers sorted by key (``sort_pallas.py:223-240``)."""
-    order: torch.Tensor     # (n_m,) int64 the movers' mark slots, sorted
-    key_ms: torch.Tensor    # (n_m,) int32 their keys, sorted
+    """The mover slots sorted by key (``sort_pallas.py:223-240``)."""
+    order: torch.Tensor     # (m_cap,) int64 the slots, sorted
+    key_ms: torch.Tensor    # (m_cap,) int32 their keys, sorted
+
+
+class FullOrder(NamedTuple):
+    """The full sort's stable order of all the lanes by key
+    (``sort_pallas.py:337-345``)."""
+    order: torch.Tensor     # (n,) int64 the lanes, sorted
+    key_s: torch.Tensor     # (n,) int32 their keys, sorted
 
 
 class Assembled(NamedTuple):
@@ -79,7 +102,7 @@ class Assembled(NamedTuple):
     key0: torch.Tensor      # (n,) int32 the next key0
     cum_res: torch.Tensor   # (nvk+3,) int32 # residual lanes with key < v
     cum_mov: torch.Tensor   # (nvk+3,) int32 # movers with key < v
-    cum_tot: torch.Tensor   # (nvk+3,) int32 the next ctot
+    cum_tot: torch.Tensor   # (nvk+3,) int32 the next ctot, where fast
     anomaly: torch.Tensor   # 0-d int32
 
 
@@ -88,7 +111,8 @@ class MergeResult(NamedTuple):
     key0: torch.Tensor      # (n,) int32 carry for the next sort
     ctot: torch.Tensor      # (nvk+3,) int32 carry for the next sort
     anomaly: torch.Tensor   # 0-d int32, 0 in any valid run
-    fast: bool              # the merge ran (else the full sort)
+    fast: torch.Tensor      # 0-d bool: the merge was kept (else the full
+    #                         sort)
 
 
 def mover_capacity(n: int, steps_since_sort: int) -> int:
@@ -123,8 +147,9 @@ def _by_tile(flags):
 def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> Marks:
     """The mark pass: keys and movers from row 7 and ``key0``; per tile
     the residual lanes before it; the first ``m_cap`` movers' lanes and
-    keys in lane order (the slots past them are unspecified); the counts
-    of :class:`Marks`."""
+    keys in lane order, each in the slot of its rank among the movers (a
+    prefix sum over the move flags), :data:`SENTINEL` in the slots past
+    them; the counts of :class:`Marks`."""
     n = pk.shape[1]
     dev = pk.device
     key = lane_keys(pk, np_, nvk)
@@ -136,51 +161,65 @@ def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> Marks:
     first = (torch.argmax(res, 1)
              + torch.arange(res.shape[0], device=dev) * TILE).clamp(max=n - 1)
     res_key = torch.where(res_tile > 0, key[first], -1)
-    lanes = torch.nonzero(movers).view(-1)[:m_cap]
+    rank = torch.cumsum(movers, 0, dtype=torch.int32)
     n_m = torch.sum(movers, dtype=torch.int32)
+    # a mover's slot is its rank among the movers; slot m_cap takes the
+    # lanes that are not written (residual, or past the first m_cap)
+    slot = torch.where(movers & (rank <= m_cap), rank - 1, m_cap).long()
 
     def slots(vals):
-        out = torch.zeros((m_cap,), dtype=torch.int32, device=dev)
-        out[:lanes.shape[0]] = vals
-        return out
+        out = torch.full((m_cap + 1,), SENTINEL, dtype=torch.int32,
+                         device=dev)
+        return out.scatter_(0, slot, vals)[:m_cap]
 
+    lanes = torch.arange(n, dtype=torch.int32, device=dev)
     out_of_range = torch.sum((key < 0) | (key > nvk) | (key0 < 0)
                              | (key0 > nvk), dtype=torch.int32)
     info = torch.stack([n_m, out_of_range, (key0[0] >= 0).to(torch.int32),
                         (ctot[nvk + 2] == n).to(torch.int32)])
     return Marks(res_base=res_base, res_key=res_key,
-                 mov_lane=slots(lanes.to(torch.int32)),
-                 mov_key=slots(key[lanes]), mov_old=slots(key0[lanes]),
-                 info=info)
+                 mov_lane=slots(lanes), mov_key=slots(key),
+                 mov_old=slots(key0), info=info)
 
 
 def fast_path(info, m_cap: int):
-    """(fast, n_m) from :attr:`Marks.info`: the sort's one host read."""
-    n_m, out_of_range, snapshot, ctot_ok = info.tolist()
-    return (bool(snapshot and ctot_ok and not out_of_range
-                 and n_m <= m_cap), n_m)
+    """The decision from :attr:`Marks.info`, as a 0-d bool on its device
+    (the host reads nothing): a snapshot, consistent tables, every key in
+    range and at most ``m_cap`` movers."""
+    return ((info[2] != 0) & (info[3] != 0) & (info[1] == 0)
+            & (info[0] <= m_cap))
 
 
 def tables(key_ms, mov_old, ctot):
     """(cum_res, cum_mov, cum_tot) (``sort_pallas.py:242-251``) from the
     counts of the movers' new keys (``key_ms``, sorted) and old keys
-    (``mov_old``, sorted, as key0 is) below each key."""
+    (``mov_old``, sorted, as key0 is) below each key.  Over all the mover
+    slots: the sentinels past the movers lie above every key and count
+    nowhere."""
     v = torch.arange(ctot.shape[0], dtype=torch.int32, device=ctot.device)
     cum_mov = torch.searchsorted(key_ms, v, out_int32=True)
     cum_res = ctot - torch.searchsorted(mov_old, v, out_int32=True)
     return cum_res, cum_mov, cum_res + cum_mov
 
 
-def merge_plan(marks: Marks, n_m: int) -> MergePlan:
-    """The movers' stable sort by key: one ``torch.sort`` (the JAX package
-    sorts its movers with ``lax.sort`` outside its kernel too)."""
-    key_ms, order = torch.sort(marks.mov_key[:n_m], stable=True)
+def merge_plan(marks: Marks) -> MergePlan:
+    """The mover slots' stable sort by key: one ``torch.sort`` of all
+    ``m_cap`` slots (the JAX package sorts its ``m_cap`` slots with
+    ``lax.sort`` outside its kernel too).  The sentinels sort last and the
+    sort is stable, so the first ``n_m`` entries are the movers'."""
+    key_ms, order = torch.sort(marks.mov_key, stable=True)
     return MergePlan(order=order, key_ms=key_ms)
+
+
+def full_order(pk, np_, nvk: int) -> FullOrder:
+    """The full sort's order: a stable sort of all the lanes' keys."""
+    key_s, order = torch.sort(lane_keys(pk, np_, nvk), stable=True)
+    return FullOrder(order=order, key_s=key_s)
 
 
 class Destinations(NamedTuple):
     """Where :func:`assemble` writes each residual lane, then each sorted
-    mover: n + n_m entries."""
+    mover slot: n + m_cap entries."""
     dest: torch.Tensor      # int64 destination, n where not written
     src: torch.Tensor       # int64 source lane
     key: torch.Tensor       # int32 key
@@ -193,7 +232,8 @@ def destinations(pk, np_, key0, marks: Marks, plan: MergePlan, cum_res,
     v goes to ``r + cum_mov[v]``; the mover of sorted rank m and key v to
     ``m + cum_res[v + 1]``.  A lane whose key lies outside the tables or
     whose destination lies outside [0, n) is not written and is counted;
-    the mover entries (lanes that moved) of the residual half are n."""
+    the mover entries (lanes that moved) of the residual half and the
+    slots past the movers are n."""
     n = pk.shape[1]
     dev = pk.device
     key = lane_keys(pk, np_, nvk)
@@ -206,35 +246,47 @@ def destinations(pk, np_, key0, marks: Marks, plan: MergePlan, cum_res,
              + cum_mov[torch.where(k_ok, key, 0).long()])
     ok_r = res & k_ok & (d_res >= 0) & (d_res < n)
 
-    n_m = plan.key_ms.shape[0]
+    m_cap = plan.key_ms.shape[0]
+    m = torch.arange(m_cap, dtype=torch.int32, device=dev)
+    moved = m < marks.info[0]
     km_ok = (plan.key_ms >= 0) & (plan.key_ms <= nvk)
-    d_mov = (torch.arange(n_m, dtype=torch.int32, device=dev)
-             + cum_res[torch.where(km_ok, plan.key_ms + 1, 0).long()])
+    d_mov = m + cum_res[torch.where(km_ok, plan.key_ms + 1, 0).long()]
     ok_m = km_ok & (d_mov >= 0) & (d_mov < n)
     bad = (torch.sum(res & ~ok_r, dtype=torch.int32)
-           + torch.sum(~ok_m, dtype=torch.int32))
+           + torch.sum(moved & ~ok_m, dtype=torch.int32))
+    ok_m = moved & ok_m
+    lane = torch.where(moved, marks.mov_lane[plan.order], 0)
     return Destinations(
         dest=torch.cat([torch.where(ok_r, d_res, n),
                         torch.where(ok_m, d_mov, n)]).long(),
-        src=torch.cat([torch.arange(n, device=dev),
-                       marks.mov_lane[plan.order].long()]),
+        src=torch.cat([torch.arange(n, device=dev), lane.long()]),
         key=torch.cat([key, plan.key_ms]), bad=bad)
 
 
+def full_gather(pk, np_, full: FullOrder, nvk: int):
+    """The full sort's block (``sort_pallas.py:337-358``): the rows in
+    ``full``'s order, row 7 the sorted key for live lanes below ``nvk``
+    and 0 elsewhere; and its ``key0``."""
+    out = pk[:, full.order]
+    in_range = _in_range(pk.shape[1], np_, pk.device)
+    out[7] = torch.where(in_range & (full.key_s < nvk), full.key_s,
+                         0).to(torch.float32)
+    return out, torch.where(in_range, (out[7] + 0.5).to(torch.int32), nvk)
+
+
 def assemble(pk, np_, key0, ctot, marks: Marks, plan: MergePlan,
-             nvk: int) -> Assembled:
-    """The tables, then the merged ``(8, n)`` block, the next ``key0``
-    (the key for live slots, ``nvk`` past ``np``; row 7 likewise, 0 past
-    ``np``) and the anomaly count (``sort_pallas.py:155-167``): the lanes
-    not written, plus 1 if any was (the lanes written are then not n).
-    Slots no lane reaches are unspecified; the kernel leaves them
-    unwritten, and it also counts a lane whose destination falls outside
-    its tile's output range (no lane does where the tables are
-    consistent)."""
+             full: FullOrder, nvk: int, m_cap: int) -> Assembled:
+    """The tables, then the sorted ``(8, n)`` block and the next ``key0``:
+    where :func:`fast_path` holds, the merge (every lane to its
+    destination; row 7 the key for live slots, 0 past ``np``; ``key0`` the
+    key, ``nvk`` past ``np``) and its anomaly count (``sort_pallas.py:
+    155-167``: the lanes not written, plus 1 if any was; the lanes written
+    are then not n); otherwise :func:`full_gather` and no anomaly.  Slots
+    no lane reaches are unspecified; the kernel leaves them unwritten, and
+    it also counts a lane whose destination falls outside its tile's
+    output range (no lane does where the tables are consistent)."""
     n = pk.shape[1]
-    cum_res, cum_mov, cum_tot = tables(plan.key_ms,
-                                       marks.mov_old[:plan.key_ms.shape[0]],
-                                       ctot)
+    cum_res, cum_mov, cum_tot = tables(plan.key_ms, marks.mov_old, ctot)
     d = destinations(pk, np_, key0, marks, plan, cum_res, cum_mov, nvk)
     live = d.dest < np_
     out = torch.zeros((8, n + 1), dtype=torch.float32, device=pk.device)
@@ -243,24 +295,13 @@ def assemble(pk, np_, key0, ctot, marks: Marks, plan: MergePlan,
                        torch.where(live, d.key, 0).to(torch.float32))
     key_new = torch.full((n + 1,), nvk, dtype=torch.int32, device=pk.device)
     key_new.index_copy_(0, d.dest, torch.where(live, d.key, nvk))
-    return Assembled(pk=out[:, :n].contiguous(),
-                     key0=key_new[:n].contiguous(), cum_res=cum_res,
-                     cum_mov=cum_mov, cum_tot=cum_tot,
-                     anomaly=d.bad + (d.bad > 0).to(torch.int32))
-
-
-def full_sort(pk, np_, nvk: int):
-    """The fallback (``sort_pallas.py:337-358``): a stable sort of the
-    whole block by key; row 7 of the dead tail becomes 0.  Returns the
-    block, its ``key0`` and its ``ctot``."""
-    key = lane_keys(pk, np_, nvk)
-    key_s, order = torch.sort(key, stable=True)
-    out = pk[:, order]
-    in_range = _in_range(pk.shape[1], np_, pk.device)
-    out[7] = torch.where(in_range & (key_s < nvk), key_s, 0).to(torch.float32)
-    key_new = torch.where(in_range, (out[7] + 0.5).to(torch.int32), nvk)
-    v = torch.arange(nvk + 3, dtype=torch.int32, device=pk.device)
-    return out, key_new, torch.searchsorted(key_new, v, out_int32=True)
+    full_pk, full_key0 = full_gather(pk, np_, full, nvk)
+    fast = fast_path(marks.info, m_cap)
+    anomaly = d.bad + (d.bad > 0).to(torch.int32)
+    return Assembled(pk=torch.where(fast, out[:, :n], full_pk),
+                     key0=torch.where(fast, key_new[:n], full_key0),
+                     cum_res=cum_res, cum_mov=cum_mov, cum_tot=cum_tot,
+                     anomaly=torch.where(fast, anomaly, 0))
 
 
 def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
@@ -270,15 +311,16 @@ def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
     ``pk`` (8, n) float32 rows ``[dx dy dz ux uy uz q vox]`` (dead tail
     rows zero), ``np_`` the live count (0-d int32), ``key0`` (n,) int32
     and ``ctot`` (nvk+3,) int32 the carry of the previous sort.  Returns
-    a :class:`MergeResult`.  One host read per sort (:func:`fast_path`),
-    after the mark pass: a sort that falls back pays for that pass only."""
+    a :class:`MergeResult`.  No host read: the mark pass, the movers'
+    sort, the full sort's order and the assembly run on every sort, and
+    the decision (:func:`fast_path`) picks the merge's block or the full
+    sort's on the device, and its ``ctot``: the tables' ``cum_tot``, or
+    the counts of the new ``key0`` (``sort_pallas.py:353-357``)."""
     marks = mark_fn(pk, np_, key0, ctot, nvk, m_cap)
-    fast, n_m = fast_path(marks.info, m_cap)
-    if fast:
-        a = assemble_fn(pk, np_, key0, ctot, marks, merge_plan(marks, n_m),
-                        nvk)
-        return MergeResult(a.pk, a.key0, a.cum_tot, a.anomaly, True)
-    out, key_new, ctot_new = full_sort(pk, np_, nvk)
-    return MergeResult(out, key_new, ctot_new,
-                       torch.zeros((), dtype=torch.int32, device=pk.device),
-                       False)
+    a = assemble_fn(pk, np_, key0, ctot, marks, merge_plan(marks),
+                    full_order(pk, np_, nvk), nvk, m_cap)
+    fast = fast_path(marks.info, m_cap)
+    v = torch.arange(nvk + 3, dtype=torch.int32, device=pk.device)
+    ctot_new = torch.where(fast, a.cum_tot,
+                           torch.searchsorted(a.key0, v, out_int32=True))
+    return MergeResult(a.pk, a.key0, ctot_new, a.anomaly, fast)

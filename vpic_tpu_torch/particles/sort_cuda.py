@@ -7,21 +7,27 @@ of their plain versions in ``sort.py``: for tensors on the CPU they call
 the plain version; for CUDA tensors they launch the kernels (built with
 the package's other kernels by ``push_cuda.build``), and a build or launch
 failure raises.  :func:`assemble` launches two: the tables, then the
-assembly that reads them.  The outputs equal the plain
-versions' bit for bit (the slots past the movers that :func:`mark`
-writes, and the slots no lane reaches after an anomaly, are unspecified
-in both).
+assembly that reads them, which writes the merge or, where the mark
+pass's counts say slow, the full sort's gather.  The outputs equal the
+plain versions' bit for bit, fast or slow (the slots no lane reaches
+after an anomaly are unspecified in both).
 
 :func:`merge_sort_packed` is ``sort.merge_sort_packed`` with these
-kernels: the mark pass, one host read, then the plan and the assembly, or
-the full sort.  ``launches`` counts each kernel's launches and
-``sort_counts[species]`` the fast (merge) and slow (full) sorts of each
-named species, so no fallback goes unseen.
+kernels: the mark pass, the movers' sort, the full sort's order, then the
+tables and the assembly, all on every sort; the host reads nothing and
+the launches do not depend on the data, so a sort records into a CUDA
+graph.  ``launches`` counts each kernel's launches (one of each per
+sort).  Each named species' fast (merge) and slow (full) sorts are
+counted on the block's device, from the decision, by a device addition
+that a graph replays with the sort; :func:`sort_counts` reads them, so no
+fallback goes unseen.
 
-The kernels' scratch (the mark pass's look-back words and both kernels'
-counters) is kept per (device, stream); the kernels leave the counters
-zero, and each mark launch tags its look-back words with a new epoch, so
-no call clears anything.
+The kernels' scratch (the mark pass's look-back words, its epoch, and both
+kernels' counters) is kept per (device, stream, tiles) and never freed,
+since a captured graph keeps its pointers; the kernels leave the counters
+zero, and each mark launch tags its look-back words with an epoch that
+the launch before it left in the scratch, so no call clears anything and
+a replay moves the epoch on as an eager launch does.
 """
 
 from __future__ import annotations
@@ -34,34 +40,35 @@ from . import sort as plain
 from .push_cuda import _lock, build, check_tensor, cuda_device
 
 launches = {"merge_mark": 0, "merge_tables": 0, "merge_assemble": 0}
-sort_counts: dict = {}
+# (species, device) -> (2,) int64 [fast, slow] sorts, on the device
+_sort_counters: dict = {}
 
 _MARK_POINTERS = ("pk", "np", "key0", "ctot", "res_base", "res_key",
                   "mov_lane", "mov_key", "mov_old", "info", "status", "work")
 _TABLES_POINTERS = ("key_ms", "mov_old", "ctot", "cum_res", "cum_mov",
                     "cum_tot")
 _ASSEMBLE_POINTERS = ("pk", "np", "key0", "res_base", "res_key", "cum_res",
-                      "cum_mov", "key_ms", "order", "mov_lane", "out",
-                      "key0_out", "anomaly", "work")
+                      "cum_mov", "key_ms", "order", "mov_lane", "info",
+                      "full_order", "full_key", "out", "key0_out", "anomaly",
+                      "work")
 
 
 class _MarkArgs(ctypes.Structure):
     """Mirror of ``struct MarkArgs`` in csrc/merge_assemble.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _MARK_POINTERS]
-                + [(k, ctypes.c_int)
-                   for k in ("n", "nvk", "m_cap", "epoch", "vec")])
+                + [(k, ctypes.c_int) for k in ("n", "nvk", "m_cap", "vec")])
 
 
 class _TablesArgs(ctypes.Structure):
     """Mirror of ``struct TablesArgs`` in csrc/merge_assemble.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _TABLES_POINTERS]
-                + [(k, ctypes.c_int) for k in ("n_m", "keys")])
+                + [(k, ctypes.c_int) for k in ("slots", "keys")])
 
 
 class _AssembleArgs(ctypes.Structure):
     """Mirror of ``struct AssembleArgs`` in csrc/merge_assemble.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _ASSEMBLE_POINTERS]
-                + [(k, ctypes.c_int) for k in ("n", "nvk", "n_m", "vec")])
+                + [(k, ctypes.c_int) for k in ("n", "nvk", "m_cap", "vec")])
 
 
 _bound = None
@@ -99,31 +106,31 @@ def _bind():
     return _bound
 
 
-_EPOCHS = 2 ** 30   # the epoch field of a look-back word
 _scratch: dict = {}
 
 
-def _scratch_for(device, stream: int, tiles: int) -> dict:
-    """The scratch of the calls on ``stream``: ``status`` (the look-back
-    words, tagged with ``epoch``) and ``work`` (the mark pass's ticket and
-    range count, the assembly's block ticket and bad-lane count), zero
-    when made and left zero by the kernels."""
-    key = (device, stream)
-    s = _scratch.get(key)
-    if s is None or s["status"].numel() < tiles or s["epoch"] >= _EPOCHS:
-        s = dict(status=torch.zeros((tiles,), dtype=torch.int64,
-                                    device=device),
-                 work=torch.zeros((4,), dtype=torch.int32, device=device),
-                 epoch=0)
-        _scratch[key] = s
-    return s
+def _scratch_for(device, stream: int, tiles: int):
+    """(status, work) of the calls on ``stream`` with ``tiles`` tiles:
+    the look-back words and six int32 words, the mark pass's [ticket,
+    range count, epoch, done blocks] and the assembly's [done blocks,
+    bad lanes]; zero when made, the counters left zero by the kernels.
+    Made at a wrapper's first call on the stream (a graph's warm-up runs
+    on its capture stream, so not inside the capture) and kept."""
+    key = (device, stream, tiles)
+    with _lock:
+        if key not in _scratch:
+            _scratch[key] = (
+                torch.zeros((tiles,), dtype=torch.int64, device=device),
+                torch.zeros((6,), dtype=torch.int32, device=device))
+        return _scratch[key]
 
 
-def _launch(err, device, stream, names):
+def _launch(err, key, names):
     """Raise if the entry's launches failed, else count them."""
     if err != 0:
         # a launch that did not run leaves the counters not zero
-        _scratch.pop((device, stream), None)
+        with _lock:
+            _scratch.pop(key, None)
         raise RuntimeError(f"{' / '.join(names)} kernel launch failed: "
                            f"cudaError {err}")
     for name in names:
@@ -154,7 +161,8 @@ def _int32(device, *sizes):
 
 
 def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> plain.Marks:
-    """Kernel version of :func:`sort.mark`."""
+    """Kernel version of :func:`sort.mark`: one fill of the mover slots
+    with the sentinel, then the mark kernel."""
     if pk.device.type == "cpu":
         return plain.mark(pk, np_, key0, ctot, nvk, m_cap)
     device, n = _check_block(pk, np_, key0, nvk)
@@ -162,39 +170,45 @@ def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> plain.Marks:
     if not 0 <= m_cap <= n:
         raise ValueError(f"m_cap {m_cap} outside [0, {n}]")
     tiles = -(-n // plain.TILE)
-    marks = plain.Marks(*_int32(device, tiles, tiles, m_cap, m_cap, m_cap, 4))
+    buf = torch.empty((2 * tiles + 3 * m_cap + 4,), dtype=torch.int32,
+                      device=device)
+    # the mover slots past the movers hold the sentinel (the kernel
+    # writes the first min(n_m, m_cap))
+    buf[2 * tiles:2 * tiles + 3 * m_cap].fill_(plain.SENTINEL)
+    marks = plain.Marks(*buf.split((tiles, tiles, m_cap, m_cap, m_cap, 4)))
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    s = _scratch_for(device, stream, tiles)
-    s["epoch"] += 1
+    key = (device, stream, tiles)
+    status, work = _scratch_for(*key)
     ptr = dict(marks._asdict(), pk=pk, np=np_, key0=key0, ctot=ctot,
-               status=s["status"], work=s["work"])
+               status=status, work=work)
     args = _MarkArgs(*(ptr[k].data_ptr() for k in _MARK_POINTERS), n, nvk,
-                     m_cap, s["epoch"], _vec(n, pk, key0))
-    _launch(lib.vpic_merge_mark(ctypes.byref(args), stream), device, stream,
+                     m_cap, _vec(n, pk, key0))
+    _launch(lib.vpic_merge_mark(ctypes.byref(args), stream), key,
             ("merge_mark",))
     return marks
 
 
 def assemble(pk, np_, key0, ctot, marks: plain.Marks, plan: plain.MergePlan,
-             nvk: int) -> plain.Assembled:
+             full: plain.FullOrder, nvk: int, m_cap: int) -> plain.Assembled:
     """Kernel version of :func:`sort.assemble`: the tables kernel, then the
-    assembly kernel, from one call."""
+    assembly kernel, from one call.  Both read the mover count and the
+    decision from ``marks.info`` on the device."""
     if pk.device.type == "cpu":
-        return plain.assemble(pk, np_, key0, ctot, marks, plan, nvk)
+        return plain.assemble(pk, np_, key0, ctot, marks, plan, full, nvk,
+                              m_cap)
     device, n = _check_block(pk, np_, key0, nvk)
-    n_m = plan.key_ms.shape[0]
     check_tensor("ctot", ctot, torch.int32, (nvk + 3,), device)
+    tiles = -(-n // plain.TILE)
     for k in ("res_base", "res_key"):
-        check_tensor(k, getattr(marks, k), torch.int32,
-                     (-(-n // plain.TILE),), device)
-    check_tensor("key_ms", plan.key_ms, torch.int32, (n_m,), device)
-    check_tensor("order", plan.order, torch.int64, (n_m,), device)
+        check_tensor(k, getattr(marks, k), torch.int32, (tiles,), device)
     for k in ("mov_lane", "mov_old"):
-        t = getattr(marks, k)
-        check_tensor(k, t, torch.int32, t.shape, device)
-        if t.shape[0] < n_m:
-            raise ValueError(f"{n_m} movers, {t.shape[0]} marked")
+        check_tensor(k, getattr(marks, k), torch.int32, (m_cap,), device)
+    check_tensor("info", marks.info, torch.int32, (4,), device)
+    check_tensor("key_ms", plan.key_ms, torch.int32, (m_cap,), device)
+    check_tensor("order", plan.order, torch.int64, (m_cap,), device)
+    check_tensor("full order", full.order, torch.int64, (n,), device)
+    check_tensor("full keys", full.key_s, torch.int32, (n,), device)
 
     out = torch.empty((8, n), dtype=torch.float32, device=device)
     key0_out, cum_res, cum_mov, cum_tot, anomaly = _int32(
@@ -204,35 +218,76 @@ def assemble(pk, np_, key0, ctot, marks: plain.Marks, plan: plain.MergePlan,
                           anomaly=anomaly.view(()))
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    s = _scratch_for(device, stream, 0)
+    key = (device, stream, tiles)
+    _, work = _scratch_for(*key)
     ptr = dict(res._asdict(), pk=pk, np=np_, key0=key0, ctot=ctot,
                res_base=marks.res_base, res_key=marks.res_key,
                mov_lane=marks.mov_lane, mov_old=marks.mov_old,
-               key_ms=plan.key_ms, order=plan.order, out=out,
-               key0_out=key0_out, work=s["work"][2:])
-    targs = _TablesArgs(*(ptr[k].data_ptr() for k in _TABLES_POINTERS), n_m,
-                        nvk + 3)
+               info=marks.info, key_ms=plan.key_ms, order=plan.order,
+               full_order=full.order, full_key=full.key_s, out=out,
+               key0_out=key0_out, work=work[4:])
+    targs = _TablesArgs(*(ptr[k].data_ptr() for k in _TABLES_POINTERS),
+                        m_cap, nvk + 3)
     args = _AssembleArgs(*(ptr[k].data_ptr() for k in _ASSEMBLE_POINTERS), n,
-                         nvk, n_m, _vec(n, pk, key0))
+                         nvk, m_cap, _vec(n, pk, key0))
     _launch(lib.vpic_merge_assemble(ctypes.byref(targs), ctypes.byref(args),
                                     stream),
-            device, stream, ("merge_tables", "merge_assemble"))
+            key, ("merge_tables", "merge_assemble"))
     return res
 
 
 def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
                       species: str | None = None):
     """:func:`sort.merge_sort_packed` with the kernels; counts the sort as
-    fast or slow under ``species`` when given."""
+    fast or slow under ``species`` when given, on the device."""
     res = plain.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap,
                                   mark_fn=mark, assemble_fn=assemble)
     if species is not None:
-        counts = sort_counts.setdefault(species, {"fast": 0, "slow": 0})
-        counts["fast" if res.fast else "slow"] += 1
+        _count_sort(species, res.fast)
     return res
 
 
+def _count_sort(species: str, fast) -> None:
+    """Add the 0-d bool ``fast`` to the species' [fast, slow] counter on
+    its device (made at the first count, outside any capture: a graph's
+    warm-up sorts first)."""
+    key = (species, fast.device)
+    with _lock:
+        c = _sort_counters.get(key)
+        if c is None:
+            c = _sort_counters[key] = torch.zeros((2,), dtype=torch.int64,
+                                                  device=fast.device)
+    c.add_(torch.stack([fast, ~fast]).to(torch.int64))
+
+
+def sort_counts() -> dict:
+    """``{species: {"fast": f, "slow": s}}``: each species' sorts since the
+    last :func:`reset_launch_counts`, summed over its devices (one host
+    read per counter; the species that did not sort are left out)."""
+    out: dict = {}
+    with _lock:
+        items = list(_sort_counters.items())
+    for (species, _), c in items:
+        fast, slow = c.tolist()
+        if fast or slow:
+            d = out.setdefault(species, {"fast": 0, "slow": 0})
+            d["fast"] += fast
+            d["slow"] += slow
+    return out
+
+
+def sort_counters() -> dict:
+    """The device counters, ``(species, device) -> (2,) int64``: the
+    graph runner copies them around a warm-up (``engine/graphs.py``)."""
+    with _lock:
+        return dict(_sort_counters)
+
+
 def reset_launch_counts() -> None:
+    """Zero the launch counts and the sort counters, the latter in place:
+    a captured graph keeps adding to the same tensors."""
     for k in launches:
         launches[k] = 0
-    sort_counts.clear()
+    with _lock:
+        for c in _sort_counters.values():
+            c.zero_()
