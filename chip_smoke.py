@@ -62,18 +62,24 @@ no result line):
               particles/sort.py: the seven kernel cases of
               tests/test_sort_pallas.py and the bench shape (2 125 824
               lanes, 5% movers, 50 700 keys), the mark kernel's outputs
-              (the sentinels past the movers included), the tables and
-              every output row bitwise equal on fast and slow blocks (the
-              tables and assembly kernels read the mover count and the
-              decision from the mark pass's words on the card; slow, the
-              assembly writes the full sort's gather), key0/ctot equal, no
-              anomaly, the fast path where expected, two runs bitwise
+              (the sentinels past the movers included), the tables
+              bitwise equal on fast and slow blocks and every output row
+              on fast ones (the tables and assembly kernels read the
+              mover count and the decision from the mark pass's words on
+              the card; slow, the assembly writes only the anomaly: the
+              full sort is the decision's other branch), key0/ctot equal,
+              no anomaly, the fast path where expected, two runs bitwise
               equal; the wrappers and the kernels alone timed against the
               plain passes and the bounds, the assembly against one
-              index_copy_ of the same permutation, the whole re-sort
+              index_copy_ of the same permutation, the eager re-sort
               (device ops, and no host read, per call, and those of a
-              re-sort that falls back) against a full sort_p_packed, and
-              the full sort's order that every re-sort computes;
+              re-sort that falls back) against a full sort_p_packed, the
+              full sort's order that an eager re-sort also computes, and
+              the re-sort captured alone into a CUDA graph, its decision
+              as conditional nodes (engine/cond.py), on a kept merge and
+              on a fallback: bitwise the eager re-sort, the replay timed
+              by CUDA events, its busy ms, ops and host reads (0) from a
+              trace, its nodes by type;
 8. path A   - the unfused push (fused_push=False): a 16^2 deck against
               the CPU plain path, then a fresh 128^2 deck for 8 warm-up
               and three timed windows of 16 steps: finite energies,
@@ -83,8 +89,10 @@ no result line):
               more steps;
 9. path B   - the packed cycle with the merge re-sort (merge_sort=True),
               graphed: a 16^2 deck for 16 steps (every sort after a
-              species' first merges, one launch of each merge kernel per
-              sort; energies match the CPU plain path); then two fresh
+              species' first merges; a mark launch per sort, a tables and
+              an assembly launch per merge kept, which a replay runs in
+              the merge's conditional body; energies match the CPU plain
+              path); then two fresh
               128^2 decks timed as in phase 8, each with one push launch
               per species per step and its fast and slow sort counts per
               species: the deck's own cadence (electrons sort every 2
@@ -262,21 +270,26 @@ no result line):
 18. graphs   - the step as CUDA graphs (engine/graphs.py): the bench deck
               at 128^2 with 2 x 2M and at 256^2 with 2 x 8M, turbulence
               and trecon at full size, each built twice from one seed and
-              stepped through advance (graphed) and advance_eager (op by
-              op), and path B at 128^2 at the deck's cadence and with
-              every species sorted every step: after 48 steps (bench, path
-              B), 56 (turbulence, across its clean at step 50) and 32
-              (trecon, across step 25) the same checksum_fields, species
-              checksums, energies, dropped movers (0), kernel launches and
-              fast and slow sorts, bit for bit; the bench deck's and path
+              stepped through advance (graphed: the cleans, the Marder
+              passes and path B's fast-or-full decision conditional nodes
+              decided on the card) and advance_eager (op by op, the
+              host's decisions), and path B at 128^2 at the deck's cadence
+              and with every species sorted every step: after 48 steps
+              (bench, path B), 56 (turbulence, across its clean at step
+              50) and 32 (trecon, across step 25) the same
+              checksum_fields, species checksums, energies, dropped movers
+              (0), kernel launches (path B's tables and assembly per merge
+              kept graphed, per sort op by op) and fast and slow sorts,
+              bit for bit; the bench deck's and path
               B's 48 steps six super-cycle replays of one capture (48
               replays of one step graph when path B sorts every step) and
               no eager step; path B's last 8 steps of the window under
               torch.cuda.set_sync_debug_mode("error") graphed and op by
               op, and no host read in its graphed trace; per deck and
-              path the wall step over three 16-step windows, busy device
-              ms, ops, host reads and idle share from a trace, the peak
-              memory and each capture's seconds and nodes;
+              path the wall step over three 16-step windows graphed and
+              one op by op, busy device ms, ops, host reads and idle share
+              from a trace, the peak memory and each capture's seconds
+              and nodes by type;
 19. open graphs - the threefry kernel (csrc/threefry.cu) at the 256^2
               collisions deck's 5 242 880 lanes: split and uniform bitwise
               its plain twin on the card and on the CPU, normal within
@@ -292,8 +305,26 @@ no result line):
               trace (about 88 steps), no dropped mover, the
               books balanced (tally = gone, ring = gone, reflux loses
               nothing), no host read in the 8-step trace of the graphed
-              step; per deck and path the step, busy ms, ops, idle share,
-              peak memory and each capture's seconds.
+              step; per deck and path the step (three windows graphed,
+              one op by op), busy ms, ops, idle share, peak memory and
+              each capture's seconds;
+20. shard graphs - the bench deck on 2 x 2 shards and turbulence on 2 z
+              shards, each built twice from one seed, graphed (the host's
+              decisions: a shard's clean holds the rendezvous' turns) and
+              op by op: after 8 and 16 steps, and again after a window
+              and the trace (turbulence past its clean at step 50), the
+              same checksums over every shard, energies, random state,
+              launches, no dropped mover, no host read and no rendezvous
+              wait per graphed step; dryrun_multichip(4);
+21. on card  - the step decides on the card (engine/cond.py): the
+              conditional nodes' route with torch.__version__ and
+              torch.version.cuda; vpic_tpu_torch.entry.entry()'s step
+              captured once and replayed 16 steps bitwise
+              Simulation.advance(16) of the same deck, its graph's nodes
+              by type; path B at 128^2 at its cadence and sorting every
+              step graphed bitwise op by op across a checkpoint and
+              restore; each graphed deck's captures and conditional nodes
+              (turbulence: one capture, its cleans conditional nodes).
 Where a deck runs as CUDA graphs (every deck whose shards all live on the
 one card, path B included), the timed windows of every phase time its
 graphed steps;
@@ -395,7 +426,7 @@ _T0 = time.perf_counter()
 
 
 def log(msg):
-    """Print a line; a phase's heading ("[k/20] ...") gets the seconds
+    """Print a line; a phase's heading ("[k/21] ...") gets the seconds
     since the script started."""
     if msg.startswith("["):
         msg += f" (at {time.perf_counter() - _T0:.1f} s)"
@@ -945,18 +976,17 @@ def eager_windows(sim, label, step_s):
         f"through advance ({'graphed' if sim.graphed else 'eager'})")
 
 
-def _trace(sim, advance):
-    """A torch.profiler trace of TRACE_STEPS steps of ``advance`` (the
+def _trace(sim, advance, steps=TRACE_STEPS):
+    """A torch.profiler trace of ``steps`` steps of ``advance`` (the
     deck's own ``sim.advance`` or ``sim.advance_eager``): (host-clock us,
     device events, how many were placed with their launch call, runtime
     calls without a device event, the per-step breakdown)."""
     # a trace taken again starts one super-cycle later; one runtime call
     # per step may lack its device event (it did in some traces)
     wall_us, events, dev, lost = profiled(
-        lambda: advance(TRACE_STEPS),
-        lambda dev, lost: len(lost) <= TRACE_STEPS)
+        lambda: advance(steps), lambda dev, lost: len(lost) <= steps)
     parts, placed = _step_parts(events, dev)
-    return wall_us, dev, placed, lost, breakdown(dev, parts, TRACE_STEPS)
+    return wall_us, dev, placed, lost, breakdown(dev, parts, steps)
 
 
 def phase_trace(sim, step_s, label="main path", parts=None):
@@ -1202,11 +1232,13 @@ def check_merge_kernels(label, pk, np_, key0, ctot, nvk, m_cap):
     """Each merge kernel against its plain version on one block: the mark
     pass (tile prefixes, counts, every mover slot, the sentinels past the
     movers included), then the tables and the assembly on the plain
-    passes' marks, plan and full order, which read the mover count and
-    the decision from the marks' ``info`` on the device: fast, the merge;
-    slow, the full sort's gather (every row, key0, the tables, no
-    anomaly).  Returns the plain decision, n_m (read here, by the check)
-    and the mark kernel's max abs difference from the plain pass."""
+    passes' marks and plan, and the assembly in its gather mode on the
+    full sort's order, which read the mover count and the decision from
+    the marks' ``info`` on the device: the tables and no anomaly always;
+    where fast the merge, where slow the full sort's gather (every row,
+    key0), each written only where the decision is its own.  Returns the
+    plain decision, n_m (read here, by the check) and the mark kernel's
+    max abs difference from the plain pass."""
     import torch
     from vpic_tpu_torch.particles import sort, sort_cuda
     km = sort_cuda.mark(pk, np_, key0, ctot, nvk, m_cap)
@@ -1223,14 +1255,24 @@ def check_merge_kernels(label, pk, np_, key0, ctot, nvk, m_cap):
                                  f"from the plain pass in "
                                  f"{int((a != b).sum())} entries")
     plan, full = sort.merge_plan(pm), sort.full_order(pk, np_, nvk)
-    ko = sort_cuda.assemble(pk, np_, key0, ctot, pm, plan, full, nvk, m_cap)
-    po = sort.assemble(pk, np_, key0, ctot, pm, plan, full, nvk, m_cap)
-    if not _bitwise_equal(ko.pk, po.pk):
-        bad = int((ko.pk.view(torch.int32) != po.pk.view(torch.int32))
+    ko = sort_cuda.assemble(pk, np_, key0, ctot, pm, plan, nvk, m_cap)
+    po = sort.assemble(pk, np_, key0, ctot, pm, plan, nvk, m_cap)
+    kg = sort_cuda.gather(pk, np_, full, nvk, pm.info, m_cap)
+    pg = sort.gather(pk, np_, full, nvk, pm.info, m_cap)
+    # the mode whose decision it is: the merge where fast, else the gather
+    k_rows, k_key0 = (ko.pk, ko.key0) if fast else kg[:2]
+    p_rows, p_key0 = (po.pk, po.key0) if fast else pg[:2]
+    if not _bitwise_equal(k_rows, p_rows):
+        bad = int((k_rows.view(torch.int32) != p_rows.view(torch.int32))
                   .any(0).sum())
         raise AssertionError(f"{label}: {bad} lanes of the assembly kernel "
-                             f"differ from the plain assembly (fast {fast})")
-    for name in ("key0", "cum_res", "cum_mov", "cum_tot"):
+                             f"differ from the plain pass (fast {fast})")
+    if not torch.equal(k_key0, p_key0):
+        raise AssertionError(f"{label}: the kernels' key0 differs "
+                             f"(fast {fast})")
+    if int(kg[2]) or int(pg[2]):
+        raise AssertionError(f"{label}: gather anomaly {int(kg[2])}")
+    for name in ("cum_res", "cum_mov", "cum_tot"):
         if not torch.equal(getattr(ko, name), getattr(po, name)):
             raise AssertionError(f"{label}: the kernels' {name} differs "
                                  f"(fast {fast})")
@@ -1337,12 +1379,16 @@ def call_profile(fn, merge_kernels=0, reps=10):
     per call the device time of those kernels (``kernel_ms``), the device
     busy time (``busy_ms``, the union of all device ops), the sum of
     their device times (``device_ms``), the device ops, the host reads
-    (device to host copies) and the device ops by name."""
+    (device to host copies) and the device ops by name.  ``merge_kernels``
+    None: any number of them (a graph's replay, whose conditional bodies'
+    kernels the trace may not show; ``merge_seen`` counts those it
+    shows)."""
     fn()
     merge = lambda dev: [e for e in dev if "merge_" in e.name]
     _, _, dev, _ = profiled(
         lambda: [fn() for _ in range(reps)],
-        lambda dev, lost: (len(merge(dev)) == merge_kernels * reps
+        lambda dev, lost: ((merge_kernels is None
+                            or len(merge(dev)) == merge_kernels * reps)
                            and len(lost) <= 1))
     names = collections.Counter(e.name[:48] for e in dev)
     return dict(
@@ -1353,7 +1399,92 @@ def call_profile(fn, merge_kernels=0, reps=10):
                           for e in dev]) / reps / 1e3,
         ops=len(dev) / reps,
         reads=sum("DtoH" in e.name for e in dev) / reps,
+        merge_seen=len(merge(dev)) / reps,
         names={k: v / reps for k, v in names.most_common()})
+
+
+def entry_replayed(device, steps):
+    """``vpic_tpu_torch.entry.entry()``'s step captured once into a CUDA
+    graph (``engine/graphs.GraphRunner``, one unit of one step under one
+    key) and replayed ``steps`` times from the deck's state: (the state
+    after them, the runner's dispatch counts, the top-level nodes of the
+    graph by type)."""
+    from vpic_tpu_torch.engine import graphs
+    from vpic_tpu_torch.entry import entry
+    fn, (state,) = entry(device)
+    counts, captures = collections.Counter(), []
+    runner = graphs.GraphRunner(device, counts, captures)
+    runner.load(state)
+    for t in range(steps):
+        runner.run("step", (), t, 1, lambda st, start, n: fn(st))
+    graph, _ = runner.graphs[()]
+    return (graphs.clone_state(runner.static), dict(counts),
+            graphs.node_types(graph.raw_cuda_graph()))
+
+
+def states_equal(a, b) -> bool:
+    """Every tensor of two states bitwise equal (floats by their bits)."""
+    import torch
+    from vpic_tpu_torch.engine import graphs
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}
+    bits = lambda t: t.view(ints.get(t.dtype, t.dtype))
+    la, lb = graphs._leaves(a), graphs._leaves(b)
+    return len(la) == len(lb) and all(
+        x.shape == y.shape and x.dtype == y.dtype
+        and torch.equal(bits(x), bits(y)) for x, y in zip(la, lb))
+
+
+def captured_resort(label, args, merge_kernels):
+    """The merge re-sort on one block captured alone into a CUDA graph
+    (after a warm-up on the capture stream), its fast-or-full decision as
+    conditional nodes (engine/cond.py): a replay bitwise the eager
+    re-sort, the replay's ms from CUDA events (20 replays, twice), and
+    from a trace of 10 replays its device busy ms, ops and host reads,
+    with ``merge_kernels`` merge kernels a replay (3 where the merge is
+    kept, 2 where it falls back: the mark and the gather); the graph's
+    top-level nodes by type."""
+    import torch
+    from vpic_tpu_torch.engine import cond, graphs
+    from vpic_tpu_torch.particles import sort_cuda
+    device = args[0].device
+    cond.prepare(device)
+    want = sort_cuda.merge_sort_packed(*args)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        sort_cuda.merge_sort_packed(*args)
+        graph = torch.cuda.CUDAGraph(keep_graph=True)
+        graph.capture_begin()
+        try:
+            out = sort_cuda.merge_sort_packed(*args)
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    nodes = graphs.node_types(graph.raw_cuda_graph())
+    graph.instantiate()
+    graph.replay()
+    torch.cuda.synchronize()
+    if not (_bitwise_equal(out[0], want[0])
+            and all(torch.equal(a, b) for a, b in zip(out[1:], want[1:]))):
+        raise AssertionError(f"{label}: the captured re-sort differs from "
+                             "the eager one")
+    if not nodes.get("conditional"):
+        raise AssertionError(f"{label}: no conditional node in {nodes}")
+    r1, r2 = cuda_ms(graph.replay, 20), cuda_ms(graph.replay, 20)
+    prof = call_profile(graph.replay, None)
+    if prof["reads"]:
+        raise AssertionError(f"{label}: {prof['reads']} host reads per "
+                             "replay")
+    log(f"  {label}, captured alone: fast {bool(out.fast)}, replay "
+        f"{r1:.4f} / {r2:.4f} ms (CUDA events), device busy "
+        f"{prof['busy_ms']:.4f} ms, {prof['ops']:.1f} device ops, "
+        f"{prof['reads']:.1f} host reads per replay ({prof['merge_seen']:.1f}"
+        f" of the {merge_kernels} merge kernels that ran in the trace); "
+        f"top-level nodes {nodes}; bitwise the eager re-sort; device ops "
+        f"{prof['names']}")
+    return dict(replay_ms=min(r1, r2), busy_ms=prof["busy_ms"],
+                ops=prof["ops"], merge_kernels_traced=prof["merge_seen"],
+                nodes=nodes)
 
 
 def phase_merge(g, device):
@@ -1374,7 +1505,7 @@ def phase_merge(g, device):
     errs.append(check_merge("bench shape", *args, True)[3:])
     marks = sort_cuda.mark(*args)
     n_m = int(marks.info[0])
-    plan, full = sort.merge_plan(marks), sort.full_order(pk, npt, nvk)
+    plan = sort.merge_plan(marks)
     log(f"  bench shape: merge kernels ok (n={n}, np={int(npt)}, nvk={nvk}, "
         f"movers {n_m}, m_cap {m_cap}; each kernel bitwise its plain "
         "pass's, two runs bitwise equal)")
@@ -1389,13 +1520,13 @@ def phase_merge(g, device):
     lib_out = torch.empty_like(pk)
     run_l = lambda: lib_out.index_copy_(1, dest_lane, pk)
     run_a = lambda: sort_cuda.assemble(pk, npt, key0, ctot, marks, plan,
-                                       full, nvk, m_cap)
+                                       nvk, m_cap)
     run_l()
     if not _bitwise_equal(lib_out, run_a().pk):
         raise AssertionError("bench shape: index_copy_ by the destinations "
                              "differs from the assembly")
-    run_pa = lambda: sort.assemble(pk, npt, key0, ctot, marks, plan, full,
-                                   nvk, m_cap)
+    run_pa = lambda: sort.assemble(pk, npt, key0, ctot, marks, plan, nvk,
+                                   m_cap)
     run_m = lambda: sort_cuda.mark(*args)
     run_pm = lambda: sort.mark(*args)
     mp1, mk1, mk2, mp2 = (cuda_ms(run_pm, 20), cuda_ms(run_m, 20),
@@ -1417,23 +1548,28 @@ def phase_merge(g, device):
     mark_alone, mark_ops = profiled_ms(run_m, 20, ("merge_mark_kernel",), 1)
     tab_alone, asm_ops = profiled_ms(run_a, 20, ("merge_tables_kernel",), 1)
     asm_alone, _ = profiled_ms(run_a, 20, ("merge_assemble_kernel",), 1)
-    fast_p = call_profile(run_merge, 3)
+    fast_p = call_profile(run_merge, 4)
     # a fallback: more movers than a 1024-slot buffer holds
     run_slow = lambda: sort_cuda.merge_sort_packed(pk, npt, key0, ctot, nvk,
                                                    1024)
     if bool(run_slow().fast):
         raise AssertionError("bench shape: 1024 mover slots did not overflow")
-    slow_p = call_profile(run_slow, 3)
+    slow_p = call_profile(run_slow, 4)
     full_p = call_profile(run_full)
     if fast_p["reads"] or slow_p["reads"]:
         raise AssertionError(f"bench shape: the merge re-sort read the card "
                              f"{fast_p['reads']} / {slow_p['reads']} times "
                              "per call")
-    # what the predicated decision adds to a merge: the full sort's order
-    # (the lane keys and a torch.sort of all of them), on every sort
+    # what an eager re-sort adds to a merge: the full sort's order (the
+    # lane keys and a torch.sort of all of them), the other branch
     run_order = lambda: sort.full_order(pk, npt, nvk)
     o1, o2 = cuda_ms(run_order, 20), cuda_ms(run_order, 20)
     order_p = call_profile(run_order)
+    # the re-sort as one program: captured alone, its decision two
+    # conditional nodes, on the kept merge and on the fallback
+    kept = captured_resort("bench shape, merge kept", args, 3)
+    fell = captured_resort("bench shape, fallback (1024 mover slots)",
+                           args[:-1] + (1024,), 2)
     tiles = -(-n // sort.TILE)
     mb_ms, mb_by = mark_bound(n, n_m, m_cap, tiles)
     tb_ms, tb_by = tables_bound(n_m, nvk)
@@ -1459,19 +1595,19 @@ def phase_merge(g, device):
     log(f"  timing, bench shape: the whole merge re-sort {w1:.4f} / "
         f"{w2:.4f} ms (device busy {fast_p['busy_ms']:.4f} ms, "
         f"{fast_p['ops']:.1f} device ops and {fast_p['reads']:.1f} host "
-        f"reads per call, its three kernels {fast_p['kernel_ms']:.4f} ms "
+        f"reads per call, its four merge kernels {fast_p['kernel_ms']:.4f} ms "
         f"alone) against a full sort_p_packed {f1:.4f} / {f2:.4f} ms "
         f"(device busy {full_p['busy_ms']:.4f} ms, {full_p['ops']:.1f} "
         f"device ops per call); the re-sort's device ops: {fast_p['names']}")
     log(f"  a re-sort that falls back (1024 mover slots): device busy "
         f"{slow_p['busy_ms']:.4f} ms, {slow_p['ops']:.1f} device ops and "
-        f"{slow_p['reads']:.1f} host reads per call, its three kernels "
+        f"{slow_p['reads']:.1f} host reads per call, its four merge kernels "
         f"{slow_p['kernel_ms']:.4f} ms alone")
-    log(f"  the full sort's order that every re-sort computes (the lane "
+    log(f"  the full sort's order that an eager re-sort computes (the lane "
         f"keys and one torch.sort of all {n}): {o1:.4f} / {o2:.4f} ms "
         f"(device busy {order_p['busy_ms']:.4f} ms, {order_p['ops']:.1f} "
-        "device ops): the predicated decision's cost on a merge that is "
-        "kept")
+        "device ops): the select's cost on a merge that is kept, which a "
+        "graph's conditional nodes skip")
     whole = dict(whole_merge_ms=min(w1, w2), full_sort_ms=min(f1, f2),
                  whole_merge_busy_ms=fast_p["busy_ms"],
                  full_sort_busy_ms=full_p["busy_ms"],
@@ -1481,7 +1617,9 @@ def phase_merge(g, device):
                  fallback_busy_ms=slow_p["busy_ms"],
                  fallback_host_reads_per_sort=slow_p["reads"],
                  full_order_ms=min(o1, o2),
-                 full_order_busy_ms=order_p["busy_ms"])
+                 full_order_busy_ms=order_p["busy_ms"],
+                 **{f"graphed_merge_{k}": v for k, v in kept.items()},
+                 **{f"graphed_fallback_{k}": v for k, v in fell.items()})
     err, mark_err = (max(e) for e in zip(*errs))
     return (
         dict(ms=min(mk1, mk2), max_abs_err=mark_err, kernel_ms=mark_alone,
@@ -1591,26 +1729,26 @@ def phase_path_a(device, e_refs):
 
 
 def packed_windows(sim, label, e_refs):
-    """timed_windows on a deck that runs the packed cycle, with the push
-    and merge launch counts set to 0 just before and read just after:
-    one push launch per species per step, none of walk_only, one mark,
-    one tables and one assembly launch per sort, fast or slow.  Returns
+    """timed_windows on a deck that runs the packed cycle as CUDA graphs,
+    with the push and merge launch counts set to 0 just before and read
+    just after: one push launch per species per step, none of walk_only,
+    one mark launch per sort, one tables and one assembly launch per
+    merge kept (the merge's conditional body runs only there).  Returns
     the merge kernels' launches, the fast and slow sorts per species and
     the median step time."""
-    from vpic_tpu_torch.particles import push_cuda, sort, sort_cuda
+    from vpic_tpu_torch.particles import push_cuda, sort
     nsp = len(sim.state.species)
-    push_cuda.reset_launch_counts()
-    sort_cuda.reset_launch_counts()
+    _reset_launch_counts()
     med = timed_windows(sim, label, e_refs)
     steps = WINDOWS * STEPS
-    push, walk = push_cuda.launches["push"], push_cuda.launches["walk_only"]
+    launches = _launch_counts()
+    push, walk = launches["push"], launches["walk_only"]
     if push != steps * nsp or walk:
         raise AssertionError(f"{label}: push launches {push}, walk_only "
                              f"{walk}, expected {steps * nsp} and 0")
-    merges = dict(sort_cuda.launches)
-    counts = sort_cuda.sort_counts()
-    sorts = sum(c["fast"] + c["slow"] for c in counts.values())
-    if set(merges.values()) != {sorts}:
+    merges = {k: v for k, v in launches.items() if k.startswith("merge_")}
+    counts = sort_counts_of()
+    if merges != merge_launches(counts, graphed=True):
         raise AssertionError(f"{label}: merge launches {merges} for sorts "
                              f"{counts}")
     caps = {sp.name: round(sort.mover_capacity(
@@ -1636,19 +1774,19 @@ def phase_path_b(device, e_refs):
     small.modify_runparams(merge_sort=True)
     cpu = bench_deck.build(**SMALL_DECK, device="cpu")
     cpu.modify_runparams(merge_sort=True)
-    sort_cuda.reset_launch_counts()
+    _reset_launch_counts()
     small.advance_steps(STEPS)
-    counts = sort_cuda.sort_counts()
-    small_launches = dict(sort_cuda.launches)
+    counts = sort_counts_of()
+    small_launches = {k: v for k, v in _launch_counts().items()
+                      if k.startswith("merge_")}
     cpu.advance_steps(STEPS)
     want = {"electron": {"fast": 7, "slow": 1}, "ion": {"fast": 1, "slow": 1}}
     if counts != want:
         raise AssertionError(f"16^2 path B: sorts {counts}, expected {want}")
-    if small_launches != {"merge_mark": 10, "merge_tables": 10,
-                          "merge_assemble": 10}:
+    if small_launches != merge_launches(counts, graphed=True):
         raise AssertionError(f"16^2 path B: merge launches {small_launches}, "
-                             "expected 10 of each kernel (one per sort, fast "
-                             "or slow)")
+                             "expected a mark and an assembly per sort (10) "
+                             "and the tables per merge kept (8)")
     eg, ec = small.energies(), cpu.energies()
     for k in ec:
         if abs(eg[k] - ec[k]) > 1e-6 * abs(ec[k]) + 1e-12:
@@ -4558,38 +4696,71 @@ def _path_b(device, **deck):
 # the steps at the end of a path B deck's bitwise window that run under
 # torch.cuda.set_sync_debug_mode("error"): one super-cycle at the cadence
 SYNC_STEPS = 8
+# the steps of graph_run's trace of the op-by-op step (the graphed step's
+# takes TRACE_STEPS): the profiler's cost grows with the ops it records
+EAGER_TRACE_STEPS = 4
 
 
 def _launch_counts():
+    """Every kernel's launches since :func:`_reset_launch_counts`, those
+    inside the conditional bodies that the replays ran included
+    (engine/cond.settle)."""
     from vpic_tpu_torch.core import random_cuda
+    from vpic_tpu_torch.engine import cond
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
+    cond.settle()
     return dict(push_cuda.launches, **deposit_cuda.launches,
-                **sort_cuda.launches, **random_cuda.launches)
+                **sort_cuda.launches, **random_cuda.launches,
+                **cond.launches)
 
 
 def _reset_launch_counts():
     from vpic_tpu_torch.core import random_cuda
+    from vpic_tpu_torch.engine import cond
     from vpic_tpu_torch.particles import deposit_cuda, push_cuda, sort_cuda
     for mod in (push_cuda, deposit_cuda, sort_cuda, random_cuda):
         mod.reset_launch_counts()
+    cond.reset()
+
+
+def sort_counts_of():
+    """The merge re-sort's fast and slow sorts per species since the last
+    reset (the device counters)."""
+    from vpic_tpu_torch.particles import sort_cuda
+    return sort_cuda.sort_counts()
+
+
+def merge_launches(sorts, graphed):
+    """The merge kernels' launches that ``sorts`` (fast and slow sorts per
+    species) give: a mark per sort; eagerly, where both branches run, the
+    tables and two assembly launches (the merge and the full sort's
+    gather) per sort; in a graph's replays the tables per merge kept and
+    one assembly launch per sort, in the conditional body that runs."""
+    total = sum(c["fast"] + c["slow"] for c in sorts.values())
+    fast = sum(c["fast"] for c in sorts.values())
+    return {"merge_mark": total,
+            "merge_tables": fast if graphed else total,
+            "merge_assemble": total if graphed else 2 * total}
 
 
 def graph_run(label, build, device, steps, graphed, books=None,
               sync_free=False):
     """One deck of GRAPH_DECKS (or of OPEN_GRAPH_DECKS), built alone on
     the card: ``steps`` steps through ``advance`` (``graphed``) or
-    ``advance_eager``, then three timed windows of STEPS steps and a trace
-    of TRACE_STEPS steps of the same stepping, with the card's peak memory
-    over it all.  ``books(sim, n0)``: the deck's particle books after the
-    ``steps`` steps (n0 the live lanes at build).  ``sync_free``: the last
+    ``advance_eager``, then a timed window of STEPS steps, a trace of
+    TRACE_STEPS steps of the same stepping (op by op EAGER_TRACE_STEPS)
+    and, graphed, two more timed windows (op by op one window in all),
+    with the card's peak memory over it all.  ``books(sim, n0)``: the
+    deck's particle books after the ``steps`` steps (n0 the live lanes at
+    build).  ``sync_free``: the last
     SYNC_STEPS of the ``steps`` run under
     ``torch.cuda.set_sync_debug_mode("error")``, so a host read or a copy
     from the host there raises.  Returns what phases 18-20 compare and
     record (``sorts``: the merge re-sort's fast and slow sorts in the
     ``steps``; ``end``: the checksums, every shard's random state and the
-    books again after the windows and the trace, at the step that the
-    most retried trace would reach, where every run of the deck goes on
-    to; ``wait_ms``: on several shards the host wait at the rendezvous
+    books again after the first window and the trace, at the step that
+    the most retried trace would reach, where every run of the deck goes
+    on to; ``wait_ms``: on several shards the host wait at the rendezvous
     per step and shard in the timed windows, 0 on replays)."""
     import statistics
     import torch
@@ -4620,7 +4791,11 @@ def graph_run(label, build, device, steps, graphed, books=None,
         advance(steps)
     torch.cuda.synchronize()
     from vpic_tpu_torch.particles import sort_cuda
-    out = dict(launches=_launch_counts(), sorts=sort_cuda.sort_counts(),
+    launches = _launch_counts()
+    # the conditional nodes' set kernel runs only in graphs
+    out = dict(launches=launches,
+               cond_launches=launches.pop("cond_set_if"),
+               sorts=sort_cuda.sort_counts(),
                dispatch=dict(sim.dispatch_counts),
                fields=sim.checksum_fields(),
                species=[sim.checksum_species(h["name"])
@@ -4635,18 +4810,22 @@ def graph_run(label, build, device, steps, graphed, books=None,
     rv = sim.comms[0].rv
     wait0 = sum(rv.wait_s)
     step_s = []
-    for _ in range(WINDOWS):
+
+    def window():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         advance(STEPS)
         torch.cuda.synchronize()
         step_s.append((time.perf_counter() - t0) / STEPS)
+
+    window()
     out["wait_ms"] = ((sum(rv.wait_s) - wait0) / sim.grid.n_shards
-                      / (WINDOWS * STEPS) * 1e3)
+                      / STEPS * 1e3)
     advance(-sim.step_count % (sim.opts.resort_interval * 4))
     t_trace = time.perf_counter()
     end = sim.step_count + TRACE_STEPS * PROFILE_ATTEMPTS
-    wall_us, dev, _, lost, b = _trace(sim, advance)
+    traced = TRACE_STEPS if graphed else EAGER_TRACE_STEPS
+    wall_us, dev, _, lost, b = _trace(sim, advance, traced)
     torch.cuda.synchronize()
     out["trace_s"] = time.perf_counter() - t_trace
     # the trace steps again where the profiler drops device events, so two
@@ -4659,11 +4838,15 @@ def graph_run(label, build, device, steps, graphed, books=None,
                       rng=[st.rng.tolist() for st in sim.states],
                       books=books(sim, n0) if books else None)
     out["run_s"] = t_trace - t_run
+    if graphed:
+        sim.advance_steps(0)
+        for _ in range(WINDOWS - 1):
+            window()
     out.update(step_ms=statistics.median(step_s) * 1e3,
                step_min_ms=min(step_s) * 1e3, step_max_ms=max(step_s) * 1e3,
                busy_ms=b["busy_ms"], ops=b["ops"], parts=b["parts"],
-               reads=sum("DtoH" in e.name for e in dev) / TRACE_STEPS,
-               traced_wall_ms=wall_us / TRACE_STEPS / 1e3,
+               reads=sum("DtoH" in e.name for e in dev) / traced,
+               traced_wall_ms=wall_us / traced / 1e3,
                peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
                reserved_gb=torch.cuda.memory_reserved() / 1e9,
                captures=list(sim.capture_times))
@@ -4682,8 +4865,9 @@ def captures_text(captures) -> str:
         return ""
     return ", captures " + "; ".join(
         f"{c['kind']} of {c['steps']} steps: warm-up {c['warmup_s']:.3f} s, "
-        f"capture {c['capture_s']:.3f} s, {c['nodes']} nodes, instantiated "
-        f"in {c['instantiate_s']:.3f} s" for c in captures)
+        f"capture {c['capture_s']:.3f} s, {c['nodes']} nodes "
+        f"({c['node_types'].get('conditional', 0)} conditional), "
+        f"instantiated in {c['instantiate_s']:.3f} s" for c in captures)
 
 
 def phase_graphs(device, card):
@@ -4707,9 +4891,22 @@ def phase_graphs(device, card):
         e = graph_run(label, build, device, steps, False, sync_free=path_b)
         for key in ("fields", "species", "energies", "movers", "launches",
                     "sorts", "end"):
-            if g[key] != e[key]:
-                raise AssertionError(f"{label}: graphed {key} {g[key]} vs "
-                                     f"eager {e[key]}")
+            a, b = g[key], e[key]
+            if key == "launches" and path_b:
+                # the tables and the assembly run in the merge's
+                # conditional body: per merge kept graphed, per sort eager
+                for r, graphed in ((g, True), (e, False)):
+                    want = merge_launches(r["sorts"], graphed)
+                    if any(r[key][k] != v for k, v in want.items()):
+                        how = "graphed" if graphed else "eager"
+                        raise AssertionError(
+                            f"{label}: merge launches {r[key]} for sorts "
+                            f"{r['sorts']} ({how})")
+                a, b = ({k: v for k, v in r.items() if k not in (
+                    "merge_tables", "merge_assemble")} for r in (a, b))
+            if a != b:
+                raise AssertionError(f"{label}: graphed {key} {a} vs "
+                                     f"eager {b}")
         if any(g["movers"].values()):
             raise AssertionError(f"{label}: dropped movers {g['movers']}")
         if g["dispatch"].get("eager_steps") or \
@@ -4724,18 +4921,14 @@ def phase_graphs(device, card):
             raise AssertionError(f"{label}: {steps} steps dispatched as "
                                  f"{g['dispatch']}, not {units} of one "
                                  "capture")
-        if path_b and (g["reads"] or not g["sorts"]
-                       or not all(v == sum(sum(c.values()) for c in
-                                           g["sorts"].values())
-                                  for k, v in g["launches"].items()
-                                  if k.startswith("merge_"))):
+        if path_b and (g["reads"] or not g["sorts"]):
             raise AssertionError(f"{label}: {g['reads']} host reads per "
-                                 f"graphed step, sorts {g['sorts']}, merge "
-                                 f"launches {g['launches']}")
+                                 f"graphed step, sorts {g['sorts']}")
         log(f"  {label} ({card}): after {steps} steps graphed = eager "
             f"bitwise (fields {g['fields'][:16]}..., species checksums, "
             f"energies, dropped movers {g['movers']}, launches "
-            f"{ {k: v for k, v in g['launches'].items() if v} }"
+            f"{ {k: v for k, v in g['launches'].items() if v} }; the "
+            f"conditional nodes' set kernels {g['cond_launches']} graphed"
             + (f", sorts {g['sorts']}, no host read in the last "
                f"{SYNC_STEPS} steps of either" if path_b else "")
             + f"), and again after the windows and the trace at step "
@@ -4752,7 +4945,7 @@ def phase_graphs(device, card):
                 + captures_text(r["captures"]))
         recs[label] = {name: {k: r[k] for k in (
             "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
-            "idle_share", "peak_gb", "captures")}
+            "idle_share", "peak_gb", "captures", "cond_launches")}
             for name, r in (("graphed", g), ("eager", e))}
     return recs
 
@@ -5047,11 +5240,14 @@ def open_fields(recs):
 # each sharded deck of phase 15 and the steps of its bitwise window: the
 # bench deck's 48 steps are six super-cycles (k = 2, M = 4); turbulence's
 # 56 cross its clean at step 50, an allsum of both shards inside a graph
+# the bitwise windows before the timed ones: a super-cycle of the bench
+# deck; turbulence's, with the first window and the trace after it, goes
+# on past its clean at step 50 before the end record (step 72)
 SHARD_GRAPH_DECKS = {
     "bench 128^2 on 2x2 shards": (
-        lambda device: shard_bench(device, **SHARD_MESH), 48),
+        lambda device: shard_bench(device, **SHARD_MESH), 8),
     "turbulence on 2 z shards": (
-        lambda device: port_deck("turbulence", device, TURB_SHARDED), 56),
+        lambda device: port_deck("turbulence", device, TURB_SHARDED), 16),
 }
 
 
@@ -5123,6 +5319,189 @@ def phase_shard_graphs(device, card):
     return recs
 
 
+# -- phase 21: the step decides on the card -----------------------------------
+
+ENTRY_STEPS = 16
+RESTORE_STEPS = 16        # path B before its checkpoint; 8 more, then 8 again
+
+
+def path_b_restore(device, label, deck, tmp):
+    """Path B at 128^2 (``deck``: its cadence) graphed and op by op from
+    one seed: RESTORE_STEPS steps, a checkpoint, 8 steps, a restore (no
+    merge carry: each species' first sort after it is a full sort) and 8
+    steps again, then the same field and species checksums, energies and
+    fast and slow sorts, bit for bit, and no dropped mover."""
+    from vpic_tpu_torch.particles import sort_cuda
+    out = []
+    for graphed in (True, False):
+        sim = _path_b(device, **deck)
+        advance = sim.advance_steps if graphed else sim.advance_eager
+        sort_cuda.reset_launch_counts()
+        advance(RESTORE_STEPS)
+        path = os.path.join(tmp, f"path_b_{graphed}")
+        sim.checkpoint(path)
+        advance(8)
+        sim.restore(path)
+        advance(8)
+        out.append(dict(fields=sim.checksum_fields(),
+                        species=[sim.checksum_species(h["name"])
+                                 for h in sim._species],
+                        energies=sim.energies(), movers=sim.mover_counts(),
+                        sorts=sort_cuda.sort_counts(),
+                        dispatch=dict(sim.dispatch_counts)))
+        del sim
+    g, e = out
+    for key in ("fields", "species", "energies", "movers", "sorts"):
+        if g[key] != e[key]:
+            raise AssertionError(f"path B {label} across a restore: graphed "
+                                 f"{key} {g[key]} vs eager {e[key]}")
+    if any(g["movers"].values()) or g["dispatch"].get("eager_steps"):
+        raise AssertionError(f"path B {label}: movers {g['movers']}, "
+                             f"dispatch {g['dispatch']}")
+    log(f"  path B 128^2 {label}: {RESTORE_STEPS} steps, a checkpoint, 8 "
+        f"steps, a restore and 8 steps, graphed = op by op bitwise (fields "
+        f"{g['fields'][:16]}..., species, energies, sorts {g['sorts']}, "
+        f"dropped movers {g['movers']}); graphed dispatch {g['dispatch']}")
+    return g["sorts"]
+
+
+COND_CHAIN = 64           # conds in the graph that times the nodes
+COND_REPLACES = ("vpic_tpu/engine/step.py:411 (lax.cond, which XLA "
+                 "lowers to its own conditional: no Pallas kernel)")
+
+
+def time_cond(device):
+    """engine/cond.cond's nodes against the select: COND_CHAIN conds in a
+    row on a 1024-float vector, each taking v + 1 or v - 1, captured into
+    one graph: each replay bitwise the select's result for the
+    predicate's value at that replay; per cond the replay's ms (CUDA
+    events; two set kernels, two conditional nodes, the branch's kernel)
+    against the select's eagerly (both branches and a torch.where), the
+    bound of the two set kernels' reads of the predicate (2 bytes)."""
+    import torch
+    from vpic_tpu_torch.engine import cond
+    cond.prepare(device)
+    x = torch.zeros(1024, device=device)
+    p = torch.ones((), dtype=torch.bool, device=device)
+
+    def chain():
+        v = x
+        for _ in range(COND_CHAIN):
+            v = cond.cond(p, lambda v: v + 1, lambda v: v - 1, (v,))
+        return v
+
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        chain()
+        graph = torch.cuda.CUDAGraph()
+        graph.capture_begin()
+        try:
+            out = chain()
+        finally:
+            graph.capture_end()
+    torch.cuda.current_stream(device).wait_stream(side)
+    for flag in (True, False):
+        p.fill_(flag)
+        graph.replay()
+        if not _bitwise_equal(out, chain()):
+            raise AssertionError(f"cond chain: the replay differs from the "
+                                 f"select for {flag}")
+    p.fill_(True)
+    n1, n2 = cuda_ms(graph.replay, 20), cuda_ms(graph.replay, 20)
+    s1, s2 = cuda_ms(chain, 20), cuda_ms(chain, 20)
+    b_ms, b_by = bound(2, 0)
+    rec = dict(ms=min(n1, n2) / COND_CHAIN, plain_ms=min(s1, s2) / COND_CHAIN,
+               bound_ms=b_ms, bound_by=b_by, library_ms=None,
+               max_abs_err=0.0)
+    log(f"  {COND_CHAIN} conds captured as conditional nodes: a replay "
+        f"{n1:.4f} / {n2:.4f} ms, {rec['ms'] * 1e3:.3f} us a cond; the "
+        f"select eagerly {s1:.4f} / {s2:.4f} ms ({rec['plain_ms'] * 1e3:.3f}"
+        f" us a cond); bitwise for both predicates")
+    return rec
+
+
+def phase_on_card(device, card, graph_recs):
+    """Phase 21: the step decides on the card (engine/cond.py).  The
+    route of the conditional nodes with PyTorch's and CUDA's versions;
+    vpic_tpu_torch.entry.entry()'s step captured once and replayed
+    ENTRY_STEPS times bitwise Simulation.advance(ENTRY_STEPS) of the same
+    deck, its graph's nodes by type; path B at 128^2 at its cadence and
+    sorting every step bitwise its op-by-op run across a restore; from
+    phase 18's captures, each graphed deck's captures and their
+    conditional nodes (the bench deck, device-decided, and turbulence
+    across its clean at step 50 were held there bitwise to their op-by-op
+    steps).  Returns the phase's record."""
+    import tempfile
+    import torch
+    from vpic_tpu_torch.decks import bench_deck
+    from vpic_tpu_torch.engine import cond
+    from vpic_tpu_torch.entry import DECK
+    rec = dict(torch=torch.__version__, cuda=torch.version.cuda,
+               route=cond.ROUTE,
+               torch_binds_if_nodes=hasattr(
+                   torch._C._CUDAGraph, "begin_capture_to_if_node"))
+    log(f"  torch {rec['torch']}, CUDA {rec['cuda']}: conditional nodes by "
+        f"the route {rec['route']!r} (csrc/cond_node.cu); PyTorch binds "
+        f"begin_capture_to_if_node: {rec['torch_binds_if_nodes']}")
+
+    t0 = time.perf_counter()
+    _reset_launch_counts()
+    state, counts, nodes = entry_replayed(device, ENTRY_STEPS)
+    rec["entry_launches"] = {k: v for k, v in _launch_counts().items() if v}
+    sim = bench_deck.build(**DECK, device=device)
+    ref = sim.advance(ENTRY_STEPS)
+    if not states_equal(state, ref):
+        raise AssertionError("entry(): the replayed step differs from "
+                             f"Simulation.advance({ENTRY_STEPS})")
+    want = {"captures": 1, "replays.step": ENTRY_STEPS,
+            "graphed_steps": ENTRY_STEPS}
+    if counts != want or not nodes.get("conditional"):
+        raise AssertionError(f"entry(): dispatch {counts} (want {want}), "
+                             f"nodes {nodes}")
+    rec.update(entry_nodes=nodes, entry_s=time.perf_counter() - t0)
+    log(f"  entry() ({card}): fn captured once and replayed {ENTRY_STEPS} "
+        f"times = Simulation.advance({ENTRY_STEPS}) bitwise (every tensor "
+        f"of the state); its graph's top-level nodes {nodes}; launches in "
+        f"the replays {rec['entry_launches']}; {rec['entry_s']:.2f} s")
+    if not rec["entry_launches"].get("cond_set_if"):
+        raise AssertionError("entry(): no conditional node was reached")
+    rec["cond"] = time_cond(device)
+    del sim, state, ref
+
+    tmp = tempfile.mkdtemp(prefix="path_b_restore_")
+    try:
+        rec["path_b_restore_sorts"] = {
+            label: path_b_restore(device, label, deck, tmp)
+            for label, deck in (("at its cadence", {}),
+                                ("sorting every step",
+                                 dict(resort_interval=1, ion_sort_mult=1)))}
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    rec["captures"] = {}
+    for label, r in graph_recs.items():
+        caps = r["graphed"]["captures"]
+        rec["captures"][label] = [dict(kind=c["kind"], steps=c["steps"],
+                                       nodes=c["nodes"],
+                                       types=c["node_types"]) for c in caps]
+        log(f"  {label}: {len(caps)} capture(s) in phase 18's graphed run: "
+            + "; ".join(f"{c['kind']} of {c['steps']} steps, {c['nodes']} "
+                        f"nodes, {c['node_types'].get('conditional', 0)} "
+                        "conditional" for c in caps))
+    turb = rec["captures"]["turbulence"]
+    if len(turb) != 1 or not turb[0]["types"].get("conditional"):
+        raise AssertionError(f"turbulence: captures {turb}, expected one "
+                             "graph whose cleans are conditional nodes")
+    for label in ("path B 128^2, 4M", "path B 128^2, 4M, every step"):
+        if not all(c["types"].get("conditional")
+                   for c in rec["captures"][label]):
+            raise AssertionError(f"{label}: a capture without conditional "
+                                 f"nodes: {rec['captures'][label]}")
+    return rec
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5137,13 +5516,13 @@ def main():
     kind = torch.cuda.get_device_name(0)
     count = torch.cuda.device_count()
     card = card_line()
-    log(f"[1/20] device: {kind} (count {count}); torch {torch.__version__}, "
+    log(f"[1/21] device: {kind} (count {count}); torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}")
     log(card)
 
     t0 = time.perf_counter()
     push_cuda.build()
-    log(f"[2/20] build: {time.perf_counter() - t0:.3f} s -> "
+    log(f"[2/21] build: {time.perf_counter() - t0:.3f} s -> "
         f"{push_cuda.library_path().relative_to(push_cuda.PKG_DIR.parent)}")
     for line in push_cuda.library_path().with_suffix(".log").read_text() \
             .splitlines():
@@ -5151,17 +5530,17 @@ def main():
                                    "spill")):
             log("  ptxas: " + line.strip())
 
-    log("[3/20] kernel vs plain, small 3D grid")
+    log("[3/21] kernel vs plain, small 3D grid")
     small_err = phase_kernel_small(device)
     t0 = time.perf_counter()
     sim = bench_deck.build(**SLICE, device=device)
     torch.cuda.synchronize()
-    log(f"[3/20] kernel vs plain, 128^2 deck (built in "
+    log(f"[3/21] kernel vs plain, 128^2 deck (built in "
         f"{time.perf_counter() - t0:.2f} s)")
     push_err, push_t = phase_kernel_slice(sim)
-    log("[4/20] determinism: checked above, per case and species")
+    log("[4/21] determinism: checked above, per case and species")
 
-    log("[5/20] slice")
+    log("[5/21] slice")
     phase_small_deck(device)
     main_launches, rate, step_s = phase_slice(sim)
     phase_trace(sim, step_s)
@@ -5169,15 +5548,15 @@ def main():
         f"per species, median of {WINDOWS} windows of {STEPS} steps, step "
         f"{step_s * 1e3:.4f} ms)")
 
-    log("[6/20] deposit kernel vs plain")
+    log("[6/21] deposit kernel vs plain")
     dep_err, dep_t = phase_deposit(sim, device)
-    log("[7/20] merge re-sort kernels vs plain")
+    log("[7/21] merge re-sort kernels vs plain")
     mark_t, tables_t, asm_t = phase_merge(sim.grid, device)
     del sim
     e_refs = reference_energies(device)
-    log("[8/20] path A: the unfused push")
+    log("[8/21] path A: the unfused push")
     dep_launches, step_a = phase_path_a(device, e_refs)
-    log("[9/20] path B: the packed cycle with the merge re-sort")
+    log("[9/21] path B: the packed cycle with the merge re-sort")
     mrg_launches, mrg_small, mrg_cadence, step_b, step_b1, trace_b1 = \
         phase_path_b(device, e_refs)
     log(f"step times at 128^2 ({card}; medians of {WINDOWS} windows of "
@@ -5187,38 +5566,41 @@ def main():
         f"{mrg_launches} in the every-step windows, {mrg_cadence} at the "
         f"deck's own cadence, {mrg_small} on the 16^2 deck")
 
-    log("[10/20] determinism: the charge deposit on the card")
+    log("[10/21] determinism: the charge deposit on the card")
     phase_determinism(device)
-    log("[11/20] the turbulence deck through the CLI")
+    log("[11/21] the turbulence deck through the CLI")
     turb = phase_turbulence(device, card)
-    log("[12/20] the reconnection decks: trecon, sigma, turbulence_fan")
+    log("[12/21] the reconnection decks: trecon, sigma, turbulence_fan")
     recon = phase_recon(device, card)
-    log("[13/20] open particle boundaries and the collisions deck")
+    log("[13/21] open particle boundaries and the collisions deck")
     opened = phase_open(device, card)
-    log("[14/20] materials: the material box")
+    log("[14/21] materials: the material box")
     materials = phase_materials(device, card)
-    log("[15/20] several shards on the card: the bench deck on 4 shards, "
+    log("[15/21] several shards on the card: the bench deck on 4 shards, "
         "the turbulence deck on 2")
     shard_push, shard_walk, shard_dep = phase_shards(device, card)
-    log("[16/20] the tools path: the probe kernels of tools/ and the drift "
+    log("[16/21] the tools path: the probe kernels of tools/ and the drift "
         "comparison against the float64 reference")
     tool_kernels, _ = phase_tools(device, card)
-    log("[17/20] the harness tools at full size: evidence, the scaling sweep "
+    log("[17/21] the harness tools at full size: evidence, the scaling sweep "
         "(3D 64^3 and 16M particles included), the per-op profile")
     harness = phase_harness(device, card)
-    log("[18/20] the step as CUDA graphs: graphed against eager, bitwise, "
+    log("[18/21] the step as CUDA graphs: graphed against eager, bitwise, "
         "timed")
     graph_recs = phase_graphs(device, card)
-    log("[19/20] the open decks as CUDA graphs: the threefry kernel against "
+    log("[19/21] the open decks as CUDA graphs: the threefry kernel against "
         "its twin, the open variants and the collisions deck graphed "
         "against eager, bitwise, timed")
     rnd_errs, rnd_t, open_graph_recs, rnd_launches = phase_open_graphs(
         device, card)
     opened.update(open_fields(open_graph_recs))
-    log("[20/20] the sharded decks as CUDA graphs: the bench deck on 4 "
+    log("[20/21] the sharded decks as CUDA graphs: the bench deck on 4 "
         "shards and turbulence on 2 graphed against op by op, bitwise, "
         "timed; dryrun_multichip(4)")
     shard_graph_recs = phase_shard_graphs(device, card)
+    log("[21/21] the step decides on the card: conditional graph nodes, "
+        "entry()'s graph, path B across a restore")
+    on_card = phase_on_card(device, card, graph_recs)
 
     steps = WINDOWS * STEPS
     srt = trace_b1["parts"]["step.sort"]
@@ -5230,7 +5612,7 @@ def main():
              max_abs_err=max(small_err, push_err), **push_t, **turb,
              **recon, **opened, **materials, **shard_push, **shard_walk,
              **harness, graphs=graph_recs, open_graphs=open_graph_recs,
-             shard_graphs=shard_graph_recs),
+             shard_graphs=shard_graph_recs, step_on_card=on_card),
         dict(name="deposit_sorted",
              source="vpic_tpu_torch/csrc/deposit_sorted.cu",
              replaces="vpic_tpu/particles/deposit_pallas.py:41",
@@ -5256,6 +5638,14 @@ def main():
     for k in kernels:
         k["route"] = "cuda"
         k["launches_per_step"] = main_launches[k["name"]] / steps
+    # the conditional nodes' set kernel (csrc/cond_node.cu): its launches
+    # in entry()'s replays (phase 21)
+    kernels.append(dict(
+        name="cond_set_if", route="cuda", source="vpic_tpu_torch/csrc/"
+        "cond_node.cu", replaces=COND_REPLACES,
+        launches=on_card["entry_launches"]["cond_set_if"],
+        launches_per_step=on_card["entry_launches"]["cond_set_if"]
+        / ENTRY_STEPS, kernel_ms=None, **on_card["cond"]))
     # the threefry kernel's main path is phase 19's graphed runs: its
     # launches there, summed over the decks, and per deck
     for what in ("split", "uniform", "normal"):
@@ -5269,7 +5659,7 @@ def main():
             replaces=THREEFRY_REPLACES, launches=sum(per_deck.values()),
             launches_by_deck=per_deck, max_abs_err=rnd_errs[what],
             **rnd_t[what]))
-    log(f"chip_smoke: 20 phases in {time.perf_counter() - _T0:.1f} s")
+    log(f"chip_smoke: 21 phases in {time.perf_counter() - _T0:.1f} s")
     print(json.dumps({"kernels": kernels + tool_kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": kind, "count": count}}))

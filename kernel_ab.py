@@ -33,7 +33,10 @@ then advances the deck 8 steps and traces 8 more under torch.profiler
 operations per step; then builds the path-B deck that sorts every species
 every step (``merge_sort=True``, ``resort_interval=1``,
 ``ion_sort_mult=1``), advances it 8 steps and traces 8 more: its
-``step.sort`` busy device ms and device operations per step.  Each
+``step.sort`` busy device ms and device operations per step; then times
+path B's step through ``advance`` (graphed on the card), sorting every
+step and at the deck's own cadence: the median of three windows of 16
+steps.  Each
 child prints one JSON line; the parent prints them all as a JSON list on
 its last line.  Needs one card; exits non-zero without one.
 
@@ -65,20 +68,33 @@ import subprocess
 import sys
 import time
 
-import chip_smoke as cs
-
 REPS = 20
 # issued lane-instructions per second: 132 SMs x 128 lanes x 1.98 GHz
 ISSUE_LANES_PER_S = 132 * 128 * 1.98e9
 
 
-def _import_tree(tree):
-    """Put ``tree`` first on sys.path and import its vpic_tpu_torch."""
-    sys.path.insert(0, os.path.abspath(tree))
+cs = None   # the chip_smoke module of the tree measured (_load)
+
+
+def _load(tree=None):
+    """Import chip_smoke as ``cs``: with ``tree``, put it first on
+    sys.path before anything of the package is imported (chip_smoke
+    imports vpic_tpu_torch), so that both are that tree's."""
+    global cs
+    if tree is not None:
+        sys.path.insert(0, os.path.abspath(tree))
+    import chip_smoke
     import vpic_tpu_torch
     pkg = os.path.dirname(os.path.abspath(vpic_tpu_torch.__file__))
-    if pkg != os.path.join(os.path.abspath(tree), "vpic_tpu_torch"):
+    if tree is not None and pkg != os.path.join(os.path.abspath(tree),
+                                                "vpic_tpu_torch"):
         raise RuntimeError(f"imported {pkg}, not the tree {tree}")
+    cs = chip_smoke
+
+
+def _import_tree(tree):
+    """The tree's chip_smoke and vpic_tpu_torch (a child process)."""
+    _load(tree)
 
 
 def measure(tree):
@@ -147,7 +163,10 @@ def measure(tree):
     merge = dict(ms=cs.cuda_ms(run_m, 10),
                  full_sort_ms=cs.cuda_ms(lambda: aux.sort_p_packed(psp, g),
                                          10))
-    prof = cs.call_profile(run_m, len(sort_cuda.launches))
+    # the merge kernels one re-sort launches in this tree
+    sort_cuda.reset_launch_counts()
+    run_m()
+    prof = cs.call_profile(run_m, sum(sort_cuda.launches.values()))
     merge.update(kernel_ms=prof["kernel_ms"], busy_ms=prof["busy_ms"],
                  ops_per_call=prof["ops"], host_reads=prof["reads"],
                  full_sort_busy_ms=cs.call_profile(
@@ -163,11 +182,36 @@ def measure(tree):
     sim.advance(cs.WARM_STEPS)
     srt = cs.phase_trace(sim, None, f"{tree} path B sorting every step")[
         "parts"]["step.sort"]
+    every = graphed_step_ms(sim)
+    del sim
+    sim = bench_deck.build(**cs.SLICE, device=device)
+    sim.modify_runparams(merge_sort=True)
+    sim.advance(cs.WARM_STEPS)
+    cadence = graphed_step_ms(sim)
     return dict(tree=tree, card=cs.card_line(), lanes=int(sp.np), ms=ms,
                 kernel_ms=kernel_ms, ops_per_call=ops_per_call,
                 deposit=dep, merge=merge, step_busy_ms=trace["busy_ms"],
                 step_ops=trace["ops"], path_b_sort_busy_ms=srt["busy_ms"],
-                path_b_sort_ops=srt["ops"])
+                path_b_sort_ops=srt["ops"], path_b_step_ms=cadence,
+                path_b_every_step_ms=every)
+
+
+def graphed_step_ms(sim):
+    """The median over cs.WINDOWS windows of cs.STEPS steps of
+    ``sim.advance_steps`` (the graphed step where the deck runs as CUDA
+    graphs), host clock around a synchronized window, in ms a step."""
+    import statistics
+    import time
+
+    import torch
+    out = []
+    for _ in range(cs.WINDOWS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.advance_steps(cs.STEPS)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / cs.STEPS * 1e3)
+    return statistics.median(out)
 
 
 _SASS_INSN = re.compile(r"/\*([0-9a-f]{4,})\*/\s+(.*?)\s*;")
@@ -325,6 +369,7 @@ def main(argv):
         print(json.dumps(fn(argv[1])), flush=True)
         return 0
     import torch
+    _load()
     probes = bool(argv) and argv[0] == "--probes"
     trees = argv[1:] if probes else argv
     if not trees or not torch.cuda.is_available():
@@ -359,7 +404,10 @@ def main(argv):
                f"{rec['step_busy_ms']:.4f} ms/step, {rec['step_ops']:.1f} "
                f"ops/step; path B sorting every step: step.sort busy "
                f"{rec['path_b_sort_busy_ms']:.4f} ms/step, "
-               f"{rec['path_b_sort_ops']:.1f} ops/step ({rec['card']})")
+               f"{rec['path_b_sort_ops']:.1f} ops/step; path B's step "
+               f"through advance {rec['path_b_step_ms']:.4f} ms at its "
+               f"cadence, {rec['path_b_every_step_ms']:.4f} sorting every "
+               f"step ({rec['card']})")
     print(json.dumps(out))
     return 0
 

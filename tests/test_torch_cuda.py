@@ -40,7 +40,10 @@ its eager steps, the shard threads on the caller's stream, a shard that
 raises inside a capture failing the call with its own exception (the
 next advance runs), and eager sharded steps (a migration round, a clean)
 without a host read under ``torch.cuda.set_sync_debug_mode("error")``.
-Needs an NVIDIA
+The step deciding on the card (engine/cond.py): a graph of conditional
+nodes replays the branch its predicate names, nested too, a body's
+launches counted per run, and entry()'s step captured once replays
+bitwise Simulation.advance.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -153,10 +156,12 @@ def test_deposit_kernel_matches_plain(device, case):
 def test_merge_kernel_matches_plain(device, name):
     before = dict(sort_cuda.launches)
     cs.run_merge_case(name, device)
-    # each round: the kernels alone, then two merge re-sorts
+    # each round: the kernels alone (the assembly in both modes), then two
+    # merge re-sorts, each running both branches eagerly
     rounds = len(cs.MERGE_EXPECT_FAST[name])
-    for k in ("merge_mark", "merge_tables", "merge_assemble"):
-        assert sort_cuda.launches[k] - before[k] == 3 * rounds
+    for k, per_round in (("merge_mark", 3), ("merge_tables", 3),
+                         ("merge_assemble", 6)):
+        assert sort_cuda.launches[k] - before[k] == per_round * rounds
 
 
 def _block(device, seed, n, np_, nvk, frac, sentinel=False,
@@ -193,11 +198,12 @@ def test_merge_mark_and_assembly_kernels_match_plain(device, name):
     args = _block(device, seed, 3 * sort.TILE + 100, np_, 700, frac,
                   sentinel, mover_tile)
     before = dict(sort_cuda.launches)
-    # the kernels alone, then two merge re-sorts: one launch of each kernel
-    # per call, fast or slow
+    # the kernels alone, then two merge re-sorts, fast or slow: a mark and
+    # a tables launch per call, the assembly in both modes
     cs.check_merge(name, *args, m_cap, fast)
-    for k in ("merge_mark", "merge_tables", "merge_assemble"):
-        assert sort_cuda.launches[k] - before[k] == 3
+    for k, n in (("merge_mark", 3), ("merge_tables", 3),
+                 ("merge_assemble", 6)):
+        assert sort_cuda.launches[k] - before[k] == n
 
 
 def test_merge_kernels_are_deterministic(device):
@@ -211,9 +217,9 @@ def test_merge_kernels_are_deterministic(device):
     assert bool(sort.fast_path(runs[0].info, m_cap))
     for a, b in zip(*runs):
         assert torch.equal(a, b)
-    plan, full = sort.merge_plan(runs[0]), sort.full_order(pk, npt, nvk)
-    one, two = (sort_cuda.assemble(pk, npt, key0, ctot, runs[0], plan, full,
-                                   nvk, m_cap)
+    plan = sort.merge_plan(runs[0])
+    one, two = (sort_cuda.assemble(pk, npt, key0, ctot, runs[0], plan, nvk,
+                                   m_cap)
                 for _ in range(2))
     assert cs._bitwise_equal(one.pk, two.pk)
     assert all(torch.equal(a, b) for a, b in zip(one[1:], two[1:]))
@@ -222,11 +228,13 @@ def test_merge_kernels_are_deterministic(device):
 
 def test_assembly_follows_the_decision_in_device_memory(device):
     """The tables and assembly kernels take the mover count and the
-    decision from the marks' info words on the card: on a fast block,
-    info edited on the card to say "no snapshot" makes the assembly write
-    the full sort's block, bitwise the plain assembly's on the same
-    words, and the mark kernel's epoch moves on across launches (three
-    marks in a row give equal outputs)."""
+    decision from the marks' info words on the card, and write one output
+    buffer set each only where the decision is their own: on a fast
+    block the merge, bitwise the plain assembly's, which the gather mode
+    leaves as it is; with info edited on the card to say "no snapshot"
+    the full sort's gather, bitwise the plain gather's, which the merge
+    leaves as it is; and the mark kernel's epoch moves on across launches
+    (three marks in a row give equal outputs)."""
     pk, npt, key0, ctot, nvk = _block(device, 3, 3 * sort.TILE + 100,
                                       12000, 700, 0.05)
     m_cap = 12388
@@ -239,12 +247,22 @@ def test_assembly_follows_the_decision_in_device_memory(device):
     slow.info[2] = 0
     for m, fast in ((marks[0], True), (slow, False)):
         assert bool(sort.fast_path(m.info, m_cap)) is fast
-        k = sort_cuda.assemble(pk, npt, key0, ctot, m, plan, full, nvk,
-                               m_cap)
-        p = sort.assemble(pk, npt, key0, ctot, m, plan, full, nvk, m_cap)
-        assert cs._bitwise_equal(k.pk, p.pk) and torch.equal(k.key0, p.key0)
-        assert int(k.anomaly) == int(p.anomaly) == 0
-    assert cs._bitwise_equal(k.pk, sort.full_gather(pk, npt, full, nvk)[0])
+        outs = []
+        for asm, gat in ((sort_cuda.assemble, sort_cuda.gather),
+                         (sort.assemble, sort.gather)):
+            out = sort.block_buffers(pk, key0)
+            for o in out:
+                o.fill_(7)
+            a = asm(pk, npt, key0, ctot, m, plan, nvk, m_cap, out)
+            g = gat(pk, npt, full, nvk, m.info, m_cap, out)
+            assert int(a.anomaly) == int(g[2]) == 0
+            outs.append(out)
+        (k_rows, k_key0), (p_rows, p_key0) = outs
+        assert cs._bitwise_equal(k_rows, p_rows)
+        assert torch.equal(k_key0, p_key0)
+        want = (sort.assemble(pk, npt, key0, ctot, m, plan, nvk, m_cap).pk
+                if fast else sort.full_gather(pk, npt, full, nvk)[0])
+        assert cs._bitwise_equal(k_rows, want)
 
 
 @pytest.fixture(scope="module")
@@ -812,12 +830,15 @@ def _path_b32(device, **deck):
 @pytest.mark.parametrize("every_step", [False, True],
                          ids=["cadence", "every-step"])
 def test_path_b_graphed_is_bitwise_eager(device, every_step):
-    """Path B on the 32^2 bench deck through its CUDA graphs and op by op
-    from one seed, at the deck's cadence and sorting every step: after 16
-    steps the same fields, species, energies, movers, merge launches and
-    fast and slow sorts; then a checkpoint, 8 steps more and a restore,
-    whose state carries no merge carry (key0 = -1, a full sort first), and
-    8 steps again, bitwise equal in both."""
+    """Path B on the 32^2 bench deck through its CUDA graphs, whose
+    fast-or-full decisions are conditional nodes, and op by op from one
+    seed, at the deck's cadence and sorting every step: after 16 steps
+    the same fields, species, energies, movers and fast and slow sorts,
+    a mark launch per sort in both, the tables and the assembly per merge
+    kept graphed and per sort op by op; then a checkpoint, 8 steps more
+    and a restore, whose state carries no merge carry (key0 = -1, a full
+    sort first), and 8 steps again, bitwise equal in both."""
+    from vpic_tpu_torch.engine import cond
     kw = dict(resort_interval=1, ion_sort_mult=1) if every_step else {}
     runs, counts = [], []
     for graphed in (True, False):
@@ -825,12 +846,16 @@ def test_path_b_graphed_is_bitwise_eager(device, every_step):
         assert sim.graphed
         advance = sim.advance_steps if graphed else sim.advance_eager
         sort_cuda.reset_launch_counts()
+        cond.reset()
         advance(16)
         torch.cuda.synchronize()
+        cond.settle()
         runs.append(sim)
         counts.append((sort_cuda.sort_counts(), dict(sort_cuda.launches)))
     g, e = runs
-    assert counts[0] == counts[1]
+    assert counts[0][0] == counts[1][0]
+    for (sorts, launches), graphed in zip(counts, (True, False)):
+        assert launches == cs.merge_launches(sorts, graphed)
     # at the cadence more lanes move between two sorts than the mover
     # buffer holds, and every sort falls back
     assert (counts[0][0]["electron"]["fast"] > 0) is every_step
@@ -872,3 +897,106 @@ def test_eager_path_b_steps_read_nothing_back(device):
     assert [sim.step_count for sim in sims] == [16, 16]
     assert all(sim.mover_counts() == {"electron": 0, "ion": 0}
                for sim in sims)
+
+
+def _graph_of(device, fn):
+    """``fn()`` captured once into a CUDA graph (after a warm-up on a side
+    stream), kept so its nodes can be counted: (graph, fn's output)."""
+    from vpic_tpu_torch.engine import cond
+    cond.prepare(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    graph = torch.cuda.CUDAGraph(keep_graph=True)
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.instantiate()
+    return graph, out
+
+
+@pytest.mark.parametrize("through", [False, True],
+                         ids=["both-made", "true-passes-through"])
+def test_an_if_node_graph_replays_the_branch_taken(device, through):
+    """engine/cond.cond under a capture: conditional nodes at the graph's
+    top level, and each replay gives the branch that the predicate's
+    value at that replay names, bitwise, also where the true branch
+    passes its operand through (a third node copies it)."""
+    from vpic_tpu_torch.engine import cond, graphs
+    assert cond.ROUTE == "native"
+    x = torch.arange(1000, dtype=torch.float32, device=device)
+    p = torch.zeros((), dtype=torch.bool, device=device)
+    true_fn = (lambda v: v) if through else (lambda v: v * 2 + 1)
+    graph, out = _graph_of(device, lambda: cond.cond(
+        p, true_fn, lambda v: v - 3, (x,)))
+    kinds = graphs.node_types(graph.raw_cuda_graph())
+    assert kinds.get("conditional") == (3 if through else 2), kinds
+    for flag in (True, False, True):
+        p.fill_(flag)
+        graph.replay()
+        want = true_fn(x) if flag else x - 3
+        assert torch.equal(out, want), flag
+
+
+def test_nested_if_nodes_replay_the_branch_taken(device):
+    """A cond inside a cond's branch nests its nodes: all four pairs of
+    predicates replay bitwise the eager select's value."""
+    from vpic_tpu_torch.engine import cond
+    x = torch.arange(1000, dtype=torch.float32, device=device)
+    p = torch.zeros((), dtype=torch.bool, device=device)
+    q = torch.zeros((), dtype=torch.bool, device=device)
+
+    def inner(v):
+        return cond.cond(q, lambda w: w + 1, lambda w: w * 3, (v,))
+
+    def step():
+        return cond.cond(p, inner, lambda v: (v - 7) * 0.5, (x,))
+
+    graph, out = _graph_of(device, step)
+    for a in (True, False):
+        for b in (True, False):
+            p.fill_(a)
+            q.fill_(b)
+            graph.replay()
+            assert torch.equal(out, step()), (a, b)
+
+
+def test_a_conditional_body_counts_its_launches_per_run(device):
+    """A body that counts a launch takes it back from the host count and
+    tallies its runs on the card: after three replays, two of them taking
+    the branch, cond.settle() adds two launches."""
+    from vpic_tpu_torch.engine import cond
+    x = torch.ones(16, device=device)
+    p = torch.zeros((), dtype=torch.bool, device=device)
+
+    def counted(v):
+        push_cuda.launches["walk_only"] += 1
+        return v + 1
+
+    graph, out = _graph_of(device, lambda: cond.cond(
+        p, counted, lambda v: v, (x,)))
+    cond.settle()
+    push_cuda.reset_launch_counts()
+    cond.reset()
+    for flag in (True, False, True):
+        p.fill_(flag)
+        graph.replay()
+    assert push_cuda.launches["walk_only"] == 0
+    cond.settle()
+    assert push_cuda.launches["walk_only"] == 2
+
+
+def test_the_entry_graph_replays_bitwise(device):
+    """vpic_tpu_torch.entry.entry()'s step captured once and replayed 16
+    times is bitwise Simulation.advance(16) of the same deck (its sorts
+    and cleans decided on the card from the state's step): one capture,
+    16 replays, conditional nodes in the graph."""
+    from vpic_tpu_torch.decks import bench_deck
+    from vpic_tpu_torch.entry import DECK
+    state, counts, nodes = cs.entry_replayed(device, 16)
+    assert counts == {"captures": 1, "replays.step": 16,
+                      "graphed_steps": 16}
+    assert nodes.get("conditional", 0) >= 2, nodes
+    sim = bench_deck.build(**DECK, device=device)
+    assert cs.states_equal(state, sim.advance(16))

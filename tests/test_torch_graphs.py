@@ -4,8 +4,8 @@
   ``vpic_tpu.deck.api.Simulation.advance`` runs unbound on a stub whose
   dispatch calls record the units, and ``graphs.plan`` must give the same
   units for every resort interval k, cycle multiple M, start step and n.
-- A graph's key is the tuple of its steps' host decisions: the sort flags
-  of ``step_sort_flags`` and the interval hits of ``_interval_hit``.
+- A graph's key is the tuple of its steps' sort flags
+  (``step_sort_flags``); the interval cleans are decided inside it.
 - The static runner on the CPU (the card's copy-in and copy-out, the
   unit's steps run eagerly where the card would replay its graph):
   ``advance(n)`` is bitwise ``advance(1)`` n times and the eager path, on
@@ -42,7 +42,7 @@ from vpic_tpu_torch.core.types import FIELD_COMPONENTS
 from vpic_tpu_torch.deck.api import Simulation
 from vpic_tpu_torch.decks import bench_deck
 from vpic_tpu_torch.engine import distributed as tdist, graphs
-from vpic_tpu_torch.engine.step import _interval_hit, step_sort_flags
+from vpic_tpu_torch.engine.step import step_sort_flags
 from vpic_tpu_torch.interop import state_to_numpy
 from vpic_tpu_torch.particles import sort_cuda
 
@@ -111,6 +111,11 @@ def assert_same(a, b):
 
 
 def test_graph_keys_are_the_step_decisions(static_runner):
+    """A graph's key is its steps' sort flags alone, as the JAX package's
+    dispatch units fix them: the cleans and the sync are decided inside
+    the graph from the state's step, so a unit that holds a clean step
+    shares its key with one that does not, and 24 steps are three replays
+    of one super-cycle's capture."""
     static_runner()
     sim = bench_deck.build(**SMALL, device="cpu")
     sim.modify_runparams(clean_div_e_interval=3, clean_div_b_interval=4,
@@ -119,16 +124,14 @@ def test_graph_keys_are_the_step_decisions(static_runner):
     intervals = [h["sort_interval"] for h in sim._species]
     for start in range(14):
         for n in (1, 2, 8):
-            want = tuple((step_sort_flags(t, g, opts, intervals),
-                          _interval_hit(t, 3), _interval_hit(t, 4),
-                          _interval_hit(t, 6))
+            want = tuple(step_sort_flags(t, g, opts, intervals)
                          for t in range(start, start + n))
             assert sim._graph_key(start, n) == want
-    # a clean step makes its unit's key differ from its neighbours'
-    assert sim._graph_key(2, 1) != sim._graph_key(3, 1)
-    assert sim._graph_key(0, 8) != sim._graph_key(8, 8)
+    # a clean step's unit shares its key with the other units of its kind
+    assert sim._graph_key(3, 1) == sim._graph_key(5, 1)
+    assert sim._graph_key(0, 8) == sim._graph_key(8, 8)
     sim.advance(24)
-    assert sim.dispatch_counts["captures"] == len(sim._graphs.graphs) == 3
+    assert sim.dispatch_counts["captures"] == len(sim._graphs.graphs) == 1
     assert sim.dispatch_counts["replays.supercycle"] == 3
     assert sim.dispatch_counts["eager_steps"] == 0
 
@@ -169,7 +172,8 @@ def turbulence(mp, graphed):
 
 def test_advance_n_is_advance_1_n_times_across_a_clean(monkeypatch):
     """Step 0 cleans div E and div B and syncs the shared faces (every 50
-    steps): two graphs, one for the clean step and one for the others."""
+    steps), decided inside the graph from the state's step: one graph
+    serves the clean step and the others."""
     eager = turbulence(monkeypatch, False)
     whole = turbulence(monkeypatch, True)
     ones = turbulence(monkeypatch, True)
@@ -180,7 +184,7 @@ def test_advance_n_is_advance_1_n_times_across_a_clean(monkeypatch):
     eager.advance(4)
     assert_same(whole, ones)
     assert_same(whole, eager)
-    assert whole.dispatch_counts["captures"] == 2
+    assert whole.dispatch_counts["captures"] == 1
     assert whole.dispatch_counts["replays.step"] == 4
 
 

@@ -82,10 +82,11 @@ def test_cuda_simulation_raises_without_gpu(monkeypatch):
     "tools.vpu_layout_probe.main", "tools.drift_compare.main",
     "tools.drift_compare.compare", "tools.evidence.main",
     "tools.scaling_bench.main", "tools.scaling_bench.sweep",
-    "tools.profile_step.main"])
+    "tools.profile_step.main", "entry.entry"])
 def test_the_card_is_the_default_device(monkeypatch, entry):
     """Without ``device`` the entry points run on the card, so they raise
     where there is none."""
+    from vpic_tpu_torch import entry as tentry
     from vpic_tpu_torch.tools import (drift_compare, evidence, probe_batched,
                                       profile_step, scaling_bench,
                                       vpu_layout_probe)
@@ -102,7 +103,8 @@ def test_the_card_is_the_default_device(monkeypatch, entry):
         "tools.scaling_bench.main": lambda: scaling_bench.main([]),
         "tools.scaling_bench.sweep": lambda: next(scaling_bench.sweep(
             [(256, 4, 4, 1)])),
-        "tools.profile_step.main": lambda: profile_step.main([])}
+        "tools.profile_step.main": lambda: profile_step.main([]),
+        "entry.entry": lambda: tentry.entry()}
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
 

@@ -21,7 +21,9 @@
 // sort records into a CUDA graph: the mover count and the fast-or-full
 // decision (the JAX package's lax.cond, sort_pallas.py:347) stay in the
 // mark pass's `info` words on the device, which the tables and assembly
-// kernels read; every launch has the same grid whatever they hold.
+// kernels read; every launch has the same grid whatever they hold.  In a
+// graph the tables and the assembly are nodes of the merge's conditional
+// body, which runs where the decision is fast.
 //
 // merge_mark_kernel reads row 7 and key0 once (8 B per lane).  It counts
 // the tile's movers (key != key0) and turns the counts into tile prefixes
@@ -43,8 +45,7 @@
 // merge_tables_kernel: one thread per key, two binary searches over the
 // m_cap mover slots' sorted new and old keys (in L2; the sentinels past
 // the movers lie above every key, so the counts are the movers'); latency,
-// not bytes, bounds it.  It runs on every sort: its tables are used only
-// where the merge is kept.
+// not bytes, bounds it.
 //
 // merge_assemble_kernel, where info says fast: block b re-derives its
 // tile's keys, mover flags
@@ -67,11 +68,17 @@
 // writes the anomaly (count + 1 if any) and clears the counters.  Bound:
 // 36 B per lane read (8 rows and key0) and 36 B written, 16 B per mover of
 // plan, the two (nvk + 3) tables: about 155 MB, 46 us at 3.35 TB/s; bytes,
-// not operations, bound it.  Where info says slow, the block writes its
-// tile of the full sort's block instead (sort.py:full_gather): lane i of
-// the output is lane full_order[i] of the input, row 7 and key0 from the
-// sorted key full_key[i], and the anomaly is 0.  So the sort has one
-// output buffer whichever way it goes.
+// not operations, bound it.  Where info says slow it writes only the
+// anomaly (0).
+//
+// The same kernel in its gather mode (vpic_merge_gather) is the full
+// sort's branch (sort.py:gather): where info says slow, lane i of the
+// output is lane full_order[i] of the input, row 7 and key0 from the
+// sorted key full_key[i], and the anomaly is 0; where fast it writes only
+// the anomaly.  The two modes write one output buffer set, each only
+// where the decision is its own, so run both (eagerly) or the taken one
+// (as the bodies of a CUDA graph's conditional nodes, engine/cond.py),
+// the block is the same, and nothing is copied between branches.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -112,8 +119,8 @@ struct AssembleArgs {
   const long long* order;       // (m_cap,) their mark slots
   const int* mov_lane;          // (m_cap,)
   const int* info;              // (4,) the mark pass's
-  const long long* full_order;  // (n,) the full sort's lane order
-  const int* full_key;          // (n,) its sorted keys
+  const long long* full_order;  // (n,) the full sort's lane order (gather)
+  const int* full_key;          // (n,) its sorted keys (gather)
   float* out;                   // (8, n)
   int* key0_out;                // (n,)
   int* anomaly;                 // device scalar
@@ -122,6 +129,7 @@ struct AssembleArgs {
   int nvk;
   int m_cap;
   int vec;
+  int mode;                     // 0 (the merge) or kGather
 };
 
 // Mirrored field for field by particles/sort_cuda.py:_TablesArgs.
@@ -143,6 +151,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kChunks = 4;
 constexpr int kChunk = kThreads * 4;      // lanes of a chunk: a float4 each
 constexpr int kTile = kChunks * kChunk;   // 4096 lanes
+// AssembleArgs::mode: 0, the merge, written where the decision is fast;
+// kGather, the full sort's gather, written where it is slow
+constexpr int kGather = 1;
 
 __device__ __forceinline__ void load4(const float* p, int i, int n,
                                       int vec, float v[4]) {
@@ -388,7 +399,7 @@ __device__ __forceinline__ void mover(const AssembleArgs& a, int m, int n_m,
                                                       : -1;
 }
 
-// sort.py:full_gather, the tile's lanes: lane i of the output is lane
+// sort.py:gather, the tile's lanes: lane i of the output is lane
 // full_order[i] of the input; row 7 the sorted key for live lanes below
 // nvk, else 0; key0 that row rounded for live lanes, else nvk.
 __device__ void full_gather(const AssembleArgs& a, int base, int np) {
@@ -416,8 +427,10 @@ __global__ void __launch_bounds__(kThreads, 4)
   const int tile = blockIdx.x;
   const int base = tile * kTile;
   const int np = *a.np;
-  if (!fast_path(a.info, a.m_cap)) {
-    full_gather(a, base, np);
+  const bool fast = fast_path(a.info, a.m_cap);
+  if (a.mode == kGather || !fast) {
+    // each mode writes the block only where the decision is its own
+    if (a.mode == kGather && !fast) full_gather(a, base, np);
     if (tile == 0 && threadIdx.x == 0) *a.anomaly = 0;
     return;
   }
@@ -582,6 +595,15 @@ int vpic_merge_mark(const MarkArgs* args, void* stream) {
   const int tiles = (a.n + kTile - 1) / kTile;
   if (tiles > 0)
     merge_mark_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// The assembly kernel alone, in the mode its arguments name, on `stream`.
+int vpic_merge_gather(const AssembleArgs* args, void* stream) {
+  const AssembleArgs a = *args;
+  const int tiles = (a.n + kTile - 1) / kTile;
+  if (tiles > 0)
+    merge_assemble_kernel<<<tiles, kThreads, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -14,9 +14,13 @@ program is a CUDA graph, captured once and replayed on static buffers:
   cycles is m replays, one host call each, as one scan iteration is in
   XLA; S super-cycles are S replays of the graph of one.
 - The JAX step reads ``state.step`` on the device and branches with
-  ``lax.cond``.  The port decides on the host
-  (``engine/step.step_decisions``), so a unit's graph is keyed by the
-  tuple of its steps' decisions.
+  ``lax.cond``; its dispatch units fix only the sort flags.  So does the
+  port: a unit's graph is keyed by its steps' sort flags
+  (``engine/step.graph_sort_flags``), and the cleans, the shared-face
+  sync, the Marder passes and path B's fast-or-full decision are
+  conditional nodes inside the graph (``engine/cond.py``).  A sharded
+  deck's graphs are keyed by the host's decisions of the cleans too
+  (``engine/step.step_decisions``).
 - :class:`GraphRunner` holds the static state, the graphs and their one
   memory pool.  A graph copies its outputs back into the static state
   inside the graph (the counterpart of ``donate_argnums``), so a replay
@@ -34,7 +38,9 @@ capture added and adds them again at every replay; the warm-up's and the
 capture's own counts are taken back, and so are the warm-up's additions
 to the merge re-sort's device counters of fast and slow sorts
 (``sort_cuda.sort_counters``), which a replay adds to on the card.  A
-capture or replay that fails raises: nothing falls back to eager steps.
+launch inside a conditional node's body is counted where the replay runs
+the body (``engine/cond.settle``).  A capture or replay that fails
+raises: nothing falls back to eager steps.
 
 Which decks run so is ``Simulation._graph_ok()``'s decision: every deck
 whose shards all live on the one card, the open ones included (boundary
@@ -72,12 +78,9 @@ import time
 
 import torch
 
-from ..core import random_cuda
-from ..particles import deposit_cuda, push_cuda, sort_cuda
+from ..particles import push_cuda, sort_cuda
+from . import cond
 
-# the kernels' launch counts that a replay adds to
-COUNTERS = (push_cuda.launches, deposit_cuda.launches, sort_cuda.launches,
-            random_cuda.launches)
 
 def plan(step: int, n: int, k: int, M: int, cycles: bool = True) -> list:
     """The units of ``advance(n)`` from ``step``: the JAX package's
@@ -116,19 +119,7 @@ def unit_steps(kind: str, k: int, M: int) -> int:
     return {"supercycle": k * M, "cycle_b": k, "cycle": k}.get(kind, 1)
 
 
-def _leaves(obj) -> list:
-    """The tensors of a state (dataclasses, tuples, dicts), in a fixed
-    order."""
-    if isinstance(obj, torch.Tensor):
-        return [obj]
-    if dataclasses.is_dataclass(obj) and not isinstance(obj, type):
-        return [t for f in dataclasses.fields(obj)
-                for t in _leaves(getattr(obj, f.name))]
-    if isinstance(obj, (tuple, list)):
-        return [t for v in obj for t in _leaves(v)]
-    if isinstance(obj, dict):
-        return [t for key in sorted(obj) for t in _leaves(obj[key])]
-    return []
+_leaves = cond.leaves
 
 
 def _map(fn, obj):
@@ -186,11 +177,6 @@ def write_back(static, out, capturing: bool = False) -> None:
         d.copy_(s)
 
 
-def _counts() -> list:
-    with push_cuda._lock:
-        return [dict(c) for c in COUNTERS]
-
-
 class GraphRunner:
     """The graphs of one simulation's units, their static state and
     their memory pool.  A unit is run by :meth:`run` with its key (the
@@ -203,7 +189,8 @@ class GraphRunner:
     ``graphed_steps`` and, per unit kind, ``replays.<kind>``;
     ``capture_s`` gets one record per capture on the card: the unit's
     kind and steps, the seconds of the warm-up on the clone and of the
-    capture, the captured graph's node count and the seconds of its
+    capture, the captured graph's node count, its top-level nodes by type
+    (``node_types``: conditional nodes among them) and the seconds of its
     instantiation.  The static state is one state, or on a sharded deck
     the list of the per-shard states, which :meth:`load` and the copy-out
     treat as one.
@@ -226,6 +213,7 @@ class GraphRunner:
         if self.capture:
             self.stream = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
+            cond.prepare(self.device)
 
     def load(self, state) -> None:
         """Copy ``state`` into the static state (made on the first load,
@@ -257,7 +245,7 @@ class GraphRunner:
         else:
             graph.replay()
             with push_cuda._lock:
-                for c, d in zip(COUNTERS, delta):
+                for c, d in zip(cond.counters(), delta):
                     for name, v in d.items():
                         c[name] += v
         self.counts["replays." + kind] += 1
@@ -272,7 +260,7 @@ class GraphRunner:
         self.counts["captures"] += 1
         if not self.capture:
             return None, ()
-        before = _counts()
+        before = cond.counts()
         sorts = {k: c.clone() for k, c in sort_cuda.sort_counters().items()}
         try:
             t0 = time.perf_counter()
@@ -283,18 +271,18 @@ class GraphRunner:
             cur.wait_stream(self.stream)
             torch.cuda.synchronize(self.device)
             t1 = time.perf_counter()
-            warm = _counts()
-            graph, nodes = self._record(body, start, n)
+            warm = cond.counts()
+            graph, types = self._record(body, start, n)
             t2 = time.perf_counter()
             graph.instantiate()
             torch.cuda.synchronize(self.device)
             t3 = time.perf_counter()
             delta = [{name: v - w.get(name, 0) for name, v in c.items()
                       if v != w.get(name, 0)}
-                     for c, w in zip(_counts(), warm)]
+                     for c, w in zip(cond.counts(), warm)]
         finally:
             with push_cuda._lock:
-                for c, b in zip(COUNTERS, before):
+                for c, b in zip(cond.counters(), before):
                     c.clear()
                     c.update(b)
             for k, c in sort_cuda.sort_counters().items():
@@ -303,14 +291,16 @@ class GraphRunner:
                 else:
                     c.zero_()
         self.capture_s.append(dict(kind=kind, steps=n, warmup_s=t1 - t0,
-                                   capture_s=t2 - t1, nodes=nodes,
+                                   capture_s=t2 - t1,
+                                   nodes=sum(types.values()),
+                                   node_types=types,
                                    instantiate_s=t3 - t2))
         return graph, delta
 
     def _record(self, body, start: int, n: int):
-        """Capture the unit on the capture stream: (graph, its node
-        count).  The graph is kept uninstantiated, so that its nodes can
-        be counted; the caller instantiates it."""
+        """Capture the unit on the capture stream: (graph, its top-level
+        nodes by type).  The graph is kept uninstantiated, so that its
+        nodes can be counted; the caller instantiates it."""
         graph = torch.cuda.CUDAGraph(keep_graph=True)
         # as torch.cuda.graph does: the cached blocks go back first
         torch.cuda.synchronize(self.device)
@@ -334,12 +324,38 @@ class GraphRunner:
                 self.pool = torch.cuda.graph_pool_handle()
                 raise
             graph.capture_end()
-        return graph, graph_nodes(graph.raw_cuda_graph())
+        return graph, node_types(graph.raw_cuda_graph())
 
 
-def graph_nodes(raw: int) -> int:
-    """The node count of a captured ``cudaGraph_t`` (``cuGraphGetNodes``
-    of ``libcuda``)."""
+# CUgraphNodeType (cuda.h), by value
+NODE_TYPES = ("kernel", "memcpy", "memset", "host", "graph", "empty",
+              "wait_event", "event_record", "ext_semas_signal",
+              "ext_semas_wait", "mem_alloc", "mem_free", "batch_mem_op",
+              "conditional")
+
+
+def node_types(raw: int) -> dict:
+    """The nodes of a captured ``cudaGraph_t`` by type
+    (``cuGraphNodeGetType``): the top level only, a conditional node's
+    body being a graph of its own."""
+    lib = ctypes.CDLL("libcuda.so.1")
+    get_type = lib.cuGraphNodeGetType
+    get_type.argtypes = (ctypes.c_void_p, ctypes.POINTER(ctypes.c_int))
+    get_type.restype = ctypes.c_int
+    out: dict = {}
+    for node in _nodes_of(raw):
+        kind = ctypes.c_int(0)
+        err = get_type(node, ctypes.byref(kind))
+        if err:
+            raise RuntimeError(f"cuGraphNodeGetType failed ({err})")
+        name = (NODE_TYPES[kind.value] if kind.value < len(NODE_TYPES)
+                else str(kind.value))
+        out[name] = out.get(name, 0) + 1
+    return out
+
+
+def _nodes_of(raw: int) -> list:
+    """The top-level nodes of a ``cudaGraph_t`` (``cuGraphGetNodes``)."""
     get_nodes = ctypes.CDLL("libcuda.so.1").cuGraphGetNodes
     get_nodes.argtypes = (ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.POINTER(ctypes.c_size_t))
@@ -348,4 +364,8 @@ def graph_nodes(raw: int) -> int:
     err = get_nodes(raw, None, ctypes.byref(count))
     if err:
         raise RuntimeError(f"cuGraphGetNodes failed ({err})")
-    return count.value
+    nodes = (ctypes.c_void_p * count.value)()
+    err = get_nodes(raw, nodes, ctypes.byref(count))
+    if err:
+        raise RuntimeError(f"cuGraphGetNodes failed ({err})")
+    return list(nodes[:count.value])

@@ -13,6 +13,7 @@ from ..field import stencil, sync
 from ..particles import aux as paux
 from ..particles import push as ppush
 from ..sf import interp as sfi
+from .cond import cond
 
 
 def initialize_state(state: SimState, g: Grid, comm) -> SimState:
@@ -33,8 +34,10 @@ def initialize_state(state: SimState, g: Grid, comm) -> SimState:
     f = stencil.compute_div_e_err(f, g, mat, matg, comm)
     err, vol = stencil.local_rms_div_e_err(f, g)
     rms = stencil.finish_rms(g, comm.allsum(err), comm.allsum(vol))
-    if bool(rms > 0):
-        f = stencil.clean_div_e(f, g, mat, matg)
+    # the JAX package's lax.cond (vpic_tpu/engine/init.py:41): decided on
+    # the card, no host read
+    f = cond(rms > 0, lambda f: stencil.clean_div_e(f, g, mat, matg),
+             lambda f: f, (f,))
 
     f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
 

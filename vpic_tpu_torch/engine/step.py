@@ -43,15 +43,15 @@ from torch.profiler import record_function
 
 from ..comm import facecomm
 from ..core import random as rnd
-from ..core.types import (FIELD_COMPONENTS, FieldState, Grid,
-                          NEIGHBOR_REFLECT, PackedSpecies, PERIODIC_FIELDS,
-                          SimState)
+from ..core.types import (FieldState, Grid, NEIGHBOR_REFLECT, PackedSpecies,
+                          PERIODIC_FIELDS, SimState)
 from ..field import ghost, stencil, sync
 from ..particles import aux as paux
 from ..particles import boundary as pboundary
 from ..particles import push as ppush
 from ..particles import push_cuda
 from ..sf import interp as sfi
+from .cond import cond, select
 
 # profiler scopes of the step's parts: a torch.profiler trace attributes
 # each device kernel to the scope that launched it.  The first three run
@@ -166,31 +166,63 @@ def walk_segments(g: Grid, opts: StepOptions) -> int:
     return min(opts.n_walk, n_axes + 1 + int(has_refl))
 
 
+def sort_predicates(step, g: Grid, opts: StepOptions,
+                    sort_intervals) -> tuple:
+    """:func:`step_sort_flags` decided on the card from the state's step
+    (a 0-d int32 tensor): per species a 0-d bool tensor, or a constant
+    where the path fixes it (every species every step).  The JAX step
+    reads ``state.step`` on the device (``vpic_tpu/engine/step.py:
+    252-255``)."""
+    paths = resolve_paths(g, opts)
+    n = len(sort_intervals)
+    if paths.fused:
+        k = opts.resort_interval
+        if k <= 1:
+            return (True,) * n
+        hit = step % k == 0
+        M = cycle_mult(opts, sort_intervals)
+        every = hit & ((step // k) % M == 0) if M > 1 else hit
+        return tuple(hit if si <= k else every for si in sort_intervals)
+    if paths.sorted_deposit:
+        return (True,) * n
+    return tuple(step % si == 0 if si > 0 else False
+                 for si in sort_intervals)
+
+
+def graph_sort_flags(step: int, g: Grid, opts: StepOptions,
+                     sort_intervals) -> tuple:
+    """The sort flags that key a graph of an unsharded deck, as the JAX
+    package's dispatch units fix them (``vpic_tpu/deck/api.py:612, 684,
+    717, 732``): :func:`step_sort_flags` on the paths that sort on the
+    resort cadence or every step; on the unfused path without the sorted
+    deposit, None for a species with its own sort interval (the step
+    decides it on the card, as the JAX step's ``lax.cond`` does) and
+    False for the others."""
+    paths = resolve_paths(g, opts)
+    if paths.fused or paths.sorted_deposit:
+        return step_sort_flags(step, g, opts, sort_intervals)
+    return tuple(None if si > 0 else False for si in sort_intervals)
+
+
 def _interval_hit(step: int, interval: int) -> bool:
     return interval > 0 and step % interval == 0
 
 
 def step_decisions(step: int, g: Grid, opts: StepOptions,
                    sort_intervals) -> tuple:
-    """What the host decides for ``step``: the species' sort flags
-    (:func:`step_sort_flags`) and whether it cleans div E, cleans div B and
-    synchronizes the shared faces.  The JAX step reads ``state.step`` on
-    the device and branches with ``lax.cond``
-    (``vpic_tpu/engine/step.py:253, 411, 415``); the port's graph of a run
-    of steps is keyed by these (``engine/graphs.py``)."""
+    """What the host decides for ``step`` of a sharded deck, whose graphs
+    are keyed by it: the species' sort flags (:func:`step_sort_flags`)
+    and whether it cleans div E, cleans div B and synchronizes the shared
+    faces.  An unsharded deck's step decides the cleans on the card
+    (:func:`make_advance`)."""
     return (step_sort_flags(step, g, opts, sort_intervals),
             _interval_hit(step, opts.clean_div_e_interval),
             _interval_hit(step, opts.clean_div_b_interval),
             _interval_hit(step, opts.sync_shared_interval))
 
 
-def _where(cond, a: FieldState, b: FieldState) -> FieldState:
-    """``a`` where the 0-d bool ``cond`` holds, else ``b``, per component
-    (the JAX package's ``lax.cond`` on a device scalar, without a host
-    read)."""
-    return a.replace(**{c: torch.where(cond, getattr(a, c), getattr(b, c))
-                        for c in FIELD_COMPONENTS
-                        if getattr(a, c) is not getattr(b, c)})
+def _same(x):
+    return x
 
 
 def _rms(g: Grid, comm, local):
@@ -198,9 +230,12 @@ def _rms(g: Grid, comm, local):
     return stencil.finish_rms(g, comm.allsum(err), comm.allsum(vol))
 
 
-def clean_div_e(state: SimState, g: Grid, comm) -> FieldState:
+def clean_div_e(state: SimState, g: Grid, comm, branch=cond) -> FieldState:
     """advance.cxx:151-173: rho accumulation and up to two Marder passes,
-    each taken only where the rms error before it is above 0."""
+    each taken only where the rms error before it is above 0, nested as
+    the JAX package's ``lax.cond``s (``vpic_tpu/engine/step.py:75-96``).
+    ``branch``: ``engine/cond.cond``, or ``cond.select`` on a sharded
+    grid (:func:`make_advance`)."""
     f = sfi.clear_rhof(state.field, g)
     for sp in state.species:
         if isinstance(sp, PackedSpecies):
@@ -210,21 +245,31 @@ def clean_div_e(state: SimState, g: Grid, comm) -> FieldState:
     mat, matg = state.materials, state.material_grid
     f = stencil.compute_div_e_err(f, g, mat, matg, comm)
     rms = _rms(g, comm, stencil.local_rms_div_e_err(f, g))
-    f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, matg), g,
-                                   mat, matg, comm)
-    rms1 = _rms(g, comm, stencil.local_rms_div_e_err(f1, g))
-    f2 = _where(rms1 > 0, stencil.clean_div_e(f1, g, mat, matg), f1)
-    return _where(rms > 0, f2, f)
+
+    def marder(f):
+        f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, matg),
+                                       g, mat, matg, comm)
+        rms1 = _rms(g, comm, stencil.local_rms_div_e_err(f1, g))
+        return branch(rms1 > 0,
+                      lambda f1: stencil.clean_div_e(f1, g, mat, matg),
+                      _same, (f1,))
+
+    return branch(rms > 0, marder, _same, (f,))
 
 
-def clean_div_b(f: FieldState, g: Grid, comm) -> FieldState:
-    """advance.cxx:177-195."""
+def clean_div_b(f: FieldState, g: Grid, comm, branch=cond) -> FieldState:
+    """advance.cxx:177-195, nested as :func:`clean_div_e`'s passes
+    (``vpic_tpu/engine/step.py:99-116``)."""
     f = stencil.compute_div_b_err(f, g)
     rms = _rms(g, comm, stencil.local_rms_div_b_err(f, g))
-    f1 = stencil.compute_div_b_err(stencil.clean_div_b(f, g, comm), g)
-    rms1 = _rms(g, comm, stencil.local_rms_div_b_err(f1, g))
-    f2 = _where(rms1 > 0, stencil.clean_div_b(f1, g, comm), f1)
-    return _where(rms > 0, f2, f)
+
+    def marder(f):
+        f1 = stencil.compute_div_b_err(stencil.clean_div_b(f, g, comm), g)
+        rms1 = _rms(g, comm, stencil.local_rms_div_b_err(f1, g))
+        return branch(rms1 > 0, lambda f1: stencil.clean_div_b(f1, g, comm),
+                      _same, (f1,))
+
+    return branch(rms > 0, marder, _same, (f,))
 
 
 def needs_boundary(g: Grid, pcomm=None, emitters=(), boundary_handlers=(),
@@ -253,11 +298,20 @@ def _injection(hook):
 def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  pcomm=None, emitters=(), boundary_handlers=(),
                  packed: bool = False, **hooks):
-    """The advance function ``(state, do_sort, step) -> state`` of one
-    shard (``pcomm``: its ``ShardComm`` on a sharded grid); ``do_sort`` holds one flag per species
-    (:func:`step_sort_flags`) and ``step`` is the host's count of the
-    state's step, which sets the interval cleans (the step is never read
-    from the device).  ``packed``: the species are ``PackedSpecies``,
+    """The advance function ``(state, do_sort=None, step=None) -> state``
+    of one shard (``pcomm``: its ``ShardComm`` on a sharded grid).
+    ``do_sort`` holds one flag per species (:func:`step_sort_flags`), a
+    flag None (or ``do_sort`` None) decided on the card from
+    ``state.step`` (:func:`sort_predicates`); ``step``, the host's count
+    of the state's step, sets the interval cleans and the shared-face
+    sync, and where it is None they are decided on the card from
+    ``state.step``, as the JAX step decides them.  A decision on the card
+    is an ``engine/cond.cond``: conditional nodes in a CUDA graph, both
+    branches and a select eagerly; nothing is read back.  On a sharded
+    grid the host decides (``step`` is required) and the Marder passes
+    take the select: a shard's clean holds the rendezvous' turns (the
+    sums, the exchanges), whose other shards would issue into this
+    shard's open node.  ``packed``: the species are ``PackedSpecies``,
     which needs the fused push and a closed configuration.  ``hooks``: the
     deck's ``user_*`` sections (deck_wrapper.cxx:16-36): collisions
     ``state -> state`` after the sort, injection ``(state, acc, f) ->
@@ -281,6 +335,9 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                          "emitters, injection or collisions)")
     if inject is not None:
         inject = _injection(inject)
+    # the Marder passes' branch: nodes under a capture, but on a sharded
+    # grid the select (the docstring)
+    branch = select if g.is_multishard else cond
 
     def sort(sp):
         if not packed:
@@ -325,7 +382,9 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         return dataclasses.replace(state, species=species, rng=rng,
                                    boundary_state=bstate), f, acc
 
-    def advance(state: SimState, do_sort, step: int) -> SimState:
+    def advance(state: SimState, do_sort=None, step=None) -> SimState:
+        if step is None and g.is_multishard:
+            raise ValueError("a sharded step takes the host's step count")
         nb = state.grid_arrays.neighbor
         acc = torch.zeros((g.nv, 12), dtype=torch.float32,
                           device=state.interpolator.device)
@@ -333,9 +392,19 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         # emitters, the injection hook and the rounds take it from here
         f = state.field
         given = state
+        flags = (None,) * len(state.species) if do_sort is None else do_sort
+        if any(ds is None for ds in flags):
+            on_card = sort_predicates(
+                state.step, g, opts, [sp.sort_interval for sp in
+                                      state.species])
+            flags = [c if ds is None else ds
+                     for ds, c in zip(flags, on_card)]
         species = []
-        for sp, ds in zip(state.species, do_sort):
-            if ds:
+        for sp, ds in zip(state.species, flags):
+            if isinstance(ds, torch.Tensor):
+                with record_function(PHASES[0]):
+                    sp = cond(ds, sort, _same, (sp,))
+            elif ds:
                 with record_function(PHASES[0]):
                     sp = sort(sp)
             species.append(sp)
@@ -386,12 +455,20 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         with record_function(PHASES[2]):
             f = stencil.advance_b(f, g, 0.5)
 
-            if _interval_hit(step, opts.clean_div_e_interval):
-                f = clean_div_e(dataclasses.replace(state, field=f), g, comm)
-            if _interval_hit(step, opts.clean_div_b_interval):
-                f = clean_div_b(f, g, comm)
-            if _interval_hit(step, opts.sync_shared_interval):
-                f, _ = sync.synchronize_tang_e_norm_b(f, g, comm)
+            cleans = (
+                (opts.clean_div_e_interval, lambda f: clean_div_e(
+                    dataclasses.replace(state, field=f), g, comm, branch)),
+                (opts.clean_div_b_interval,
+                 lambda f: clean_div_b(f, g, comm, branch)),
+                (opts.sync_shared_interval,
+                 lambda f: sync.synchronize_tang_e_norm_b(f, g, comm)[0]))
+            for interval, fn in cleans:
+                if interval <= 0:
+                    continue
+                if step is None:
+                    f = cond(state.step % interval == 0, fn, _same, (f,))
+                elif step % interval == 0:
+                    f = fn(f)
 
             interp = (sfi.load_interpolator(f, g) if state.species
                       else state.interpolator)

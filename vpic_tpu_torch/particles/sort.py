@@ -25,8 +25,9 @@ function here is the plain version that a kernel equals bit for bit:
 3. :func:`assemble` builds the per-key tables (:func:`tables`) and, where
    the decision is fast, writes every lane to its merge destination, with
    row 7 and the next ``key0`` (the key for live slots, 0 and ``nvk`` for
-   the dead tail); otherwise it gathers the block in the full sort's
-   order (:func:`full_gather`).
+   the dead tail); where it is slow, :func:`gather` writes the block in
+   the full sort's order instead (:func:`full_gather`), into the same
+   buffers.
 
 The fast path needs a snapshot (``key0[0] >= 0``), at most ``m_cap``
 movers (the JAX package's provisioning, :func:`mover_capacity`) and
@@ -39,12 +40,12 @@ an anomaly, takes the full sort.  Otherwise the block is sorted in full.
 
 The decision is a 0-d device tensor, never read by the host: the JAX
 package takes it inside ``lax.cond`` (``sort_pallas.py:347, 355``), and
-the port issues both branches and keeps the one it names, so a sort has
-a fixed sequence of device operations and records into a CUDA graph.
-Every size is fixed by ``(n, nvk, m_cap)``: the movers' slots are
-``m_cap`` wide whatever their count, as the JAX package gathers them
-(``sort_pallas.py:233``).  The full sort's ``torch.sort`` of all the keys
-therefore runs on every sort, also where the merge is kept.
+so does the port (``engine/cond.cond``): in a CUDA graph the merge and
+the full sort are the bodies of two conditional nodes, and a replay runs
+only the one the decision names; eager, and on the CPU, both run and the
+decision selects.  Every size is fixed by ``(n, nvk, m_cap)``: the
+movers' slots are ``m_cap`` wide whatever their count, as the JAX package
+gathers them (``sort_pallas.py:233``).
 
 The JAX package's per-block merge-path partition and its window tests
 (``span_ok`` on the block key span W, ``fit_ok`` on the residual window)
@@ -274,53 +275,92 @@ def full_gather(pk, np_, full: FullOrder, nvk: int):
     return out, torch.where(in_range, (out[7] + 0.5).to(torch.int32), nvk)
 
 
+def block_buffers(pk, key0):
+    """The re-sort's one output buffer set: ``(8, n)`` rows and ``(n,)``
+    key0, which the merge (:func:`assemble`) and the full sort's gather
+    (:func:`gather`) each write only where the decision is theirs."""
+    return torch.empty_like(pk), torch.empty_like(key0)
+
+
 def assemble(pk, np_, key0, ctot, marks: Marks, plan: MergePlan,
-             full: FullOrder, nvk: int, m_cap: int) -> Assembled:
-    """The tables, then the sorted ``(8, n)`` block and the next ``key0``:
-    where :func:`fast_path` holds, the merge (every lane to its
-    destination; row 7 the key for live slots, 0 past ``np``; ``key0`` the
-    key, ``nvk`` past ``np``) and its anomaly count (``sort_pallas.py:
-    155-167``: the lanes not written, plus 1 if any was; the lanes written
-    are then not n); otherwise :func:`full_gather` and no anomaly.  Slots
-    no lane reaches are unspecified; the kernel leaves them unwritten, and
-    it also counts a lane whose destination falls outside its tile's
-    output range (no lane does where the tables are consistent)."""
+             nvk: int, m_cap: int, out=None) -> Assembled:
+    """The tables, then, where :func:`fast_path` holds, the merge written
+    into ``out`` (:func:`block_buffers`, made where None): every lane to
+    its destination; row 7 the key for live slots, 0 past ``np``; ``key0``
+    the key, ``nvk`` past ``np``; and the anomaly count
+    (``sort_pallas.py:155-167``: the lanes not written, plus 1 if any was;
+    the lanes written are then not n), 0 where the decision is slow.
+    ``out`` keeps what it held where the decision is slow; slots no lane
+    reaches are unspecified (the kernel leaves them unwritten, and it also
+    counts a lane whose destination falls outside its tile's output range;
+    no lane does where the tables are consistent)."""
     n = pk.shape[1]
     cum_res, cum_mov, cum_tot = tables(plan.key_ms, marks.mov_old, ctot)
     d = destinations(pk, np_, key0, marks, plan, cum_res, cum_mov, nvk)
     live = d.dest < np_
-    out = torch.zeros((8, n + 1), dtype=torch.float32, device=pk.device)
-    out[:7].index_copy_(1, d.dest, pk[:7, d.src])
-    out[7].index_copy_(0, d.dest,
-                       torch.where(live, d.key, 0).to(torch.float32))
+    merged = torch.zeros((8, n + 1), dtype=torch.float32, device=pk.device)
+    merged[:7].index_copy_(1, d.dest, pk[:7, d.src])
+    merged[7].index_copy_(0, d.dest,
+                          torch.where(live, d.key, 0).to(torch.float32))
     key_new = torch.full((n + 1,), nvk, dtype=torch.int32, device=pk.device)
     key_new.index_copy_(0, d.dest, torch.where(live, d.key, nvk))
-    full_pk, full_key0 = full_gather(pk, np_, full, nvk)
     fast = fast_path(marks.info, m_cap)
+    out_pk, out_key0 = block_buffers(pk, key0) if out is None else out
+    out_pk.copy_(torch.where(fast, merged[:, :n], out_pk))
+    out_key0.copy_(torch.where(fast, key_new[:n], out_key0))
     anomaly = d.bad + (d.bad > 0).to(torch.int32)
-    return Assembled(pk=torch.where(fast, out[:, :n], full_pk),
-                     key0=torch.where(fast, key_new[:n], full_key0),
-                     cum_res=cum_res, cum_mov=cum_mov, cum_tot=cum_tot,
+    return Assembled(pk=out_pk, key0=out_key0, cum_res=cum_res,
+                     cum_mov=cum_mov, cum_tot=cum_tot,
                      anomaly=torch.where(fast, anomaly, 0))
 
 
+def gather(pk, np_, full: FullOrder, nvk: int, info, m_cap: int, out=None):
+    """The full sort's branch: where :func:`fast_path` fails,
+    :func:`full_gather`'s block written into ``out``
+    (:func:`block_buffers`, made where None), which keeps what it held
+    where the decision is fast.  Returns (rows, key0, anomaly 0)."""
+    rows, k0 = full_gather(pk, np_, full, nvk)
+    slow = ~fast_path(info, m_cap)
+    out_pk, out_key0 = block_buffers(pk, k0) if out is None else out
+    out_pk.copy_(torch.where(slow, rows, out_pk))
+    out_key0.copy_(torch.where(slow, k0, out_key0))
+    return (out_pk, out_key0,
+            torch.zeros((), dtype=torch.int32, device=pk.device))
+
+
 def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
-                      mark_fn=mark, assemble_fn=assemble):
+                      mark_fn=mark, assemble_fn=assemble, gather_fn=gather):
     """Re-sort a packed block by its voxel row.
 
     ``pk`` (8, n) float32 rows ``[dx dy dz ux uy uz q vox]`` (dead tail
     rows zero), ``np_`` the live count (0-d int32), ``key0`` (n,) int32
     and ``ctot`` (nvk+3,) int32 the carry of the previous sort.  Returns
-    a :class:`MergeResult`.  No host read: the mark pass, the movers'
-    sort, the full sort's order and the assembly run on every sort, and
-    the decision (:func:`fast_path`) picks the merge's block or the full
-    sort's on the device, and its ``ctot``: the tables' ``cum_tot``, or
-    the counts of the new ``key0`` (``sort_pallas.py:353-357``)."""
+    a :class:`MergeResult`.  No host read: the mark pass runs, and the
+    decision (:func:`fast_path`) picks on the device, through
+    ``engine/cond.cond`` (the JAX package's ``lax.cond``,
+    ``sort_pallas.py:347, 355``), between the merge (the movers' sort,
+    the tables and the assembly; ``ctot`` the tables' ``cum_tot``) and
+    the full sort (its order and :func:`gather`; ``ctot`` the counts of
+    the new ``key0``, ``sort_pallas.py:353-357``).  Both write the block
+    into one buffer set, each only where the decision is its own, so
+    nothing is copied between them.  In a CUDA graph each is a
+    conditional node's body, and a replay runs the one the decision
+    names."""
+    from ..engine.cond import cond
+
     marks = mark_fn(pk, np_, key0, ctot, nvk, m_cap)
-    a = assemble_fn(pk, np_, key0, ctot, marks, merge_plan(marks),
-                    full_order(pk, np_, nvk), nvk, m_cap)
     fast = fast_path(marks.info, m_cap)
-    v = torch.arange(nvk + 3, dtype=torch.int32, device=pk.device)
-    ctot_new = torch.where(fast, a.cum_tot,
-                           torch.searchsorted(a.key0, v, out_int32=True))
-    return MergeResult(a.pk, a.key0, ctot_new, a.anomaly, fast)
+    out = block_buffers(pk, key0)
+
+    def merge():
+        a = assemble_fn(pk, np_, key0, ctot, marks, merge_plan(marks), nvk,
+                        m_cap, out)
+        return a.pk, a.key0, a.cum_tot, a.anomaly
+
+    def full():
+        rows, k0, anomaly = gather_fn(pk, np_, full_order(pk, np_, nvk), nvk,
+                                      marks.info, m_cap, out)
+        v = torch.arange(nvk + 3, dtype=torch.int32, device=pk.device)
+        return rows, k0, torch.searchsorted(k0, v, out_int32=True), anomaly
+
+    return MergeResult(*cond(fast, merge, full), fast)

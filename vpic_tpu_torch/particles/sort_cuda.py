@@ -2,28 +2,37 @@
 (``csrc/merge_assemble.cu``: the mark pass, the tables and the assembly)
 and their wrappers.
 
-:func:`mark` and :func:`assemble` take the arguments and give the results
-of their plain versions in ``sort.py``: for tensors on the CPU they call
-the plain version; for CUDA tensors they launch the kernels (built with
-the package's other kernels by ``push_cuda.build``), and a build or launch
-failure raises.  :func:`assemble` launches two: the tables, then the
-assembly that reads them, which writes the merge or, where the mark
-pass's counts say slow, the full sort's gather.  The outputs equal the
-plain versions' bit for bit, fast or slow (the slots no lane reaches
-after an anomaly are unspecified in both).
+:func:`mark`, :func:`assemble` and :func:`gather` take the arguments and
+give the results of their plain versions in ``sort.py``: for tensors on
+the CPU they call the plain version; for CUDA tensors they launch the
+kernels (built with the package's other kernels by ``push_cuda.build``),
+and a build or launch failure raises.  :func:`assemble` launches two: the
+tables, then the assembly that reads them, which writes the merge where
+the mark pass's counts say fast; :func:`gather` launches the assembly
+kernel in its gather mode, which writes the full sort's block where they
+say slow.  Both write one output buffer set, each only where the decision
+is its own.  The outputs equal the plain versions' bit for bit there (the
+slots no lane reaches after an anomaly are unspecified in both).
 
 :func:`merge_sort_packed` is ``sort.merge_sort_packed`` with these
-kernels: the mark pass, the movers' sort, the full sort's order, then the
-tables and the assembly, all on every sort; the host reads nothing and
-the launches do not depend on the data, so a sort records into a CUDA
-graph.  ``launches`` counts each kernel's launches (one of each per
-sort).  Each named species' fast (merge) and slow (full) sorts are
-counted on the block's device, from the decision, by a device addition
-that a graph replays with the sort; :func:`sort_counts` reads them, so no
-fallback goes unseen.
+kernels: the mark pass, then the decision taken on the card
+(``engine/cond.cond``) between the merge (the movers' sort, the tables
+and the assembly) and the full sort (its order and the gather); the host
+reads nothing and no size depends on the data, so a sort records into a
+CUDA graph, where the merge and the full sort are the bodies of
+conditional nodes.  ``launches`` counts each kernel's launches: per sort
+the mark one; eagerly, where both branches run, the tables one and the
+assembly two (the merge and the gather); in a graph's replay the tables
+and an assembly per merge kept, a gather per full sort
+(``engine/cond.settle``).  Each named species' fast (merge) and slow
+(full) sorts are counted on the block's device, from the decision, by a
+device addition that a graph replays with the sort; :func:`sort_counts`
+reads them, so no fallback goes unseen.
 
 The kernels' scratch (the mark pass's look-back words, its epoch, and both
-kernels' counters) is kept per (device, stream, tiles) and never freed,
+kernels' counters) is kept per (device, stream, tiles) and never freed
+(a conditional body's stream counts as the stream its graph is captured
+on, ``engine/cond.home_stream``, whose warm-up made the scratch),
 since a captured graph keeps its pointers; the kernels leave the counters
 zero, and each mark launch tags its look-back words with an epoch that
 the launch before it left in the scratch, so no call clears anything and
@@ -36,6 +45,7 @@ import ctypes
 
 import torch
 
+from ..engine.cond import home_stream
 from . import sort as plain
 from .push_cuda import _lock, build, check_tensor, cuda_device
 
@@ -51,6 +61,8 @@ _ASSEMBLE_POINTERS = ("pk", "np", "key0", "res_base", "res_key", "cum_res",
                       "cum_mov", "key_ms", "order", "mov_lane", "info",
                       "full_order", "full_key", "out", "key0_out", "anomaly",
                       "work")
+# AssembleArgs.mode (csrc/merge_assemble.cu kGather)
+_MERGE, _GATHER = 0, 1
 
 
 class _MarkArgs(ctypes.Structure):
@@ -68,7 +80,8 @@ class _TablesArgs(ctypes.Structure):
 class _AssembleArgs(ctypes.Structure):
     """Mirror of ``struct AssembleArgs`` in csrc/merge_assemble.cu."""
     _fields_ = ([(k, ctypes.c_void_p) for k in _ASSEMBLE_POINTERS]
-                + [(k, ctypes.c_int) for k in ("n", "nvk", "m_cap", "vec")])
+                + [(k, ctypes.c_int) for k in ("n", "nvk", "m_cap", "vec",
+                                               "mode")])
 
 
 _bound = None
@@ -95,8 +108,11 @@ def _bind():
         lib.vpic_merge_assemble.argtypes = [ctypes.POINTER(_TablesArgs),
                                             ctypes.POINTER(_AssembleArgs),
                                             ctypes.c_void_p]
+        lib.vpic_merge_gather.argtypes = [ctypes.POINTER(_AssembleArgs),
+                                          ctypes.c_void_p]
         lib.vpic_merge_mark.restype = ctypes.c_int
         lib.vpic_merge_assemble.restype = ctypes.c_int
+        lib.vpic_merge_gather.restype = ctypes.c_int
         lib.vpic_merge_tile.argtypes, lib.vpic_merge_tile.restype = \
             [], ctypes.c_int
         if lib.vpic_merge_tile() != plain.TILE:
@@ -178,7 +194,7 @@ def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> plain.Marks:
     marks = plain.Marks(*buf.split((tiles, tiles, m_cap, m_cap, m_cap, 4)))
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (device, stream, tiles)
+    key = (device, home_stream(stream), tiles)
     status, work = _scratch_for(*key)
     ptr = dict(marks._asdict(), pk=pk, np=np_, key0=key0, ctot=ctot,
                status=status, work=work)
@@ -189,14 +205,25 @@ def mark(pk, np_, key0, ctot, nvk: int, m_cap: int) -> plain.Marks:
     return marks
 
 
+def _out_block(out, pk, key0, device, n):
+    """The output buffer set (``sort.block_buffers``), made where None,
+    checked where given."""
+    if out is None:
+        return plain.block_buffers(pk, key0)
+    check_tensor("out rows", out[0], torch.float32, (8, n), device)
+    check_tensor("out key0", out[1], torch.int32, (n,), device)
+    return out
+
+
 def assemble(pk, np_, key0, ctot, marks: plain.Marks, plan: plain.MergePlan,
-             full: plain.FullOrder, nvk: int, m_cap: int) -> plain.Assembled:
+             nvk: int, m_cap: int, out=None) -> plain.Assembled:
     """Kernel version of :func:`sort.assemble`: the tables kernel, then the
     assembly kernel, from one call.  Both read the mover count and the
-    decision from ``marks.info`` on the device."""
+    decision from ``marks.info`` on the device; where the decision is
+    slow the assembly writes only the anomaly (0)."""
     if pk.device.type == "cpu":
-        return plain.assemble(pk, np_, key0, ctot, marks, plan, full, nvk,
-                              m_cap)
+        return plain.assemble(pk, np_, key0, ctot, marks, plan, nvk, m_cap,
+                              out)
     device, n = _check_block(pk, np_, key0, nvk)
     check_tensor("ctot", ctot, torch.int32, (nvk + 3,), device)
     tiles = -(-n // plain.TILE)
@@ -207,33 +234,58 @@ def assemble(pk, np_, key0, ctot, marks: plain.Marks, plan: plain.MergePlan,
     check_tensor("info", marks.info, torch.int32, (4,), device)
     check_tensor("key_ms", plan.key_ms, torch.int32, (m_cap,), device)
     check_tensor("order", plan.order, torch.int64, (m_cap,), device)
-    check_tensor("full order", full.order, torch.int64, (n,), device)
-    check_tensor("full keys", full.key_s, torch.int32, (n,), device)
-
-    out = torch.empty((8, n), dtype=torch.float32, device=device)
-    key0_out, cum_res, cum_mov, cum_tot, anomaly = _int32(
-        device, n, nvk + 3, nvk + 3, nvk + 3, 1)
-    res = plain.Assembled(pk=out, key0=key0_out, cum_res=cum_res,
+    rows, key0_out = _out_block(out, pk, key0, device, n)
+    cum_res, cum_mov, cum_tot, anomaly = _int32(device, nvk + 3, nvk + 3,
+                                                nvk + 3, 1)
+    res = plain.Assembled(pk=rows, key0=key0_out, cum_res=cum_res,
                           cum_mov=cum_mov, cum_tot=cum_tot,
                           anomaly=anomaly.view(()))
     lib = _lib()
     stream = torch.cuda.current_stream(device).cuda_stream
-    key = (device, stream, tiles)
+    key = (device, home_stream(stream), tiles)
     _, work = _scratch_for(*key)
     ptr = dict(res._asdict(), pk=pk, np=np_, key0=key0, ctot=ctot,
                res_base=marks.res_base, res_key=marks.res_key,
                mov_lane=marks.mov_lane, mov_old=marks.mov_old,
                info=marks.info, key_ms=plan.key_ms, order=plan.order,
-               full_order=full.order, full_key=full.key_s, out=out,
-               key0_out=key0_out, work=work[4:])
+               out=rows, key0_out=key0_out, work=work[4:])
     targs = _TablesArgs(*(ptr[k].data_ptr() for k in _TABLES_POINTERS),
                         m_cap, nvk + 3)
-    args = _AssembleArgs(*(ptr[k].data_ptr() for k in _ASSEMBLE_POINTERS), n,
-                         nvk, m_cap, _vec(n, pk, key0))
+    args = _AssembleArgs(*(ptr[k].data_ptr() if k in ptr else None
+                           for k in _ASSEMBLE_POINTERS), n, nvk, m_cap,
+                         _vec(n, pk, key0), _MERGE)
     _launch(lib.vpic_merge_assemble(ctypes.byref(targs), ctypes.byref(args),
                                     stream),
             key, ("merge_tables", "merge_assemble"))
     return res
+
+
+def gather(pk, np_, full: plain.FullOrder, nvk: int, info, m_cap: int,
+           out=None):
+    """Kernel version of :func:`sort.gather`: the assembly kernel in its
+    gather mode, which reads the decision from ``info`` on the device and
+    writes the full sort's block into ``out`` only where it is slow."""
+    if pk.device.type == "cpu":
+        return plain.gather(pk, np_, full, nvk, info, m_cap, out)
+    device, n = _check_block(pk, np_, full.key_s, nvk)
+    check_tensor("info", info, torch.int32, (4,), device)
+    check_tensor("full order", full.order, torch.int64, (n,), device)
+    rows, key0_out = _out_block(out, pk, full.key_s, device, n)
+    anomaly = torch.empty((), dtype=torch.int32, device=device)
+    tiles = -(-n // plain.TILE)
+    lib = _lib()
+    stream = torch.cuda.current_stream(device).cuda_stream
+    key = (device, home_stream(stream), tiles)
+    _, work = _scratch_for(*key)
+    ptr = dict(pk=pk, np=np_, info=info, full_order=full.order,
+               full_key=full.key_s, out=rows, key0_out=key0_out,
+               anomaly=anomaly, work=work[4:])
+    args = _AssembleArgs(*(ptr[k].data_ptr() if k in ptr else None
+                           for k in _ASSEMBLE_POINTERS), n, nvk, m_cap, 0,
+                         _GATHER)
+    _launch(lib.vpic_merge_gather(ctypes.byref(args), stream), key,
+            ("merge_assemble",))
+    return rows, key0_out, anomaly
 
 
 def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
@@ -241,7 +293,8 @@ def merge_sort_packed(pk, np_, key0, ctot, nvk: int, m_cap: int,
     """:func:`sort.merge_sort_packed` with the kernels; counts the sort as
     fast or slow under ``species`` when given, on the device."""
     res = plain.merge_sort_packed(pk, np_, key0, ctot, nvk, m_cap,
-                                  mark_fn=mark, assemble_fn=assemble)
+                                  mark_fn=mark, assemble_fn=assemble,
+                                  gather_fn=gather)
     if species is not None:
         _count_sort(species, res.fast)
     return res
