@@ -309,13 +309,16 @@ no result line):
               one op by op), busy ms, ops, idle share, peak memory and
               each capture's seconds;
 20. shard graphs - the bench deck on 2 x 2 shards and turbulence on 2 z
-              shards, each built twice from one seed, graphed (the host's
-              decisions: a shard's clean holds the rendezvous' turns) and
-              op by op: after 8 and 16 steps, and again after a window
+              shards, each built twice from one seed, graphed (decided
+              on the card: turbulence one capture, its cleans, sync and
+              Marder passes conditional nodes around both shards' parts)
+              and op by op: after 8 and 16 steps, and again after a window
               and the trace (turbulence past its clean at step 50), the
               same checksums over every shard, energies, random state,
               launches, no dropped mover, no host read and no rendezvous
-              wait per graphed step; dryrun_multichip(4);
+              wait per graphed step; turbulence's clean-step replays
+              timed with CUDA events beside plain ones;
+              dryrun_multichip(4);
 21. on card  - the step decides on the card (engine/cond.py): the
               conditional nodes' route with torch.__version__ and
               torch.version.cuda; vpic_tpu_torch.entry.entry()'s step
@@ -4744,7 +4747,7 @@ def merge_launches(sorts, graphed):
 
 
 def graph_run(label, build, device, steps, graphed, books=None,
-              sync_free=False):
+              sync_free=False, extra=None):
     """One deck of GRAPH_DECKS (or of OPEN_GRAPH_DECKS), built alone on
     the card: ``steps`` steps through ``advance`` (``graphed``) or
     ``advance_eager``, then a timed window of STEPS steps, a trace of
@@ -4761,7 +4764,9 @@ def graph_run(label, build, device, steps, graphed, books=None,
     books again after the first window and the trace, at the step that
     the most retried trace would reach, where every run of the deck goes
     on to; ``wait_ms``: on several shards the host wait at the rendezvous
-    per step and shard in the timed windows, 0 on replays)."""
+    per step and shard in the timed windows, 0 on replays).  ``extra(sim)``:
+    graphed, after the last window, a dict of more fields of the
+    record."""
     import statistics
     import torch
     torch.cuda.synchronize()
@@ -4842,6 +4847,8 @@ def graph_run(label, build, device, steps, graphed, books=None,
         sim.advance_steps(0)
         for _ in range(WINDOWS - 1):
             window()
+        if extra is not None:
+            out.update(extra(sim))
     out.update(step_ms=statistics.median(step_s) * 1e3,
                step_min_ms=min(step_s) * 1e3, step_max_ms=max(step_s) * 1e3,
                busy_ms=b["busy_ms"], ops=b["ops"], parts=b["parts"],
@@ -5237,12 +5244,11 @@ def open_fields(recs):
 
 # -- phase 20: the sharded decks as CUDA graphs -------------------------------
 
-# each sharded deck of phase 15 and the steps of its bitwise window: the
-# bench deck's 48 steps are six super-cycles (k = 2, M = 4); turbulence's
-# 56 cross its clean at step 50, an allsum of both shards inside a graph
-# the bitwise windows before the timed ones: a super-cycle of the bench
-# deck; turbulence's, with the first window and the trace after it, goes
-# on past its clean at step 50 before the end record (step 72)
+# each sharded deck of phase 15 and the steps of its bitwise window
+# before the timed ones: a super-cycle of the bench deck; turbulence's,
+# with the first window and the trace after it, goes on past its clean at
+# step 50 (its allsums and Marder passes conditional nodes around both
+# shards' parts) before the end record (step 72)
 SHARD_GRAPH_DECKS = {
     "bench 128^2 on 2x2 shards": (
         lambda device: shard_bench(device, **SHARD_MESH), 8),
@@ -5251,21 +5257,68 @@ SHARD_GRAPH_DECKS = {
 }
 
 
+# clean steps whose replay phase 20 times, each beside the plain step
+# after it
+CLEAN_SAMPLES = 3
+
+
+def clean_replays(sim, samples=CLEAN_SAMPLES):
+    """CUDA-event times of ``samples`` replays of a clean step (a multiple
+    of the deck's div-E clean interval; its cleans, sync and Marder passes
+    conditional bodies that the profiler's trace does not see) and of the
+    plain step after each, through ``advance_steps(1)`` (the host's
+    dispatch of one replay included); then the busy device ms and ops of
+    the next clean step taken op by op (a trace of ``advance_eager(1)``,
+    both Marder branches run; None where the profiler had to trace again
+    and so traced a later step)."""
+    import torch
+    every = sim.opts.clean_div_e_interval
+    out = dict(clean_replay_ms=[], plain_replay_ms=[],
+               clean_steps=[])
+    for _ in range(samples):
+        sim.advance_steps(-sim.step_count % every)
+        out["clean_steps"].append(sim.step_count)
+        for key in ("clean_replay_ms", "plain_replay_ms"):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            sim.advance_steps(1)
+            end.record()
+            end.synchronize()
+            out[key].append(start.elapsed_time(end))
+    sim.advance_steps(-sim.step_count % every)
+    clean = sim.step_count
+    sim.states      # the copy out of the graphs' buffers, not traced
+    _, _, _, _, b = _trace(sim, sim.advance_eager, 1)
+    once = sim.step_count == clean + 1
+    out.update(eager_clean_step=clean,
+               eager_clean_busy_ms=b["busy_ms"] if once else None,
+               eager_clean_ops=b["ops"] if once else None)
+    return out
+
+
 def phase_shard_graphs(device, card):
     """Phase 20: each deck of SHARD_GRAPH_DECKS graphed and op by op, each
     built alone from one seed: after the bitwise window, and again after
     the windows and the trace, the same checksums over every shard,
     energies, dropped movers (0), every shard's random state and kernel
     launches; the whole window graphed (the bench deck's 48 steps six
-    super-cycle replays of one capture), no host read per graphed step;
-    the wall step of three 16-step windows, busy ms, ops, idle share,
-    peak memory, the captures (seconds, nodes) and the host wait at the
-    rendezvous of both.  Then ``dryrun_multichip(4)`` on the card, with
-    its dispatch assertion.  Returns the record of each deck."""
+    super-cycle replays of one capture; turbulence's steps replays of one
+    capture, the clean steps and the others alike, its cleans conditional
+    nodes), no host read per graphed step; the wall step of three 16-step
+    windows, busy ms, ops, idle share, peak memory, the captures
+    (seconds, nodes by type) and the host wait at the rendezvous of both;
+    turbulence's clean-step replays timed with CUDA events beside plain
+    ones (:func:`clean_replays`).  Then ``dryrun_multichip(4)`` on the
+    card, with its dispatch assertion.  Returns the record of each
+    deck."""
     from vpic_tpu_torch.engine.distributed import dryrun_multichip
     recs = {}
     for label, (build, steps) in SHARD_GRAPH_DECKS.items():
-        g = graph_run(label, build, device, steps, True)
+        turb = label.startswith("turbulence")
+        g = graph_run(label, build, device, steps, True,
+                      extra=clean_replays if turb else None)
         e = graph_run(label, build, device, steps, False)
         for key in ("fields", "species", "energies", "movers", "launches",
                     "rng", "end"):
@@ -5285,6 +5338,16 @@ def phase_shard_graphs(device, card):
             raise AssertionError(f"{label}: {steps} steps dispatched as "
                                  f"{g['dispatch']}, not {steps // 8} "
                                  "super-cycle replays of one capture")
+        if turb:
+            conds = [c["node_types"].get("conditional", 0)
+                     for c in g["captures"]]
+            if g["dispatch"] != {"captures": 1, "replays.step": steps,
+                                 "graphed_steps": steps} or \
+                    len(conds) != 1 or conds[0] < 6:
+                raise AssertionError(
+                    f"{label}: {steps} steps dispatched as {g['dispatch']}, "
+                    f"captures with {conds} conditional nodes, not one "
+                    "capture whose cleans and sync are conditional nodes")
         if g["reads"] or g["wait_ms"]:
             raise AssertionError(f"{label}: {g['reads']} host reads and "
                                  f"{g['wait_ms']} ms of rendezvous wait per "
@@ -5311,6 +5374,21 @@ def phase_shard_graphs(device, card):
             "step_ms", "step_min_ms", "step_max_ms", "busy_ms", "ops",
             "idle_share", "wait_ms", "peak_gb", "captures")}
             for name, r in (("graphed", g), ("eager", e))}
+        if turb:
+            log(f"  {label}, graphed ({card}): replays of the clean steps "
+                f"{g['clean_steps']} "
+                f"{[round(t, 4) for t in g['clean_replay_ms']]} ms, of the "
+                f"plain steps after them "
+                f"{[round(t, 4) for t in g['plain_replay_ms']]} ms (CUDA "
+                "events around advance_steps(1)); the clean step "
+                f"{g['eager_clean_step']} op by op: busy "
+                f"{g['eager_clean_busy_ms']} ms, {g['eager_clean_ops']} ops "
+                "(a trace; both Marder branches run)")
+            recs[label]["graphed"].update(
+                {k: g[k] for k in ("clean_replay_ms", "plain_replay_ms",
+                                   "clean_steps", "eager_clean_step",
+                                   "eager_clean_busy_ms",
+                                   "eager_clean_ops")})
         recs[label]["push_launches"] = g["launches"]["push"]
         recs[label]["walk_only_launches"] = g["launches"]["walk_only"]
     t0 = time.perf_counter()
@@ -5595,8 +5673,8 @@ def main():
         device, card)
     opened.update(open_fields(open_graph_recs))
     log("[20/21] the sharded decks as CUDA graphs: the bench deck on 4 "
-        "shards and turbulence on 2 graphed against op by op, bitwise, "
-        "timed; dryrun_multichip(4)")
+        "shards and turbulence on 2 (its cleans decided on the card) "
+        "graphed against op by op, bitwise, timed; dryrun_multichip(4)")
     shard_graph_recs = phase_shard_graphs(device, card)
     log("[21/21] the step decides on the card: conditional graph nodes, "
         "entry()'s graph, path B across a restore")

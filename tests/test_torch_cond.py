@@ -14,6 +14,15 @@ one ``torch.where`` per output tensor.
   step)``) over steps that cross sorts, interval cleans and the
   shared-face sync, on the fused path and on the unfused path whose ions
   sort on their own interval.
+- The cond of several shards (``cond(..., comm=...)``) under a capture,
+  with the node maker (``cond.NODES``) replaced by a recorder that logs
+  every node, allocation routing and branch's work in issue order, on 1,
+  2 and 4 shards, plain and nested: each node is opened and closed once,
+  by one shard, with one routing of its pool; every shard's part of a
+  body lies inside the node; no shard issues after the cond before the
+  node is closed; a shard that raises inside a body (or a node that
+  cannot be made) fails the call with its own exception in bounded time
+  and leaves no node open.
 - ``vpic_tpu_torch.entry.entry()`` against ``__graft_entry__.entry()``
   over 8 steps at the slice bars of test_torch_slice.py: the same
   particles at start (momenta, uncentered by each package's initial
@@ -24,7 +33,10 @@ one ``torch.where`` per output tensor.
   on the deck's cadence, which moves lanes, not values.
 """
 
+import contextlib
 import dataclasses
+import threading
+import time
 
 import jax
 import numpy as np
@@ -34,8 +46,10 @@ import torch
 import __graft_entry__ as ge
 
 from vpic_tpu_torch import entry as tentry
-from vpic_tpu_torch.core.types import FIELD_COMPONENTS
+from vpic_tpu_torch.core.types import FIELD_COMPONENTS, Grid
 from vpic_tpu_torch.decks import bench_deck
+from vpic_tpu_torch.engine import cond as tcond
+from vpic_tpu_torch.engine import distributed as tdist
 from vpic_tpu_torch.engine import graphs
 from vpic_tpu_torch.engine.cond import cond, select
 from vpic_tpu_torch.engine.step import (StepOptions, make_advance,
@@ -164,6 +178,237 @@ def test_the_step_decided_on_the_card_is_the_host_keyed_step(path):
         for a, b in zip(graphs._leaves(card), graphs._leaves(host)):
             assert torch.equal(a, b), t
     assert int(card.step) == STEPS
+
+
+class Recorder:
+    """``cond.NODES`` as a log: every capture test true, a stream per
+    nesting depth (``body<depth>``; the capture's own is ``capture``),
+    each thread's current stream kept per thread, and ``log`` the nodes
+    opened and closed, the pools routed and released and the branches'
+    work (:meth:`issue`: the shard, what, and the node open on the
+    issuing thread's stream), in issue order (the shards' threads run one
+    at a time).  ``fail_begin``: the next node cannot be made;
+    ``end_error``: what ending a body's capture returns (a CUDA error
+    where the failure invalidated it)."""
+
+    def __init__(self):
+        self.log, self.open, self.routed = [], {}, set()
+        self.local = threading.local()
+        self.made = 0
+        self.fail_begin = False
+        self.end_error = 0
+
+    def _stream(self):
+        return getattr(self.local, "stream", "capture")
+
+    def capturing(self, pred):
+        return True
+
+    def parent(self, device):
+        return self._stream()
+
+    def body(self, device, depth):
+        return f"body{depth}", f"pool{depth}"
+
+    def renew(self, device, depth):
+        self.log.append(("renew", depth))
+
+    def handle(self, stream):
+        return stream
+
+    @contextlib.contextmanager
+    def on(self, stream):
+        prev, self.local.stream = self._stream(), stream
+        try:
+            yield
+        finally:
+            self.local.stream = prev
+
+    def begin(self, parent, body, pred, negate):
+        if self.fail_begin:
+            raise RuntimeError("cond: the conditional node was not made")
+        assert body not in self.open, f"{body} holds an open node"
+        self.made += 1
+        self.open[body] = self.made
+        self.log.append(("open", self.made, parent, body,
+                         bool(pred) != negate))
+
+    def end(self, body):
+        self.log.append(("close", self.open.pop(body)))
+        return self.end_error
+
+    def allocate(self, device, pool):
+        assert pool not in self.routed, f"{pool} routed twice"
+        self.routed.add(pool)
+        self.log.append(("allocate", pool))
+
+    def release(self, device, pool):
+        self.routed.remove(pool)
+        self.log.append(("release", pool))
+
+    def issue(self, rank, what):
+        self.log.append(("work", rank, what,
+                         self.open.get(self._stream())))
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    """A :class:`Recorder` as ``cond.NODES``, with tally words on the CPU
+    (which the card's capture makes by ``cond.prepare``) and the launch
+    counts that the tests touch restored after."""
+    from vpic_tpu_torch.particles import push_cuda
+    rec = Recorder()
+    monkeypatch.setattr(tcond, "NODES", rec)
+    monkeypatch.setattr(tcond, "_tallies", {torch.device("cpu"): torch.zeros(
+        (tcond.TALLY_SLOTS,), dtype=torch.int64)})
+    monkeypatch.setattr(tcond, "_bodies", [])
+    for c, name in ((push_cuda.launches, "walk_only"),
+                    (tcond.launches, "cond_set_if")):
+        monkeypatch.setitem(c, name, 0)
+    return rec
+
+
+def _shard_conds(rec, n, nested, fail=None):
+    """Every shard of an ``n``-shard rendezvous calls ``cond(pred, ...,
+    comm=comm)`` between work before and after it, each branch counting a
+    kernel launch and summing over the shards inside its body (an
+    ``allsum``: turns and barriers) and, where ``nested``, calling a cond
+    of its own.  ``fail``: (rank, where) of a shard that raises KeyError
+    inside that body."""
+    from vpic_tpu_torch.particles import push_cuda
+    g = Grid(nx=4, ny=4, nz=4, gpx=n)
+    comms = tdist.make_comms(g, tdist.make_mesh(g, ["cpu"]), timeout=30)
+
+    def shard(comm):
+        r = comm.rank
+
+        def part(what, value):
+            comm.allsum(torch.tensor(1.0))
+            # issued after the body's last barrier: the node stays open
+            # until every shard has issued this
+            rec.issue(r, what)
+            with push_cuda._lock:
+                push_cuda.launches["walk_only"] += 1
+            if fail == (r, what):
+                raise KeyError(f"shard {r} in {what}")
+            return value
+
+        def true_fn(v):
+            v = part("true", v * 2)
+            if nested:
+                v = cond(torch.tensor(False),
+                         lambda w: part("inner true", w + 1),
+                         lambda w: part("inner false", w - 1), (v,),
+                         comm=comm)
+            return v
+
+        rec.issue(r, "before")
+        # shard 0's predicate makes the node
+        out = cond(torch.tensor(r == 0), true_fn,
+                   lambda v: part("false", v + 5),
+                   (torch.full((3,), float(r)),), comm=comm)
+        rec.issue(r, "after")
+        return out
+
+    return lambda: tdist.run_shards(comms, shard)
+
+
+@pytest.mark.parametrize("nested", [False, True], ids=["plain", "nested"])
+@pytest.mark.parametrize("n", [1, 2, 4])
+def test_the_cond_of_several_shards_nests_every_shard_in_one_node(
+        recorder, n, nested):
+    """Under the recorder, each node opens and closes once, made on shard
+    0's predicate with one routing of its pool; every shard's part of a
+    body lies inside it, nested nodes inside their parent's body; the
+    work before the cond precedes the first node and the work after it
+    follows the last close; one set kernel per node and one tally word
+    per body, with every shard's launches."""
+    from vpic_tpu_torch.particles import push_cuda
+    rec = recorder
+    _shard_conds(rec, n, nested)()
+    log = rec.log
+    opens = {e[1]: i for i, e in enumerate(log) if e[0] == "open"}
+    closes = {e[1]: i for i, e in enumerate(log) if e[0] == "close"}
+    # a node per body, each run where it holds: the outer true node (on
+    # shard 0's predicate, true), the inner pair (on false), the outer
+    # false node; no third node, since no branch passes its operand
+    taken = {"true": True, "false": False}
+    if nested:
+        taken.update({"inner true": False, "inner false": True})
+    want = set(taken)
+    assert sorted(opens) == sorted(closes) == list(range(1, len(want) + 1))
+    assert not rec.open and not rec.routed
+    # one set kernel per node; each body one tally word for every shard's
+    # launches, taken back from the host counts (the outer true body's
+    # inner nodes' set kernels too)
+    assert tcond.launches["cond_set_if"] == (2 if nested else len(want))
+    assert push_cuda.launches["walk_only"] == 0
+    deltas = [d for _, _, d in tcond._bodies]
+    assert [d[0] for d in deltas] == [{"walk_only": n}] * len(want)
+    assert sorted(d[-1].get("cond_set_if", 0) for d in deltas) == (
+        [0, 0, 0, 2] if nested else [0, 0])
+    allocs = [e for e in log if e[0] == "allocate"]
+    assert len(allocs) == len(opens)
+    runs = {e[1]: e[4] for e in log if e[0] == "open"}
+    work = [(i, e) for i, e in enumerate(log) if e[0] == "work"]
+    for what in want:
+        lines = [(i, e) for i, e in work if e[2] == what]
+        assert sorted(e[1] for _, e in lines) == list(range(n)), what
+        node, = {e[3] for _, e in lines}
+        assert opens[node] < min(i for i, _ in lines)
+        assert max(i for i, _ in lines) < closes[node]
+        assert runs[node] == taken[what], what
+    for what in ("before", "after"):
+        lines = [(i, e) for i, e in work if e[2] == what]
+        assert sorted(e[1] for _, e in lines) == list(range(n))
+        assert all(e[3] is None for _, e in lines)
+    assert max(i for i, e in work if e[2] == "before") < min(opens.values())
+    assert min(i for i, e in work if e[2] == "after") > max(closes.values())
+    if nested:
+        # the inner nodes open inside the outer true node, on its stream
+        outer_true = next(e[1] for e in log if e[0] == "open")
+        inner = [e for e in log if e[0] == "open" and e[2] == "body0"]
+        assert len(inner) == 2
+        assert all(opens[outer_true] < opens[e[1]] < closes[e[1]]
+                   < closes[outer_true] for e in inner)
+
+
+@pytest.mark.parametrize("where", ["true", "false", "inner true",
+                                   "true, capture invalidated",
+                                   "node not made"])
+@pytest.mark.parametrize("n", [2, 4])
+def test_a_shard_failing_inside_a_shared_node(recorder, n, where):
+    """The last shard raises KeyError after its sum inside a body (or the
+    recorder refuses the outer true node): the call raises that exception
+    within seconds, every node opened is closed, no pool stays routed,
+    and the bodies' pools are renewed; a body whose capture the failure
+    invalidated is counted once, by the shard that closed it; the same
+    shards then run the conds again."""
+    rec = recorder
+    fail = where.split(",")[0]
+    run = _shard_conds(rec, n, nested=True,
+                       fail=(None if where == "node not made"
+                             else (n - 1, fail)))
+    rec.fail_begin = where == "node not made"
+    rec.end_error = 901 if "invalidated" in where else 0
+    invalid = tcond.invalid_bodies
+    t0 = time.perf_counter()
+    with pytest.raises(RuntimeError if rec.fail_begin else KeyError) as err:
+        run()
+    assert time.perf_counter() - t0 < 10
+    assert "ShardError" not in type(err.value).__name__
+    assert not rec.open and not rec.routed
+    opened = [e[1] for e in rec.log if e[0] == "open"]
+    assert sorted(e[1] for e in rec.log if e[0] == "close") == opened
+    assert bool(opened) == (not rec.fail_begin)
+    if opened:
+        assert ("renew", 0) in rec.log
+    assert tcond.invalid_bodies - invalid == (1 if rec.end_error else 0)
+    rec.fail_begin = False
+    rec.end_error = 0
+    rec.log.clear()
+    ok = _shard_conds(rec, n, nested=True)()
+    assert len(ok) == n and not rec.open
 
 
 @pytest.fixture(scope="module")

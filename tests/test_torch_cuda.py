@@ -43,7 +43,12 @@ without a host read under ``torch.cuda.set_sync_debug_mode("error")``.
 The step deciding on the card (engine/cond.py): a graph of conditional
 nodes replays the branch its predicate names, nested too, a body's
 launches counted per run, and entry()'s step captured once replays
-bitwise Simulation.advance.  Needs an NVIDIA
+bitwise Simulation.advance.  The cond of several shards on the card: one
+node around every shard's part of a body, on 2 and 4 shards, nested,
+replaying only the branch taken on every shard (the tally words) and
+bitwise the eager select, a shard failing inside a body failing the
+capture with its own exception; two z shards cleaning every other step
+in one capture, with conditional nodes, bitwise eager.  Needs an NVIDIA
 GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
@@ -1000,3 +1005,154 @@ def test_the_entry_graph_replays_bitwise(device):
     assert nodes.get("conditional", 0) >= 2, nodes
     sim = bench_deck.build(**DECK, device=device)
     assert cs.states_equal(state, sim.advance(16))
+
+
+def _shared_conds(device, n, fail=None, who=None):
+    """``n`` shards of one card, each calling a cond of every shard on
+    ``p`` whose true branch sums over the shards inside its body and
+    nests a cond on ``q``; the leaves count a launch each (push, walk_only,
+    deposit_sorted).  Returns (p, q, xs, run): ``run(states=xs)`` gives
+    every shard's output from its input.  ``fail``: "raise" or "host
+    read" in shard ``who``'s (default the last) true body under a
+    capture."""
+    from vpic_tpu_torch.core.types import Grid
+    from vpic_tpu_torch.engine import cond
+    from vpic_tpu_torch.engine import distributed as dist
+    g = Grid(nx=4, ny=4, nz=4, gpx=n)
+    comms = dist.make_comms(g, dist.make_mesh(g, [device]), timeout=30)
+    p = torch.zeros((), dtype=torch.bool, device=device)
+    q = torch.zeros((), dtype=torch.bool, device=device)
+    xs = [torch.arange(1000, dtype=torch.float32, device=device) * (r + 1)
+          for r in range(n)]
+    who = n - 1 if who is None else who
+
+    def counted(counts, name, v):
+        with push_cuda._lock:
+            counts[name] += 1
+        return v
+
+    def shard(comm, x):
+        def true_fn(v):
+            v = v * 2 + comm.allsum(v.sum()).to(torch.float32)
+            if (fail and comm.rank == who
+                    and torch.cuda.is_current_stream_capturing()):
+                if fail == "raise":
+                    raise KeyError("shard in a body")
+                float(v.sum())
+            return cond.cond(
+                q, lambda w: counted(push_cuda.launches, "push", w + 1),
+                lambda w: counted(push_cuda.launches, "walk_only", w * 3),
+                (v,), comm=comm)
+
+        def false_fn(v):
+            s = comm.allsum(v.sum()).to(torch.float32)
+            return counted(deposit_cuda.launches, "deposit_sorted",
+                           (v - 7) * 0.5 + s)
+
+        return cond.cond(p, true_fn, false_fn, (x,), comm=comm)
+
+    return p, q, xs, lambda states=xs: dist.run_shards(comms, shard, states)
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_a_cond_of_several_shards_replays_the_branch_taken(device, n):
+    """Captured once, the cond of every shard is two conditional nodes at
+    the graph's top level; each replay gives every shard the output of
+    the eager select for that replay's predicates, bitwise, and runs only
+    the branch taken on every shard: n launches of its leaf per replay,
+    from one tally word per body."""
+    from vpic_tpu_torch.engine import cond, graphs
+    p, q, _, run = _shared_conds(device, n)
+    graph, outs = _graph_of(device, run)
+    kinds = graphs.node_types(graph.raw_cuda_graph())
+    assert kinds.get("conditional") == 2, kinds
+    leaves = {(True, True): "push", (True, False): "walk_only",
+              (False, True): "deposit_sorted",
+              (False, False): "deposit_sorted"}
+    for a in (True, False):
+        for b in (True, False):
+            p.fill_(a)
+            q.fill_(b)
+            cond.settle()
+            push_cuda.reset_launch_counts()
+            deposit_cuda.reset_launch_counts()
+            cond.reset()
+            graph.replay()
+            cond.settle()
+            got = dict(push_cuda.launches, **deposit_cuda.launches)
+            assert got == {k: (n if k == leaves[(a, b)] else 0)
+                           for k in got}, (a, b)
+            want = run()
+            for r in range(n):
+                assert torch.equal(outs[r], want[r]), (a, b, r)
+
+
+@pytest.mark.parametrize("n,who,how", [
+    (4, 3, "raise"), (4, 3, "host read"), (4, 0, "host read"),
+    (1, 0, "host read")], ids=["last of 4 raises", "last of 4 reads",
+                               "shard 0 of 4 reads", "one shard reads"])
+def test_a_shard_failing_inside_a_shared_node(device, n, who, how):
+    """Shard ``who`` fails inside the true body of a cond of every shard
+    (of the one shard: the plain nodes) while ``engine/graphs.GraphRunner``
+    captures (a Python exception, or a read of the card from the host,
+    which invalidates the body's capture; shard 0 opened the node): the
+    capture raises that shard's exception within seconds and keeps no
+    graph (the read counted as an invalidated body, whose graph is never
+    destroyed: that crashed the process); the runner's next capture, of
+    shards that do not fail, replays bitwise their select."""
+    import collections
+    import time
+    from vpic_tpu_torch.engine import cond, graphs
+    invalid = cond.invalid_bodies
+    runner = graphs.GraphRunner(device, collections.Counter(), [])
+    p, q, xs, run = _shared_conds(device, n, fail=how, who=who)
+    runner.load(xs)
+    t0 = time.perf_counter()
+    with pytest.raises(KeyError if how == "raise" else RuntimeError) as err:
+        runner.run("step", ("shared",), 0, 1, lambda st, t, n: run(st))
+    assert time.perf_counter() - t0 < 60
+    assert "ShardError" not in type(err.value).__name__
+    assert not runner.graphs
+    assert cond.invalid_bodies - invalid == (how == "host read")
+    p, q, xs, run = _shared_conds(device, n)
+    p.fill_(True)
+    runner.load(xs)
+    runner.run("step", ("shared",), 0, 1, lambda st, t, n: run(st))
+    assert runner.counts == {"captures": 2, "replays.step": 1,
+                             "graphed_steps": 1}
+    want = run(xs)
+    assert all(torch.equal(a, b) for a, b in zip(runner.static, want))
+
+
+def test_two_z_shards_cleaning_every_other_step_graphed(device):
+    """The 16x16x4 box on two z shards cleaning div E and div B and
+    syncing every other step: 12 steps through advance are one capture,
+    its cleans conditional nodes at the graph's top level, bitwise 12
+    steps op by op on every shard, with equal kernel launches."""
+    from vpic_tpu_torch.engine import cond
+    from tests.torch_decks import hooked_shards
+
+    def box():
+        sim = hooked_shards(device, px=1, py=1, pz=2, nz=4)
+        sim.modify_runparams(clean_div_e_interval=2, clean_div_b_interval=2,
+                             sync_shared_interval=2)
+        return sim
+
+    g, e = box(), box()
+    assert g.graphed
+    cond.settle()
+    push_cuda.reset_launch_counts()
+    cond.reset()
+    g.advance(12)
+    cond.settle()
+    graphed = dict(push_cuda.launches)
+    push_cuda.reset_launch_counts()
+    e.advance_eager(12)
+    assert graphed == push_cuda.launches
+    _same_shards(g, e)
+    assert g.mover_counts() == e.mover_counts() == {"electron": 0}
+    assert g.dispatch_counts == {"captures": 1, "replays.step": 12,
+                                 "graphed_steps": 12}
+    kinds = g.capture_times[0]["node_types"]
+    assert kinds.get("conditional", 0) >= 6, kinds
+    assert g.comms[0].rv.slots == [None] * 2 and not g.comms[0].rv.shared

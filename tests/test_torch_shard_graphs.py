@@ -9,6 +9,13 @@ tests/test_torch_graphs.py does).
   cleaning div E every third step (an ``allsum`` inside the unit), bitwise
   their ``advance_eager`` runs on every shard, dispatched as
   ``graphs.plan`` says.
+- The step deciding on the card on shards (``step=None``, the graphs'
+  body; on the CPU every cond the select) bitwise the host-keyed
+  ``advance_eager``: two z shards cleaning div E, div B and syncing every
+  3, 4 and 6 steps, the 2 x 2 bench deck with those cleans, and its
+  unfused path whose ions sort on their own interval (a cond of one
+  shard); every predicate of a cond of several shards bitwise the same
+  on every shard; graphs keyed by the sort flags alone.
 - The cycled two-shard deck of tests/test_torch_shard.py through the
   runner for one super-cycle, held to the JAX package's multi-shard
   engine on the conftest's 8-device CPU mesh at that module's bars (16
@@ -35,10 +42,13 @@ from vpic_tpu_torch.deck.api import Simulation
 from vpic_tpu_torch.decks import bench_deck
 from vpic_tpu_torch.engine import distributed as tdist
 from vpic_tpu_torch.engine import graphs
+from vpic_tpu_torch.engine import step as tstep
 from vpic_tpu_torch.interop import state_to_numpy
 from vpic_tpu_torch.particles import boundary as tboundary
 
-from tests.test_torch_shard import check_against_jax, cycled, deck, port, snap
+from tests.test_torch_shard import (alive, bounded, bounded_runs,  # noqa: F401
+                                    check_against_jax, cycled, deck, port,
+                                    run, snap)
 from tests.torch_decks import hooked_shards
 
 BENCH = dict(nx=8, ny=8, nz=1, npart=1024, px=2, py=2)
@@ -83,8 +93,9 @@ def test_four_shard_bench_deck_through_the_runner_is_eager(static_runner):
 
 def test_two_z_shards_bitwise_across_a_clean(static_runner):
     """The 8x4x4 deck on two z shards, div E cleaned every third step: the
-    clean's global RMS sums both shards (``allsum``) inside the unit; 8
-    steps through the runner, 4 of them and then 4, bitwise eager."""
+    clean's global RMS sums both shards (``allsum``) inside the unit, the
+    clean decided from the state's step as on the card; 8 steps through
+    the runner, 4 of them and then 4, bitwise eager."""
     eager = deck(port, pz=2, clean_div_e_interval=3)
     static_runner()
     whole = deck(port, pz=2, clean_div_e_interval=3)
@@ -96,10 +107,64 @@ def test_two_z_shards_bitwise_across_a_clean(static_runner):
     eager.advance_eager(8)
     assert_same_shards(whole, eager)
     assert_same_shards(split, eager)
-    # a step of its own per step (k = 1): one graph for the clean steps
-    # (0, 3, 6) and one for the others
-    assert whole.dispatch_counts == {"captures": 2, "replays.step": 8,
+    # a step of its own per step (k = 1): one graph, the clean steps
+    # (0, 3, 6) and the others alike, the clean a cond inside it
+    assert whole.dispatch_counts == {"captures": 1, "replays.step": 8,
                                      "graphed_steps": 8}
+
+
+CLEANS = dict(clean_div_e_interval=3, clean_div_b_interval=4,
+              sync_shared_interval=6)
+DECIDED = {
+    "two z shards": (lambda: deck(port, pz=2, **CLEANS), 12,
+                     {"captures": 1, "replays.step": 12}),
+    "2x2 bench deck": (lambda: _bench_with(**CLEANS), 8,
+                       {"captures": 1, "replays.supercycle": 1}),
+    "2x2 unfused own intervals": (
+        lambda: _bench_with(fused_push=False, sorted_deposit=False, **CLEANS),
+        8, {"captures": 1, "replays.cycle": 4}),
+}
+
+
+def _bench_with(**opts):
+    sim = bench_deck.build(**BENCH, device="cpu")
+    sim.modify_runparams(**opts)
+    return sim
+
+
+@pytest.mark.parametrize("name", list(DECIDED))
+def test_the_sharded_step_decided_on_the_card_is_host_keyed(
+        static_runner, monkeypatch, name):
+    """Through the runner, whose body steps with no host step (the cleans,
+    the sync, the Marder passes and the ions' own sorts conds on the
+    state's step), against ``advance_eager`` (the host's step and flags):
+    bitwise on every shard; every cond of several shards was given the
+    same predicate on every shard, bitwise."""
+    build, steps, dispatch = DECIDED[name]
+    eager = build()
+    static_runner()
+    sim = build()
+    assert sim.graphed and sim.grid.n_shards > 1
+    preds, orig = {}, tstep.cond
+
+    def spy(pred, true_fn, false_fn, operands=(), comm=None):
+        if comm is not None:
+            preds.setdefault(comm.rank, []).append(pred.clone())
+        return orig(pred, true_fn, false_fn, operands, comm=comm)
+
+    monkeypatch.setattr(tstep, "cond", spy)
+    sim.advance(steps)
+    monkeypatch.setattr(tstep, "cond", orig)
+    eager.advance_eager(steps)
+    assert_same_shards(sim, eager)
+    assert sim.dispatch_counts == dict(dispatch, graphed_steps=steps)
+    assert sorted(preds) == list(range(sim.grid.n_shards))
+    first = preds[0]
+    # three interval conds a step, and the clean steps' Marder passes
+    assert len(first) > 3 * steps
+    for r, mine in preds.items():
+        assert len(mine) == len(first), r
+        assert all(torch.equal(a, b) for a, b in zip(mine, first)), r
 
 
 def test_cycled_two_shards_through_the_runner_match_jax(static_runner,
@@ -130,6 +195,24 @@ def test_cycled_two_shards_through_the_runner_match_jax(static_runner,
                                    "graphed_steps": 4}
     assert sum(received) > 0
     check_against_jax(snap(sim), snap(jsim), species=2)
+
+
+def test_bounded_two_shards_through_the_runner_match_jax(static_runner,
+                                                        bounded_runs):
+    """tests/test_torch_shard.py's bounded deck (reflecting x faces,
+    absorbing y, div E cleaned every step: its allsums and Marder passes
+    a cond of both shards inside the unit) on two shards through the
+    runner for its 6 steps, held to the JAX package's multi-shard engine
+    (that module's fixture) at that module's bars."""
+    j = bounded_runs[0]
+    static_runner()
+    sim = bounded(port, px=2)
+    assert sim.graphed
+    t = run(sim, 6)
+    assert sim.dispatch_counts == {"captures": 1, "replays.step": 6,
+                                   "graphed_steps": 6}
+    check_against_jax(t, j)
+    assert alive(t) == alive(j) < 1024
 
 
 def test_dryrun_multichip_asserts_one_dispatch(static_runner):

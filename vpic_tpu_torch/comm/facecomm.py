@@ -45,8 +45,9 @@ class Rendezvous:
     contend for the interpreter lock (each PyTorch call releases and takes
     it again) and the payloads need no lock.
 
-    ``slots``: one posting slot per shard, emptied at the end of every
-    run.  ``wait_s``: each shard's host
+    ``slots``: one posting slot per shard, and ``shared``: what the shards
+    share between barriers (``engine/cond.py``'s collective nodes), both
+    emptied at the end of every run.  ``wait_s``: each shard's host
     seconds from reaching a barrier to passing it (the other shards'
     turns).  A shard that raises calls :meth:`abort`; every shard waiting
     then raises :class:`ShardError`, as does a wait longer than
@@ -69,10 +70,12 @@ class Rendezvous:
         self.clear()
 
     def clear(self) -> None:
-        """Drop the payloads the slots still hold (``run_shards`` at the
-        end of a run): under a capture they are tensors of the graphs'
-        pool, which no reference may keep alive after the capture."""
+        """Drop the payloads the slots still hold and what the shards
+        shared (``run_shards`` at the end of a run): under a capture they
+        are tensors of the graphs' pool, which no reference may keep alive
+        after the capture."""
         self.slots = [None] * self.n
+        self.shared = {}
 
     def _pass(self, rank: int) -> None:
         """Hand the token to the next rank still running."""

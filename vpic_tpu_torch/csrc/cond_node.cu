@@ -47,6 +47,9 @@ int vpic_cond_stream(void** out) {
 
 int vpic_cond_begin(void* parent, void* body, const void* pred, int negate) {
   const cudaStream_t ps = (cudaStream_t)parent;
+  // the launch check below must see the set kernel's own error only, not
+  // one a failed call left as this thread's last error
+  (void)cudaGetLastError();
   cudaStreamCaptureStatus status;
   unsigned long long id = 0;
   cudaGraph_t graph = nullptr;
@@ -102,10 +105,14 @@ int vpic_cond_begin(void* parent, void* body, const void* pred, int negate) {
 }
 
 // End the body's capture begun by vpic_cond_begin (the node keeps its
-// body graph).
+// body graph).  A capture that a call inside the body invalidated ends
+// with its error, which is returned and not left as this thread's last
+// error.
 int vpic_cond_end(void* body) {
   cudaGraph_t graph = nullptr;
-  return (int)cudaStreamEndCapture((cudaStream_t)body, &graph);
+  const cudaError_t err = cudaStreamEndCapture((cudaStream_t)body, &graph);
+  if (err != cudaSuccess) (void)cudaGetLastError();
+  return (int)err;
 }
 
 }  // extern "C"

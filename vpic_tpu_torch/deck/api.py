@@ -97,7 +97,7 @@ from ..engine import distributed as dist
 from ..engine import graphs
 from ..engine.step import (StepOptions, cycle_mult, graph_sort_flags,
                            make_advance, needs_boundary, resolve_paths,
-                           step_decisions, step_sort_flags)
+                           step_sort_flags)
 from ..field import stencil
 from ..field.slabs import own_slice
 from ..grid.partition import make_grid_arrays, shard_origin
@@ -663,33 +663,32 @@ class Simulation:
         return [h["sort_interval"] for h in self._species]
 
     def _graph_key(self, start: int, n: int) -> tuple:
-        """The key of the graph of steps ``start`` to ``start + n - 1``:
-        per step the sort flags that the graph fixes
-        (``engine/step.graph_sort_flags``), as the JAX package's dispatch
-        units fix them; the step decides its cleans and sync on the card.
-        On a sharded deck the host decides those too
-        (``engine/step.step_decisions``)."""
-        key = step_decisions if self.grid.is_multishard else graph_sort_flags
-        return tuple(key(t, self.grid, self.opts, self._sort_intervals())
+        """The key of the graph of steps ``start`` to ``start + n - 1``,
+        on every deck, sharded or not: per step the sort flags that the
+        graph fixes (``engine/step.graph_sort_flags``), as the JAX
+        package's dispatch units fix them; the step decides its cleans,
+        sync and Marder passes on the card."""
+        return tuple(graph_sort_flags(t, self.grid, self.opts,
+                                      self._sort_intervals())
                      for t in range(start, start + n))
 
     def _unit_body(self, states, start: int, n: int):
         """Steps ``start`` to ``start + n - 1`` of the per-shard states, op
-        by op: the body that a graph captures, with the decisions of
-        :meth:`_graph_key` (on an unsharded deck the cleans and sync from
-        the state's step on the card).  Under the packed cycle the states
-        are the one packed state, stepped by the packed advance (as
+        by op: the body that a graph captures, with the sort flags of
+        :meth:`_graph_key` and no host step, so that the cleans, the sync
+        and the Marder passes are decided from the state's step on the
+        card (on a sharded deck one conditional node around every shard's
+        part, ``engine/cond.py``).  Under the packed cycle the states are
+        the one packed state, stepped by the packed advance (as
         :meth:`advance_eager` steps it; the JAX package's packed cycle
         bodies, ``vpic_tpu/deck/api.py:680-740``)."""
-        sharded = self.grid.is_multishard
         for t in range(start, start + n):
-            flags = (step_sort_flags if sharded else graph_sort_flags)(
-                t, self.grid, self.opts, self._sort_intervals())
-            step = t if sharded else None
+            flags = graph_sort_flags(t, self.grid, self.opts,
+                                     self._sort_intervals())
             if self._advance_packed is None:
-                states = self._advance(states, flags, step)
+                states = self._advance(states, flags, None)
             else:
-                states = [self._advance_packed(states[0], flags, step)]
+                states = [self._advance_packed(states[0], flags, None)]
         return states
 
     @property

@@ -33,17 +33,52 @@ branch passes an operand through and the false branch gives that slot
 another tensor, the false body writes a fresh buffer and a third if-node
 on ``pred`` copies the operand into it.
 
+**Several shards** (``cond(..., comm=...)``, the ``lax.cond`` inside the
+JAX package's ``shard_map``-ped step, ``vpic_tpu/engine/step.py:87-119,
+411-424``): every shard takes the same branch.  Where the shards of a
+deck run in the threads of ``engine/distributed.run_shards`` and the
+rendezvous hands the turns, a body that holds turns (the ``allsum`` of a
+clean, the halo exchanges) cannot be issued whole in one thread's turn.
+So under a capture one node holds every shard's part of a body: every
+shard reaches a barrier; shard 0, which runs first after a barrier,
+makes the node on its own predicate, on the one stream that every shard
+issues into, and starts the body's allocations into the depth's pool;
+each shard in its turn issues its part of the body on the node's body
+stream (kept on its own stack of open bodies, so that
+:func:`home_stream` resolves); a barrier, and shard 0 ends the node
+before anyone issues past it.  The false branch's node, and a third
+where any shard's true branch passed an operand through, go the same
+way.  Nested calls take the next depth's stream and pool.  Shard 0's
+predicate stands for every shard's, which is sound only because they are
+bitwise equal: ``state.step`` is the same on every shard, and
+``ShardComm.allsum`` sums in float64 in rank order, so every shard holds
+the same rms error; nothing reads them back to check.  A shard that
+raises inside a body breaks the rendezvous: shard 0 ends the open nodes,
+the call raises that shard's own exception, and the depth's bodies take
+a new pool.  A failure that invalidates the body's capture (a read of the
+card from the host there) leaves the body graph undefined in CUDA:
+:data:`invalid_bodies` counts them, and ``engine/graphs.py`` never
+destroys a graph that holds one.  Eagerly and on the CPU this is the select too: every shard
+runs both branches, so the barriers inside both pair up.  With one shard
+(``LocalComm``) it is the plain form above.
+
 **Launch counts.**  ``launches`` counts the nodes' set kernel, one
-launch per node made; a replay runs it wherever it reaches the node.  A
+launch per node made (one per node of several shards, whose shard 0
+makes it); a replay runs it wherever it reaches the node.  A
 kernel's wrapper counts its launches on the host when Python issues
 them; a graph's replay adds what its capture issued
 (``engine/graphs.py``).  A launch inside a conditional body runs only
 where the card takes the branch, so a body that issues counted launches
 (:func:`counters`) takes them back from the host counts and adds 1 to a
-tally word of its own on the card at every run; :func:`settle` turns the
+tally word of its own on the card at every run (a body of several
+shards one word, for every shard's launches); :func:`settle` turns the
 tallies into launches (one host read), and :func:`reset` zeros them in
 place.  The tallies live in one buffer per device, made by
 :func:`prepare` outside any capture.
+
+How a capture makes its nodes (the capture test, the streams, the native
+entries, the allocator's pools) is :data:`NODES`, in one place, so that
+the CPU tests can put a recorder in its place and follow the protocol.
 """
 
 from __future__ import annotations
@@ -66,6 +101,10 @@ TALLY_SLOTS = 1 << 14
 launches = {"cond_set_if": 0}
 _tallies: dict = {}     # device -> (TALLY_SLOTS,) int64 on the device
 _bodies: list = []      # (device, slot, launches per run) of each body
+# bodies whose capture a failure inside them invalidated (a host read
+# there): CUDA leaves such a body graph undefined, and destroying the graph
+# that holds its node crashes the process (engine/graphs.py keeps it)
+invalid_bodies = 0
 
 
 def counters() -> tuple:
@@ -183,14 +222,18 @@ def select(pred, true_fn, false_fn, operands=()):
                                  for a, b in zip(ts, fs)]))
 
 
-def cond(pred, true_fn, false_fn, operands=()):
+def cond(pred, true_fn, false_fn, operands=(), comm=None):
     """``true_fn(*operands)`` where the 0-d bool tensor ``pred`` holds,
     else ``false_fn(*operands)``: conditional graph nodes under a capture
-    on the card, :func:`select` otherwise (module docstring)."""
+    on the card, :func:`select` otherwise (module docstring).  ``comm``:
+    the calling shard's ``ShardComm`` where every shard of a deck makes
+    this call in its turn and the branches hold the rendezvous' turns;
+    one node then holds every shard's part of a body."""
     operands = tuple(operands)
-    if pred.is_cuda and torch.cuda.is_current_stream_capturing():
-        return _nodes(pred, true_fn, false_fn, operands)
-    return select(pred, true_fn, false_fn, operands)
+    if not NODES.capturing(pred):
+        return select(pred, true_fn, false_fn, operands)
+    return _nodes(pred, true_fn, false_fn, operands,
+                  comm if comm is not None and comm.rv.n > 1 else None)
 
 
 _local = threading.local()
@@ -232,65 +275,134 @@ def _native():
     return lib
 
 
-def _body_stream(device, depth: int):
-    """The stream that captures the bodies at nesting ``depth`` on
-    ``device``: made once (``cudaStreamCreate``, not one of PyTorch's
-    pooled streams), so the bodies' cached blocks, which the allocator
-    keys by stream, serve the bodies to come."""
-    key = (device, depth)
-    with _lock():
-        if key not in _streams:
-            ptr = ctypes.c_void_p()
-            with torch.cuda.device(device):
-                err = _native().vpic_cond_stream(ctypes.byref(ptr))
-            if err:
-                raise RuntimeError(f"cond: cudaStreamCreate failed ({err})")
-            _streams[key] = torch.cuda.ExternalStream(ptr.value,
-                                                      device=device)
-            _pools[key] = torch.cuda.graph_pool_handle()
-        return _streams[key], _pools[key]
+class CardNodes:
+    """How a capture on the card makes its conditional nodes: the capture
+    test, the bodies' streams and pools, the entries of
+    ``csrc/cond_node.cu`` and the allocator's routing into a pool."""
+
+    def capturing(self, pred) -> bool:
+        """Whether ``pred``'s branch is taken inside a graph: ``pred`` on
+        the card and the calling thread's stream capturing."""
+        return pred.is_cuda and torch.cuda.is_current_stream_capturing()
+
+    def parent(self, device) -> int:
+        """The calling thread's current stream on ``device``."""
+        return torch.cuda.current_stream(device).cuda_stream
+
+    def body(self, device, depth: int):
+        """(stream, pool) of the bodies at nesting ``depth`` on
+        ``device``: the stream made once (``cudaStreamCreate``, not one of
+        PyTorch's pooled streams), so the bodies' cached blocks, which the
+        allocator keys by stream, serve the bodies to come."""
+        key = (device, depth)
+        with _lock():
+            if key not in _streams:
+                ptr = ctypes.c_void_p()
+                with torch.cuda.device(device):
+                    err = _native().vpic_cond_stream(ctypes.byref(ptr))
+                if err:
+                    raise RuntimeError(f"cond: cudaStreamCreate failed "
+                                       f"({err})")
+                _streams[key] = torch.cuda.ExternalStream(ptr.value,
+                                                          device=device)
+                _pools[key] = torch.cuda.graph_pool_handle()
+            return _streams[key], _pools[key]
+
+    def renew(self, device, depth: int) -> None:
+        """A new pool for the bodies at ``depth``, after a body failed."""
+        with _lock():
+            if (device, depth) in _pools:
+                _pools[(device, depth)] = torch.cuda.graph_pool_handle()
+
+    def handle(self, stream) -> int:
+        return stream.cuda_stream
+
+    def on(self, stream):
+        """``stream`` as the calling thread's current stream, for a
+        block."""
+        return torch.cuda.stream(stream)
+
+    def begin(self, parent: int, body, pred, negate: bool) -> None:
+        """An if-node on ``pred`` (``~pred`` where ``negate``) after what
+        ``parent`` captured so far, its body captured from ``body``."""
+        err = _native().vpic_cond_begin(parent, body.cuda_stream,
+                                        pred.data_ptr(), int(negate))
+        if err:
+            raise RuntimeError(f"cond: the conditional node was not made "
+                               f"(cudaError {err})")
+
+    def end(self, body) -> int:
+        """End the body's capture: the CUDA error, 0 where none."""
+        return _native().vpic_cond_end(body.cuda_stream)
+
+    def allocate(self, device, pool) -> None:
+        """Route the allocations on the current stream into ``pool``, a
+        private pool never released, so nothing outside a graph takes its
+        blocks.  One routing per pool at a time: PyTorch refuses a
+        second."""
+        torch._C._cuda_beginAllocateCurrentStreamToPool(device.index, pool)
+
+    def release(self, device, pool) -> None:
+        torch._C._cuda_endAllocateToPool(device.index, pool)
+
+
+# the node maker that every capture uses
+NODES = CardNodes()
 
 
 @contextlib.contextmanager
-def _if_node(pred, negate: bool = False):
+def _if_node(pred, negate: bool = False, comm=None):
     """Capture the block into the body of an if-node on ``pred`` (on
     ``~pred`` where ``negate``) of the graph that the current stream is
     capturing; a body that issued counted launches takes them back and
-    tallies its runs."""
+    tallies its runs.  ``comm`` (several shards): every shard enters in
+    its turn, with a barrier before the block and one after it, and shard
+    0 alone makes, routes, tallies and ends the node (module
+    docstring)."""
+    lead = comm is None or comm.rank == 0
     device = pred.device
-    parent = torch.cuda.current_stream(device).cuda_stream
     opened = _open()
-    body, pool = _body_stream(device, len(opened))
-    lib = _native()
-    err = lib.vpic_cond_begin(parent, body.cuda_stream, pred.data_ptr(),
-                              int(negate))
-    if err:
-        raise RuntimeError(f"cond: the conditional node was not made "
-                           f"(cudaError {err})")
-    with _lock():
-        launches["cond_set_if"] += 1
-    opened.append((body.cuda_stream, opened[0][1] if opened else parent))
+    depth = len(opened)
+    if comm is not None:
+        # every shard has issued what comes before the node
+        comm.rv.wait(comm.rank)
+    body, pool = NODES.body(device, depth)
+    parent = NODES.parent(device)
+    if lead:
+        NODES.begin(parent, body, pred, negate)
+        with _lock():
+            launches["cond_set_if"] += 1
+    opened.append((NODES.handle(body), opened[0][1] if opened else parent))
     failed = True
     try:
-        with torch.cuda.stream(body):
-            # the body's allocations go to the bodies' pool, a private
-            # pool never released, so nothing outside a graph takes its
-            # blocks
-            torch._C._cuda_beginAllocateCurrentStreamToPool(device.index,
-                                                            pool)
+        with NODES.on(body):
+            if lead:
+                NODES.allocate(device, pool)
             try:
-                start = counts()
+                start = counts() if lead else None
                 yield
-                _tally(device, start)
+                if comm is not None:
+                    # every shard's part is issued; shard 0 runs first
+                    comm.rv.wait(comm.rank)
+                if lead:
+                    _tally(device, start)
             finally:
-                torch._C._cuda_endAllocateToPool(device.index, pool)
+                if lead:
+                    NODES.release(device, pool)
         failed = False
     finally:
         opened.pop()
-        err = lib.vpic_cond_end(body.cuda_stream)
-        if err and not failed:
-            raise RuntimeError(f"cond: the conditional body's capture "
-                               f"failed (cudaError {err})")
+        if lead:
+            err = NODES.end(body)
+            if failed:
+                NODES.renew(device, depth)
+                if err:
+                    global invalid_bodies
+                    with _lock():
+                        invalid_bodies += 1
+            elif err:
+                raise RuntimeError(f"cond: the conditional body's capture "
+                                   f"failed (cudaError {err})")
 
 
 def _tally(device, start) -> None:
@@ -312,18 +424,27 @@ def _tally(device, start) -> None:
     tally[slot].add_(1)
 
 
-def _nodes(pred, true_fn, false_fn, operands):
-    """:func:`cond` under a capture (module docstring)."""
+def _as_pred(pred):
     if pred.dim() != 0:
         raise ValueError(f"cond: the predicate is {tuple(pred.shape)}, not "
                          "0-d")
-    pred = (pred if pred.dtype == torch.bool else pred != 0).contiguous()
+    return (pred if pred.dtype == torch.bool else pred != 0).contiguous()
+
+
+def _nodes(pred, true_fn, false_fn, operands, comm=None):
+    """:func:`cond` under a capture (module docstring); with ``comm``
+    each node holds every shard's part, and whether a third node is
+    needed is shared at the rendezvous (``rv.shared``, per depth): shard
+    0 clears it first in the false body, and every shard reads it after
+    the barrier that ends that body."""
+    pred = _as_pred(pred)
     own = {t.untyped_storage().data_ptr() for t in leaves(operands)}
-    with _if_node(pred):
+    key = ("cond late", len(_open()))
+    with _if_node(pred, comm=comm):
         t_out = true_fn(*operands)
     ts = leaves(t_out)
     out, late = list(ts), []
-    with _if_node(pred, negate=True):
+    with _if_node(pred, True, comm):
         ts, fs = _pairs(t_out, false_fn(*operands))
         for k, (a, b) in enumerate(zip(ts, fs)):
             if a is b:
@@ -336,8 +457,13 @@ def _nodes(pred, true_fn, false_fn, operands):
                 late.append(k)
             else:
                 a.copy_(b)
-    if late:
-        with _if_node(pred):
+        if comm is not None:
+            if comm.rank == 0:
+                comm.rv.shared[key] = False
+            if late:
+                comm.rv.shared[key] = True
+    if late if comm is None else comm.rv.shared[key]:
+        with _if_node(pred, comm=comm):
             for k in late:
                 out[k].copy_(ts[k])
     return _rebuild(t_out, iter(out))

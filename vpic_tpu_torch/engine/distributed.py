@@ -21,6 +21,10 @@ on the caller's current stream of its device (``particles/push_cuda.py``),
 so that where every shard lives on the one card a unit of steps is
 captured, every shard's work in the eager order, into one CUDA graph
 (``engine/graphs.py``), which replays with no thread and no rendezvous.
+The step's decisions on the card that hold the rendezvous' turns (the
+cleans, the sync, the Marder passes) are there one conditional node
+around every shard's part (``engine/cond.py``), as the JAX package's
+``lax.cond`` inside its ``shard_map`` has every shard take one branch.
 
 A shard that raises breaks the rendezvous; the call then raises that
 shard's exception.  A wait longer than the rendezvous' timeout, or a
@@ -85,7 +89,9 @@ def run_shards(comms, fn, *per_shard):
     thread's: PyTorch keeps the current stream per thread, so a worker
     would otherwise start on the default stream, off a capture stream
     (``engine/graphs.py``).  The rendezvous runs the threads one at a
-    time, in turns between barriers, and drops its payloads at the end.
+    time, in turns between barriers, and drops its payloads and what the
+    shards shared (the collective conds', ``engine/cond.py``) at the end
+    of every run, a failed one too.
     ``per_shard``: lists of per-shard arguments.  A shard that raises
     aborts the rendezvous; the call raises the first shard's exception
     that is not a ``ShardError``, or else a ``ShardError``."""
@@ -144,7 +150,8 @@ def make_distributed_init(g: Grid, comms):
 
 def make_distributed_advance(g: Grid, comms,
                              opts: StepOptions = StepOptions(), **kw):
-    """``(states, do_sort, step) -> states``: one step of every shard,
+    """``(states, do_sort, step) -> states``: one step of every shard
+    (``step`` None: the cleans and the sync decided on the card),
     each shard's comm its ``comm`` and, on a sharded grid, its ``pcomm``,
     which turns migration on (``kw``: the emitters, handlers and deck
     hooks of ``make_advance``)."""

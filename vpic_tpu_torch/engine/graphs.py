@@ -18,9 +18,8 @@ program is a CUDA graph, captured once and replayed on static buffers:
   port: a unit's graph is keyed by its steps' sort flags
   (``engine/step.graph_sort_flags``), and the cleans, the shared-face
   sync, the Marder passes and path B's fast-or-full decision are
-  conditional nodes inside the graph (``engine/cond.py``).  A sharded
-  deck's graphs are keyed by the host's decisions of the cleans too
-  (``engine/step.step_decisions``).
+  conditional nodes inside the graph (``engine/cond.py``), on a sharded
+  deck each one node around every shard's part.
 - :class:`GraphRunner` holds the static state, the graphs and their one
   memory pool.  A graph copies its outputs back into the static state
   inside the graph (the counterpart of ``donate_argnums``), so a replay
@@ -40,7 +39,10 @@ to the merge re-sort's device counters of fast and slow sorts
 (``sort_cuda.sort_counters``), which a replay adds to on the card.  A
 launch inside a conditional node's body is counted where the replay runs
 the body (``engine/cond.settle``).  A capture or replay that fails
-raises: nothing falls back to eager steps.
+raises: nothing falls back to eager steps.  A capture that failed inside
+a conditional body whose own capture the failure invalidated (a host read
+there; ``engine/cond.invalid_bodies``) is never destroyed: CUDA leaves
+that body graph undefined, and destroying its graph crashed the process.
 
 Which decks run so is ``Simulation._graph_ok()``'s decision: every deck
 whose shards all live on the one card, the open ones included (boundary
@@ -60,8 +62,10 @@ order, and the unit's body runs ``engine/distributed.run_shards``.  Its
 shard threads take the caller's current stream, the capture stream, and
 the rendezvous runs them one at a time, so one graph holds every shard's
 work in the order the eager step issues it, the halo exchanges, the
-``allsum`` of a clean and the migration rounds included; a replay needs
-no thread and no rendezvous.  The capture is begun by the calling thread
+``allsum`` of a clean and the migration rounds included; a decision that
+holds the rendezvous' turns (a clean, the sync, a Marder pass) is one
+conditional node around every shard's part; a replay needs no thread and
+no rendezvous.  The capture is begun by the calling thread
 and launched into by the shard threads under CUDA's default capture mode,
 ``"global"``: a capture follows its stream, not its thread, so the shard
 threads' launches and allocations land in the graph and the runner's
@@ -213,7 +217,6 @@ class GraphRunner:
         if self.capture:
             self.stream = torch.cuda.Stream(self.device)
             self.pool = torch.cuda.graph_pool_handle()
-            cond.prepare(self.device)
 
     def load(self, state) -> None:
         """Copy ``state`` into the static state (made on the first load,
@@ -260,6 +263,8 @@ class GraphRunner:
         self.counts["captures"] += 1
         if not self.capture:
             return None, ()
+        # the conditional bodies' tally words, made outside any capture
+        cond.prepare(self.device)
         before = cond.counts()
         sorts = {k: c.clone() for k, c in sort_cuda.sort_counters().items()}
         try:
@@ -305,6 +310,7 @@ class GraphRunner:
         # as torch.cuda.graph does: the cached blocks go back first
         torch.cuda.synchronize(self.device)
         torch.cuda.empty_cache()
+        invalid = cond.invalid_bodies
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool)
             try:
@@ -322,6 +328,11 @@ class GraphRunner:
                     torch._C._cuda_endAllocateToPool(self.device.index,
                                                      self.pool)
                 self.pool = torch.cuda.graph_pool_handle()
+                if cond.invalid_bodies != invalid:
+                    # a conditional body's capture was invalidated inside
+                    # it: destroying the graph that holds that body
+                    # crashed the process (a card test), so it lives on
+                    ctypes.pythonapi.Py_IncRef(ctypes.py_object(graph))
                 raise
             graph.capture_end()
         return graph, node_types(graph.raw_cuda_graph())

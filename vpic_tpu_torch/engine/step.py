@@ -29,7 +29,8 @@ grid every shard runs this step in its own thread
 (``engine/distributed.py``) with its ``ShardComm`` as ``comm`` and
 ``pcomm``: the field exchanges and the sums go through it, and ``pcomm``
 turns the boundary rounds on, which carry the lanes that cross to
-another shard.
+another shard; the decisions that hold its turns take the cond of every
+shard (:func:`make_advance`).
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ from ..particles import boundary as pboundary
 from ..particles import push as ppush
 from ..particles import push_cuda
 from ..sf import interp as sfi
-from .cond import cond, select
+from .cond import cond
 
 # profiler scopes of the step's parts: a torch.profiler trace attributes
 # each device kernel to the scope that launched it.  The first three run
@@ -191,7 +192,7 @@ def sort_predicates(step, g: Grid, opts: StepOptions,
 
 def graph_sort_flags(step: int, g: Grid, opts: StepOptions,
                      sort_intervals) -> tuple:
-    """The sort flags that key a graph of an unsharded deck, as the JAX
+    """The sort flags that key a graph of a deck, as the JAX
     package's dispatch units fix them (``vpic_tpu/deck/api.py:612, 684,
     717, 732``): :func:`step_sort_flags` on the paths that sort on the
     resort cadence or every step; on the unfused path without the sorted
@@ -204,23 +205,6 @@ def graph_sort_flags(step: int, g: Grid, opts: StepOptions,
     return tuple(None if si > 0 else False for si in sort_intervals)
 
 
-def _interval_hit(step: int, interval: int) -> bool:
-    return interval > 0 and step % interval == 0
-
-
-def step_decisions(step: int, g: Grid, opts: StepOptions,
-                   sort_intervals) -> tuple:
-    """What the host decides for ``step`` of a sharded deck, whose graphs
-    are keyed by it: the species' sort flags (:func:`step_sort_flags`)
-    and whether it cleans div E, cleans div B and synchronizes the shared
-    faces.  An unsharded deck's step decides the cleans on the card
-    (:func:`make_advance`)."""
-    return (step_sort_flags(step, g, opts, sort_intervals),
-            _interval_hit(step, opts.clean_div_e_interval),
-            _interval_hit(step, opts.clean_div_b_interval),
-            _interval_hit(step, opts.sync_shared_interval))
-
-
 def _same(x):
     return x
 
@@ -230,12 +214,15 @@ def _rms(g: Grid, comm, local):
     return stencil.finish_rms(g, comm.allsum(err), comm.allsum(vol))
 
 
-def clean_div_e(state: SimState, g: Grid, comm, branch=cond) -> FieldState:
+def clean_div_e(state: SimState, g: Grid, comm) -> FieldState:
     """advance.cxx:151-173: rho accumulation and up to two Marder passes,
     each taken only where the rms error before it is above 0, nested as
-    the JAX package's ``lax.cond``s (``vpic_tpu/engine/step.py:75-96``).
-    ``branch``: ``engine/cond.cond``, or ``cond.select`` on a sharded
-    grid (:func:`make_advance`)."""
+    the JAX package's ``lax.cond``s (``vpic_tpu/engine/step.py:75-96``):
+    ``engine/cond.cond`` with the shard's ``comm``, whose passes hold the
+    rendezvous' turns (the sums, the halo exchanges), so that on a
+    sharded grid one node holds every shard's pass.  The rms error is the
+    same on every shard (``ShardComm.allsum``), so every shard takes the
+    same branch."""
     f = sfi.clear_rhof(state.field, g)
     for sp in state.species:
         if isinstance(sp, PackedSpecies):
@@ -250,14 +237,14 @@ def clean_div_e(state: SimState, g: Grid, comm, branch=cond) -> FieldState:
         f1 = stencil.compute_div_e_err(stencil.clean_div_e(f, g, mat, matg),
                                        g, mat, matg, comm)
         rms1 = _rms(g, comm, stencil.local_rms_div_e_err(f1, g))
-        return branch(rms1 > 0,
-                      lambda f1: stencil.clean_div_e(f1, g, mat, matg),
-                      _same, (f1,))
+        return cond(rms1 > 0,
+                    lambda f1: stencil.clean_div_e(f1, g, mat, matg),
+                    _same, (f1,), comm=comm)
 
-    return branch(rms > 0, marder, _same, (f,))
+    return cond(rms > 0, marder, _same, (f,), comm=comm)
 
 
-def clean_div_b(f: FieldState, g: Grid, comm, branch=cond) -> FieldState:
+def clean_div_b(f: FieldState, g: Grid, comm) -> FieldState:
     """advance.cxx:177-195, nested as :func:`clean_div_e`'s passes
     (``vpic_tpu/engine/step.py:99-116``)."""
     f = stencil.compute_div_b_err(f, g)
@@ -266,10 +253,10 @@ def clean_div_b(f: FieldState, g: Grid, comm, branch=cond) -> FieldState:
     def marder(f):
         f1 = stencil.compute_div_b_err(stencil.clean_div_b(f, g, comm), g)
         rms1 = _rms(g, comm, stencil.local_rms_div_b_err(f1, g))
-        return branch(rms1 > 0, lambda f1: stencil.clean_div_b(f1, g, comm),
-                      _same, (f1,))
+        return cond(rms1 > 0, lambda f1: stencil.clean_div_b(f1, g, comm),
+                    _same, (f1,), comm=comm)
 
-    return branch(rms > 0, marder, _same, (f,))
+    return cond(rms > 0, marder, _same, (f,), comm=comm)
 
 
 def needs_boundary(g: Grid, pcomm=None, emitters=(), boundary_handlers=(),
@@ -299,19 +286,22 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  pcomm=None, emitters=(), boundary_handlers=(),
                  packed: bool = False, **hooks):
     """The advance function ``(state, do_sort=None, step=None) -> state``
-    of one shard (``pcomm``: its ``ShardComm`` on a sharded grid).
-    ``do_sort`` holds one flag per species (:func:`step_sort_flags`), a
-    flag None (or ``do_sort`` None) decided on the card from
-    ``state.step`` (:func:`sort_predicates`); ``step``, the host's count
-    of the state's step, sets the interval cleans and the shared-face
-    sync, and where it is None they are decided on the card from
-    ``state.step``, as the JAX step decides them.  A decision on the card
-    is an ``engine/cond.cond``: conditional nodes in a CUDA graph, both
-    branches and a select eagerly; nothing is read back.  On a sharded
-    grid the host decides (``step`` is required) and the Marder passes
-    take the select: a shard's clean holds the rendezvous' turns (the
-    sums, the exchanges), whose other shards would issue into this
-    shard's open node.  ``packed``: the species are ``PackedSpecies``,
+    of one shard (``comm``: its ``ShardComm``; ``pcomm``: the same on a
+    sharded grid).  ``do_sort`` holds one flag per species
+    (:func:`step_sort_flags`), a flag None (or ``do_sort`` None) decided
+    on the card from ``state.step`` (:func:`sort_predicates`); ``step``,
+    the host's count of the state's step, sets the interval cleans and
+    the shared-face sync, and where it is None they are decided on the
+    card from ``state.step``, as the JAX step decides them, on every grid.
+    A decision on the card is an ``engine/cond.cond``: conditional nodes
+    in a CUDA graph, both branches and a select eagerly; nothing is read
+    back.  The cleans, the sync and the Marder passes hold the
+    rendezvous' turns (the sums, the halo exchanges), so they take the
+    cond with ``comm``: on a sharded grid one node holds every shard's
+    part, as the JAX package's ``lax.cond`` inside ``shard_map`` has every
+    shard take one branch.  A species' own sort interval (the unfused
+    path) holds no turn: a cond of the shard alone.  ``packed``: the
+    species are ``PackedSpecies``,
     which needs the fused push and a closed configuration.  ``hooks``: the
     deck's ``user_*`` sections (deck_wrapper.cxx:16-36): collisions
     ``state -> state`` after the sort, injection ``(state, acc, f) ->
@@ -335,9 +325,6 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                          "emitters, injection or collisions)")
     if inject is not None:
         inject = _injection(inject)
-    # the Marder passes' branch: nodes under a capture, but on a sharded
-    # grid the select (the docstring)
-    branch = select if g.is_multishard else cond
 
     def sort(sp):
         if not packed:
@@ -383,8 +370,6 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                                    boundary_state=bstate), f, acc
 
     def advance(state: SimState, do_sort=None, step=None) -> SimState:
-        if step is None and g.is_multishard:
-            raise ValueError("a sharded step takes the host's step count")
         nb = state.grid_arrays.neighbor
         acc = torch.zeros((g.nv, 12), dtype=torch.float32,
                           device=state.interpolator.device)
@@ -457,16 +442,17 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
 
             cleans = (
                 (opts.clean_div_e_interval, lambda f: clean_div_e(
-                    dataclasses.replace(state, field=f), g, comm, branch)),
+                    dataclasses.replace(state, field=f), g, comm)),
                 (opts.clean_div_b_interval,
-                 lambda f: clean_div_b(f, g, comm, branch)),
+                 lambda f: clean_div_b(f, g, comm)),
                 (opts.sync_shared_interval,
                  lambda f: sync.synchronize_tang_e_norm_b(f, g, comm)[0]))
             for interval, fn in cleans:
                 if interval <= 0:
                     continue
                 if step is None:
-                    f = cond(state.step % interval == 0, fn, _same, (f,))
+                    f = cond(state.step % interval == 0, fn, _same, (f,),
+                             comm=comm)
                 elif step % interval == 0:
                     f = fn(f)
 
