@@ -48,8 +48,12 @@ node around every shard's part of a body, on 2 and 4 shards, nested,
 replaying only the branch taken on every shard (the tally words) and
 bitwise the eager select, a shard failing inside a body failing the
 capture with its own exception; two z shards cleaning every other step
-in one capture, with conditional nodes, bitwise eager.  Needs an NVIDIA
-GPU and nvcc; skipped elsewhere.  On the card
+in one capture, with conditional nodes, bitwise eager.  The device-clock
+spans (engine/spans.py): replays stamp every step's parts, and the
+cleans inside their conditional bodies on the clean steps only; a
+profiled window between cleans aligns with its stamps within 5 us; the
+spans add two kernel nodes each outside the bodies and change no bit of
+the state.  Needs an NVIDIA GPU and nvcc; skipped elsewhere.  On the card
 (tests/conftest.py imports JAX, which a GPU machine need not have):
 
     python -m pytest tests/test_torch_cuda.py -q --noconftest
@@ -1156,3 +1160,83 @@ def test_two_z_shards_cleaning_every_other_step_graphed(device):
     kinds = g.capture_times[0]["node_types"]
     assert kinds.get("conditional", 0) >= 6, kinds
     assert g.comms[0].rv.slots == [None] * 2 and not g.comms[0].rv.shared
+
+
+def _cleaning_box(device, on=True):
+    """The 16x16 box of warm electrons cleaning div E and div B and syncing
+    its shared faces every 3 steps, with the device-clock spans on or
+    off."""
+    from tests.torch_decks import hooked_shards
+    sim = hooked_shards(device, px=1, py=1)
+    sim.modify_runparams(clean_div_e_interval=3, clean_div_b_interval=3,
+                         sync_shared_interval=3, spans=on)
+    return sim
+
+
+def test_replays_stamp_inside_conditional_bodies_on_clean_steps(device):
+    """Seven steps of the box through one capture: every replay stamps its
+    step's parts in order inside its graphs.unit, and the clean spans,
+    stamped inside the conditional bodies, come on steps 0, 3 and 6
+    only."""
+    from vpic_tpu_torch.engine import spans
+    from vpic_tpu_torch.engine.step import CLEANS
+    sim = _cleaning_box(device)
+    sim.advance(7)
+    assert sim.dispatch_counts["captures"] == 1
+    rec = spans.records()
+    assert rec.dropped == 0
+    g = [s for s in rec.spans if s.graphed]
+    units = [s for s in g if s.name == "graphs.unit"]
+    assert [u.step for u in units] == list(range(7))
+    for u in units:
+        mine = [s for s in g if s.step == u.step
+                and s.name.startswith(("step.", "graphs.write_back"))]
+        assert [s.name for s in mine if s.name not in CLEANS] == [
+            "step.sort", "step.push", "step.field", "graphs.write_back"]
+        assert all(u.t0_ns <= s.t0_ns < s.t1_ns <= u.t1_ns for s in mine)
+    for name in CLEANS:
+        assert [s.step for s in g if s.name == name] == [0, 3, 6], name
+
+
+def test_align_places_a_profiled_graphed_window(device):
+    """A torch.profiler trace of six replays between two cleans (the box
+    cleaning every 8 steps; a trace places the kernels after a
+    conditional body off, so align is for windows between cleans): its
+    stamp kernels, 10 a step (two for each of the unit, the write-back,
+    the sort, the push and the field), pair with their stamps, every
+    residual within 5 us (the jumps of the profiler's clock aside)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from vpic_tpu_torch.engine import spans
+    sim = _cleaning_box(device)
+    sim.modify_runparams(clean_div_e_interval=8, clean_div_b_interval=8,
+                         sync_shared_interval=8)
+    sim.advance_steps(1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        sim.advance_steps(6)
+        torch.cuda.synchronize()
+    kernels = [(e.name, e.time_range.start, e.time_range.end)
+               for e in prof.events() if e.device_type == DeviceType.CUDA]
+    # a trace may drop a kernel's record, and show the clean's stamps of
+    # step 0 before the window (their stamps lie outside its steps)
+    shown = sum("stamp_kernel" in k[0] for k in kernels)
+    got = spans.align(kernels, steps=(1, 6))
+    assert got.pairs == min(shown, 6 * 10) >= 5 * 10, (shown, got)
+    assert got.residual_us <= 5.0, got
+
+
+def test_spans_add_their_stamp_nodes(device):
+    """A one-step unit of the box captured with the spans on holds 10
+    kernel nodes more than with them off (two stamps for each of the
+    unit, the write-back, the sort, the push and the field; the clean
+    spans' lie in conditional bodies), the same conditional nodes, and
+    steps bitwise alike."""
+    on, off = _cleaning_box(device), _cleaning_box(device, on=False)
+    on.advance(4)
+    off.advance(4)
+    a, b = (s.capture_times[0]["node_types"] for s in (on, off))
+    assert a["kernel"] - b["kernel"] == 10, (a, b)
+    assert a.get("conditional") == b.get("conditional") >= 6, (a, b)
+    _same_shards(on, off)

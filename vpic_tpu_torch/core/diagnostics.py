@@ -64,32 +64,16 @@ def checksum_species(state, sid: int) -> str:
     return h.hexdigest()
 
 
-class PhaseTimers:
-    """Accumulating stopwatch set mirroring p/s/g/f/u_time."""
-
-    PHASES = ("particle", "sort", "guard", "field", "user")
-
-    def __init__(self):
-        self.t = {k: 0.0 for k in self.PHASES}
-        self.steps = 0
-
-    def add(self, phase, dt):
-        self.t[phase] += dt
-
-    def report(self) -> str:
-        n = max(self.steps, 1)
-        return " ".join(f"{k}={v / n * 1e3:.2f}ms" for k, v in self.t.items())
-
-
 def time_phases(sim, n_steps: int = 3) -> dict:
     """Seconds per call of each part of the step, each run ``n_steps``
     times on its own after one warm-up call, with the card synchronized
     before and after (a debugging aid: the step itself runs the parts
     back to back).  The parts run op by op, outside any CUDA graph, on
-    purpose: a graph's replay of the step has no parts to time, so the
-    step's wall time is ``Simulation.advance``'s and these times are the
-    eager parts'.  On a sharded deck each call runs the part on every
-    shard, in the shards' threads."""
+    their own: the times of the parts as the step runs them, inside a
+    graph's replay too, are the device-clock spans'
+    (``engine/spans.records``), and the step's wall time is
+    ``Simulation.advance``'s.  On a sharded deck each call runs the part
+    on every shard, in the shards' threads."""
     from ..engine import distributed as dist
     from ..engine.step import walk_segments
     from ..field import stencil, sync

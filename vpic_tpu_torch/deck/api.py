@@ -94,7 +94,7 @@ from ..core.types import (
 from ..diag import energy_dist as ed
 from ..emit import models as emodels
 from ..engine import distributed as dist
-from ..engine import graphs
+from ..engine import graphs, spans
 from ..engine.step import (StepOptions, cycle_mult, graph_sort_flags,
                            make_advance, needs_boundary, resolve_paths,
                            step_sort_flags)
@@ -589,10 +589,12 @@ class Simulation:
         ``user_current_injection`` and ``user_field_injection`` sections
         (``engine/step.py:make_advance``).  ``devices``: where the shards
         go, shard r on ``devices[r % len(devices)]`` (default: the
-        simulation's device)."""
+        simulation's device).  The device-clock spans' rings are emptied
+        (``engine/spans.reset``): their records are this deck's."""
         g = self.grid
         if g is None:
             raise RuntimeError("define a grid first")
+        spans.reset()
         if not self.materials:
             self.define_material("vacuum")
         self._hooks = hooks
@@ -625,8 +627,8 @@ class Simulation:
         if self._graphs is not None:
             self._graphs.close()
         self._graphs = (graphs.GraphRunner(
-            self.mesh[0], self.dispatch_counts, self.capture_times)
-            if self._graph_ok() else None)
+            self.mesh[0], self.dispatch_counts, self.capture_times,
+            self.opts) if self._graph_ok() else None)
 
     def _packed_ok(self) -> bool:
         """The packed cycle (``vpic_tpu/deck/api.py:651-711``) runs only
@@ -843,11 +845,13 @@ class Simulation:
 
     def advance_eager(self, n=1):
         """Advance ``n`` steps op by op through the step function, on any
-        deck.  The profiler's step-part scopes (``engine/step.PHASES``)
-        exist only here, not inside a graph's replay, so the part
-        attribution of ``tools/profile_step.py`` and of ``chip_smoke.py``'s
-        traces steps this way on purpose; wall times come from
-        :meth:`advance`."""
+        deck.  A ``torch.profiler`` trace attributes a kernel to the
+        step-part scope (``engine/step.PHASES``) that launched it only
+        here: a graph's replay launches its kernels from no scope, so the
+        part attribution of ``tools/profile_step.py`` and of
+        ``chip_smoke.py``'s traces steps this way on purpose.  The parts'
+        device-clock spans (``engine/spans.py``) are stamped both here and
+        inside a replay; wall times come from :meth:`advance`."""
         g = self.grid
         for _ in range(n):
             flags = step_sort_flags(self.step_count, g, self.opts,

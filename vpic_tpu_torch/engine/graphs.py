@@ -26,6 +26,16 @@ program is a CUDA graph, captured once and replayed on static buffers:
   leaves the advanced state in the same buffers.  On the CPU the runner
   runs the unit's steps eagerly where the card would replay, with the
   same copy-in and copy-out, so the CPU tests reach its code.
+- A replay has no profiler scopes inside it, so the step's parts carry
+  device-clock spans (``engine/spans.py``), which a capture keeps as
+  stamp kernels: every replay stamps the parts of its steps, the
+  conditional bodies' included, inside the span ``graphs.unit``, which
+  holds the unit's body and its write-back, the span
+  ``graphs.write_back``.  On the host, :meth:`GraphRunner.run` opens the
+  profiler scopes ``graphs.capture.<kind>`` and ``graphs.replay.<kind>``:
+  in a ``torch.profiler`` trace their host intervals are a unit kind's
+  capture seconds and each replay's enqueue time.  ``StepOptions.spans``
+  off, a graph holds no stamp.
 
 A unit is captured the first time its key comes up.  The unit first runs
 eagerly on a clone of the static state, on the capture stream: that
@@ -81,9 +91,12 @@ import dataclasses
 import time
 
 import torch
+from torch.profiler import record_function
 
 from ..particles import push_cuda, sort_cuda
 from . import cond
+from . import spans as _spans
+from .step import StepOptions
 
 
 def plan(step: int, n: int, k: int, M: int, cycles: bool = True) -> list:
@@ -197,7 +210,10 @@ class GraphRunner:
     (``node_types``: conditional nodes among them) and the seconds of its
     instantiation.  The static state is one state, or on a sharded deck
     the list of the per-shard states, which :meth:`load` and the copy-out
-    treat as one.
+    treat as one.  ``opts``: the deck's ``StepOptions``, whose ``spans``
+    says whether the runner stamps the spans ``graphs.unit`` and
+    ``graphs.write_back`` (``engine/spans.py``) on the static state's
+    step, as the step stamps its parts.
 
     The graphs share one pool: each copies its results into the static
     state and keeps no tensor of the pool alive after its capture, and
@@ -207,8 +223,9 @@ class GraphRunner:
     :meth:`close` frees the graphs and the pool (the owner calls it before
     it builds new ones); the runner holds the only references."""
 
-    def __init__(self, device, counts, capture_s):
+    def __init__(self, device, counts, capture_s, opts=StepOptions()):
         self.device = torch.device(device)
+        self.part = _spans.parts(opts.spans)
         self.capture = self.device.type == "cuda"
         self.counts = counts
         self.capture_s = capture_s
@@ -241,18 +258,35 @@ class GraphRunner:
         first where the key is new."""
         entry = self.graphs.get(key)
         if entry is None:
-            entry = self.graphs[key] = self._capture(kind, start, n, body)
+            with record_function("graphs.capture." + kind):
+                entry = self.graphs[key] = self._capture(kind, start, n,
+                                                         body)
         graph, delta = entry
-        if graph is None:
-            write_back(self.static, body(self.static, start, n))
-        else:
-            graph.replay()
+        with record_function("graphs.replay." + kind):
+            if graph is None:
+                self._unit(body, start, n)
+            else:
+                graph.replay()
+        if graph is not None:
             with push_cuda._lock:
                 for c, d in zip(cond.counters(), delta):
                     for name, v in d.items():
                         c[name] += v
         self.counts["replays." + kind] += 1
         self.counts["graphed_steps"] += n
+
+    def _unit(self, body, start: int, n: int, capturing: bool = False):
+        """The unit's body on the static state and its write-back, in the
+        spans ``graphs.unit`` and ``graphs.write_back`` on the static
+        state's step (its first shard's), stamped as a graph's unit's."""
+        first = (self.static[0] if isinstance(self.static, list)
+                 else self.static)
+        step = getattr(first, "step", None)
+        with _spans.unit(), self.part("graphs.unit", step,
+                                     device=self.device):
+            out = body(self.static, start, n)
+            with self.part("graphs.write_back", step, device=self.device):
+                write_back(self.static, out, capturing=capturing)
 
     def _capture(self, kind: str, start: int, n: int, body):
         """(graph, launch counts per replay) of the unit; (None, ()) on
@@ -263,8 +297,10 @@ class GraphRunner:
         self.counts["captures"] += 1
         if not self.capture:
             return None, ()
-        # the conditional bodies' tally words, made outside any capture
+        # the conditional bodies' tally words and the spans' ring, made
+        # outside any capture
         cond.prepare(self.device)
+        _spans.prepare(self.device)
         before = cond.counts()
         sorts = {k: c.clone() for k, c in sort_cuda.sort_counters().items()}
         try:
@@ -314,8 +350,7 @@ class GraphRunner:
         with torch.cuda.stream(self.stream):
             graph.capture_begin(pool=self.pool)
             try:
-                write_back(self.static, body(self.static, start, n),
-                           capturing=True)
+                self._unit(body, start, n, capturing=True)
             except BaseException:
                 # an invalidated capture's own error would hide the body's.
                 # Its capture_end raises before it takes the allocator off

@@ -35,12 +35,12 @@ shard (:func:`make_advance`).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 from typing import NamedTuple, Optional
 
 import torch
-from torch.profiler import record_function
 
 from ..comm import facecomm
 from ..core import random as rnd
@@ -52,15 +52,24 @@ from ..particles import boundary as pboundary
 from ..particles import push as ppush
 from ..particles import push_cuda
 from ..sf import interp as sfi
+from . import spans
 from .cond import cond
 
-# profiler scopes of the step's parts: a torch.profiler trace attributes
-# each device kernel to the scope that launched it.  The first three run
-# on every path; the others only where the deck has a collision hook,
-# emitters or an injection hook, or boundary rounds.
+# the step's parts, each a span (engine/spans.py): a profiler scope, under
+# which a torch.profiler trace of an op-by-op step attributes each device
+# kernel to the scope that launched it, and device-clock stamps, which a
+# graph's replay and a conditional body keep.  The first three run on
+# every path, once a step each (the sort and the push around every
+# species', the field split only around an injection hook); the others
+# only where the deck has a collision hook, emitters or an injection
+# hook, or boundary rounds.
 PHASES = ("step.sort", "step.push", "step.field", "step.collide",
           "step.emit", "step.boundary")
 CORE_PHASES = PHASES[:3]
+# the spans around the true branch of each interval cond, inside
+# step.field: the div-E clean and the div-B clean with their Marder
+# passes, and the shared-face sync
+CLEANS = ("step.clean_div_e", "step.clean_div_b", "step.sync_shared")
 HOOKS = ("user_particle_collisions", "user_particle_injection",
          "user_current_injection", "user_field_injection")
 
@@ -98,6 +107,10 @@ class StepOptions:
     # the merge re-sort of packed species (and, in the deck API, the packed
     # cycle that carries its key0/ctot); None = off
     merge_sort: Optional[bool] = None
+    # device-clock stamps around the step's parts and the graphs' units
+    # (engine/spans.py); off, the parts keep their profiler scopes and a
+    # graph holds no stamp node
+    spans: bool = True
 
 
 class Paths(NamedTuple):
@@ -207,6 +220,16 @@ def graph_sort_flags(step: int, g: Grid, opts: StepOptions,
 
 def _same(x):
     return x
+
+
+def _spanned(part, name, fn, step, comm, pred):
+    """``fn`` inside the span ``name``, taken where ``pred`` holds: in a
+    conditional node's body always, in the eager select, which runs both
+    branches, only on the steps that ``pred`` names."""
+    def body(f):
+        with part(name, step, comm, pred):
+            return fn(f)
+    return body
 
 
 def _rms(g: Grid, comm, local):
@@ -325,6 +348,7 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                          "emitters, injection or collisions)")
     if inject is not None:
         inject = _injection(inject)
+    part = spans.parts(opts.spans)
 
     def sort(sp):
         if not packed:
@@ -369,6 +393,15 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
         return dataclasses.replace(state, species=species, rng=rng,
                                    boundary_state=bstate), f, acc
 
+    def outside(field, hook, state, f):
+        """An injection hook on the state with the field ``f``, outside the
+        span ``step.field``: ``field``, the stack that holds the span,
+        closes it before the hook and opens it again after."""
+        field.close()
+        state = hook(dataclasses.replace(state, field=f))
+        field.enter_context(part(PHASES[2], state.step, comm))
+        return state
+
     def advance(state: SimState, do_sort=None, step=None) -> SimState:
         nb = state.grid_arrays.neighbor
         acc = torch.zeros((g.nv, 12), dtype=torch.float32,
@@ -384,34 +417,32 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                                       state.species])
             flags = [c if ds is None else ds
                      for ds, c in zip(flags, on_card)]
-        species = []
-        for sp, ds in zip(state.species, flags):
-            if isinstance(ds, torch.Tensor):
-                with record_function(PHASES[0]):
-                    sp = cond(ds, sort, _same, (sp,))
-            elif ds:
-                with record_function(PHASES[0]):
-                    sp = sort(sp)
-            species.append(sp)
-        state = dataclasses.replace(state, species=tuple(species))
+        if any(isinstance(ds, torch.Tensor) or ds for ds in flags):
+            with part(PHASES[0], state.step, comm):
+                species = tuple(
+                    cond(ds, sort, _same, (sp,))
+                    if isinstance(ds, torch.Tensor) else
+                    sort(sp) if ds else sp
+                    for sp, ds in zip(state.species, flags))
+            state = dataclasses.replace(state, species=species)
         if collide is not None:
-            with record_function(PHASES[3]):
+            with part(PHASES[3], state.step, comm):
                 state = collide(state)
         species = []
-        for sp in state.species:
-            with record_function(PHASES[1]):
+        with part(PHASES[1], state.step, comm):
+            for sp in state.species:
                 sp, acc = push(sp, state.interpolator, acc, nb)
-            species.append(sp)
+                species.append(sp)
         if boundary:
             # the push made most columns anew; copy those still shared
             # with the state the step received before writing in place
-            with record_function(PHASES[5]):
+            with part(PHASES[5], state.step, comm):
                 species = [pboundary.owned(sp, sp0, written)
                            for sp, sp0 in zip(species, given.species)]
         state = dataclasses.replace(state, species=tuple(species))
 
         if emitters or inject is not None:
-            with record_function(PHASES[4]):
+            with part(PHASES[4], state.step, comm):
                 for emitter in emitters:
                     state, acc, f = emitter(state, acc, f)
                 if inject is not None:
@@ -419,25 +450,24 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                     with facecomm.bound(pcomm):
                         state, acc, f = inject(state, acc, f)
         if boundary:
-            with record_function(PHASES[5]):
+            with part(PHASES[5], state.step, comm):
                 state, f, acc = rounds(state, f, acc, nb)
 
-        with record_function(PHASES[2]):
+        with contextlib.ExitStack() as field:
+            field.enter_context(part(PHASES[2], state.step, comm))
             f = sfi.clear_jf(f, g)
             if state.species:
                 f = sfi.unload_accumulator(f, acc, g)
             f = sync.synchronize_jf(f, g, comm)
-        if inject_j is not None:
-            state = inject_j(dataclasses.replace(state, field=f))
-            f = state.field
-        with record_function(PHASES[2]):
+            if inject_j is not None:
+                state = outside(field, inject_j, state, f)
+                f = state.field
             f = stencil.advance_b(f, g, 0.5)
             f = stencil.advance_e(f, g, state.materials,
                                   state.material_grid, comm)
-        if inject_f is not None:
-            state = inject_f(dataclasses.replace(state, field=f))
-            f = state.field
-        with record_function(PHASES[2]):
+            if inject_f is not None:
+                state = outside(field, inject_f, state, f)
+                f = state.field
             f = stencil.advance_b(f, g, 0.5)
 
             cleans = (
@@ -447,14 +477,17 @@ def make_advance(g: Grid, comm, opts: StepOptions = StepOptions(),
                  lambda f: clean_div_b(f, g, comm)),
                 (opts.sync_shared_interval,
                  lambda f: sync.synchronize_tang_e_norm_b(f, g, comm)[0]))
-            for interval, fn in cleans:
+            for name, (interval, fn) in zip(CLEANS, cleans):
                 if interval <= 0:
                     continue
                 if step is None:
-                    f = cond(state.step % interval == 0, fn, _same, (f,),
+                    pred = state.step % interval == 0
+                    f = cond(pred, _spanned(part, name, fn, state.step,
+                                            comm, pred), _same, (f,),
                              comm=comm)
                 elif step % interval == 0:
-                    f = fn(f)
+                    with part(name, state.step, comm):
+                        f = fn(f)
 
             interp = (sfi.load_interpolator(f, g) if state.species
                       else state.interpolator)
