@@ -52,8 +52,11 @@ def records(tmp_path_factory):
     try:
         out = tmp / "port.jsonl"
         assert dc.main([*ARGS, "--device", "cpu", "--out", str(out)]) == 0
+        stdout, stderr = proc.communicate(timeout=500)
     finally:
-        stdout, stderr = proc.communicate(timeout=600)
+        if proc.poll() is None:   # the body or the wait raised: no waiting
+            proc.kill()
+            proc.communicate()
     assert proc.returncode == 0, stderr
     assert evidence.read_bytes() == before
     jax_lines = (tmp / "EVIDENCE.jsonl").read_text().splitlines()

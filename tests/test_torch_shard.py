@@ -24,9 +24,14 @@ runs with equal checksums, a bitwise multi-shard restart, the stacked
 interop form, a broken or late shard failing the call in bounded time,
 migration past ``mig_cap`` retried in the next round, and a two-shard run
 of each of the port's decks against its one-shard run.
-"""
 
-import dataclasses
+The cases are split in three files by the module fixtures they share:
+test_torch_shard_equivalence.py (the two-shard, eight-shard and bounded
+topologies), test_torch_shard_cycled.py (the resort cadence) and this one
+(join_domain, the absorb tally, the load imbalance and the port's own
+contracts); the shared decks, snapshots and checks are in
+_torch_shard_common.py."""
+
 import time
 from pathlib import Path
 
@@ -37,102 +42,22 @@ import torch
 from vpic_tpu.boundary.models import AbsorbTally as JTally
 from vpic_tpu.core.types import ABSORB_FIELDS
 from vpic_tpu.deck.api import Simulation as JSim
-from vpic_tpu.engine import distributed as jdist
 from vpic_tpu.grid import partition as jpart
 from vpic_tpu.particles import boundary as jboundary
 
 from vpic_tpu_torch.boundary.models import AbsorbTally as TTally
 from vpic_tpu_torch.cli import run as cli
 from vpic_tpu_torch.comm.facecomm import ShardError
-from vpic_tpu_torch.core import random as rnd
-from vpic_tpu_torch.core.types import FIELD_COMPONENTS, Grid
-from vpic_tpu_torch.deck.api import Simulation as TSim
+from vpic_tpu_torch.core.types import Grid
 from vpic_tpu_torch.engine import distributed as tdist
 from vpic_tpu_torch.grid import partition as tpart
-from vpic_tpu_torch.interop import (stack_numpy, state_to_numpy,
-                                    states_from_numpy, states_to_numpy,
-                                    unstack_numpy)
-from vpic_tpu_torch.io import tracers as iotracers
 from vpic_tpu_torch.particles import boundary as tboundary
 
 from tests import torch_decks
-
-ULPS = 16
-EPS32 = float(np.finfo(np.float32).eps)
-E_BAR = 1e-6
-L = 1.0
-
-
-def port(seed):
-    return TSim(seed=seed, device="cpu")
-
-
-def deck(make, px=1, py=1, pz=1, seed=3, **opts):
-    """tests/multi_device/test_shard.py:build in either package, with
-    ``opts`` for its StepOptions."""
-    nx, ny, nz = 8, 4, 4
-    sim = make(seed)
-    sim.define_units(1.0, 1.0)
-    sim.define_timestep(0.9 * sim.courant_length(L, L, L, nx, ny, nz))
-    sim.define_periodic_grid(0, 0, 0, L, L, L, nx, ny, nz, px, py, pz)
-    sim.opts = dataclasses.replace(sim.opts, **opts)
-    sim.define_material("vacuum")
-    e = sim.define_species("electron", -1.0, 4096)
-    rng = np.random.default_rng(12345)
-    n = 1024
-    x, y, z = (rng.uniform(0, L, n) for _ in range(3))
-    ux, uy, uz = (rng.normal(0, 0.3, n) for _ in range(3))
-    sim.inject_particle(e, x, y, z, ux, uy, uz, q=-1.0 / n)
-    sim.set_field("ex", lambda x, y, z: 0.01 * np.sin(2 * np.pi * x))
-    sim.set_field("cbz", lambda x, y, z: 0.02 * np.cos(2 * np.pi * y))
-    sim.finalize()
-    return sim
-
-
-def bounded(make, px=1, pz=1, seed=9):
-    """test_shard.py:build_bounded: reflecting x faces, absorbing y."""
-    nx, ny, nz = 8, 6, 4
-    sim = make(seed)
-    sim.define_units(1.0, 1.0)
-    sim.define_timestep(0.9 * sim.courant_length(L, L, L, nx, ny, nz))
-    sim.define_reflecting_grid(0, 0, 0, L, L, L, nx, ny, nz, px, 1, pz)
-    sim.set_domain_particle_bc(1, "absorb")
-    sim.set_domain_particle_bc(4, "absorb")
-    sim.opts = dataclasses.replace(sim.opts, clean_div_e_interval=1)
-    sim.define_material("vacuum")
-    e = sim.define_species("electron", -1.0, 4096)
-    rng = np.random.default_rng(777)
-    n = 1024
-    x, y, z = (rng.uniform(0.05, 0.95, n) for _ in range(3))
-    ux, uy, uz = (rng.normal(0, 0.4, n) for _ in range(3))
-    sim.inject_particle(e, x, y, z, ux, uy, uz, q=-1.0 / n)
-    sim.set_field("ex", lambda x, y, z: 0.01 * np.sin(np.pi * x))
-    sim.finalize()
-    return sim
-
-
-def cycled(make, px=1, seed=3, resort=2, ion_mult=2):
-    """test_shard.py:_build_cycled: two species, the resort cadence."""
-    nx, ny, nz = 8, 4, 4
-    sim = make(seed)
-    sim.define_units(1.0, 1.0)
-    sim.define_timestep(0.9 * sim.courant_length(L, L, L, nx, ny, nz))
-    sim.define_periodic_grid(0, 0, 0, L, L, L, nx, ny, nz, px, 1, 1)
-    sim.define_material("vacuum")
-    sim.opts = dataclasses.replace(sim.opts, resort_interval=resort)
-    e = sim.define_species("electron", -1.0, 4096)
-    i = sim.define_species("ion", 1.0 / 25.0, 4096,
-                           sort_interval=ion_mult * resort)
-    rng = np.random.default_rng(777)
-    n = 1024
-    for sp, sgn, ut in ((e, -1.0, 0.3), (i, 1.0, 0.06)):
-        x, y, z = (rng.uniform(0, L, n) for _ in range(3))
-        sim.inject_particle(sp, x, y, z, rng.normal(0, ut, n),
-                            rng.normal(0, ut, n), rng.normal(0, ut, n),
-                            q=sgn / n)
-    sim.set_field("ex", lambda x, y, z: 0.01 * np.sin(2 * np.pi * x))
-    sim.finalize()
-    return sim
+from tests._torch_shard_common import (L, alive, check_against_jax,
+                                       check_against_one, deck, near,
+                                       owned_field, particle_set, port, run,
+                                       snap)
 
 
 def skewed(make, px=1):
@@ -210,206 +135,7 @@ def joined(make, loops: bool):
     return sim
 
 
-# -- snapshots --------------------------------------------------------------
-
-
-def shard_dicts(sim):
-    """Per-shard numpy dicts in rank order, from either package."""
-    g = sim.grid
-    if isinstance(sim, TSim):
-        return [state_to_numpy(st) for st in sim.states]
-    d = state_to_numpy(sim.state)
-    return unstack_numpy(d, g.gpx * g.gpy * g.gpz) if g.is_multishard \
-        else [d]
-
-
-def owned_field(dicts, g, comp):
-    """The owned block of ``comp`` over the global box."""
-    own = lambda d: d[f"field/{comp}"][1:g.nz + 1, 1:g.ny + 1, 1:g.nx + 1]
-    rank = lambda sx, sy, sz: sx + g.gpx * (sy + g.gpy * sz)
-    return np.concatenate([np.concatenate([np.concatenate(
-        [own(dicts[rank(sx, sy, sz)]) for sx in range(g.gpx)], axis=2)
-        for sy in range(g.gpy)], axis=1) for sz in range(g.gpz)], axis=0)
-
-
-def particle_set(dicts, g, k=0):
-    """The live lanes of species k over every shard, with voxels on the
-    global ghosted grid, ordered by (global voxel, dx, dy, dz)."""
-    cols = {c: [] for c in ("gi", "dx", "dy", "dz", "ux", "uy", "uz", "q",
-                            "tag")}
-    for r, d in enumerate(dicts):
-        pre = f"species/{k}/"
-        i = d[pre + "i"]
-        alive = (np.arange(i.shape[0]) < int(d[pre + "np"])) & (i >= 0)
-        shard = tdist.shard_coords(g)[r]
-        cols["gi"].append(iotracers.globalize_voxels(g, i[alive], shard))
-        for c in cols:
-            if c != "gi":
-                cols[c].append(d[pre + c][alive])
-    cols = {c: np.concatenate(v) for c, v in cols.items()}
-    order = np.lexsort((cols["dz"], cols["dy"], cols["dx"], cols["gi"]))
-    return {c: v[order] for c, v in cols.items()}
-
-
-def snap(sim):
-    return dict(g=sim.grid, d=shard_dicts(sim), e=sim.energies(),
-                nm=sim.mover_counts())
-
-
-def run(sim, steps):
-    """The snapshot of ``sim`` advanced ``steps`` steps."""
-    sim.advance(steps)
-    return snap(sim)
-
-
-def near(a, b, scale, what):
-    """``a`` within ULPS float32 ulps of ``scale`` of ``b``; returns the
-    largest difference in those ulps."""
-    d = float(np.abs(np.asarray(a, np.float64) - b).max(initial=0.0))
-    assert d <= ULPS * EPS32 * scale, (
-        f"{what}: max |diff| {d!r}, {d / (EPS32 * scale or 1.0):.1f} ulps "
-        f"of {scale!r}")
-    return d / (EPS32 * scale) if d else 0.0
-
-
-SCALE_OF = dict(
-    **dict.fromkeys(("ex", "ey", "ez"), ("ex", "ey", "ez")),
-    **dict.fromkeys(("cbx", "cby", "cbz", "div_b_err"),
-                    ("cbx", "cby", "cbz")),
-    **dict.fromkeys(("tcax", "tcay", "tcaz"), ("tcax", "tcay", "tcaz")),
-    **dict.fromkeys(("jfx", "jfy", "jfz"), ("jfx", "jfy", "jfz")),
-    **dict.fromkeys(("rhob", "rhof", "div_e_err"), ("rhob", "rhof")))
-
-
-def field_scale(dicts, comp):
-    """The largest magnitude over the shards of the vector ``comp``
-    belongs to (E, cB, tca, J; rho for the charges and div_e_err, which
-    is div E less rho; cB for div_b_err)."""
-    return max(float(np.abs(d[f"field/{c}"]).max())
-               for d in dicts for c in SCALE_OF[comp])
-
-
-def same_fields(t_dicts, j_dicts):
-    """Every field component of every shard; returns the largest
-    difference in ulps."""
-    return max(near(a[f"field/{comp}"], b[f"field/{comp}"],
-                    field_scale(j_dicts, comp), f"shard {r} {comp}")
-               for comp in FIELD_COMPONENTS
-               for r, (a, b) in enumerate(zip(t_dicts, j_dicts)))
-
-
-def check_against_jax(t, j, species=1):
-    """The port's snapshot ``t`` against the JAX package's ``j`` of the
-    same topology."""
-    g = t["g"]
-    worst = dict(fields=same_fields(t["d"], j["d"]), particles=0.0)
-    for k in range(species):
-        a, b = particle_set(t["d"], g, k), particle_set(j["d"], g, k)
-        np.testing.assert_array_equal(a["gi"], b["gi"])
-        np.testing.assert_array_equal(a["tag"], b["tag"])
-        for c in ("dx", "dy", "dz", "ux", "uy", "uz", "q"):
-            worst["particles"] = max(worst["particles"], near(
-                a[c], b[c], float(np.abs(b[c]).max(initial=0.0)),
-                f"species {k} {c}"))
-    for name, e in j["e"].items():
-        np.testing.assert_allclose(t["e"][name], e, rtol=E_BAR, atol=1e-12,
-                                   err_msg=name)
-    assert t["nm"] == j["nm"]
-    worst["energy_rel"] = max(abs(t["e"][n] - e) / abs(e)
-                              for n, e in j["e"].items() if e)
-    return worst
-
-
-def check_against_one(many, one, comps, rtol=2e-4, atol=2e-5, e_rtol=1e-4,
-                      species=1):
-    """The port's N-shard snapshot against its one-shard run at the JAX
-    test's bars; alive counts exact."""
-    for comp in comps:
-        np.testing.assert_allclose(owned_field(many["d"], many["g"], comp),
-                                   owned_field(one["d"], one["g"], comp),
-                                   rtol=rtol, atol=atol, err_msg=comp)
-    for k, e in one["e"].items():
-        np.testing.assert_allclose(many["e"][k], e, rtol=e_rtol, atol=1e-9,
-                                   err_msg=k)
-    for k in range(species):
-        assert alive(many, k) == alive(one, k)
-
-
-def alive(s, k=0):
-    return sum(int(((np.arange(d[f"species/{k}/i"].shape[0])
-                     < int(d[f"species/{k}/np"]))
-                    & (d[f"species/{k}/i"] >= 0)).sum()) for d in s["d"])
-
-
 # -- fixtures: each JAX topology built and run once --------------------------
-
-
-def port_hydro(sim, name="electron"):
-    """The port's synchronized hydro, per shard, as (nzg, nyg, nxg, 14)."""
-    g = sim.grid
-    return [x.numpy().reshape(g.nzg, g.nyg, g.nxg, -1)
-            for x in sim._hydro(name)]
-
-
-@pytest.fixture(scope="module")
-def two_shard():
-    """One 2-x-shard topology in each package, and the port's one-shard
-    run, stepped together for 20 steps: the hydro test (step 3),
-    test_two_shard_equivalence (step 5) and test_two_shard_drift_bounded
-    (every step to 20; the deck's seed only keys the random state, which
-    this deck never draws from, so the JAX test's seeds 3 and 31 build the
-    same deck)."""
-    import jax
-    jsim, tsim, t1 = deck(JSim, px=2), deck(port, px=2), deck(port)
-    out = dict(j0=shard_dicts(jsim), t0=shard_dicts(tsim), tsim=tsim,
-               drift=[], jkeys=np.asarray(jax.random.key_data(jsim.state.rng)))
-    for step in range(1, 21):
-        for sim in (jsim, tsim, t1):
-            sim.advance(1)
-        d = 0.0
-        for comp in ("ex", "ey", "cbz"):
-            a = tdist.global_field(t1, comp)
-            b = tdist.global_field(tsim, comp)
-            d = max(d, float(np.abs(a - b).max()
-                             / max(np.abs(a).max(), 1e-12)))
-        out["drift"].append(d)
-        if step == 3:
-            g = tsim.grid
-            out["jh"] = np.asarray(jdist.make_distributed_hydro(
-                jsim.grid, jsim.mesh, 0)(jsim.state)).reshape(
-                    2, g.nzg, g.nyg, g.nxg, -1)
-            out["th"], out["t1h"] = port_hydro(tsim), port_hydro(t1)[0]
-        if step in (5, 20):
-            out[step] = dict(j=snap(jsim), t=snap(tsim), t1=snap(t1))
-    return out
-
-
-@pytest.fixture(scope="module")
-def eight_shard():
-    """test_eight_shard_runs (3 steps) and test_3d_eight_shard_migration
-    (4 steps): one (2, 2, 2) topology in each package (their seeds 3 and
-    21 build the same deck), and the port's one-shard run."""
-    jsim, tsim, t1 = deck(JSim, 2, 2, 2), deck(port, 2, 2, 2), deck(port)
-    out = {}
-    for step in (3, 4):
-        for sim in (jsim, tsim, t1):
-            sim.advance(step - 3 if step == 4 else 3)
-        out[step] = (snap(jsim), snap(tsim), snap(t1))
-    return out
-
-
-@pytest.fixture(scope="module")
-def bounded_runs():
-    return (run(bounded(JSim, px=2), 6), run(bounded(port, px=2), 6),
-            run(bounded(port), 6))
-
-
-@pytest.fixture(scope="module")
-def cycled_runs():
-    jsim = cycled(JSim, px=2)
-    for _ in range(8):   # the same 8 steps as one dispatch of 2 cycles
-        jsim.advance(1)
-    return (snap(jsim), run(cycled(port, px=2), 8), run(cycled(port), 8))
 
 
 @pytest.fixture(scope="module")
@@ -437,104 +163,6 @@ def skewed_runs():
 
 
 # -- the cases of tests/multi_device/test_shard.py -------------------------
-
-
-def test_two_shard_initial_state_matches_jax(two_shard):
-    """Both packages place the same lanes on the same shards and key each
-    shard's random state alike (seed * 65537 + rank); the JAX package's
-    stacked initial state, with its keys' data, loads into the port's
-    per-shard list (interop) with the port's own fields, lanes and keys,
-    and an ``rngs`` override replaces the keys."""
-    j0, t0 = two_shard["j0"], two_shard["t0"]
-    for r, (a, b) in enumerate(zip(t0, j0)):
-        for c in ("dx", "dy", "dz", "i", "q", "np"):
-            np.testing.assert_array_equal(a[f"species/0/{c}"],
-                                          b[f"species/0/{c}"])
-        np.testing.assert_array_equal(a["neighbor"], b["neighbor"])
-    same_fields(t0, j0)
-    g = two_shard["tsim"].grid
-    stacked = stack_numpy(j0, (g.gpz, g.gpy, g.gpx))
-    jkeys = two_shard["jkeys"]
-    assert jkeys.shape == (g.gpz, g.gpy, g.gpx, 2)
-    states = states_from_numpy(dict(stacked, rng=jkeys), 2, ["cpu"])
-    for r, (st, d) in enumerate(zip(states, j0)):
-        np.testing.assert_array_equal(st.species[0].i.numpy(),
-                                      d["species/0/i"])
-        np.testing.assert_array_equal(st.field.ex.numpy(), d["field/ex"])
-        np.testing.assert_array_equal(st.rng.numpy(), jkeys[0, 0, r])
-        np.testing.assert_array_equal(t0[r]["rng"], jkeys[0, 0, r])
-        np.testing.assert_array_equal(
-            st.rng.numpy(), rnd.make_key(3 * 65537 + r).numpy())
-    override = states_from_numpy(dict(stacked, rng=jkeys), 2, ["cpu"],
-                                 rngs=[rnd.make_key(r) for r in range(2)])
-    for r, st in enumerate(override):
-        assert torch.equal(st.rng, rnd.make_key(r))
-
-
-def test_two_shard_equivalence(two_shard):
-    run5 = two_shard[5]
-    check_against_jax(run5["t"], run5["j"])
-    check_against_one(run5["t"], run5["t1"],
-                      ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx"))
-    assert alive(run5["t"]) == 1024
-
-
-def test_eight_shard_runs(eight_shard):
-    j, t, _ = eight_shard[3]
-    assert all(np.isfinite(v) for v in t["e"].values())
-    check_against_jax(t, j)
-
-
-def test_two_shard_reflect_absorb(bounded_runs):
-    j, t, t1 = bounded_runs
-    check_against_jax(t, j)
-    check_against_one(t, t1, ("ex", "ey", "ez", "cbx", "cby", "cbz",
-                              "rhob"), rtol=3e-4, atol=3e-5, e_rtol=2e-4)
-    assert alive(t) == alive(j) < 1024
-
-
-def test_3d_eight_shard_migration(eight_shard):
-    j, t, t1 = eight_shard[4]
-    check_against_jax(t, j)
-    check_against_one(t, t1, ("ex", "cbz", "jfx"), rtol=3e-4, atol=3e-5)
-    assert alive(t) == 1024
-
-
-def test_multishard_cycle_executables(cycled_runs):
-    """The resort cadence (every 2 steps, ions every 4) on two shards for
-    two whole super-cycles, both species."""
-    j, t, t1 = cycled_runs
-    check_against_jax(t, j, species=2)
-    check_against_one(t, t1, ("ex", "ey", "cbz", "jfx"), rtol=3e-4,
-                      atol=3e-5, e_rtol=2e-4, species=2)
-
-
-def test_two_shard_drift_bounded(two_shard):
-    """1 against 2 shards over 20 steps: the drift stays bounded, as in the
-    JAX test; the port's 2-shard run is held to the JAX package's at step
-    20."""
-    drift = two_shard["drift"]
-    assert drift[-1] < 5e-3, drift
-    assert drift[-1] < 60 * max(max(drift[4:10]), 1e-9), drift
-    check_against_jax(two_shard[20]["t"], two_shard[20]["j"])
-
-
-def test_two_shard_hydro_sync_matches_single(two_shard):
-    """The 2-shard hydro with its shared faces merged equals the one-shard
-    hydro on every owned node, the shared plane included, and the JAX
-    package's distributed hydro."""
-    g = two_shard["tsim"].grid
-    h1, h2 = two_shard["t1h"], two_shard["th"]
-    for sx in range(2):
-        np.testing.assert_allclose(
-            h2[sx][1:g.nz + 1, 1:g.ny + 1, 1:g.nx + 1],
-            h1[1:g.nz + 1, 1:g.ny + 1, sx * g.nx + 1:sx * g.nx + g.nx + 1],
-            rtol=2e-4, atol=2e-6, err_msg=f"shard {sx}")
-        for m in range(h2[sx].shape[-1]):
-            near(h2[sx][..., m], two_shard["jh"][sx][..., m],
-                 float(np.abs(two_shard["jh"][..., m]).max()),
-                 f"shard {sx} moment {m}")
-    assert np.abs(h2[1][1:g.nz + 1, 1:g.ny + 1, 1, 3]).max() > 0
 
 
 def test_multishard_cli_smoke(tmp_path, capsys):
@@ -709,20 +337,6 @@ def test_multishard_restart_is_bitwise(tmp_path):
     b.advance(3)
     assert a.checksum_fields() == b.checksum_fields()
     assert a.checksum_species("electron") == b.checksum_species("electron")
-
-
-def test_stacked_interop_round_trip(two_shard):
-    """The port's per-shard list -> the JAX package's stacked form and
-    back, losslessly; the stacked arrays carry (gpz, gpy, gpx) axes."""
-    sim = two_shard["tsim"]
-    g = sim.grid
-    d = states_to_numpy(sim.states, (g.gpz, g.gpy, g.gpx))
-    assert d["field/ex"].shape == (1, 1, 2) + g.shape
-    back = states_from_numpy(d, 2, ["cpu"])
-    for st, d1 in zip(back, shard_dicts(sim)):
-        for k, v in state_to_numpy(st).items():
-            np.testing.assert_array_equal(np.asarray(v), np.asarray(d1[k]),
-                                          err_msg=k)
 
 
 def test_a_failing_shard_fails_the_call():
@@ -952,6 +566,10 @@ if __name__ == "__main__":
     # the module's bars, on the conftest's 8-device CPU mesh:
     #   JAX_PLATFORMS=cpu python -c "import tests.conftest, runpy;
     #   runpy.run_module('tests.test_torch_shard', run_name='__main__')"
+    from tests.test_torch_shard_cycled import cycled_runs
+    from tests.test_torch_shard_equivalence import (bounded_runs,
+                                                    eight_shard, two_shard)
+
     def fx(f):
         return f._get_wrapped_function()()
 

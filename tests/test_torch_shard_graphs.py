@@ -46,9 +46,9 @@ from vpic_tpu_torch.engine import step as tstep
 from vpic_tpu_torch.interop import state_to_numpy
 from vpic_tpu_torch.particles import boundary as tboundary
 
-from tests.test_torch_shard import (alive, bounded, bounded_runs,  # noqa: F401
-                                    check_against_jax, cycled, deck, port,
-                                    run, snap)
+from tests._torch_shard_common import (alive, bounded, check_against_jax,
+                                       cycled, deck, port, run, snap)
+from tests.test_torch_shard_equivalence import bounded_runs  # noqa: F401
 from tests.torch_decks import hooked_shards
 
 BENCH = dict(nx=8, ny=8, nz=1, npart=1024, px=2, py=2)

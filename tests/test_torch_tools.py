@@ -82,8 +82,11 @@ def evidence_runs(request, tmp_path_factory):
                 rcs.append(ev.main([*args, "--device", "cpu", "--out",
                                     str(out)]))
             said.append(verdict(buf.getvalue()))
+        stdout, stderr = proc.communicate(timeout=500)
     finally:
-        stdout, stderr = proc.communicate(timeout=600)
+        if proc.poll() is None:   # the body or the wait raised: no waiting
+            proc.kill()
+            proc.communicate()
     assert proc.returncode == 0, stderr
     jax_lines = (tmp / "EVIDENCE.jsonl").read_text().splitlines()
     assert len(jax_lines) == 1
