@@ -33,13 +33,14 @@ def readings(name, seed, seconds, device="cuda", overrides=None,
     cell = run.Cell(name, seed, seconds, device, overrides)
     cell.setup()
     box = judge.config_module(cell.cfg["name"]).box(cell.cfg)
+    ref = judge.reference(cell.cfg)
     q_m = {s["name"]: s["q_m"] for s in cell.cfg["species"]}
     pairs = []
     for _ in range(spread):
         cell.window(seconds / spread)
         before = state.snapshot(cell.sim)
         cell.advance(cell.unit)
-        pairs.append((before, state.summary(cell.sim, box, q_m)))
+        pairs.append((before, state.summary(cell.sim, box, q_m, ref)))
     if not spread:
         cell.window(seconds)
     snaps = cell.compared_units()

@@ -9,7 +9,9 @@ program's own state over the compared units, and checks the steps between
 (those of the window, unseen) by the charge they must conserve
 (``gauss``) and the books.  A control puts the reference, computed in a
 lower float type, in the program's place (:func:`readings` with
-``control``)."""
+``control``).  The reference is the module that the configuration names
+under ``"reference"`` (:func:`reference`; without the key ``pic``, the
+periodic box)."""
 
 from __future__ import annotations
 
@@ -20,17 +22,26 @@ import time
 
 import torch
 
-from picbench import compare, state
-from picbench.reference import pic
+from picbench import compare, spec, state
 
 
 def config_module(name: str):
     return importlib.import_module(f"picbench.configs.{name}")
 
 
-def _advance(F, species, box, start, stop, cleans):
+def reference(cfg: dict):
+    """The plain reference that judges configuration ``cfg``: the module
+    ``picbench/reference/<cfg["reference"]>.py``, ``pic`` without the
+    key."""
+    name = cfg.get("reference", "pic")
+    if not spec.NAME.match(name) or "." in name:
+        raise ValueError(f"bad reference name {name!r}")
+    return importlib.import_module(f"picbench.reference.{name}")
+
+
+def _advance(mod, F, species, box, start, stop, cleans):
     for t in range(start, stop):
-        F, species = pic.step(F, species, box, t, cleans)
+        F, species = mod.step(F, species, box, t, cleans)
     return F, species
 
 
@@ -48,8 +59,8 @@ def readings(cfg: dict, seed: int, start: dict, units: list, device,
     units, each a snapshot before it and the :func:`state.summary` after
     it.  ``control``: a float type: the reference computed in it takes
     the program's place."""
-    mod = config_module(cfg["name"])
-    box = mod.box(cfg)
+    ref, conf = reference(cfg), config_module(cfg["name"])
+    box = conf.box(cfg)
     q_m = {s["name"]: s["q_m"] for s in cfg["species"]}
     cleans = cfg["cleans"]
     f64 = torch.float64
@@ -61,20 +72,21 @@ def readings(cfg: dict, seed: int, start: dict, units: list, device,
               flush=True)
         clock[0] = t
 
-    inp = mod.inputs(cfg, seed, box, device)
+    inp = conf.inputs(cfg, seed, box, device)
     lap("inputs")
     counts = [len(s["q"]) for s in inp["species"]]
-    F0, S0 = pic.initial_state(inp, box, f64, device)
+    F0, S0 = ref.initial_state(inp, box, f64, device)
     if control is None:
-        Fc, Sc = state.to_reference(start, box, q_m, torch.float32, device)
+        Fc, Sc = state.to_reference(start, box, q_m, torch.float32, device,
+                                    ref)
     else:
-        Fc, Sc = pic.initial_state(inp, box, control, device)
+        Fc, Sc = ref.initial_state(inp, box, control, device)
     del inp
     lap("initial state")
     out = {}
-    out["start_pos"], out["start_u"] = compare.lane_gaps(Sc, S0, box)
-    out["start_fields"] = compare.field_gap(Fc, F0, (pic.E, pic.B))
-    rhob, scale = F0["rhob"], compare.charge_scale(S0, box)
+    out["start_pos"], out["start_u"] = compare.lane_gaps(Sc, S0, box, ref)
+    out["start_fields"] = compare.field_gap(Fc, F0, (ref.E, ref.B))
+    rhob, scale = F0["rhob"], compare.charge_scale(S0, box, ref)
     del F0, S0, Fc, Sc
     gc.collect()
     lap("start")
@@ -82,29 +94,32 @@ def readings(cfg: dict, seed: int, start: dict, units: list, device,
     out["fields"] = out["moments"] = 0.0
     gauss = []
     if control is None:
-        Fa, Sa = state.to_reference(units[0], box, q_m, torch.float32, device)
-        gauss.append(compare.gauss_gap(Fa, Sa, rhob, box, scale))
+        Fa, Sa = state.to_reference(units[0], box, q_m, torch.float32,
+                                    device, ref)
+        gauss.append(compare.gauss_gap(Fa, Sa, rhob, box, scale, ref))
         del Fa, Sa
     for a, b in list(pairs) + list(zip(units[:-1], units[1:])):
-        Fa, Sa = state.to_reference(a, box, q_m, f64, device)
+        Fa, Sa = state.to_reference(a, box, q_m, f64, device, ref)
         Fa["rhob"] = rhob
         if control is None and "moments" in b:
-            Fc = {c: v[1:-1, 1:-1, 1:-1].to(device).double()
-                  for c, v in b["fields"].items()}
+            Fc = {c: b["fields"][c][ref.planes(c, box)].to(device).double()
+                  for c in ref.E + ref.B + ref.J}
             Sc = b["moments"]
         elif control is None:
-            Fc, Sc = state.to_reference(b, box, q_m, torch.float32, device)
+            Fc, Sc = state.to_reference(b, box, q_m, torch.float32, device,
+                                        ref)
         else:
-            Fc, Sc = _advance(*_cast(Fa, Sa, control), box, a["step"],
+            Fc, Sc = _advance(ref, *_cast(Fa, Sa, control), box, a["step"],
                               b["step"], cleans)
-        Fr, Sr = _advance(Fa, Sa, box, a["step"], b["step"], cleans)
+        Fr, Sr = _advance(ref, Fa, Sa, box, a["step"], b["step"], cleans)
         del Fa, Sa
-        out["fields"] = max(out["fields"], compare.field_gap(Fc, Fr))
+        out["fields"] = max(out["fields"], compare.field_gap(
+            Fc, Fr, (ref.E, ref.B, ref.J)))
         out["moments"] = max(out["moments"],
-                             compare.moment_gap(Sc, Sr, box))
+                             compare.moment_gap(Sc, Sr, box, ref))
         gauss.append(compare.gauss_gap(
             Fc, b["rhof"] if control is None and "rhof" in b else Sc,
-            rhob, box, scale))
+            rhob, box, scale, ref))
         del Fc, Sc, Fr, Sr
         gc.collect()
         lap(f"unit from step {a['step']}")

@@ -1,9 +1,12 @@
 """What the program's device-clock spans (``vpic_tpu_torch/engine/
 spans.py``) give the per-layer readers of ``span_*`` and
 ``replay_gap_us``: the graphed, taken spans of the run so far (in a
-traced run the set-up's, the warm-up's and the traced window's units,
-clean steps among them), per step and per unit.  A program without the
-spans gives None, and so does every reader."""
+traced run the set-up's and the warm-up's units, clean steps among them),
+per step and per unit.  The steps that ran under the profiler
+(``rec["profiled_steps"]``, each a range [first, end)) are left out: the
+profiler stretches a replay on the card, so a median over both kinds of
+step would read the seam between them.  A program without the spans
+gives None, and so does every reader."""
 
 import collections
 import statistics
@@ -20,15 +23,18 @@ _last = [None, None]
 
 def graphed(rec):
     """The graphed spans of the run whose record is ``rec``, by begin,
-    read once per run; None where the program has no spans or stamped
-    none in a graph."""
+    but those of its profiled steps, read once per run; None where the
+    program has no spans or stamped none in a graph."""
     if _last[0] is not rec:
         try:
             from vpic_tpu_torch.engine import spans
         except ImportError:
             return None
+        profiled = rec.get("profiled_steps", ())
         _last[:] = rec, [s for s in spans.records().spans
-                         if s.graphed] or None
+                         if s.graphed and not any(a <= s.step < b
+                                                  for a, b in profiled)
+                         ] or None
     return _last[1]
 
 

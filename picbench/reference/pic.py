@@ -88,6 +88,30 @@ def behind(a, axis):
     return torch.roll(a, 1, dims=2 - axis)
 
 
+def wraps(box: Box) -> tuple:
+    """The axes across which a position gap wraps: every axis."""
+    return (True, True, True)
+
+
+def planes(comp: str, box: Box) -> tuple:
+    """The ``[z, y, x]`` slices of a ghosted array (one ghost layer, as
+    ``vpic_tpu_torch/core/types.py`` lays it out) that hold ``comp``'s
+    planes here: 1..n on every axis, the seam's duplicated plane n + 1
+    left out."""
+    return tuple(slice(1, box.n[a] + 1) for a in (2, 1, 0))
+
+
+def nodes(box: Box) -> int:
+    """Rows of :func:`node_deposit`'s ``out``: one node a cell."""
+    return box.cells
+
+
+def settled(sp: dict, box: Box) -> dict:
+    """The species as the comparison reads it: as it is (no face of this
+    box reflects)."""
+    return sp
+
+
 def flat(box: Box, cell):
     """Cell (3, n) -> flat index x + nx (y + ny z)."""
     nx, ny, _ = box.n

@@ -201,9 +201,12 @@ class Cell:
             n_units = max(1, round(self.traffic["trace_seconds"]
                                    / self.unit_s))
         eager0 = counts["eager_steps"]
+        profiled_steps = []
 
         def graphed():
+            first = self.sim.step_count
             self.paced(lambda steps, t: steps < n_units * self.unit)
+            profiled_steps.append((first, self.sim.step_count))
 
         wall, events, dev, lost = trace.profiled(
             graphed, prepare=lambda: self.to_step(1))
@@ -229,7 +232,7 @@ class Cell:
         _, events, dev, e_lost = trace.profiled(eager, prepare=before_eager)
         e = trace.eager_record(events, dev, e_steps)
         del events, dev
-        rec = dict(graphed=g, eager=e,
+        rec = dict(graphed=g, eager=e, profiled_steps=profiled_steps,
                    deck=dict(live=self.live, cells=self.cells()))
         out = {}
         for m in spec.metrics_of(self.name, "per_layer"):

@@ -2,16 +2,19 @@
 species' live lanes, its counts, and the fields, read through the deck
 API's ``Simulation.state`` (the layout of ``vpic_tpu_torch/core/types.py``:
 ``[z, y, x]`` arrays with one ghost layer, voxel ``x + (nx+2)(y + (ny+2)
-z)``), and that copy in the plain reference's form."""
+z)``), and that copy in the form of the configuration's plain reference
+(``mod``, :func:`picbench.judge.reference`)."""
 
 from __future__ import annotations
 
 import torch
 
-from picbench.reference import pic
+from picbench import compare
 
 COLUMNS = ("dx", "dy", "dz", "i", "ux", "uy", "uz", "q")
-FIELDS = pic.E + pic.B + pic.J
+# The program's field arrays (``core/types.py``); a reference module's
+# ``E``, ``B`` and ``J`` name the ones it compares.
+FIELDS = ("ex", "ey", "ez", "cbx", "cby", "cbz", "jfx", "jfy", "jfz")
 
 
 def snapshot(sim, where="cpu") -> dict:
@@ -33,13 +36,14 @@ def snapshot(sim, where="cpu") -> dict:
     return out
 
 
-def to_reference(snap: dict, box: pic.Box, q_m: dict, dtype, device):
-    """A snapshot in the reference's form: periodic fields without
-    ghosts, and per species cells from 0, offsets, momenta, charges."""
+def to_reference(snap: dict, box, q_m: dict, dtype, device, mod):
+    """A snapshot in the form of reference ``mod``: the fields on its
+    mesh (the planes :func:`mod.planes` keeps of the ghosted arrays), and
+    per species cells from 0, offsets, momenta, charges."""
     nx, ny, nz = box.n
     nxg, nyg = nx + 2, ny + 2
-    F = {c: v[1:nz + 1, 1:ny + 1, 1:nx + 1].to(device).to(dtype)
-         for c, v in snap["fields"].items()}
+    F = {c: snap["fields"][c][mod.planes(c, box)].to(device).to(dtype)
+         for c in mod.E + mod.B + mod.J}
     species = []
     for sp in snap["species"]:
         i = sp["i"].to(device).to(torch.int64)
@@ -54,20 +58,19 @@ def to_reference(snap: dict, box: pic.Box, q_m: dict, dtype, device):
     return F, species
 
 
-def summary(sim, box: pic.Box, q_m: dict) -> dict:
+def summary(sim, box, q_m: dict, mod) -> dict:
     """What the comparison reads of the state after a compared unit, with
     no host copy of the particles: the host copy of the fields, the
     counts, and per species its count and momentum deposited on the nodes
     and the charge density (float64, worked out on the state's device)."""
-    from picbench import compare
     snap = snapshot(sim, sim.state.field.ex.device)
     dev = snap["fields"]["ex"].device
     moments, rhof = [], 0
     for sp in snap["species"]:
         one = dict(snap, species=[sp])
-        _, (ref,) = to_reference(one, box, q_m, torch.float64, dev)
-        moments.append(compare.moments(ref, box).cpu())
-        rhof = rhof + pic.rho([ref], box, torch.float64).cpu()
+        _, (ref,) = to_reference(one, box, q_m, torch.float64, dev, mod)
+        moments.append(compare.moments(ref, box, mod).cpu())
+        rhof = rhof + mod.rho([ref], box, torch.float64).cpu()
         del ref, one
     return dict(step=snap["step"], moments=moments, rhof=rhof,
                 fields={c: v.cpu() for c, v in snap["fields"].items()},

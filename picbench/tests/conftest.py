@@ -12,6 +12,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 # each cell at a size a CPU test run holds: the same decks and traffic
 SMALL = {
     "fan_run.steps": {"nx": 8, "ny": 8, "nz": 8, "ppc": 8},
+    "trecon.steps": {"nx": 8, "ny": 4, "nz": 8, "ppc": 8},
 }
 
 

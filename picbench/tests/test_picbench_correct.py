@@ -2,9 +2,10 @@
 run holds: each cell is correct on the program; a step that returns its
 state unchanged, half of the particles left out with the current of the
 rest doubled, and one momentum altered where the push produces it each
-make it false; and the control, the reference in bfloat16 in the
-program's place, fails the cell's limits.  On the CPU the program steps
-op by op; ``-m cuda`` runs the card's graphed path."""
+make it false, and so do a PEC adjust of J left out and reflecting walls
+made periodic on a walled cell; and the control, the reference in
+bfloat16 in the program's place, fails the cell's limits.  On the CPU
+the program steps op by op; ``-m cuda`` runs the card's graphed path."""
 
 import pytest
 import torch
@@ -12,6 +13,7 @@ import torch
 from picbench import control, judge, run, spec, state
 from picbench.tests.conftest import SMALL
 from vpic_tpu_torch.deck.api import Simulation
+from vpic_tpu_torch.field import ghost
 from vpic_tpu_torch.particles import push_cuda
 
 CELLS = sorted(SMALL)
@@ -77,6 +79,43 @@ def test_a_fault_in_the_timed_path_is_not_correct(name, fault, monkeypatch):
     assert out["failed"] == out["attempted"]
 
 
+def j_adjust_skipped(monkeypatch):
+    """The PEC adjust of J left out: tangential current stays on the
+    walls."""
+    monkeypatch.setattr(ghost, "adjust_jf", lambda f, g, comm: f)
+
+
+def walls_made_periodic(monkeypatch):
+    """The neighbour table's reflecting z faces made periodic: a lane
+    that reaches a wall comes in through the other."""
+    push = push_cuda.advance_p
+
+    def through(sp, interp, acc, nb, g, **kw):
+        t = nb.clone()
+        plane = (g.nx + 2) * (g.ny + 2)
+        v = torch.arange(t.shape[0], device=t.device)
+        z = v // plane
+        t[:, 2] = torch.where((z == 1) & (t[:, 2] < 0),
+                              v + (g.nz - 1) * plane, t[:, 2])
+        t[:, 5] = torch.where((z == g.nz) & (t[:, 5] < 0),
+                              v - (g.nz - 1) * plane, t[:, 5])
+        return push(sp, interp, acc, t, g, **kw)
+
+    monkeypatch.setattr(push_cuda, "advance_p", through)
+
+
+WALLED = [n for n in CELLS
+          if spec.workload(n)["config"].get("reference") == "walls"]
+
+
+@pytest.mark.parametrize("fault", [j_adjust_skipped, walls_made_periodic])
+@pytest.mark.parametrize("name", WALLED)
+def test_a_fault_in_the_walls_is_not_correct(name, fault, monkeypatch):
+    fault(monkeypatch)
+    out = run_small(name)
+    assert not out["correct"], out["checks"]
+
+
 def check_control(name, device):
     limits = spec.workload(name)["cell"]["limits"]
     r = control.readings(name, SEED, 0.2, device=device,
@@ -135,7 +174,7 @@ def spread_pair(name, fault_in_unit, monkeypatch):
     cell.advance(cell.unit)
     on[0] = False
     return cell, before, state.snapshot(cell.sim), state.summary(
-        cell.sim, box, q_m)
+        cell.sim, box, q_m, judge.reference(cell.cfg))
 
 
 @pytest.mark.parametrize("name", CELLS)

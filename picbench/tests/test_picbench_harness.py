@@ -2,6 +2,7 @@
 package, no result without a card (no CPU fallback), and no result from
 a directory that holds only the benchmark."""
 
+import ast
 import os
 import shutil
 import subprocess
@@ -31,17 +32,35 @@ def test_forbidden_compares_whole_top_level_names(modules, found):
     assert run.forbidden(modules) == found
 
 
-def test_a_loaded_jax_module_gives_no_result(monkeypatch):
-    monkeypatch.setitem(sys.modules, "jax", types.ModuleType("jax"))
-    name = "fan_run.steps"
+@pytest.mark.parametrize("module", ["jax", "vpic_tpu"])
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_a_loaded_jax_module_gives_no_result(name, module, monkeypatch):
+    monkeypatch.setitem(sys.modules, module, types.ModuleType(module))
     assert run.run_cell(name, 3, 0.2, 0, device="cpu",
                         overrides=SMALL[name]) is None
 
 
-def test_a_run_loads_neither_jax_nor_the_jax_package():
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for d in ("reference", "configs")
+    for p in (ROOT / "picbench" / d).glob("*.py")))
+def test_the_references_import_neither_the_program_nor_jax(path):
+    tree = ast.parse((ROOT / path).read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names |= {a.name for a in node.names}
+        elif isinstance(node, ast.ImportFrom):
+            names.add(node.module or "")
+    top = {n.split(".")[0] for n in names}
+    assert not top & {"jax", "jaxlib", "flax", "vpic_tpu",
+                      "vpic_tpu_torch"}, (path, sorted(names))
+
+
+@pytest.mark.parametrize("name", sorted(SMALL))
+def test_a_run_loads_neither_jax_nor_the_jax_package(name):
     code = ("import sys; from picbench import run; "
             "from picbench.tests.conftest import SMALL; "
-            "n = 'fan_run.steps'; "
+            f"n = {name!r}; "
             "out = run.run_cell(n, 9, 0.2, 0, device='cpu', "
             "overrides=SMALL[n]); "
             "assert out is not None and out['correct']; "

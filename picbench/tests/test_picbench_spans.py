@@ -110,6 +110,37 @@ def test_span_readers_of_a_program_without_spans_read_nothing(monkeypatch,
     assert read(name) is None
 
 
+def _with_profiled_steps():
+    """_record's five steps, then six more (5-10) as the profiler leaves
+    them: every part stretched, 2 ms between units, a clean on step 5."""
+    rec = _record()
+    out = list(rec.spans)
+
+    def add(name, step, t0, t1):
+        out.append(spans.Span(name, 0, step, True, t0 * US, t1 * US))
+
+    for t in range(5, 11):
+        b = 5000 + 3000 * (t - 5)
+        add("graphs.unit", t, b, b + 990)
+        add("step.sort", t, b + 10, b + 410)
+        add("step.push", t, b + 420, b + 720)
+        add("step.field", t, b + 730, b + 930)
+        if t == 5:
+            add(_clean_names()[0], t, b + 740, b + 2740)
+        add("graphs.write_back", t, b + 940, b + 985)
+    return spans.Records(sorted(out, key=lambda s: s.t0_ns), 0)
+
+
+@pytest.mark.parametrize("name", list(WANT))
+def test_span_readers_leave_out_the_profiled_steps(monkeypatch, name):
+    monkeypatch.setattr(spans, "records", _with_profiled_steps)
+    reader = importlib.import_module(f"picbench.metrics.{name}")
+    assert reader.read({"profiled_steps": [(5, 11)]}) == pytest.approx(
+        WANT[name])
+    # the same spans with no steps named as profiled read otherwise
+    assert reader.read({"profiled_steps": []}) != pytest.approx(WANT[name])
+
+
 def test_span_readers_of_one_run_read_the_rings_once(monkeypatch):
     reads = []
 
